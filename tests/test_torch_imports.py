@@ -1,0 +1,66 @@
+"""The port imports neither jax nor tpu_amg, and names its device."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, sys
+import tpu_amg_torch
+names = [m.name for m in
+         pkgutil.walk_packages(tpu_amg_torch.__path__, "tpu_amg_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tpu_amg"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
+        text=True, check=True,
+    ).stdout.split()
+    assert int(out[0]) >= 20  # every module was imported
+    assert out[1:] == ["[]"]
+
+
+def test_importing_builds_nothing():
+    # kernels and the native library are built at first use, not on import
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import tpu_amg_torch.solver, tpu_amg_torch.ops.spmv as s, "
+         "tpu_amg_torch.ops.native as n; "
+         "print(s.kernel_lib.cache_info().currsize, "
+         "n.lib.cache_info().currsize)"],
+        cwd=ROOT, capture_output=True, text=True, check=True,
+    ).stdout.split()
+    assert out == ["0", "0"]
+
+
+def test_cuda_config_raises_without_card():
+    from tpu_amg_torch.solver import SolverConfig
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SolverConfig(device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SolverConfig()  # the default device is "cuda"
+    assert SolverConfig(device="cpu").device == "cpu"
+
+
+def test_no_kernel_off_cpu_and_cuda():
+    from tpu_amg_torch.ops import spmv
+    from tpu_amg_torch.sparse.csr import CSR
+
+    mat = spmv.CappedCSR.from_csr(CSR.from_dense(np.eye(4)), "meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        spmv.spmv(mat, torch.zeros(4, dtype=torch.float64, device="meta"))

@@ -1,0 +1,37 @@
+"""Compile one source file into a shared library at first use.
+
+Libraries go to ``build/tpu_amg_torch/`` at the repository root (listed
+in ``.gitignore``), never into a package directory.  A library is
+rebuilt when it is missing or older than its source.  The compiler
+writes to a per-process temporary name that is renamed into place, so
+processes that build at the same time never load a half-written file.
+A failed build raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+from pathlib import Path
+
+REPO_ROOT = Path(__file__).resolve().parents[2]
+BUILD_DIR = REPO_ROOT / "build" / "tpu_amg_torch"
+
+
+def build_library(name: str, source: Path, compile_cmd: list) -> Path:
+    """Build ``source`` into ``BUILD_DIR / name`` with ``compile_cmd``
+    (the compiler and its flags; the source and ``-o`` are appended)."""
+    out = BUILD_DIR / name
+    if out.exists() and out.stat().st_mtime >= source.stat().st_mtime:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f".{name}.{os.getpid()}.tmp")
+    cmd = [*compile_cmd, str(source), "-o", str(tmp)]
+    result = subprocess.run(cmd, capture_output=True, text=True)
+    if result.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"building {name} failed:\n{' '.join(cmd)}\n{result.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
