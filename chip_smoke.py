@@ -4,32 +4,50 @@ Usage: python3 chip_smoke.py [--side 64] [--reps 50]
 
 Phases, one printed line per result; any failed check exits non-zero:
   1. device: nvidia-smi's name and power limit, torch / CUDA / nvcc / g++;
-  2. builds: the CUDA kernels (nvcc) and the native host library (g++),
-     from the sources in this checkout;
-  3. kernels vs their plain PyTorch versions on the card: a random
+  2. builds: the three CUDA kernel libraries (nvcc: K1 + K2, K3, the
+     stream probe) and the native host library (g++), from the sources
+     in this checkout, all four compilers started together;
+  3. K1/K2 vs their plain PyTorch versions on the card: a random
      heavy-row matrix with a small cap, then the level-0 A, P and R of the
-     main path's hierarchy; mv and mm (k=8, and for A the bootstrap's
+     SA path's hierarchy; mv and mm (k=8, and for A the bootstrap's
      k=7), float64 and float32; errors, and the device's time per call:
      CUDA events around the replay of a CUDA graph of 50 calls (median of
      5 replays);
-  4. main path: AMGSolver.setup on unstructured_poisson_3d(side) with the
+  4. SA path: AMGSolver.setup on unstructured_poisson_3d(side) with the
      scalar 3-D SA config, then 3 PCG solves of A x = A x_true (seeded
      x_true) to rtol 1e-6; the kernels' launch counts over that run must
      be > 0; the V-cycle's time as the solve runs it (enqueued from
      Python) and the device's own time for it (graph replays);
-  5. a small input solved on the card and, from the same hierarchy, on
-     the CPU through the plain versions: the two must agree.
-Phase 3 runs in two parts: the heavy-row matrix before the main path,
-the level-0 operators after it (they come from its hierarchy).  Launch
-counts are read before those comparison launches.
-The last two lines are a JSON object of per-kernel results and the
-device line.  With no CUDA device it exits with code 2 and prints no
-result.
+  5. a small SA input solved on the card and, from the same hierarchy,
+     on the CPU through the plain versions: the two must agree;
+  6. stream probe: its entry point (python -m
+     tpu_amg_torch.tools.streambench, 32 MiB per call) with the launch
+     count read over that run; then every case against its plain
+     version on the same inputs (exact: they are integers), GB/s of
+     both, the kernel's from the entry point's run; the best
+     float32 case again at 1 GiB per call, past the 50 MB L2: the read
+     bandwidth of device memory;
+  7. structured path: build_structured_multigrid on poisson3d(100)
+     (1,000,000 dofs) in float64 (DIA levels through K3),
+     its levels, then 3 PCG solves of A x = A x_true to rtol 1e-6; the
+     launch counts over that run must be > 0; the V-cycle's times;
+  8. K3 vs its plain version at that path's level-0 and level-1
+     operators, k = 1, 7, 8, float64 and float32, with K1 + K2 on the
+     same matrices as a capped CSR beside it; K1/K2 vs their plain
+     versions at the path's CSR level (level 2, outside the DIA
+     envelope: most rows spill to K2), k = 1, 8, float64 and float32;
+  9. a small structured input on the card and on the CPU: the two must
+     agree.
+Every count is set to 0 just before each path (4, 6, 7) and read just
+after it, before the comparison launches.  The last two lines are a
+JSON object of per-kernel results and the device line.  With no CUDA
+device it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import subprocess
 import sys
@@ -39,7 +57,12 @@ import numpy as np
 
 RTOL = 1e-6
 MAX_ITERS = 46  # twice the reference's 23 PCG iterations for this config
+STRUCTURED_SIDE = 100  # poisson3d(100): 1,000,000 dofs
+MAX_ITERS_STRUCTURED = 14  # twice the reference's 7 at poisson3d(100)
 TOL = {"float64": 1e-12, "float32": 1e-5}  # f64: atomics reorder sums
+STREAM_MIB = 32  # the harness's TOTAL (tools/streambench.py:25)
+STREAM_BIG_MIB = 1024  # past the card's 50 MB L2
+HBM_DATASHEET_GBPS = 3350.0  # H100 SXM data sheet
 
 
 def say(msg: str) -> None:
@@ -55,45 +78,6 @@ def check(ok: bool, msg: str) -> None:
 def run(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True,
                           check=True).stdout.strip()
-
-
-def median_ms(fn, reps: int, runs: int = 5, graph: bool = False) -> float:
-    """Milliseconds per call: CUDA events around ``reps`` calls, divided
-    by ``reps``; the median of ``runs`` such runs.
-
-    Eager (``graph=False``) the calls are enqueued from Python back to
-    back: for work shorter than the host's cost of enqueuing it this is
-    the host's rate, which is what an eager caller pays.  With
-    ``graph=True`` the ``reps`` calls are captured once into a CUDA graph
-    and the replays are timed: the device's own time, without the host."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up, off the capture stream
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(reps):
-                fn()
-        run_once = g.replay
-    else:
-        def run_once():
-            for _ in range(reps):
-                fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run_once()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return float(np.median(times))
 
 
 def smoke_config(device: str, **overrides):
@@ -131,6 +115,7 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
     import torch
 
     from tpu_amg_torch.ops import spmv
+    from tpu_amg_torch.utils.timing import median_ms
 
     for dtype, mat in mat_by_dtype.items():
         dname = str(dtype).replace("torch.", "")
@@ -176,6 +161,154 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
                                 n_tail=mat.n_tail))
 
 
+def reset_counts() -> None:
+    """Every kernel's launch count to 0."""
+    from tpu_amg_torch.ops import dia, spmv, stream
+
+    spmv.reset_launch_counts()
+    dia.reset_launch_counts()
+    stream.reset_launch_counts()
+
+
+def stream_cases(bench_records, reps):
+    """Every case of the probe against its plain version on the inputs
+    the entry point timed (seed 0, 32 MiB per call), with the kernel's
+    time from the entry point's run; the best float32 case again past
+    L2.  Returns (per-case records, best float32 record, its record past
+    L2)."""
+    import torch
+
+    from tpu_amg_torch.ops import stream
+    from tpu_amg_torch.tools import streambench
+    from tpu_amg_torch.utils.timing import median_ms
+
+    dev = torch.device("cuda")
+    records = []
+    for bench in bench_records:
+        case = next(c for c in streambench.CASES if c.name == bench["name"])
+        g = torch.Generator(device=dev).manual_seed(0)
+        inputs = streambench.make_inputs(case, STREAM_MIB << 20, dev, g)
+        carry = torch.full((8, 128), 1.0, device=dev)
+        y = stream.stream_sum(inputs, carry)
+        p = stream.plain_stream_sum(inputs, carry)
+        torch.cuda.synchronize()
+        err = float((y - p).abs().max())
+        t = bench["ms"]
+        tp = median_ms(lambda: stream.plain_stream_sum(inputs, carry), reps,
+                       graph=True)
+        nbytes = bench["bytes"]
+        rec = dict(name=case.name, dtype=str(case.dtype), err=err, ms=t,
+                   plain_ms=tp, gbps=bench["gbps"],
+                   plain_gbps=nbytes / tp / 1e6)
+        records.append(rec)
+        check(err == 0.0,
+              f"stream {case.name}: {nbytes} B per call, max abs err "
+              f"{err:.1e} (limit 0: integer inputs); kernel {t * 1e3:.1f} us "
+              f"{rec['gbps']:.1f} GB/s, plain {tp * 1e3:.1f} us "
+              f"{rec['plain_gbps']:.1f} GB/s")
+        del inputs
+    best = max((r for r in records if r["dtype"] == "torch.float32"),
+               key=lambda r: r["gbps"])
+    case = next(c for c in streambench.CASES if c.name == best["name"])
+    g = torch.Generator(device=dev).manual_seed(0)
+    inputs = streambench.make_inputs(case, STREAM_BIG_MIB << 20, dev, g)
+    carry = torch.zeros(8, 128, device=dev)
+    nbytes = case.tiles(STREAM_BIG_MIB << 20) * case.tile_bytes
+    t = median_ms(lambda: stream.stream_sum(inputs, carry), 20, graph=True)
+    tp = median_ms(lambda: stream.plain_stream_sum(inputs, carry), 20,
+                   graph=True)
+    big = dict(name=case.name, ms=t, plain_ms=tp, gbps=nbytes / t / 1e6,
+               plain_gbps=nbytes / tp / 1e6)
+    return records, best, big
+
+
+def dia_to_csr(dia):
+    """The host CSR of a DIA matrix (its stored nonzeros)."""
+    from tpu_amg_torch.sparse.csr import CSR
+
+    n = dia.shape[0]
+    offsets = np.asarray(dia.offsets, dtype=np.int64)
+    rows = np.tile(np.arange(n, dtype=np.int64), len(offsets))
+    cols = rows + np.repeat(offsets, n)
+    vals = dia.data.double().cpu().numpy().ravel()
+    keep = (cols >= 0) & (cols < n) & (vals != 0)
+    return CSR.from_coo(rows[keep], cols[keep], vals[keep], dia.shape)
+
+
+def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8)):
+    """K3 against its plain version on one DIA matrix, float64 and
+    float32; device times of K3, the plain version and K1 + K2 on the
+    same matrix as a capped CSR (CUDA graph replays)."""
+    import torch
+
+    from tpu_amg_torch.ops import dia as dia_ops
+    from tpu_amg_torch.ops import spmv
+    from tpu_amg_torch.utils.timing import median_ms
+
+    n, n_diags = dia64.shape[0], len(dia64.offsets)
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        mat = dia64 if dtype == torch.float64 else dia64.astype(dtype)
+        capped = spmv.CappedCSR.from_csr(csr, "cuda", dtype)
+        for k in ks:
+            g = torch.Generator(device="cuda").manual_seed(k)
+            shape = (n,) if k == 1 else (n, k)
+            x = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+            y = dia_ops.dia_spmv(mat, x)
+            p = dia_ops.plain_dia_spmv(mat, x)
+            yc = spmv.spmv(capped, x)
+            torch.cuda.synchronize()
+            scale = max(float(p.abs().max()), 1e-300)
+            err = float((y - p).abs().max())
+            rel_csr = float((yc - p).abs().max()) / scale
+            t = median_ms(lambda: dia_ops.dia_spmv(mat, x), reps, graph=True)
+            tp = median_ms(lambda: dia_ops.plain_dia_spmv(mat, x), reps,
+                           graph=True)
+            tc = median_ms(lambda: spmv.spmv(capped, x), reps, graph=True)
+            isz = x.element_size()
+            dia_bytes = (n_diags * n + 2 * n * k) * isz
+            csr_bytes = (capped.nnz * (isz + 4) + 8 * (n + 1)
+                         + 2 * n * k * isz)
+            check(
+                err / scale <= TOL[dname] and rel_csr <= TOL[dname],
+                f"K3 {name} {dname} k={k}: n {n}, {n_diags} diagonals, "
+                f"nnz {dia64.nnz}: max rel err {err / scale:.3e} (K1+K2 "
+                f"{rel_csr:.3e}; limit {TOL[dname]:.0e}); K3 {t * 1e3:.2f} us "
+                f"({dia_bytes / t / 1e6:.0f} GB/s of {dia_bytes / 1e6:.1f} "
+                f"MB), plain {tp * 1e3:.2f} us, K1+K2 as CSR {tc * 1e3:.2f} "
+                f"us ({csr_bytes / tc / 1e6:.0f} GB/s of "
+                f"{csr_bytes / 1e6:.1f} MB)",
+            )
+            results.append(dict(case=name, dtype=dname, k=k, err=err, ms=t,
+                                plain_ms=tp, csr_ms=tc, bytes=dia_bytes,
+                                csr_bytes=csr_bytes))
+
+
+def level_lines(mg):
+    """One description per level of a multigrid: rows, format,
+    diagonals, stored entries."""
+    import torch
+
+    from tpu_amg_torch.linop import DenseOperator
+    from tpu_amg_torch.sparse.dia import DIA
+
+    lines = []
+    for lvl, level in enumerate(mg.levels):
+        op = level.a
+        if isinstance(op, DenseOperator):
+            desc = f"dense, nnz {int(torch.count_nonzero(op.mat))}"
+        elif isinstance(op.mat, DIA):
+            desc = f"DIA (K3), {len(op.mat.offsets)} diagonals, nnz {op.mat.nnz}"
+        else:
+            desc = (f"CSR (K1+K2), nnz {op.mat.nnz} "
+                    f"({op.mat.nnz / op.shape[0]:.1f}/row), "
+                    f"tail {op.mat.n_tail}")
+        lines.append(f"  level {lvl}: n={op.shape[0]} {desc}")
+    lines.append(f"  coarse: n={mg.coarse_solver.shape[0]} dense Cholesky "
+                 f"inverse")
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--side", type=int, default=64,
@@ -191,11 +324,16 @@ def main() -> int:
         return 2
 
     from tpu_amg_torch.linop import SparseOperator
-    from tpu_amg_torch.ops import _build, native, spmv
+    from tpu_amg_torch.ops import _build, native, spmv, stream
+    from tpu_amg_torch.ops import dia as dia_ops
     from tpu_amg_torch.preconditioners.multigrid_builder import MultigridConfig
     from tpu_amg_torch.solver import AMGSolver
     from tpu_amg_torch.solvers import cg
-    from tpu_amg_torch.utils.problems import unstructured_poisson_3d
+    from tpu_amg_torch.sparse.dia import DIA
+    from tpu_amg_torch.structured import build_structured_multigrid
+    from tpu_amg_torch.tools import streambench
+    from tpu_amg_torch.utils.problems import poisson3d, unstructured_poisson_3d
+    from tpu_amg_torch.utils.timing import median_ms
 
     # ---- 1. device
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -204,20 +342,30 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     say(f"device: {kind}; torch {torch.__version__}; "
         f"CUDA {torch.version.cuda}; "
-        f"nvcc {run([spmv.nvcc_path(), '--version']).splitlines()[-1]}; "
+        f"nvcc {run([_build.nvcc_path(), '--version']).splitlines()[-1]}; "
         f"g++ {run(['g++', '-dumpfullversion'])}")
 
     # ---- 2. builds, from this checkout's sources
-    for lib_name in ("libamg_kernels.so", "libamg_native.so"):
-        (_build.BUILD_DIR / lib_name).unlink(missing_ok=True)
+    builds = {
+        "libamg_kernels.so (nvcc, sm_90a)": spmv.kernel_lib,
+        "libamg_dia.so (nvcc, sm_90a)": dia_ops.kernel_lib,
+        "libamg_stream.so (nvcc, sm_90a)": stream.kernel_lib,
+        "libamg_native.so (g++)": native.lib,
+    }
+    for label in builds:
+        (_build.BUILD_DIR / label.split()[0]).unlink(missing_ok=True)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    spmv.kernel_lib()
-    t_k = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    native.lib()
-    t_n = time.perf_counter() - t0
-    say(f"build: libamg_kernels.so (nvcc, sm_90a) {t_k:.1f} s; "
-        f"libamg_native.so (g++) {t_n:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        futures = {label: pool.submit(timed, fn) for label, fn in builds.items()}
+        build_s = {label: f.result() for label, f in futures.items()}
+    say("build: " + "; ".join(f"{k} {v:.1f} s" for k, v in build_s.items())
+        + f"; {time.perf_counter() - t0:.1f} s in all, side by side")
 
     # ---- 3a. kernels vs plain on a heavy-row matrix with a small cap
     results = []
@@ -236,7 +384,7 @@ def main() -> int:
         f"nnz={a.nnz} built in {time.perf_counter() - t0:.1f} s")
     cfg = smoke_config("cuda")
     torch.cuda.synchronize()
-    spmv.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     solver = AMGSolver.setup(a, cfg)
     torch.cuda.synchronize()
@@ -278,7 +426,7 @@ def main() -> int:
                     launches[1] - setup_counts[1])
     check(
         min(solve_counts) > 0 and min(launches) > 0,
-        f"launches over the main path: csr_spmv_capped {launches[0]} "
+        f"launches over the SA path: csr_spmv_capped {launches[0]} "
         f"(solves {solve_counts[0]}), coo_patch {launches[1]} "
         f"(solves {solve_counts[1]})",
     )
@@ -329,12 +477,140 @@ def main() -> int:
         f"{dz:.2e} (limit 1e-10); solution rel diff {dx:.2e} (limit 1e-6)",
     )
 
+    # ---- 6. stream probe: its entry point, then each case vs plain
+    reset_counts()
+    bench_recs = streambench.run(["--total-mib", str(STREAM_MIB), "--reps",
+                                  str(args.reps)])
+    torch.cuda.synchronize()
+    stream_launches = stream.stream_sum_launches
+    check(stream_launches > 0,
+          f"launches over the stream probe: stream_sum {stream_launches}")
+    stream_recs, best, big = stream_cases(bench_recs, args.reps)
+    say(f"stream read bandwidth: best float32 case {best['name']!r}: "
+        f"{best['gbps']:.1f} GB/s at {STREAM_MIB} MiB per call (held in "
+        f"the 50 MB L2), {big['gbps']:.1f} GB/s at {STREAM_BIG_MIB} MiB "
+        f"({big['ms'] * 1e3:.1f} us per call): device memory, "
+        f"{big['gbps'] / HBM_DATASHEET_GBPS:.1%} of the "
+        f"{HBM_DATASHEET_GBPS:.0f} GB/s data sheet; plain version "
+        f"{big['plain_gbps']:.1f} GB/s ({big['plain_ms'] * 1e3:.1f} us)")
+
+    # ---- 7. structured path: DIA levels through K3
+    side = STRUCTURED_SIDE
+    t0 = time.perf_counter()
+    ps = poisson3d(side)
+    say(f"problem: poisson3d({side}): n={ps.nrows} nnz={ps.nnz} built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    smg = build_structured_multigrid(ps, (side,) * 3, device="cuda",
+                                     coarsest_dim=1000, dtype=torch.float64)
+    s_op = SparseOperator.from_csr(ps, "cuda", torch.float64)
+    torch.cuda.synchronize()
+    say(f"structured setup: {time.perf_counter() - t0:.1f} s; "
+        f"{len(smg.levels) + 1} levels")
+    for line in level_lines(smg):
+        say(line)
+    check(isinstance(s_op.mat, DIA), f"structured A is "
+          f"{type(s_op.mat).__name__} (expected DIA)")
+    s_solve = []
+    for i in range(3):
+        x_true = np.random.default_rng(100 + i).standard_normal(ps.nrows)
+        b = dia_ops.plain_dia_spmv(s_op.mat, torch.from_numpy(x_true).cuda())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = cg(s_op, b, smg, rtol=RTOL, maxiter=200)
+        torch.cuda.synchronize()
+        s_solve.append(time.perf_counter() - t0)
+        true_rel = float(
+            torch.linalg.vector_norm(b - dia_ops.plain_dia_spmv(s_op.mat, x))
+            / torch.linalg.vector_norm(b))
+        check(
+            info.converged and info.iters <= MAX_ITERS_STRUCTURED
+            and np.isfinite(true_rel) and true_rel <= 1.01 * RTOL
+            and tuple(x.shape) == (ps.nrows,),
+            f"structured solve {i}: {s_solve[-1]:.3f} s, {info.iters} "
+            f"iterations (limit {MAX_ITERS_STRUCTURED}), true relative "
+            f"residual {true_rel:.3e} (limit {1.01 * RTOL:.3e})",
+        )
+    torch.cuda.synchronize()
+    s_launches = dict(dia_spmv=dia_ops.dia_spmv_launches,
+                      csr_spmv_capped=spmv.csr_spmv_launches,
+                      coo_patch=spmv.coo_patch_launches)
+    csr_levels = [lvl.a.mat for lvl in smg.levels
+                  if isinstance(lvl.a, SparseOperator)
+                  and not isinstance(lvl.a.mat, DIA)]
+    check(
+        s_launches["dia_spmv"] > 0
+        and (not csr_levels or s_launches["csr_spmv_capped"] > 0)
+        and (not any(m.n_tail for m in csr_levels)
+             or s_launches["coo_patch"] > 0),
+        "launches over the structured path: " + ", ".join(
+            f"{k} {v}" for k, v in s_launches.items()),
+    )
+    rs = torch.from_numpy(np.random.default_rng(7).standard_normal(ps.nrows)).cuda()
+    t_svc = median_ms(lambda: smg.mv(rs), 20)
+    t_svc_dev = median_ms(lambda: smg.mv(rs), 20, graph=True)
+    say(f"structured V-cycle: {t_svc:.3f} ms as the solve runs it "
+        f"(enqueued from Python), {t_svc_dev:.3f} ms on the device (CUDA "
+        f"graph replay); solves " + ", ".join(f"{s:.3f}" for s in s_solve)
+        + " s")
+
+    # ---- 8. K3 vs plain at the structured path's level-0 and level-1 shapes
+    dia_results = []
+    for lvl, name in ((0, "A0"), (1, "A1")):
+        mat = smg.levels[lvl].a.mat
+        check(isinstance(mat, DIA), f"structured level {lvl} is DIA")
+        dia_kernel_cases(name, mat, ps if lvl == 0 else dia_to_csr(mat),
+                         args.reps, dia_results)
+    check(len(csr_levels) > 0, f"the structured path has "
+          f"{len(csr_levels)} CSR levels (expected level 2)")
+    for lvl, level in enumerate(smg.levels):
+        mat = getattr(level.a, "mat", None)
+        if isinstance(mat, spmv.CappedCSR):
+            kernel_cases(
+                f"S{lvl}",
+                {torch.float64: mat,
+                 torch.float32: spmv.CappedCSR.from_csr(
+                     mat.to_csr(), "cuda", torch.float32)},
+                args.reps, results,
+            )
+
+    # ---- 9. small structured input: card vs the plain versions on the CPU
+    n24 = 24
+    small_s = poisson3d(n24)
+    mgs = {dev: build_structured_multigrid(
+        small_s, (n24,) * 3, device=dev, coarsest_dim=64, dtype=torch.float64)
+        for dev in ("cuda", "cpu")}
+    b_np = np.random.default_rng(3).standard_normal(small_s.nrows)
+    sols = {}
+    for dev, mg in mgs.items():
+        op = SparseOperator.from_csr(small_s, dev, torch.float64)
+        b_dev = torch.from_numpy(b_np).to(dev)
+        x, info = cg(op, b_dev, mg, rtol=RTOL)
+        sols[dev] = (x.cpu(), info, mg.mv(b_dev).cpu())
+    (xg, ig, zg), (xc, ic, zc) = sols["cuda"], sols["cpu"]
+    dz = float((zg - zc).abs().max() / zc.abs().max())
+    dx = float((xg - xc).abs().max() / xc.abs().max())
+    check(
+        ig.converged and ig.iters == ic.iters and dz <= 1e-10 and dx <= 1e-6,
+        f"small structured input poisson3d({n24}), {len(mgs['cuda'].levels) + 1} "
+        f"levels: card {ig.iters} / CPU {ic.iters} iterations; V-cycle rel "
+        f"diff {dz:.2e} (limit 1e-10); solution rel diff {dx:.2e} "
+        f"(limit 1e-6)",
+    )
+
     # ---- results
-    # the main path runs float64: its errors and times go in the record
-    main_cases = [c for c in results if c["case"] in ("A0", "P0", "R0")
+    # both paths run float64: their errors go in the record, the SA
+    # path's level-0 times beside them
+    main_cases = [c for c in results
+                  if (c["case"] in ("A0", "P0", "R0")
+                      or c["case"].startswith("S"))
                   and c["dtype"] == "float64"]
     a0 = next(c for c in main_cases if c["case"] == "A0" and c["k"] == 1)
     r0 = next(c for c in main_cases if c["case"] == "R0" and c["k"] == 1)
+    d0 = next(c for c in dia_results if c["case"] == "A0"
+              and c["dtype"] == "float64" and c["k"] == 1)
     kernels = [
         dict(name="csr_spmv_capped", route="cuda",
              source="tpu_amg_torch/csrc/spmv.cu",
@@ -348,6 +624,20 @@ def main() -> int:
              launches=launches[1],
              max_abs_err=max(c["err2"] for c in main_cases),
              ms=r0["k2_ms"], plain_ms=r0["k2_plain_ms"]),
+        # the structured path runs float64 at A0 and A1
+        dict(name="dia_spmv", route="cuda",
+             source="tpu_amg_torch/csrc/dia.cu",
+             replaces="tpu_amg/ops/dia_pallas.py:34",
+             launches=s_launches["dia_spmv"],
+             max_abs_err=max(c["err"] for c in dia_results
+                             if c["dtype"] == "float64"),
+             ms=d0["ms"], plain_ms=d0["plain_ms"]),
+        dict(name="stream_sum", route="cuda",
+             source="tpu_amg_torch/csrc/stream.cu",
+             replaces="tools/streambench.py:38, tools/streambench.py:96",
+             launches=stream_launches,
+             max_abs_err=max(r["err"] for r in stream_recs),
+             ms=best["ms"], plain_ms=best["plain_ms"]),
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -33,6 +33,7 @@ from tpu_amg.preconditioners.multigrid_builder import (
     MultigridConfig as JaxMultigridConfig,
 )
 from tpu_amg.solvers import cg as jax_cg
+from tpu_amg.sparse.dia import DIA as JaxDIA
 from tpu_amg.utils.checkpoint import _pack_hierarchy
 from tpu_amg.utils.problems import poisson2d
 from tpu_amg_torch import linop
@@ -44,6 +45,7 @@ from tpu_amg_torch.preconditioners.chebyshev import ChebyshevSmoother
 from tpu_amg_torch.preconditioners.coarse import DenseCholeskySolver, DensePinvSolver
 from tpu_amg_torch.preconditioners.multigrid_builder import MultigridConfig
 from tpu_amg_torch.solvers import cg
+from tpu_amg_torch.sparse.dia import DIA
 from tpu_amg_torch.utils.checkpoint import hierarchy_from_arrays
 
 RTOL = 1e-10
@@ -224,6 +226,9 @@ def multigrids(hierarchies, request):
     got = MultigridConfig(device="cpu", **kw).build(
         h, lambda_starts=reference_lambda_starts(jax_cfg, ref_h))
     assert any(isinstance(lvl.a, SparseOperator) for lvl in got.levels)
+    # the 5-point level 0 is DIA (K3) in both packages
+    assert isinstance(got.levels[0].a.mat, DIA)
+    assert isinstance(ref.levels[0].a.ell, JaxDIA)
     return ref, got
 
 

@@ -19,8 +19,13 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tpu_amg"))
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 """
+
+# modules of the structured slice, which the walk must reach
+SLICE_2 = ["tpu_amg_torch.sparse.dia", "tpu_amg_torch.ops.dia",
+           "tpu_amg_torch.ops.stream", "tpu_amg_torch.structured",
+           "tpu_amg_torch.tools.streambench", "tpu_amg_torch.utils.timing"]
 
 
 def test_port_imports_no_jax():
@@ -29,20 +34,25 @@ def test_port_imports_no_jax():
         text=True, check=True,
     ).stdout.split()
     assert int(out[0]) >= 20  # every module was imported
-    assert out[1:] == ["[]"]
+    assert out[1] == "[]"
+    assert set(SLICE_2) <= set(out[2:])
 
 
 def test_importing_builds_nothing():
     # kernels and the native library are built at first use, not on import
     out = subprocess.run(
         [sys.executable, "-c",
-         "import tpu_amg_torch.solver, tpu_amg_torch.ops.spmv as s, "
+         "import tpu_amg_torch.solver, tpu_amg_torch.structured, "
+         "tpu_amg_torch.tools.streambench, tpu_amg_torch.ops.spmv as s, "
+         "tpu_amg_torch.ops.dia as d, tpu_amg_torch.ops.stream as t, "
          "tpu_amg_torch.ops.native as n; "
          "print(s.kernel_lib.cache_info().currsize, "
+         "d.kernel_lib.cache_info().currsize, "
+         "t.kernel_lib.cache_info().currsize, "
          "n.lib.cache_info().currsize)"],
         cwd=ROOT, capture_output=True, text=True, check=True,
     ).stdout.split()
-    assert out == ["0", "0"]
+    assert out == ["0", "0", "0", "0"]
 
 
 def test_cuda_config_raises_without_card():

@@ -138,6 +138,17 @@ def test_small_cap_split_is_exact():
     assert mat.n_tail == len(tv) and mat.nnz == sp.nnz
 
 
+@pytest.mark.parametrize("name", list(MATRICES))
+def test_to_csr_round_trip(name):
+    sp = _scipy(name)
+    back = spmv.CappedCSR.from_csr(CSR.from_scipy(sp), "cpu", torch.float64,
+                                   cap=4).to_csr()
+    assert back.shape == sp.shape
+    np.testing.assert_array_equal(back.indptr, sp.indptr)
+    np.testing.assert_array_equal(back.indices, sp.indices)
+    np.testing.assert_array_equal(back.data, sp.data)
+
+
 def test_k1_and_k2_alone():
     sp = _scipy("duplicate_columns")
     mat = spmv.CappedCSR.from_csr(CSR.from_scipy(sp), "cpu", torch.float64,

@@ -7,15 +7,19 @@ an operator is a small class holding tensors, with ``mv`` (matvec),
 ``__call__`` dispatching on the input's rank.  Symmetric operators keep
 the default ``rmv = mv``.
 
-Every sparse operator applies through the hand-written K1 + K2 kernels
-(:mod:`tpu_amg_torch.ops.spmv`) from a capped CSR; small levels are
-dense and apply with ``torch.matmul``.
+A sparse operator applies through one of two hand-written kernel
+routes, picked when it is built (:meth:`SparseOperator.from_csr`, the
+JAX package's ``_pick_format`` rule 1): a DIA matrix through K3
+(:mod:`tpu_amg_torch.ops.dia`) when the matrix is square, has few
+distinct diagonals and fills them densely enough; otherwise a capped CSR
+through K1 + K2 (:mod:`tpu_amg_torch.ops.spmv`).  Small levels are dense
+and apply with ``torch.matmul``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,6 +27,7 @@ import torch
 from tpu_amg_torch.device import to_device
 from tpu_amg_torch.ops.spmv import CappedCSR, spmv
 from tpu_amg_torch.sparse.csr import CSR
+from tpu_amg_torch.sparse.dia import DIA, try_from_csr
 
 
 class LinearOperator:
@@ -56,16 +61,23 @@ class LinearOperator:
         return self.mm(x) if x.dim() > 1 else self.mv(x)
 
 
+def _apply(mat, x: torch.Tensor) -> torch.Tensor:
+    x = x.contiguous()
+    return mat.mm(x) if isinstance(mat, DIA) else spmv(mat, x)
+
+
 @dataclasses.dataclass
 class SparseOperator(LinearOperator):
-    """Square or rectangular sparse operator: y = A x through K1 + K2.
+    """Square or rectangular sparse operator: y = A x through K3 (DIA)
+    or K1 + K2 (capped CSR).
 
     For operators used in both directions ``mat_t`` holds the
     materialized transpose, mirroring the reference, which materializes
-    R = Pᵀ (interpolation/mod.rs:824-827)."""
+    R = Pᵀ (interpolation/mod.rs:824-827).  Without it a square operator
+    applies its transpose as itself (rmv = mv)."""
 
-    mat: CappedCSR
-    mat_t: Optional[CappedCSR] = None
+    mat: Union[CappedCSR, DIA]
+    mat_t: Optional[Union[CappedCSR, DIA]] = None
     block_size: int = 1
 
     @property
@@ -73,18 +85,18 @@ class SparseOperator(LinearOperator):
         return self.mat.shape
 
     def mv(self, x):
-        return spmv(self.mat, x.contiguous())
+        return _apply(self.mat, x)
 
     def mm(self, xs):
-        return spmv(self.mat, xs.contiguous())
+        return _apply(self.mat, xs)
 
     def rmv(self, x):
-        return spmv(self._transpose(), x.contiguous())
+        return _apply(self._transpose(), x)
 
     def rmm(self, xs):
-        return spmv(self._transpose(), xs.contiguous())
+        return _apply(self._transpose(), xs)
 
-    def _transpose(self) -> CappedCSR:
+    def _transpose(self):
         if self.mat_t is not None:
             return self.mat_t
         if self.shape[0] != self.shape[1]:
@@ -94,13 +106,26 @@ class SparseOperator(LinearOperator):
 
     @staticmethod
     def from_csr(csr: CSR, device, dtype=torch.float64,
-                 with_transpose: bool = False):
-        mat_t = None
-        if with_transpose:
-            mat_t = CappedCSR.from_csr(csr.transpose(), device, dtype)
+                 with_transpose: bool = False,
+                 dia_max_diags: int = 32, dia_max_density: float = 3.0):
+        """DIA when the matrix is square with at most ``dia_max_diags``
+        distinct diagonals, and n_diags · n ≤ ``dia_max_density`` · nnz
+        (the JAX package's ``_pick_format`` rule 1,
+        tpu_amg/linop.py:180-187); else a capped CSR.  The multigrid
+        builders widen the envelope to 160 / 8.0 for Galerkin coarse
+        operators."""
+
+        def pick(m: CSR):
+            if m.is_square:
+                dia = try_from_csr(m, device, dtype, max_diags=dia_max_diags)
+                if (dia is not None and len(dia.offsets) * m.nrows
+                        <= dia_max_density * max(m.nnz, 1)):
+                    return dia
+            return CappedCSR.from_csr(m, device, dtype)
+
         return SparseOperator(
-            mat=CappedCSR.from_csr(csr, device, dtype),
-            mat_t=mat_t,
+            mat=pick(csr),
+            mat_t=pick(csr.transpose()) if with_transpose else None,
             block_size=csr.block_size,
         )
 

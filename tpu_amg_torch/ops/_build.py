@@ -6,11 +6,16 @@ rebuilt when it is missing or older than its source.  The compiler
 writes to a per-process temporary name that is renamed into place, so
 processes that build at the same time never load a half-written file.
 A failed build raises; there is no fallback.
+
+CUDA sources build with ``nvcc`` for ``sm_90a`` into a plain-C shared
+library each, loaded with ctypes; each library has one source, so that
+its freshness check stays the source's own.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import subprocess
 from pathlib import Path
 
@@ -35,3 +40,20 @@ def build_library(name: str, source: Path, compile_cmd: list) -> Path:
         )
     os.replace(tmp, out)
     return out
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (Path(cuda_home) / "bin" / "nvcc", shutil.which("nvcc")):
+        if cand and Path(cand).exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build_cuda_library(name: str, source: Path) -> Path:
+    """Build one ``.cu`` file with nvcc for ``sm_90a`` into ``name``."""
+    cmd = [
+        nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC",
+    ]
+    return build_library(name, source, cmd)

@@ -37,8 +37,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import os
-import shutil
 from pathlib import Path
 from typing import Tuple
 
@@ -46,7 +44,7 @@ import numpy as np
 import torch
 
 from tpu_amg_torch.device import to_device
-from tpu_amg_torch.ops._build import build_library
+from tpu_amg_torch.ops._build import build_cuda_library
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "spmv.cu"
 DEFAULT_CAP = 64
@@ -62,22 +60,10 @@ def reset_launch_counts() -> None:
     coo_patch_launches = 0
 
 
-def nvcc_path() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (Path(cuda_home) / "bin" / "nvcc", shutil.which("nvcc")):
-        if cand and Path(cand).exists():
-            return str(cand)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
 @functools.cache
 def kernel_lib() -> ctypes.CDLL:
     """The kernel library, compiled with nvcc on first call."""
-    cmd = [
-        nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC",
-    ]
-    dll = ctypes.CDLL(str(build_library("libamg_kernels.so", SOURCE, cmd)))
+    dll = ctypes.CDLL(str(build_cuda_library("libamg_kernels.so", SOURCE)))
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for suffix in ("f64", "f32"):
         fn = getattr(dll, f"csr_spmv_capped_{suffix}")
@@ -186,9 +172,25 @@ class CappedCSR:
             )
         return self._rows
 
+    def to_csr(self):
+        """The matrix on the host, capped part and tail together."""
+        from tpu_amg_torch.sparse.csr import CSR
 
-def _check(mat: CappedCSR, x: torch.Tensor) -> int:
-    """Validate x for mat; returns k (1 for a vector)."""
+        def host(*ts):
+            return [t.cpu().numpy() for t in ts]
+
+        rows, cols, vals = host(self.rows(), self.indices, self.data)
+        t_rows, t_cols, t_vals = host(self.tail_rows, self.tail_cols,
+                                      self.tail_vals)
+        return CSR.from_coo(
+            np.concatenate([rows, t_rows]), np.concatenate([cols, t_cols]),
+            np.concatenate([vals, t_vals]), self.shape,
+        )
+
+
+def check_x(mat, x: torch.Tensor) -> int:
+    """Validate x for a device matrix ``mat`` (``CappedCSR`` or ``DIA``:
+    ``device``, ``dtype`` and ``shape``); returns k (1 for a vector)."""
     if x.device != mat.device:
         raise ValueError(f"x on {x.device}, matrix on {mat.device}")
     if x.dtype != mat.dtype:
@@ -238,7 +240,7 @@ def plain_coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor) -> None:
 def csr_spmv_capped(mat: CappedCSR, x: torch.Tensor) -> torch.Tensor:
     """K1: Y = A_cap X (the first ``mat.cap`` entries of every row)."""
     global csr_spmv_launches
-    k = _check(mat, x)
+    k = check_x(mat, x)
     if x.device.type == "cpu":
         return plain_csr_spmv_capped(mat, x)
     fn = _kernel("csr_spmv_capped", x)
@@ -260,7 +262,7 @@ def csr_spmv_capped(mat: CappedCSR, x: torch.Tensor) -> torch.Tensor:
 def coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor) -> None:
     """K2: y[r_t] += v_t · x[c_t] over the tail entries, in place."""
     global coo_patch_launches
-    k = _check(mat, x)
+    k = check_x(mat, x)
     if (y.shape != (mat.shape[0],) + tuple(x.shape[1:])
             or y.device != x.device or y.dtype != x.dtype
             or not y.is_contiguous()):

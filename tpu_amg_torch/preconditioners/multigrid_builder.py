@@ -6,11 +6,14 @@ direct coarse solver on the last level.  (The reference's level loop
 contains a latent wrong-operator fallback — multigrid.rs:147 falls back
 to the finest op — which is not replicated; SURVEY.md Appendix B.)
 
-Each level operator takes one of two forms: dense at or under
-``dense_threshold`` rows (``torch.matmul``), else CSR applied through
-the K1 + K2 kernels.  P and R are always CSR; R is its own materialized
-CSR (the hierarchy stores R = Pᵀ).  Levels keep their hierarchy
-ordering: a reordering is a similarity and changes no iterate.
+Each level operator is dense at or under ``dense_threshold`` rows
+(``torch.matmul``); above it, ``SparseOperator.from_csr`` with the wide
+DIA envelope of the JAX builder (160 diagonals, density 8.0,
+tpu_amg/preconditioners/multigrid_builder.py:179-185) picks DIA through
+K3 for diagonal-structured levels and CSR through K1 + K2 otherwise.
+P and R are rectangular, so always CSR; R is its own materialized CSR
+(the hierarchy stores R = Pᵀ).  Levels keep their hierarchy ordering: a
+reordering is a similarity and changes no iterate.
 """
 
 from __future__ import annotations
@@ -97,7 +100,10 @@ class MultigridConfig:
                     mat=to_device(a.to_dense(), device, self.dtype)
                 )
             else:
-                a_op = SparseOperator.from_csr(a, device, self.dtype)
+                a_op = SparseOperator.from_csr(
+                    a, device, self.dtype, dia_max_diags=160,
+                    dia_max_density=8.0,
+                )
             smoother = self._build_smoother(
                 a, hierarchy.get_near_null(lvl), hierarchy.get_nn_weights(lvl),
                 a_op, device,

@@ -1,7 +1,7 @@
 """Model-problem generators.
 
-Structured Poisson in 2-D and 3-D, and the pseudo-unstructured 3-D
-FEM-graph Laplacian of the reference's MFEM-loaded systems.
+Structured Poisson in 1-D, 2-D and 3-D, and the pseudo-unstructured
+3-D FEM-graph Laplacian of the reference's MFEM-loaded systems.
 """
 
 from __future__ import annotations
@@ -9,6 +9,20 @@ from __future__ import annotations
 import numpy as np
 
 from tpu_amg_torch.sparse.csr import CSR
+
+
+def poisson1d(n_elements: int) -> CSR:
+    """Interior-point FD discretization of -u'' on [0,1], homogeneous
+    Dirichlet (reference simple_geometric.rs:96-113): n_elements-1 dofs,
+    tridiag(-1, 2, -1)/h²."""
+    h = 1.0 / n_elements
+    n = n_elements - 1
+    main = np.full(n, 2.0 / h**2)
+    off = np.full(n - 1, -1.0 / h**2)
+    rows = np.concatenate([np.arange(n), np.arange(n - 1), np.arange(1, n)])
+    cols = np.concatenate([np.arange(n), np.arange(1, n), np.arange(n - 1)])
+    vals = np.concatenate([main, off, off])
+    return CSR.from_coo(rows, cols, vals, (n, n))
 
 
 def _grid_idx(shape):
