@@ -4,15 +4,19 @@ Usage: python3 chip_smoke.py [--side 64] [--reps 50]
 
 Phases, one printed line per result; any failed check exits non-zero:
   1. device: nvidia-smi's name and power limit, torch / CUDA / nvcc / g++;
-  2. builds: the three CUDA kernel libraries (nvcc: K1 + K2, K3, the
-     stream probe) and the native host library (g++), from the sources
-     in this checkout, all four compilers started together;
+  2. builds: the six CUDA kernel libraries (nvcc: K1 + K2, K3, the
+     stream probe, K1's stage ablations, the copy probe, the primitive
+     probe) and the native host library (g++), from the sources in this
+     checkout, all seven compilers started together;
   3. K1/K2 vs their plain PyTorch versions on the card: a random
      heavy-row matrix with a small cap, then the level-0 A, P and R of the
      SA path's hierarchy; mv and mm (k=8, and for A the bootstrap's
      k=7), float64 and float32; errors, and the device's time per call:
      CUDA events around the replay of a CUDA graph of 50 calls (median of
-     5 replays);
+     5 replays); at k=1 beside them the library's own SpMV (a torch
+     sparse CSR tensor of the capped part, and of the tail, `@ x`) timed
+     the same way, and the bound: the bytes each call must move over the
+     3,350 GB/s data sheet;
   4. SA path: AMGSolver.setup on unstructured_poisson_3d(side) with the
      scalar 3-D SA config, then 3 PCG solves of A x = A x_true (seeded
      x_true) to rtol 1e-6; the kernels' launch counts over that run must
@@ -37,17 +41,36 @@ Phases, one printed line per result; any failed check exits non-zero:
      versions at the path's CSR level (level 2, outside the DIA
      envelope: most rows spill to K2), k = 1, 8, float64 and float32;
   9. a small structured input on the card and on the CPU: the two must
-     agree.
-Every count is set to 0 just before each path (4, 6, 7) and read just
-after it, before the comparison launches.  The last two lines are a
-JSON object of per-kernel results and the device line.  With no CUDA
-device it exits with code 2 and prints no result.
+     agree;
+ 10. stage ablation of K1: its entry point (python -m
+     tpu_amg_torch.tools.wellablate) on unstructured_fem_system(1024)
+     (1,048,576 rows, 7,339,948 entries) in float32, then the same modes
+     in float64 on the SA path's A0 from phase 4; every mode against its
+     plain version, `full` bitwise equal to K1 on both matrices; the
+     library's SpMV on the same matrices;
+ 11. copy probes: the entry points python -m tpu_amg_torch.tools.dmabench
+     (D1's sweep, both engines, 32 MiB per call) and dmabench2 (D2-D4);
+     every case against its plain version, exactly (integer inputs); the
+     sweep again at 1 GiB per call, past the 50 MB L2, and its best case
+     against its plain version there;
+ 12. primitives: every op against its plain version on a few tiles at
+     inner 16 and 272; the entry point python -m
+     tpu_amg_torch.tools.microbench_primitives at 4096 tiles (ns per op
+     against the issue-rate bound at the SM clock nvidia-smi reports);
+     the SASS of the HI kernels (cuobjdump): every step issued, nothing
+     spilled to local memory.
+Every count is set to 0 just before each path (4, 6, 7, 10, 11, 12) and
+read just after it, before the comparison launches.  The last two lines
+are a JSON object of per-kernel results (with each kernel's bound and
+the library call's time) and the device line.  With no CUDA device it
+exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import dataclasses
 import json
 import subprocess
 import sys
@@ -63,6 +86,9 @@ TOL = {"float64": 1e-12, "float32": 1e-5}  # f64: atomics reorder sums
 STREAM_MIB = 32  # the harness's TOTAL (tools/streambench.py:25)
 STREAM_BIG_MIB = 1024  # past the card's 50 MB L2
 HBM_DATASHEET_GBPS = 3350.0  # H100 SXM data sheet
+FEM_SIDE = 1024  # unstructured_fem_system(1024): the harnesses' 1M matrix
+PRIMITIVE_CHECK_TILES = 8
+PRIMITIVE_OP = "gather_fma"  # the WELL stage-B core: the kernels-line case
 
 
 def say(msg: str) -> None:
@@ -109,9 +135,56 @@ def heavy_row_matrix(seed: int = 0):
     return CSR.from_coo(rows, cols, rng.standard_normal(len(rows)), (n, m))
 
 
+def hbm_ms(nbytes: int) -> float:
+    """The least time to move ``nbytes`` through device memory at the
+    data sheet's rate, in ms."""
+    return nbytes / HBM_DATASHEET_GBPS / 1e6
+
+
+def torch_csr(indptr, indices, data, shape):
+    """A torch sparse CSR tensor on the card (int32 indices): ``@ x`` is
+    the library's SpMV (cuSPARSE), the yardstick beside a kernel; the
+    port never calls it."""
+    import torch
+
+    return torch.sparse_csr_tensor(indptr.to(torch.int32),
+                                   indices.to(torch.int32), data, shape)
+
+
+def tail_csr(mat):
+    """K2's tail of a CappedCSR as its own torch CSR tensor."""
+    import torch
+
+    counts = torch.bincount(mat.tail_rows.long(), minlength=mat.shape[0])
+    indptr = torch.zeros(mat.shape[0] + 1, dtype=torch.int64,
+                         device=mat.device)
+    indptr[1:] = torch.cumsum(counts, 0)
+    return torch_csr(indptr, mat.tail_cols, mat.tail_vals, mat.shape)
+
+
+def k1_bytes(mat) -> int:
+    """K1 at k=1: capped values and indices, int64 row pointers, x and y,
+    each once."""
+    isz = mat.data.element_size()
+    n, m = mat.shape
+    return mat.data.numel() * (isz + 4) + 8 * (n + 1) + (m + n) * isz
+
+
+def k2_bytes(mat) -> int:
+    """K2 at k=1: the tail's rows, columns and values, the x entries it
+    reads, and the y entries it reads and writes, each once."""
+    import torch
+
+    isz = mat.data.element_size()
+    cols = int(torch.unique(mat.tail_cols).numel())
+    rows = int(torch.unique(mat.tail_rows).numel())
+    return mat.n_tail * (8 + isz) + cols * isz + 2 * rows * isz
+
+
 def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
     """Compare K1, K2 and K1+K2 with the plain versions on one matrix;
-    time each on the device (CUDA graph replays)."""
+    time each on the device (CUDA graph replays), and at k=1 the
+    library's SpMV on the capped part and on the tail."""
     import torch
 
     from tpu_amg_torch.ops import spmv
@@ -119,6 +192,8 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
 
     for dtype, mat in mat_by_dtype.items():
         dname = str(dtype).replace("torch.", "")
+        lib1 = torch_csr(mat.indptr, mat.indices, mat.data, mat.shape)
+        lib2 = tail_csr(mat) if mat.n_tail else None
         for k in ks:
             g = torch.Generator(device="cuda").manual_seed(k)
             shape = (mat.shape[1],) if k == 1 else (mat.shape[1], k)
@@ -147,27 +222,42 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
                                graph=True)
                 t2p = median_ms(lambda: spmv.plain_coo_patch(mat, x, yz),
                                 reps, graph=True)
+            lib = dict(k1_lib_ms=None, k2_lib_ms=None, k1_bound_ms=None,
+                       k2_bound_ms=None)
+            if k == 1:
+                lib["k1_lib_ms"] = median_ms(lambda: lib1 @ x, reps,
+                                             graph=True)
+                lib["k1_bound_ms"] = hbm_ms(k1_bytes(mat))
+                if lib2 is not None:
+                    lib["k2_lib_ms"] = median_ms(lambda: lib2 @ x, reps,
+                                                 graph=True)
+                    lib["k2_bound_ms"] = hbm_ms(k2_bytes(mat))
             check(
                 rel <= TOL[dname],
                 f"kernels {name} {dname} k={k}: shape {mat.shape} "
                 f"nnz {mat.nnz} tail {mat.n_tail} group {mat.group}: "
                 f"max rel err {rel:.3e} (limit {TOL[dname]:.0e}); "
                 f"K1 {t1:.4f} ms plain {t1p:.4f} ms; "
-                f"K2 {t2:.4f} ms plain {t2p:.4f} ms",
+                f"K2 {t2:.4f} ms plain {t2p:.4f} ms"
+                + ("" if k != 1 else
+                   f"; library K1 {lib['k1_lib_ms']:.4f} ms, bound "
+                   f"{lib['k1_bound_ms']:.4f} ms"
+                   + ("" if lib2 is None else
+                      f"; library K2 {lib['k2_lib_ms']:.4f} ms, bound "
+                      f"{lib['k2_bound_ms']:.4f} ms")),
             )
             results.append(dict(case=name, dtype=dname, k=k, err1=err1,
                                 err2=err2, k1_ms=t1, k1_plain_ms=t1p,
                                 k2_ms=t2, k2_plain_ms=t2p,
-                                n_tail=mat.n_tail))
+                                n_tail=mat.n_tail, **lib))
 
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0."""
-    from tpu_amg_torch.ops import dia, spmv, stream
+    from tpu_amg_torch.ops import dia, dma, primitives, spmv, spmv_stages, stream
 
-    spmv.reset_launch_counts()
-    dia.reset_launch_counts()
-    stream.reset_launch_counts()
+    for module in (spmv, dia, stream, spmv_stages, dma, primitives):
+        module.reset_launch_counts()
 
 
 def stream_cases(bench_records, reps):
@@ -197,15 +287,19 @@ def stream_cases(bench_records, reps):
         tp = median_ms(lambda: stream.plain_stream_sum(inputs, carry), reps,
                        graph=True)
         nbytes = bench["bytes"]
+        # the library call is torch.sum over the same view: the plain
+        # version; the bound counts the reads and the (tiles, 8, 128) sums
         rec = dict(name=case.name, dtype=str(case.dtype), err=err, ms=t,
                    plain_ms=tp, gbps=bench["gbps"],
-                   plain_gbps=nbytes / tp / 1e6)
+                   plain_gbps=nbytes / tp / 1e6,
+                   bound_ms=hbm_ms(nbytes + bench["tiles"] * 4096))
         records.append(rec)
         check(err == 0.0,
               f"stream {case.name}: {nbytes} B per call, max abs err "
               f"{err:.1e} (limit 0: integer inputs); kernel {t * 1e3:.1f} us "
-              f"{rec['gbps']:.1f} GB/s, plain {tp * 1e3:.1f} us "
-              f"{rec['plain_gbps']:.1f} GB/s")
+              f"{rec['gbps']:.1f} GB/s, plain (torch.sum, the library "
+              f"call) {tp * 1e3:.1f} us {rec['plain_gbps']:.1f} GB/s, "
+              f"bound {rec['bound_ms'] * 1e3:.1f} us")
         del inputs
     best = max((r for r in records if r["dtype"] == "torch.float32"),
                key=lambda r: r["gbps"])
@@ -220,6 +314,206 @@ def stream_cases(bench_records, reps):
     big = dict(name=case.name, ms=t, plain_ms=tp, gbps=nbytes / t / 1e6,
                plain_gbps=nbytes / tp / 1e6)
     return records, best, big
+
+
+def ablation_phase(a0, reps):
+    """Phase 10: K1's stage ablation through its entry point on the FEM
+    1M matrix in float32, then on the SA path's A0 in float64; every mode
+    against its plain version, both timed; ``full`` bitwise against K1,
+    and timed beside K1 and the library's SpMV.  Returns the kernels-line
+    entry."""
+    import torch
+
+    from tpu_amg_torch.ops import spmv, spmv_stages
+    from tpu_amg_torch.tools import wellablate
+    from tpu_amg_torch.utils.timing import median_ms
+
+    torch.cuda.synchronize()
+    reset_counts()
+    recs, fem, x32 = wellablate.run(["--side", str(FEM_SIDE), "--dtype", "f32",
+                                     "--reps", str(reps)])
+    x64 = wellablate.make_x(a0.shape[1], "cuda", torch.float64)
+    recs += wellablate.time_modes(a0, x64, spmv_stages.MODES, reps, "SA A0")
+    torch.cuda.synchronize()
+    launches = spmv_stages.stages_launches
+    check(launches > 0, f"launches over the ablation: csr_spmv_stages "
+          f"{launches}")
+    errs = []
+    full = {}
+    for label, mat, x in (("fem1024", fem, x32), ("SA A0", a0, x64)):
+        dname = str(x.dtype).replace("torch.", "")
+        # errors relative to the sums of |terms|: the FEM rows sum to
+        # 1e-8, so nogather's x[r]·Σ v_j is all cancellation
+        mat_abs = dataclasses.replace(mat, data=mat.data.abs())
+        for mode in spmv_stages.MODES:
+            y = spmv_stages.csr_spmv_stages(mat, x, mode)
+            p = spmv_stages.plain_csr_spmv_stages(mat, x, mode)
+            scale = float(spmv_stages.plain_csr_spmv_stages(
+                mat_abs, x.abs(), mode).max())
+            torch.cuda.synchronize()
+            err = float((y - p).abs().max())
+            errs.append(err)
+            rec = next(r for r in recs if r["matrix"] == label
+                       and r["mode"] == mode)
+            rec["plain_ms"] = median_ms(
+                lambda: spmv_stages.plain_csr_spmv_stages(mat, x, mode), reps,
+                graph=True)
+            check(err / scale <= TOL[dname],
+                  f"ablation {label} {dname} {mode}: max abs err {err:.3e}, "
+                  f"{err / scale:.3e} of the largest sum of |terms| (limit "
+                  f"{TOL[dname]:.0e}); kernel {rec['ms'] * 1e3:.2f} us, plain "
+                  f"{rec['plain_ms'] * 1e3:.2f} us, bound "
+                  f"{rec['bound_ms'] * 1e3:.2f} us")
+        y = spmv_stages.csr_spmv_stages(mat, x, "full")
+        k1 = spmv.csr_spmv_capped(mat, x)
+        check(torch.equal(y, k1), f"ablation {label} {dname}: full is "
+              f"bitwise equal to csr_spmv_capped")
+        rec = next(r for r in recs if r["matrix"] == label
+                   and r["mode"] == "full")
+        lib = torch_csr(mat.indptr, mat.indices, mat.data, mat.shape)
+        rec["lib_ms"] = median_ms(lambda: lib @ x, reps, graph=True)
+        rec["k1_ms"] = median_ms(lambda: spmv.csr_spmv_capped(mat, x), reps,
+                                 graph=True)
+        say(f"ablation {label} {dname} full {rec['ms'] * 1e3:.2f} us, K1 "
+            f"{rec['k1_ms'] * 1e3:.2f} us, plain {rec['plain_ms'] * 1e3:.2f} "
+            f"us, library CSR @ x {rec['lib_ms'] * 1e3:.2f} us, bound "
+            f"{rec['bound_ms'] * 1e3:.2f} us")
+        full[label] = rec
+    say("ablation attribution (us; MB the mode must move): " + "; ".join(
+        f"{r['matrix']} {r['mode']} {r['ms'] * 1e3:.2f} "
+        f"({r['bytes'] / 1e6:.1f})" for r in recs))
+    rec = full["fem1024"]
+    return dict(name="csr_spmv_stages", route="cuda",
+                source="tpu_amg_torch/csrc/spmv_stages.cu",
+                replaces="tools/well2proto.py:258, tools/well2proto.py:324, "
+                         "tools/well2proto.py:409, tools/wellablate.py:44, "
+                         "tools/wellablate2.py:34",
+                launches=launches, max_abs_err=max(errs), ms=rec["ms"],
+                plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                bound_by="bytes", library_ms=rec["lib_ms"])
+
+
+def dma_phase(reps):
+    """Phase 11: the copy probes through their entry points; every case
+    against its plain version; the sweep again at 1 GiB.  Returns the
+    kernels-line entry."""
+    import torch
+
+    from tpu_amg_torch.ops import dma
+    from tpu_amg_torch.tools import dmabench, dmabench2
+    from tpu_amg_torch.utils.timing import median_ms
+
+    torch.cuda.synchronize()
+    reset_counts()
+    recs = dmabench.run(["--reps", str(reps)])
+    recs2, _ = dmabench2.run(["--reps", str(reps)])
+    big = dmabench.run(["--total-mib", str(STREAM_BIG_MIB), "--reps", "10"])
+    torch.cuda.synchronize()
+    launches = dma.dma_probe_launches
+    check(launches > 0, f"launches over the copy probes: dma_probe {launches}")
+    best_big = max(big, key=lambda r: r["gbps"])
+    errs = []
+    dev = torch.device("cuda")
+    for rec in recs + recs2 + [best_big]:
+        case = rec["case"]
+        g = torch.Generator(device=dev).manual_seed(0)
+        srcs = dmabench.make_inputs(case, rec["total_bytes"], dev, g)
+        carry = torch.full((8, 128), 1.0, device=dev)
+        args = (srcs, carry, rec["chunk_rows"], case.touch_every)
+        y = dma.dma_probe(*args, case.engine, case.depth, rec["unit"])
+        p = dma.plain_dma_probe(*args)
+        torch.cuda.synchronize()
+        err = float((y - p).abs().max())
+        errs.append(err)
+        rec["plain_ms"] = median_ms(lambda: dma.plain_dma_probe(*args), reps,
+                                    graph=True)
+        check(err == 0.0,
+              f"dma {case.name}, {len(srcs)} x {srcs[0].numel() >> 18} MiB: "
+              f"max abs err {err:.1e} (limit 0: integer inputs); kernel "
+              f"{rec['ms'] * 1e3:.1f} us {rec['gbps']:.1f} GB/s, plain (the "
+              f"touched rows only) {rec['plain_ms'] * 1e3:.1f} us, bound "
+              f"{rec['bound_ms'] * 1e3:.1f} us")
+        del srcs
+    for engine in dma.ENGINES:
+        mine = [r for r in recs if r["case"].engine == engine]
+        mine_big = [r for r in big if r["case"].engine == engine]
+        b32 = max(mine, key=lambda r: r["gbps"])
+        b1g = max(mine_big, key=lambda r: r["gbps"])
+        say(f"copy engine {engine}: best {b32['gbps']:.1f} GB/s at "
+            f"{STREAM_MIB} MiB ({b32['name']}, in L2), {b1g['gbps']:.1f} GB/s "
+            f"at {STREAM_BIG_MIB} MiB ({b1g['name']}, device memory: "
+            f"{b1g['gbps'] / HBM_DATASHEET_GBPS:.1%} of the data sheet)")
+    return dict(name="dma_probe", route="cuda",
+                source="tpu_amg_torch/csrc/dma.cu",
+                replaces="tools/dmabench.py:39, tools/dmabench2.py:61, "
+                         "tools/dmabench2.py:88, tools/dmabench2.py:130",
+                launches=launches, max_abs_err=max(errs), ms=best_big["ms"],
+                plain_ms=best_big["plain_ms"], bound_ms=best_big["bound_ms"],
+                bound_by="bytes", library_ms=None)
+
+
+def primitives_phase(reps):
+    """Phase 12: every op against its plain version on a few tiles; the
+    entry point at 4096 tiles; the SASS counts of the LO and HI kernels.
+    Returns the kernels-line entry."""
+    import torch
+
+    from tpu_amg_torch.ops import primitives
+    from tpu_amg_torch.tools import microbench_primitives
+    from tpu_amg_torch.utils.timing import median_ms
+
+    dev = torch.device("cuda")
+    errs = []
+    for op in primitives.OPS:
+        x, idx = primitives.make_inputs(op, PRIMITIVE_CHECK_TILES, dev)
+        for inner in primitives.INNERS:
+            y = primitives.primitive_probe(x, idx, op, inner)
+            p = primitives.plain_primitive_probe(x, idx, op, inner)
+            torch.cuda.synchronize()
+            err = float((y.float() - p.float()).abs().max())
+            scale = float(p.float().abs().max())
+            # a fused multiply-add rounds once where the plain version
+            # rounds twice; every other op is exact
+            limit = 1e-6 * scale if op in ("fma", "gather_fma") else 0.0
+            errs.append(err)
+            check(err <= limit, f"primitive {op} inner {inner}: max abs err "
+                  f"{err:.2e} (limit {limit:.1e})")
+    torch.cuda.synchronize()
+    reset_counts()
+    recs, _ = microbench_primitives.run(["--reps", str(reps)])
+    torch.cuda.synchronize()
+    launches = primitives.primitive_probe_launches
+    check(launches > 0, f"launches over the primitive probe: primitive_probe "
+          f"{launches}")
+    unfolded = primitives.sass_unfolded(primitives.sass_instruction_counts())
+    check(all(ok for ok, _ in unfolded.values()),
+          "SASS of the HI kernels (every step issued, no spills): "
+          + "; ".join(desc for _, desc in unfolded.values()))
+    rec = next(r for r in recs if r["op"] == PRIMITIVE_OP)
+    x, idx = primitives.make_inputs(PRIMITIVE_OP, rec["tiles"], dev)
+    plain_ms = median_ms(lambda: primitives.plain_primitive_probe(
+        x, idx, PRIMITIVE_OP, primitives.HI), 2, graph=True)
+    info = primitives.OPS[PRIMITIVE_OP]
+    elements = rec["tiles"] * primitives.tile_rows(PRIMITIVE_OP) * 128
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clocks = max(info.issue / primitives.ISSUE_PER_CLOCK,
+                 info.loads / primitives.LDS_PER_CLOCK)
+    ops_ms = (elements * primitives.issued_steps(PRIMITIVE_OP, primitives.HI)
+              * clocks / (sms * rec["clock_mhz"] * 1e6) * 1e3)
+    bytes_ms = hbm_ms(x.numel() * x.element_size() * 2
+                      + idx.numel() * idx.element_size())
+    say(f"primitive {PRIMITIVE_OP} at {rec['tiles']} tiles, inner "
+        f"{primitives.HI}: kernel {rec['hi_ms'] * 1e3:.1f} us, plain "
+        f"{plain_ms * 1e3:.1f} us, bound {max(ops_ms, bytes_ms) * 1e3:.1f} "
+        f"us (operations {ops_ms * 1e3:.1f}, bytes {bytes_ms * 1e3:.1f}; SM "
+        f"clock {rec['clock_mhz']:.0f} MHz)")
+    return dict(name="primitive_probe", route="cuda",
+                source="tpu_amg_torch/csrc/primitives.cu",
+                replaces="tools/microbench_primitives.py:52",
+                launches=launches, max_abs_err=max(errs), ms=rec["hi_ms"],
+                plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                library_ms=None)
 
 
 def dia_to_csr(dia):
@@ -250,6 +544,10 @@ def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8)):
         dname = str(dtype).replace("torch.", "")
         mat = dia64 if dtype == torch.float64 else dia64.astype(dtype)
         capped = spmv.CappedCSR.from_csr(csr, "cuda", dtype)
+        lib = torch_csr(*(torch.from_numpy(a).cuda() for a in
+                          (csr.indptr, csr.indices)),
+                        torch.from_numpy(csr.data).to("cuda", dtype),
+                        csr.shape)
         for k in ks:
             g = torch.Generator(device="cuda").manual_seed(k)
             shape = (n,) if k == 1 else (n, k)
@@ -265,6 +563,9 @@ def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8)):
             tp = median_ms(lambda: dia_ops.plain_dia_spmv(mat, x), reps,
                            graph=True)
             tc = median_ms(lambda: spmv.spmv(capped, x), reps, graph=True)
+            # the library's SpMV on the same matrix from CSR storage
+            tl = (median_ms(lambda: lib @ x, reps, graph=True) if k == 1
+                  else None)
             isz = x.element_size()
             dia_bytes = (n_diags * n + 2 * n * k) * isz
             csr_bytes = (capped.nnz * (isz + 4) + 8 * (n + 1)
@@ -277,11 +578,15 @@ def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8)):
                 f"({dia_bytes / t / 1e6:.0f} GB/s of {dia_bytes / 1e6:.1f} "
                 f"MB), plain {tp * 1e3:.2f} us, K1+K2 as CSR {tc * 1e3:.2f} "
                 f"us ({csr_bytes / tc / 1e6:.0f} GB/s of "
-                f"{csr_bytes / 1e6:.1f} MB)",
+                f"{csr_bytes / 1e6:.1f} MB)"
+                + ("" if tl is None else
+                   f"; library CSR @ x {tl * 1e3:.2f} us; bound "
+                   f"{hbm_ms(dia_bytes) * 1e3:.2f} us"),
             )
             results.append(dict(case=name, dtype=dname, k=k, err=err, ms=t,
                                 plain_ms=tp, csr_ms=tc, bytes=dia_bytes,
-                                csr_bytes=csr_bytes))
+                                csr_bytes=csr_bytes, lib_ms=tl,
+                                bound_ms=hbm_ms(dia_bytes)))
 
 
 def level_lines(mg):
@@ -324,7 +629,8 @@ def main() -> int:
         return 2
 
     from tpu_amg_torch.linop import SparseOperator
-    from tpu_amg_torch.ops import _build, native, spmv, stream
+    from tpu_amg_torch.ops import (_build, dma, native, primitives, spmv,
+                                   spmv_stages, stream)
     from tpu_amg_torch.ops import dia as dia_ops
     from tpu_amg_torch.preconditioners.multigrid_builder import MultigridConfig
     from tpu_amg_torch.solver import AMGSolver
@@ -350,6 +656,9 @@ def main() -> int:
         "libamg_kernels.so (nvcc, sm_90a)": spmv.kernel_lib,
         "libamg_dia.so (nvcc, sm_90a)": dia_ops.kernel_lib,
         "libamg_stream.so (nvcc, sm_90a)": stream.kernel_lib,
+        "libamg_stages.so (nvcc, sm_90a)": spmv_stages.kernel_lib,
+        "libamg_dma.so (nvcc, sm_90a)": dma.kernel_lib,
+        "libamg_primitives.so (nvcc, sm_90a)": primitives.kernel_lib,
         "libamg_native.so (g++)": native.lib,
     }
     for label in builds:
@@ -600,6 +909,11 @@ def main() -> int:
         f"(limit 1e-6)",
     )
 
+    # ---- 10-12. the stage ablation, the copy probes, the primitives
+    stages_entry = ablation_phase(a_mat, args.reps)
+    dma_entry = dma_phase(args.reps)
+    primitives_entry = primitives_phase(args.reps)
+
     # ---- results
     # both paths run float64: their errors go in the record, the SA
     # path's level-0 times beside them
@@ -617,13 +931,17 @@ def main() -> int:
              replaces="tpu_amg/ops/well_pallas.py:77",
              launches=launches[0],
              max_abs_err=max(c["err1"] for c in main_cases),
-             ms=a0["k1_ms"], plain_ms=a0["k1_plain_ms"]),
+             ms=a0["k1_ms"], plain_ms=a0["k1_plain_ms"],
+             bound_ms=a0["k1_bound_ms"], bound_by="bytes",
+             library_ms=a0["k1_lib_ms"]),
         dict(name="coo_patch", route="cuda",
              source="tpu_amg_torch/csrc/spmv.cu",
              replaces="tpu_amg/ops/well_pallas.py:457",
              launches=launches[1],
              max_abs_err=max(c["err2"] for c in main_cases),
-             ms=r0["k2_ms"], plain_ms=r0["k2_plain_ms"]),
+             ms=r0["k2_ms"], plain_ms=r0["k2_plain_ms"],
+             bound_ms=r0["k2_bound_ms"], bound_by="bytes",
+             library_ms=r0["k2_lib_ms"]),
         # the structured path runs float64 at A0 and A1
         dict(name="dia_spmv", route="cuda",
              source="tpu_amg_torch/csrc/dia.cu",
@@ -631,13 +949,18 @@ def main() -> int:
              launches=s_launches["dia_spmv"],
              max_abs_err=max(c["err"] for c in dia_results
                              if c["dtype"] == "float64"),
-             ms=d0["ms"], plain_ms=d0["plain_ms"]),
+             ms=d0["ms"], plain_ms=d0["plain_ms"],
+             bound_ms=d0["bound_ms"], bound_by="bytes",
+             library_ms=d0["lib_ms"]),
         dict(name="stream_sum", route="cuda",
              source="tpu_amg_torch/csrc/stream.cu",
              replaces="tools/streambench.py:38, tools/streambench.py:96",
              launches=stream_launches,
              max_abs_err=max(r["err"] for r in stream_recs),
-             ms=best["ms"], plain_ms=best["plain_ms"]),
+             ms=best["ms"], plain_ms=best["plain_ms"],
+             bound_ms=best["bound_ms"], bound_by="bytes",
+             library_ms=best["plain_ms"]),
+        stages_entry, dma_entry, primitives_entry,
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -26,6 +26,11 @@ print(len(names), bad, " ".join(names))
 SLICE_2 = ["tpu_amg_torch.sparse.dia", "tpu_amg_torch.ops.dia",
            "tpu_amg_torch.ops.stream", "tpu_amg_torch.structured",
            "tpu_amg_torch.tools.streambench", "tpu_amg_torch.utils.timing"]
+# modules of the slice of the last TPU kernels
+SLICE_3 = ["tpu_amg_torch.ops.spmv_stages", "tpu_amg_torch.ops.dma",
+           "tpu_amg_torch.ops.primitives", "tpu_amg_torch.tools.wellablate",
+           "tpu_amg_torch.tools.dmabench", "tpu_amg_torch.tools.dmabench2",
+           "tpu_amg_torch.tools.microbench_primitives"]
 
 
 def test_port_imports_no_jax():
@@ -36,6 +41,7 @@ def test_port_imports_no_jax():
     assert int(out[0]) >= 20  # every module was imported
     assert out[1] == "[]"
     assert set(SLICE_2) <= set(out[2:])
+    assert set(SLICE_3) <= set(out[2:])
 
 
 def test_importing_builds_nothing():
@@ -53,6 +59,38 @@ def test_importing_builds_nothing():
         cwd=ROOT, capture_output=True, text=True, check=True,
     ).stdout.split()
     assert out == ["0", "0", "0", "0"]
+
+
+def test_importing_the_probes_builds_nothing():
+    # the ablation, copy and primitive kernels build at first launch too;
+    # no module, the chip smoke script included, imports bench or tools/
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke, tpu_amg_torch.tools.wellablate, "
+         "tpu_amg_torch.tools.dmabench2, "
+         "tpu_amg_torch.tools.microbench_primitives, "
+         "tpu_amg_torch.ops.spmv_stages as w, tpu_amg_torch.ops.dma as d, "
+         "tpu_amg_torch.ops.primitives as g; "
+         "print(w.kernel_lib.cache_info().currsize, "
+         "d.kernel_lib.cache_info().currsize, "
+         "g.kernel_lib.cache_info().currsize, "
+         "sorted(m for m in sys.modules if m.split('.')[0] in "
+         "('jax', 'tpu_amg', 'bench', 'tools', 'well2proto')))"],
+        cwd=ROOT, capture_output=True, text=True, check=True,
+    ).stdout.split()
+    assert out == ["0", "0", "0", "[]"]
+
+
+@pytest.mark.parametrize("cli", ["wellablate", "dmabench", "dmabench2",
+                                 "microbench_primitives"])
+def test_probe_clis_default_to_the_card(cli):
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    mod = importlib.import_module(f"tpu_amg_torch.tools.{cli}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.run([])
 
 
 def test_cuda_config_raises_without_card():

@@ -23,13 +23,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import sys
-import time
 from typing import List
 
-import numpy as np
 import torch
 
 from tpu_amg_torch.ops import stream
+from tpu_amg_torch.utils.timing import call_ms
 
 TOTAL_MIB = 32
 
@@ -92,20 +91,7 @@ def time_case(case: Case, total_bytes: int, device, reps: int,
     g = torch.Generator(device=device).manual_seed(seed)
     inputs = make_inputs(case, total_bytes, device, g)
     carry = torch.zeros(8, 128, dtype=torch.float32, device=device)
-    if device.type == "cuda":
-        from tpu_amg_torch.utils.timing import median_ms
-
-        ms = median_ms(lambda: stream.stream_sum(inputs, carry), reps,
-                       graph=True)
-    else:
-        stream.stream_sum(inputs, carry)
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                stream.stream_sum(inputs, carry)
-            times.append((time.perf_counter() - t0) * 1e3 / reps)
-        ms = float(np.median(times))
+    ms = call_ms(lambda: stream.stream_sum(inputs, carry), device, reps)
     tiles = case.tiles(total_bytes)
     nbytes = tiles * case.tile_bytes
     return dict(name=case.name, tiles=tiles, tile_bytes=case.tile_bytes,

@@ -67,6 +67,40 @@ def poisson3d(nx: int, ny: int = None, nz: int = None) -> CSR:
     )
 
 
+def unstructured_fem_system(side: int, seed: int = 0) -> CSR:
+    """Pseudo-unstructured 2-D FEM Laplacian: side² jittered grid points,
+    randomly renumbered, Delaunay-triangulated, then RCM-reordered.
+
+    The matrix of the SpMV stage ablations (``bench.py:53-81``, the
+    matrix of ``tools/well2proto.py`` and ``tools/wellablate*.py``): ~7
+    entries a row, at most ~20; side 1024 gives 1,048,576 rows and
+    7,339,948 entries."""
+    import scipy.sparse as sps
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    from scipy.spatial import Delaunay
+
+    rng = np.random.default_rng(seed)
+    n_pts = side * side
+    gx, gy = np.meshgrid(np.arange(side, dtype=np.float64),
+                         np.arange(side, dtype=np.float64))
+    pts = np.stack([gx.ravel(), gy.ravel()], 1)
+    pts += rng.uniform(-0.35, 0.35, pts.shape)
+    tri = Delaunay(pts[rng.permutation(n_pts)])
+    e = np.concatenate([tri.simplices[:, [0, 1]], tri.simplices[:, [1, 2]],
+                        tri.simplices[:, [2, 0]]])
+    i = np.concatenate([e[:, 0], e[:, 1]])
+    j = np.concatenate([e[:, 1], e[:, 0]])
+    a = sps.coo_matrix((np.ones(len(i)), (i, j)),
+                       shape=(n_pts, n_pts)).tocsr()
+    a.sum_duplicates()
+    a.data[:] = -1.0
+    a = (a + sps.diags(np.asarray(-a.sum(axis=1)).ravel() + 1e-8)).tocsr()
+    p = reverse_cuthill_mckee(a, symmetric_mode=True)
+    ap = a[p][:, p].tocsr()
+    ap.sort_indices()
+    return CSR.from_scipy(ap)
+
+
 def unstructured_poisson_3d(
     side: int, seed: int = 0, jitter: float = 0.3, rcm: bool = True,
     return_coords: bool = False,

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -41,4 +43,21 @@ def median_ms(fn, reps: int, runs: int = 5, graph: bool = False) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
+def call_ms(fn, device: torch.device, reps: int) -> float:
+    """Milliseconds per call of ``fn``: on a CUDA device the device's
+    time (:func:`median_ms` over a CUDA graph); on the CPU the host
+    clock around ``reps`` calls, median of 3 (a number of the CPU, not
+    of the card)."""
+    if device.type == "cuda":
+        return median_ms(fn, reps, graph=True)
+    fn()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / reps)
     return float(np.median(times))
