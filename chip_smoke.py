@@ -53,12 +53,12 @@ Phases, one printed line per result; any failed check exits non-zero:
      every case against its plain version, exactly (integer inputs); the
      sweep again at 1 GiB per call, past the 50 MB L2, and its best case
      against its plain version there;
- 12. primitives: every op against its plain version on a few tiles at
-     inner 16 and 272; the entry point python -m
+ 12. primitives: the entry point python -m
      tpu_amg_torch.tools.microbench_primitives at 4096 tiles (ns per op
      against the issue-rate bound at the SM clock nvidia-smi reports);
-     the SASS of the HI kernels (cuobjdump): every step issued, nothing
-     spilled to local memory.
+     every op against its plain version on the inputs it timed, at
+     inner 16 and 272; the SASS of the HI kernels (cuobjdump): every
+     step issued, nothing spilled to local memory.
 Every count is set to 0 just before each path (4, 6, 7, 10, 11, 12) and
 read just after it, before the comparison launches.  The last two lines
 are a JSON object of per-kernel results (with each kernel's bound and
@@ -85,9 +85,7 @@ MAX_ITERS_STRUCTURED = 14  # twice the reference's 7 at poisson3d(100)
 TOL = {"float64": 1e-12, "float32": 1e-5}  # f64: atomics reorder sums
 STREAM_MIB = 32  # the harness's TOTAL (tools/streambench.py:25)
 STREAM_BIG_MIB = 1024  # past the card's 50 MB L2
-HBM_DATASHEET_GBPS = 3350.0  # H100 SXM data sheet
 FEM_SIDE = 1024  # unstructured_fem_system(1024): the harnesses' 1M matrix
-PRIMITIVE_CHECK_TILES = 8
 PRIMITIVE_OP = "gather_fma"  # the WELL stage-B core: the kernels-line case
 
 
@@ -133,12 +131,6 @@ def heavy_row_matrix(seed: int = 0):
     rows = np.repeat(np.arange(n), deg)
     cols = rng.integers(0, m, len(rows))
     return CSR.from_coo(rows, cols, rng.standard_normal(len(rows)), (n, m))
-
-
-def hbm_ms(nbytes: int) -> float:
-    """The least time to move ``nbytes`` through device memory at the
-    data sheet's rate, in ms."""
-    return nbytes / HBM_DATASHEET_GBPS / 1e6
 
 
 def torch_csr(indptr, indices, data, shape):
@@ -188,7 +180,7 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
     import torch
 
     from tpu_amg_torch.ops import spmv
-    from tpu_amg_torch.utils.timing import median_ms
+    from tpu_amg_torch.utils.timing import hbm_bound_ms, median_ms
 
     for dtype, mat in mat_by_dtype.items():
         dname = str(dtype).replace("torch.", "")
@@ -227,11 +219,11 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
             if k == 1:
                 lib["k1_lib_ms"] = median_ms(lambda: lib1 @ x, reps,
                                              graph=True)
-                lib["k1_bound_ms"] = hbm_ms(k1_bytes(mat))
+                lib["k1_bound_ms"] = hbm_bound_ms(k1_bytes(mat))
                 if lib2 is not None:
                     lib["k2_lib_ms"] = median_ms(lambda: lib2 @ x, reps,
                                                  graph=True)
-                    lib["k2_bound_ms"] = hbm_ms(k2_bytes(mat))
+                    lib["k2_bound_ms"] = hbm_bound_ms(k2_bytes(mat))
             check(
                 rel <= TOL[dname],
                 f"kernels {name} {dname} k={k}: shape {mat.shape} "
@@ -270,7 +262,7 @@ def stream_cases(bench_records, reps):
 
     from tpu_amg_torch.ops import stream
     from tpu_amg_torch.tools import streambench
-    from tpu_amg_torch.utils.timing import median_ms
+    from tpu_amg_torch.utils.timing import hbm_bound_ms, median_ms
 
     dev = torch.device("cuda")
     records = []
@@ -292,7 +284,7 @@ def stream_cases(bench_records, reps):
         rec = dict(name=case.name, dtype=str(case.dtype), err=err, ms=t,
                    plain_ms=tp, gbps=bench["gbps"],
                    plain_gbps=nbytes / tp / 1e6,
-                   bound_ms=hbm_ms(nbytes + bench["tiles"] * 4096))
+                   bound_ms=hbm_bound_ms(nbytes + bench["tiles"] * 4096))
         records.append(rec)
         check(err == 0.0,
               f"stream {case.name}: {nbytes} B per call, max abs err "
@@ -401,7 +393,7 @@ def dma_phase(reps):
 
     from tpu_amg_torch.ops import dma
     from tpu_amg_torch.tools import dmabench, dmabench2
-    from tpu_amg_torch.utils.timing import median_ms
+    from tpu_amg_torch.utils.timing import HBM_DATASHEET_GBPS, median_ms
 
     torch.cuda.synchronize()
     reset_counts()
@@ -453,19 +445,29 @@ def dma_phase(reps):
 
 
 def primitives_phase(reps):
-    """Phase 12: every op against its plain version on a few tiles; the
-    entry point at 4096 tiles; the SASS counts of the LO and HI kernels.
-    Returns the kernels-line entry."""
+    """Phase 12: the entry point at 4096 tiles; every op against its
+    plain version on the inputs the entry point timed, at inner LO and
+    HI; the SASS counts of the LO and HI kernels.  Returns the
+    kernels-line entry."""
     import torch
 
     from tpu_amg_torch.ops import primitives
     from tpu_amg_torch.tools import microbench_primitives
-    from tpu_amg_torch.utils.timing import median_ms
+    from tpu_amg_torch.utils.timing import hbm_bound_ms, median_ms
 
     dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    recs, _ = microbench_primitives.run(["--reps", str(reps)])
+    torch.cuda.synchronize()
+    launches = primitives.primitive_probe_launches
+    check(launches > 0, f"launches over the primitive probe: primitive_probe "
+          f"{launches}")
     errs = []
-    for op in primitives.OPS:
-        x, idx = primitives.make_inputs(op, PRIMITIVE_CHECK_TILES, dev)
+    for rec in recs:
+        op, tiles = rec["op"], rec["tiles"]
+        # the entry point's inputs: make_inputs is seeded
+        x, idx = primitives.make_inputs(op, tiles, dev)
         for inner in primitives.INNERS:
             y = primitives.primitive_probe(x, idx, op, inner)
             p = primitives.plain_primitive_probe(x, idx, op, inner)
@@ -476,42 +478,35 @@ def primitives_phase(reps):
             # rounds twice; every other op is exact
             limit = 1e-6 * scale if op in ("fma", "gather_fma") else 0.0
             errs.append(err)
-            check(err <= limit, f"primitive {op} inner {inner}: max abs err "
-                  f"{err:.2e} (limit {limit:.1e})")
-    torch.cuda.synchronize()
-    reset_counts()
-    recs, _ = microbench_primitives.run(["--reps", str(reps)])
-    torch.cuda.synchronize()
-    launches = primitives.primitive_probe_launches
-    check(launches > 0, f"launches over the primitive probe: primitive_probe "
-          f"{launches}")
+            check(err <= limit, f"primitive {op} at {tiles} tiles, inner "
+                  f"{inner}: max abs err {err:.2e} (limit {limit:.1e})")
+        if op == PRIMITIVE_OP:
+            main_rec = rec
+            main_rec["plain_ms"] = median_ms(
+                lambda: primitives.plain_primitive_probe(
+                    x, idx, op, primitives.HI), 2, graph=True)
+            bytes_ms = hbm_bound_ms(x.numel() * x.element_size() * 2
+                                    + idx.numel() * idx.element_size())
+        del x, idx, y, p
     unfolded = primitives.sass_unfolded(primitives.sass_instruction_counts())
     check(all(ok for ok, _ in unfolded.values()),
           "SASS of the HI kernels (every step issued, no spills): "
           + "; ".join(desc for _, desc in unfolded.values()))
-    rec = next(r for r in recs if r["op"] == PRIMITIVE_OP)
-    x, idx = primitives.make_inputs(PRIMITIVE_OP, rec["tiles"], dev)
-    plain_ms = median_ms(lambda: primitives.plain_primitive_probe(
-        x, idx, PRIMITIVE_OP, primitives.HI), 2, graph=True)
-    info = primitives.OPS[PRIMITIVE_OP]
-    elements = rec["tiles"] * primitives.tile_rows(PRIMITIVE_OP) * 128
+    rec = main_rec
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    clocks = max(info.issue / primitives.ISSUE_PER_CLOCK,
-                 info.loads / primitives.LDS_PER_CLOCK)
-    ops_ms = (elements * primitives.issued_steps(PRIMITIVE_OP, primitives.HI)
-              * clocks / (sms * rec["clock_mhz"] * 1e6) * 1e3)
-    bytes_ms = hbm_ms(x.numel() * x.element_size() * 2
-                      + idx.numel() * idx.element_size())
+    ops_ms = rec["tiles"] * primitives.op_bound_ns(
+        PRIMITIVE_OP, sms, rec["clock_mhz"], primitives.HI) / 1e6
     say(f"primitive {PRIMITIVE_OP} at {rec['tiles']} tiles, inner "
         f"{primitives.HI}: kernel {rec['hi_ms'] * 1e3:.1f} us, plain "
-        f"{plain_ms * 1e3:.1f} us, bound {max(ops_ms, bytes_ms) * 1e3:.1f} "
-        f"us (operations {ops_ms * 1e3:.1f}, bytes {bytes_ms * 1e3:.1f}; SM "
-        f"clock {rec['clock_mhz']:.0f} MHz)")
+        f"{rec['plain_ms'] * 1e3:.1f} us, bound "
+        f"{max(ops_ms, bytes_ms) * 1e3:.1f} us (operations "
+        f"{ops_ms * 1e3:.1f}, bytes {bytes_ms * 1e3:.1f}; SM clock "
+        f"{rec['clock_mhz']:.0f} MHz)")
     return dict(name="primitive_probe", route="cuda",
                 source="tpu_amg_torch/csrc/primitives.cu",
                 replaces="tools/microbench_primitives.py:52",
                 launches=launches, max_abs_err=max(errs), ms=rec["hi_ms"],
-                plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
+                plain_ms=rec["plain_ms"], bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 library_ms=None)
 
@@ -537,7 +532,7 @@ def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8)):
 
     from tpu_amg_torch.ops import dia as dia_ops
     from tpu_amg_torch.ops import spmv
-    from tpu_amg_torch.utils.timing import median_ms
+    from tpu_amg_torch.utils.timing import hbm_bound_ms, median_ms
 
     n, n_diags = dia64.shape[0], len(dia64.offsets)
     for dtype in (torch.float64, torch.float32):
@@ -581,12 +576,12 @@ def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8)):
                 f"{csr_bytes / 1e6:.1f} MB)"
                 + ("" if tl is None else
                    f"; library CSR @ x {tl * 1e3:.2f} us; bound "
-                   f"{hbm_ms(dia_bytes) * 1e3:.2f} us"),
+                   f"{hbm_bound_ms(dia_bytes) * 1e3:.2f} us"),
             )
             results.append(dict(case=name, dtype=dname, k=k, err=err, ms=t,
                                 plain_ms=tp, csr_ms=tc, bytes=dia_bytes,
                                 csr_bytes=csr_bytes, lib_ms=tl,
-                                bound_ms=hbm_ms(dia_bytes)))
+                                bound_ms=hbm_bound_ms(dia_bytes)))
 
 
 def level_lines(mg):
@@ -639,7 +634,7 @@ def main() -> int:
     from tpu_amg_torch.structured import build_structured_multigrid
     from tpu_amg_torch.tools import streambench
     from tpu_amg_torch.utils.problems import poisson3d, unstructured_poisson_3d
-    from tpu_amg_torch.utils.timing import median_ms
+    from tpu_amg_torch.utils.timing import HBM_DATASHEET_GBPS, median_ms
 
     # ---- 1. device
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -117,6 +117,13 @@ def test_op_bound():
         1024 * 3 / (128 * 132 * 1.98e9) * 1e9)
     assert primitives.op_bound_ns("bf16_sub", 132, 1980.0) == pytest.approx(
         2 * primitives.op_bound_ns("sub_gather", 132, 1980.0))
+    # a whole tile's HI steps: every step of lane_gather, fma's 228
+    assert primitives.op_bound_ns("lane_gather", 132, 1980.0,
+                                  primitives.HI) == pytest.approx(
+        primitives.HI * primitives.op_bound_ns("lane_gather", 132, 1980.0))
+    assert primitives.op_bound_ns("fma", 132, 1980.0,
+                                  primitives.HI) == pytest.approx(
+        228 * 1024 * 2 / (128 * 132 * 1.98e9) * 1e9)
 
 
 def test_fma_steps_repeat():
@@ -158,8 +165,8 @@ def test_sass_counts(monkeypatch):
 
 def test_cli_on_cpu(capsys):
     recs, gathers = microbench_primitives.run(
-        ["--device", "cpu", "--tiles", "4", "--reps", "1", "--lo", "2",
-         "--hi", "4", "lane_gather", "xla_gather", "--gather-scale", "64"])
+        ["--device", "cpu", "--tiles", "4", "--reps", "1", "lane_gather",
+         "xla_gather"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert "plain version" in lines[0]
     assert [r["op"] for r in recs] == ["lane_gather"]

@@ -214,14 +214,18 @@ def primitive_probe(x: torch.Tensor, idx: torch.Tensor, op: str,
     return out
 
 
-def op_bound_ns(op: str, sms: int, clock_mhz: float) -> float:
-    """The least time of one tile-op on the whole card: each element
-    needs the op's instructions at the issue rate and its loads at the
-    shared-memory rate; for fma only the steps that differ count."""
+def op_bound_ns(op: str, sms: int, clock_mhz: float,
+                inner: int | None = None) -> float:
+    """The least time on the whole card of one tile-op, the marginal op
+    between LO and HI that the probe measures (``inner`` None), or of one
+    tile's ``inner`` steps: each element needs the op's instructions at
+    the issue rate and its loads at the shared-memory rate; for fma only
+    the steps that differ count."""
     info = OPS[op]
     elements = tile_rows(op) * 128
     clocks = max(info.issue / ISSUE_PER_CLOCK, info.loads / LDS_PER_CLOCK)
-    steps = (issued_steps(op, HI) - issued_steps(op, LO)) / (HI - LO)
+    steps = (issued_steps(op, inner) if inner is not None else
+             (issued_steps(op, HI) - issued_steps(op, LO)) / (HI - LO))
     return elements * clocks * steps / (sms * clock_mhz * 1e6) * 1e9
 
 

@@ -31,10 +31,9 @@ from typing import List, Optional
 import torch
 
 from tpu_amg_torch.ops import dma
-from tpu_amg_torch.utils.timing import call_ms
+from tpu_amg_torch.utils.timing import call_ms, hbm_bound_ms
 
 TOTAL_MIB = 32  # the harness's TOTAL_MB (tools/dmabench.py:26)
-HBM_DATASHEET_GBPS = 3350.0  # H100 SXM data sheet
 KB = 1024
 
 
@@ -93,7 +92,7 @@ def time_case(case: Case, total_bytes: int, device, reps: int,
     return dict(name=case.name, case=case, total_bytes=total_bytes,
                 unit=unit, chunk_rows=rows, inflight=case.depth * unit,
                 bytes=nbytes, ms=ms, gbps=nbytes / ms / 1e6,
-                bound_ms=nbytes / HBM_DATASHEET_GBPS / 1e6)
+                bound_ms=hbm_bound_ms(nbytes))
 
 
 def print_record(rec: dict) -> None:

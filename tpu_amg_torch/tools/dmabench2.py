@@ -30,9 +30,8 @@ from typing import List
 import torch
 
 from tpu_amg_torch.ops import dma
-from tpu_amg_torch.tools.dmabench import (HBM_DATASHEET_GBPS, KB, Case,
-                                          parse, run_cases)
-from tpu_amg_torch.utils.timing import call_ms
+from tpu_amg_torch.tools.dmabench import KB, Case, parse, run_cases
+from tpu_amg_torch.utils.timing import call_ms, hbm_bound_ms
 
 BASELINE_MIB = 16
 
@@ -59,7 +58,7 @@ def time_baseline(device, reps: int) -> dict:
     nbytes = x.numel() * 4
     return dict(name=f"torch.sum(x, 0) {BASELINE_MIB}MB", bytes=nbytes,
                 ms=ms, gbps=nbytes / ms / 1e6,
-                bound_ms=nbytes / HBM_DATASHEET_GBPS / 1e6)
+                bound_ms=hbm_bound_ms(nbytes))
 
 
 def run(argv=None):

@@ -81,7 +81,10 @@ class ClockSampler:
         return float(np.median(self.samples)) if self.samples else None
 
 
-def time_op(op: str, tiles: int, device, reps: int, lo: int, hi: int) -> dict:
+def time_op(op: str, tiles: int, device, reps: int) -> dict:
+    """Time the op at inner LO and HI on the inputs of
+    ``primitives.make_inputs(op, tiles, device)``."""
+    lo, hi = primitives.LO, primitives.HI
     x, idx = primitives.make_inputs(op, tiles, device)
     t_lo = call_ms(lambda: primitives.primitive_probe(x, idx, op, lo),
                    device, reps)
@@ -93,12 +96,10 @@ def time_op(op: str, tiles: int, device, reps: int, lo: int, hi: int) -> dict:
                 hi_ms=t_hi, ns_per_op=per_ns, ns_per_element=per_ns / elements)
 
 
-def time_gathers(device, reps: int, scale: int = 1) -> List[dict]:
-    """``torch.index_select`` of rows at the harness's shapes (divided by
-    ``scale`` for a quick run)."""
+def time_gathers(device, reps: int) -> List[dict]:
+    """``torch.index_select`` of rows at the harness's shapes."""
     out = []
     for rows, width, nv in GATHER_SHAPES:
-        rows, nv = max(rows // scale, 1), max(nv // scale, 1)
         src = torch.ones(rows, width, device=device)
         ids = torch.from_numpy(
             np.random.default_rng(0).integers(0, rows, nv)).to(device)
@@ -116,10 +117,6 @@ def run(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiles", type=int, default=TILES)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--lo", type=int, default=primitives.LO)
-    ap.add_argument("--hi", type=int, default=primitives.HI)
-    ap.add_argument("--gather-scale", type=int, default=1,
-                    help="divide the index_select shapes by this")
     ap.add_argument("select", nargs="*",
                     help="run only cases whose key holds one of these")
     args = ap.parse_args(argv)
@@ -131,7 +128,7 @@ def run(argv=None):
     where = (torch.cuda.get_device_name(device) if on_card
              else "cpu (plain version, host clock)")
     print(f"# primitive_probe on {where}; {args.tiles} tiles, inner "
-          f"{args.lo} and {args.hi}", flush=True)
+          f"{primitives.LO} and {primitives.HI}", flush=True)
 
     def want(key):
         return not args.select or any(s in key for s in args.select)
@@ -141,8 +138,7 @@ def run(argv=None):
     with sampler if on_card else contextlib.nullcontext():
         for op in primitives.OPS:
             if want(op):
-                records.append(time_op(op, args.tiles, device, args.reps,
-                                       args.lo, args.hi))
+                records.append(time_op(op, args.tiles, device, args.reps))
     clock = sampler.median()
     sms = (torch.cuda.get_device_properties(device).multi_processor_count
            if on_card else None)
@@ -160,8 +156,7 @@ def run(argv=None):
               f"hi={rec['hi_ms']:8.3f}ms {rec['ns_per_op']:8.4f} ns/op "
               f"({rec['ns_per_element'] * 1e3:7.3f} ps/element; {bound})",
               flush=True)
-    gathers = (time_gathers(device, args.reps, args.gather_scale)
-               if want("xla_gather") else [])
+    gathers = time_gathers(device, args.reps) if want("xla_gather") else []
     return records, gathers
 
 

@@ -30,9 +30,8 @@ import torch
 
 from tpu_amg_torch.ops import spmv_stages
 from tpu_amg_torch.ops.spmv import CappedCSR
-from tpu_amg_torch.utils.timing import call_ms
+from tpu_amg_torch.utils.timing import call_ms, hbm_bound_ms
 
-HBM_DATASHEET_GBPS = 3350.0  # H100 SXM data sheet
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 
 
@@ -54,7 +53,7 @@ def time_modes(mat: CappedCSR, x: torch.Tensor, modes, reps: int,
         rec = dict(mode=mode, matrix=label, dtype=str(x.dtype), ms=ms,
                    bytes=nbytes, gnnzs=mat.data.numel() / ms / 1e6,
                    gbps=nbytes / ms / 1e6,
-                   bound_ms=nbytes / HBM_DATASHEET_GBPS / 1e6)
+                   bound_ms=hbm_bound_ms(nbytes))
         print(f"{label:12s} {mode:15s} {ms * 1e3:9.2f}us "
               f"{rec['gnnzs']:7.2f} Gnnz/s {rec['gbps']:7.1f} GB/s "
               f"{nbytes / 1e6:7.1f} MB  bound {rec['bound_ms'] * 1e3:7.2f}us",

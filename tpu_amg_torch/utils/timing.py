@@ -1,4 +1,4 @@
-"""Device timing with CUDA events."""
+"""Device timing with CUDA events, and the device-memory bound beside it."""
 
 from __future__ import annotations
 
@@ -6,6 +6,14 @@ import time
 
 import numpy as np
 import torch
+
+HBM_DATASHEET_GBPS = 3350.0  # H100 SXM data sheet
+
+
+def hbm_bound_ms(nbytes: int) -> float:
+    """The least time to move ``nbytes`` through device memory at the
+    data sheet's rate, in ms."""
+    return nbytes / HBM_DATASHEET_GBPS / 1e6
 
 
 def median_ms(fn, reps: int, runs: int = 5, graph: bool = False) -> float:
