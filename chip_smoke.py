@@ -9,19 +9,23 @@ Phases, one printed line per result; any failed check exits non-zero:
      probe) and the native host library (g++), from the sources in this
      checkout, all seven compilers started together;
   3. K1/K2 vs their plain PyTorch versions on the card: a random
-     heavy-row matrix with a small cap, then the level-0 A, P and R of the
-     SA path's hierarchy; mv and mm (k=8, and for A the bootstrap's
-     k=7), float64 and float32; errors, and the device's time per call:
-     CUDA events around the replay of a CUDA graph of 50 calls (median of
-     5 replays); at k=1 beside them the library's own SpMV (a torch
-     sparse CSR tensor of the capped part, and of the tail, `@ x`) timed
-     the same way, and the bound: the bytes each call must move over the
-     3,350 GB/s data sheet;
+     heavy-row matrix with a small cap, then every A, P and R of the SA
+     path's hierarchy that K1 ran on (and all of levels 0 and 1); mv and
+     mm (k=8, every k the SA path ran on that matrix, and for A0 the
+     bootstrap's k=7), float64 and float32; errors, and the device's
+     time per call: CUDA events around the replay of a CUDA graph of 50
+     calls (median of 5 replays); beside them, at every k, the library's
+     own SpMV or SpMM (a torch sparse CSR tensor of the capped part, and
+     of the tail, `@ x`) timed the same way, and the bound: the bytes
+     each call must move over the 3,350 GB/s data sheet; at k=1 also
+     K1's first design (`rowgroup`); then
+     K1's launches on the SA path by matrix, times (time - bound);
   4. SA path: AMGSolver.setup on unstructured_poisson_3d(side) with the
      scalar 3-D SA config, then 3 PCG solves of A x = A x_true (seeded
      x_true) to rtol 1e-6; the kernels' launch counts over that run must
-     be > 0; the V-cycle's time as the solve runs it (enqueued from
-     Python) and the device's own time for it (graph replays);
+     be > 0, and K1's are printed by (rows, cols, k); the V-cycle's time
+     as the solve runs it (enqueued from Python) and the device's own
+     time for it (graph replays);
   5. a small SA input solved on the card and, from the same hierarchy,
      on the CPU through the plain versions: the two must agree;
   6. stream probe: its entry point (python -m
@@ -45,9 +49,10 @@ Phases, one printed line per result; any failed check exits non-zero:
  10. stage ablation of K1: its entry point (python -m
      tpu_amg_torch.tools.wellablate) on unstructured_fem_system(1024)
      (1,048,576 rows, 7,339,948 entries) in float32, then the same modes
-     in float64 on the SA path's A0 from phase 4; every mode against its
-     plain version, `full` bitwise equal to K1 on both matrices; the
-     library's SpMV on the same matrices;
+     in float64 on the SA path's A0, R0 and A1 from phase 4; every mode
+     against its plain version, `full` bitwise equal to K1 on every
+     matrix; `full` (= K1, the row-block design), `rowgroup` (K1's first
+     design), the library's SpMV and the bound side by side;
  11. copy probes: the entry points python -m tpu_amg_torch.tools.dmabench
      (D1's sweep, both engines, 32 MiB per call) and dmabench2 (D2-D4);
      every case against its plain version, exactly (integer inputs); the
@@ -154,32 +159,25 @@ def tail_csr(mat):
     return torch_csr(indptr, mat.tail_cols, mat.tail_vals, mat.shape)
 
 
-def k1_bytes(mat) -> int:
-    """K1 at k=1: capped values and indices, int64 row pointers, x and y,
-    each once."""
-    isz = mat.data.element_size()
-    n, m = mat.shape
-    return mat.data.numel() * (isz + 4) + 8 * (n + 1) + (m + n) * isz
-
-
-def k2_bytes(mat) -> int:
-    """K2 at k=1: the tail's rows, columns and values, the x entries it
-    reads, and the y entries it reads and writes, each once."""
+def k2_bytes(mat, k: int) -> int:
+    """K2 at k columns: the tail's rows, columns and values, the X rows
+    it reads, and the Y rows it reads and writes, each once."""
     import torch
 
     isz = mat.data.element_size()
     cols = int(torch.unique(mat.tail_cols).numel())
     rows = int(torch.unique(mat.tail_rows).numel())
-    return mat.n_tail * (8 + isz) + cols * isz + 2 * rows * isz
+    return mat.n_tail * (8 + isz) + (cols + 2 * rows) * k * isz
 
 
 def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
     """Compare K1, K2 and K1+K2 with the plain versions on one matrix;
-    time each on the device (CUDA graph replays), and at k=1 the
-    library's SpMV on the capped part and on the tail."""
+    time each on the device (CUDA graph replays) beside the library's
+    SpMV / SpMM on the capped part and on the tail, and the bounds; at
+    k=1 also K1's first design (the ablation's `rowgroup`)."""
     import torch
 
-    from tpu_amg_torch.ops import spmv
+    from tpu_amg_torch.ops import spmv, spmv_stages
     from tpu_amg_torch.utils.timing import hbm_bound_ms, median_ms
 
     for dtype, mat in mat_by_dtype.items():
@@ -214,31 +212,34 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
                                graph=True)
                 t2p = median_ms(lambda: spmv.plain_coo_patch(mat, x, yz),
                                 reps, graph=True)
-            lib = dict(k1_lib_ms=None, k2_lib_ms=None, k1_bound_ms=None,
-                       k2_bound_ms=None)
+            lib = dict(k1_lib_ms=median_ms(lambda: lib1 @ x, reps, graph=True),
+                       k1_bound_ms=hbm_bound_ms(spmv.k1_bytes(mat, k)),
+                       k2_lib_ms=None, k2_bound_ms=None, rowgroup_ms=None)
             if k == 1:
-                lib["k1_lib_ms"] = median_ms(lambda: lib1 @ x, reps,
+                lib["rowgroup_ms"] = median_ms(
+                    lambda: spmv_stages.csr_spmv_stages(mat, x, "rowgroup"),
+                    reps, graph=True)
+            if lib2 is not None:
+                lib["k2_lib_ms"] = median_ms(lambda: lib2 @ x, reps,
                                              graph=True)
-                lib["k1_bound_ms"] = hbm_bound_ms(k1_bytes(mat))
-                if lib2 is not None:
-                    lib["k2_lib_ms"] = median_ms(lambda: lib2 @ x, reps,
-                                                 graph=True)
-                    lib["k2_bound_ms"] = hbm_bound_ms(k2_bytes(mat))
+                lib["k2_bound_ms"] = hbm_bound_ms(k2_bytes(mat, k))
             check(
                 rel <= TOL[dname],
                 f"kernels {name} {dname} k={k}: shape {mat.shape} "
-                f"nnz {mat.nnz} tail {mat.n_tail} group {mat.group}: "
-                f"max rel err {rel:.3e} (limit {TOL[dname]:.0e}); "
-                f"K1 {t1:.4f} ms plain {t1p:.4f} ms; "
-                f"K2 {t2:.4f} ms plain {t2p:.4f} ms"
+                f"nnz {mat.nnz} tail {mat.n_tail} row blocks "
+                f"{mat.n_blocks}: max rel err {rel:.3e} (limit "
+                f"{TOL[dname]:.0e}); K1 {t1:.4f} ms plain {t1p:.4f} ms "
+                f"library {lib['k1_lib_ms']:.4f} ms bound "
+                f"{lib['k1_bound_ms']:.4f} ms"
                 + ("" if k != 1 else
-                   f"; library K1 {lib['k1_lib_ms']:.4f} ms, bound "
-                   f"{lib['k1_bound_ms']:.4f} ms"
-                   + ("" if lib2 is None else
-                      f"; library K2 {lib['k2_lib_ms']:.4f} ms, bound "
-                      f"{lib['k2_bound_ms']:.4f} ms")),
+                   f" (K1's first design {lib['rowgroup_ms']:.4f} ms)")
+                + f"; K2 {t2:.4f} ms plain {t2p:.4f} ms"
+                + ("" if lib2 is None else
+                   f" library {lib['k2_lib_ms']:.4f} ms bound "
+                   f"{lib['k2_bound_ms']:.4f} ms"),
             )
-            results.append(dict(case=name, dtype=dname, k=k, err1=err1,
+            results.append(dict(case=name, dtype=dname, k=k,
+                                shape=tuple(mat.shape), err1=err1,
                                 err2=err2, k1_ms=t1, k1_plain_ms=t1p,
                                 k2_ms=t2, k2_plain_ms=t2p,
                                 n_tail=mat.n_tail, **lib))
@@ -308,12 +309,12 @@ def stream_cases(bench_records, reps):
     return records, best, big
 
 
-def ablation_phase(a0, reps):
+def ablation_phase(sa_mats, reps):
     """Phase 10: K1's stage ablation through its entry point on the FEM
-    1M matrix in float32, then on the SA path's A0 in float64; every mode
-    against its plain version, both timed; ``full`` bitwise against K1,
-    and timed beside K1 and the library's SpMV.  Returns the kernels-line
-    entry."""
+    1M matrix in float32, then on the SA path's matrices ``sa_mats``
+    (label -> float64 CappedCSR); every mode against its plain version,
+    both timed; ``full`` bitwise against K1, and timed beside K1 and the
+    library's SpMV.  Returns the kernels-line entry."""
     import torch
 
     from tpu_amg_torch.ops import spmv, spmv_stages
@@ -324,15 +325,18 @@ def ablation_phase(a0, reps):
     reset_counts()
     recs, fem, x32 = wellablate.run(["--side", str(FEM_SIDE), "--dtype", "f32",
                                      "--reps", str(reps)])
-    x64 = wellablate.make_x(a0.shape[1], "cuda", torch.float64)
-    recs += wellablate.time_modes(a0, x64, spmv_stages.MODES, reps, "SA A0")
+    cases = [("fem1024", fem, x32)]
+    for label, mat in sa_mats.items():
+        x = wellablate.make_x(mat.shape[1], "cuda", torch.float64)
+        recs += wellablate.time_modes(mat, x, spmv_stages.MODES, reps, label)
+        cases.append((label, mat, x))
     torch.cuda.synchronize()
     launches = spmv_stages.stages_launches
     check(launches > 0, f"launches over the ablation: csr_spmv_stages "
           f"{launches}")
     errs = []
     full = {}
-    for label, mat, x in (("fem1024", fem, x32), ("SA A0", a0, x64)):
+    for label, mat, x in cases:
         dname = str(x.dtype).replace("torch.", "")
         # errors relative to the sums of |terms|: the FEM rows sum to
         # 1e-8, so nogather's x[r]·Σ v_j is all cancellation
@@ -362,14 +366,21 @@ def ablation_phase(a0, reps):
               f"bitwise equal to csr_spmv_capped")
         rec = next(r for r in recs if r["matrix"] == label
                    and r["mode"] == "full")
+        old = next(r for r in recs if r["matrix"] == label
+                   and r["mode"] == "rowgroup")
         lib = torch_csr(mat.indptr, mat.indices, mat.data, mat.shape)
         rec["lib_ms"] = median_ms(lambda: lib @ x, reps, graph=True)
         rec["k1_ms"] = median_ms(lambda: spmv.csr_spmv_capped(mat, x), reps,
                                  graph=True)
-        say(f"ablation {label} {dname} full {rec['ms'] * 1e3:.2f} us, K1 "
-            f"{rec['k1_ms'] * 1e3:.2f} us, plain {rec['plain_ms'] * 1e3:.2f} "
-            f"us, library CSR @ x {rec['lib_ms'] * 1e3:.2f} us, bound "
-            f"{rec['bound_ms'] * 1e3:.2f} us")
+        say(f"ablation {label} {dname}: full (K1, row blocks) "
+            f"{rec['ms'] * 1e3:.2f} us (K1 itself {rec['k1_ms'] * 1e3:.2f} "
+            f"us), rowgroup (K1's first design) {old['ms'] * 1e3:.2f} us, "
+            f"library CSR @ x {rec['lib_ms'] * 1e3:.2f} us, bound "
+            f"{rec['bound_ms'] * 1e3:.2f} us, plain "
+            f"{rec['plain_ms'] * 1e3:.2f} us; full is "
+            f"{'faster' if rec['ms'] < old['ms'] else 'not faster'} than "
+            f"rowgroup, {'at or under' if rec['ms'] <= rec['lib_ms'] else 'over'}"
+            f" the library")
         full[label] = rec
     say("ablation attribution (us; MB the mode must move): " + "; ".join(
         f"{r['matrix']} {r['mode']} {r['ms'] * 1e3:.2f} "
@@ -726,13 +737,16 @@ def main() -> int:
         )
     torch.cuda.synchronize()
     launches = (spmv.csr_spmv_launches, spmv.coo_patch_launches)
+    k1_by_shape = dict(spmv.csr_spmv_launches_by_shape)
     solve_counts = (launches[0] - setup_counts[0],
                     launches[1] - setup_counts[1])
     check(
-        min(solve_counts) > 0 and min(launches) > 0,
+        min(solve_counts) > 0 and min(launches) > 0
+        and sum(k1_by_shape.values()) == launches[0],
         f"launches over the SA path: csr_spmv_capped {launches[0]} "
         f"(solves {solve_counts[0]}), coo_patch {launches[1]} "
-        f"(solves {solve_counts[1]})",
+        f"(solves {solve_counts[1]}); csr_spmv_capped by (rows, cols, k): "
+        + ", ".join(f"{key} {v}" for key, v in sorted(k1_by_shape.items())),
     )
     r = torch.from_numpy(np.random.default_rng(7).standard_normal(a.nrows)).cuda()
     t_vc = median_ms(lambda: solver.apply_preconditioner(r), 20)
@@ -742,21 +756,47 @@ def main() -> int:
         f"Python), {t_vc_dev:.3f} ms on the device (CUDA graph replay); "
         f"solves " + ", ".join(f"{s:.3f}" for s in solve_s) + " s")
 
-    # ---- 3b. kernels vs plain at the main path's level-0 shapes
-    lvl0 = solver.preconditioner.levels[0]
+    # ---- 3b. kernels vs plain at every sparse matrix of the main path
     k_boot = cfg.coarsening_near_null_dim - 1  # the bootstrap's block width
-    for name, op, csr, ks in (
-        ("A0", lvl0.a, h.matrices[0], (1, k_boot, 8)),
-        ("P0", lvl0.p, h.interpolations[0], (1, 8)),
-        ("R0", lvl0.r, h.restrictions[0], (1, 8)),
-    ):
-        kernel_cases(
-            name,
-            {torch.float64: op.mat,
-             torch.float32: spmv.CappedCSR.from_csr(csr, "cuda",
-                                                    torch.float32)},
-            args.reps, results, ks,
-        )
+    # (every A, P and R of the hierarchy that K1 ran on, and levels 0-1's)
+    sa_cases = {}
+    for lvl in range(h.num_levels):
+        for letter, host in (("A", h.matrices), ("P", h.interpolations),
+                             ("R", h.restrictions)):
+            if lvl >= len(host):
+                continue
+            name, csr = f"{letter}{lvl}", host[lvl]
+            ran = {key[2] for key in k1_by_shape if key[:2] == csr.shape}
+            if not ran and lvl > 1:
+                continue
+            sa_cases[name] = csr.shape
+            ks = {1, 8} | ran | ({k_boot} if name == "A0" else set())
+            kernel_cases(
+                name,
+                {dt: spmv.CappedCSR.from_csr(csr, "cuda", dt)
+                 for dt in (torch.float64, torch.float32)},
+                args.reps, results, sorted(ks),
+            )
+    check({"A0", "P0", "R0", "A1", "P1", "R1"} <= set(sa_cases),
+          "sparse matrices of the SA path timed: " + ", ".join(
+              f"{k} {v}" for k, v in sa_cases.items()))
+    # K1's excess over its bound on the SA path: launches x (time - bound)
+    # for each (rows, cols, k) it ran, from the float64 times above
+    excess, total = [], 0.0
+    for key, count in sorted(k1_by_shape.items()):
+        case = next((c for c in results if c["dtype"] == "float64"
+                     and (*c["shape"], c["k"]) == key
+                     and c["case"] in sa_cases), None)
+        if case is None:
+            excess.append(f"{key}: {count} launches, not timed")
+            continue
+        ms = count * (case["k1_ms"] - case["k1_bound_ms"])
+        total += ms
+        excess.append(f"{case['case']} k={key[2]} {key}: {count} x "
+                      f"({case['k1_ms'] * 1e3:.2f} - "
+                      f"{case['k1_bound_ms'] * 1e3:.2f} us) = {ms:.3f} ms")
+    say(f"K1 on the SA path, launches x (time - bound), float64: {total:.3f} "
+        f"ms in all; " + "; ".join(excess))
 
     # ---- 5. small input: card vs the plain versions on the CPU
     small = unstructured_poisson_3d(16)
@@ -905,7 +945,11 @@ def main() -> int:
     )
 
     # ---- 10-12. the stage ablation, the copy probes, the primitives
-    stages_entry = ablation_phase(a_mat, args.reps)
+    stages_entry = ablation_phase(
+        {"SA A0": a_mat,
+         "SA R0": spmv.CappedCSR.from_csr(h.restrictions[0], "cuda"),
+         "SA A1": spmv.CappedCSR.from_csr(h.matrices[1], "cuda")},
+        args.reps)
     dma_entry = dma_phase(args.reps)
     primitives_entry = primitives_phase(args.reps)
 
@@ -913,8 +957,7 @@ def main() -> int:
     # both paths run float64: their errors go in the record, the SA
     # path's level-0 times beside them
     main_cases = [c for c in results
-                  if (c["case"] in ("A0", "P0", "R0")
-                      or c["case"].startswith("S"))
+                  if (c["case"] in sa_cases or c["case"].startswith("S"))
                   and c["dtype"] == "float64"]
     a0 = next(c for c in main_cases if c["case"] == "A0" and c["k"] == 1)
     r0 = next(c for c in main_cases if c["case"] == "R0" and c["k"] == 1)

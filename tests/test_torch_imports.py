@@ -31,6 +31,8 @@ SLICE_3 = ["tpu_amg_torch.ops.spmv_stages", "tpu_amg_torch.ops.dma",
            "tpu_amg_torch.ops.primitives", "tpu_amg_torch.tools.wellablate",
            "tpu_amg_torch.tools.dmabench", "tpu_amg_torch.tools.dmabench2",
            "tpu_amg_torch.tools.microbench_primitives"]
+# the row-block sweep of K1
+SLICE_4 = ["tpu_amg_torch.tools.rowblocks"]
 
 
 def test_port_imports_no_jax():
@@ -42,6 +44,7 @@ def test_port_imports_no_jax():
     assert out[1] == "[]"
     assert set(SLICE_2) <= set(out[2:])
     assert set(SLICE_3) <= set(out[2:])
+    assert set(SLICE_4) <= set(out[2:])
 
 
 def test_importing_builds_nothing():
@@ -82,7 +85,7 @@ def test_importing_the_probes_builds_nothing():
 
 
 @pytest.mark.parametrize("cli", ["wellablate", "dmabench", "dmabench2",
-                                 "microbench_primitives"])
+                                 "microbench_primitives", "rowblocks"])
 def test_probe_clis_default_to_the_card(cli):
     import importlib
 

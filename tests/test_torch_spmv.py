@@ -182,9 +182,169 @@ def test_plain_versions_do_not_count_launches():
     sp = _scipy("heavy_rows")
     mat = spmv.CappedCSR.from_csr(CSR.from_scipy(sp), "cpu", torch.float64,
                                   cap=8)
-    before = (spmv.csr_spmv_launches, spmv.coo_patch_launches)
+    before = (spmv.csr_spmv_launches, spmv.coo_patch_launches,
+              dict(spmv.csr_spmv_launches_by_shape))
     spmv.spmv(mat, torch.ones(sp.shape[1], dtype=torch.float64))
-    assert (spmv.csr_spmv_launches, spmv.coo_patch_launches) == before
+    spmv.spmv(mat, torch.ones(sp.shape[1], 3, dtype=torch.float64))
+    spmv.plain_spmv(mat, torch.ones(sp.shape[1], dtype=torch.float64))
+    assert (spmv.csr_spmv_launches, spmv.coo_patch_launches,
+            dict(spmv.csr_spmv_launches_by_shape)) == before
+    spmv.csr_spmv_launches_by_shape[(1, 2, 3)] += 1
+    spmv.reset_launch_counts()
+    assert not spmv.csr_spmv_launches_by_shape
+
+
+def _empty_rows():
+    # 3000 rows, about 70% empty, the others 1-90 entries
+    rng = np.random.default_rng(11)
+    n, m = 3000, 2500
+    deg = np.where(rng.random(n) < 0.7, 0, rng.integers(1, 91, n))
+    rows = np.repeat(np.arange(n), deg)
+    cols = rng.integers(0, m, len(rows))
+    a = sps.coo_matrix((rng.standard_normal(len(rows)), (rows, cols)),
+                       shape=(n, m)).tocsr()
+    a.sum_duplicates()
+    return a
+
+
+def _one_row():
+    rng = np.random.default_rng(12)
+    cols = np.sort(rng.choice(50, 40, replace=False))
+    return sps.csr_matrix((rng.standard_normal(40), (np.zeros(40, int), cols)),
+                          shape=(1, 50))
+
+
+TABLE_CASES = ([(name, cap) for name in MATRICES for cap in (64, 8)]
+               + [("empty_rows", 64), ("one_row", 64)])
+
+
+def _table_matrix(name):
+    if name == "empty_rows":
+        return _empty_rows()
+    if name == "one_row":
+        return _one_row()
+    return _scipy(name)
+
+
+def _lanes(rows, threads):
+    """The k = 1 kernel's lanes a row in each block: the most (a power of
+    two, at most 32) with which the block's rows take its threads
+    once."""
+    lanes = np.ones_like(rows)
+    for _ in range(5):
+        lanes[(lanes < 32) & (2 * lanes * rows <= threads)] *= 2
+    return lanes
+
+
+def _walk(table, entries, indptr, indices, data, x):
+    """The row-block kernels' sums in their order, in numpy, for blocks
+    of ``entries`` (min(entries / 4, 256) threads).  k = 1: lane
+    l of a row's L lanes sums terms l, l + L, ... in turn, then the
+    shuffle tree halves the lanes; k > 1: each (row, column) sums its
+    terms in turn."""
+    start, length = indptr[:-1], np.diff(indptr)
+    if x.ndim == 2:
+        y = np.zeros((len(length), x.shape[1]))
+        for t in range(length.max(initial=0)):
+            r = np.flatnonzero(length > t)
+            j = start[r] + t
+            y[r] += data[j, None] * x[indices[j]]
+        return y
+    terms = data * x[indices]
+    blocks = np.diff(table)
+    lanes = np.repeat(_lanes(blocks, min(entries // 4, 256)), blocks)
+    part = np.zeros((len(length), 32))
+    for t in range(length.max(initial=0)):
+        for lane in range(32):
+            pos = lane + t * lanes
+            r = np.flatnonzero((lane < lanes) & (pos < length))
+            part[r, lane] += terms[start[r] + pos[r]]
+    for off in (16, 8, 4, 2, 1):
+        r = lanes > off
+        part[r, :off] += part[r, off:2 * off]
+    return part[:, 0]
+
+
+@pytest.mark.parametrize("blocks", [(s, None) for s in
+                                    spmv.KERNEL_BLOCK_ENTRIES] + [(256, 16)])
+@pytest.mark.parametrize("name,cap", TABLE_CASES)
+def test_row_block_table(name, cap, blocks):
+    sp = _table_matrix(name)
+    max_entries, max_rows = blocks
+    (ip, ix, v), (tr, tc, tv) = spmv.split_capped(sp.indptr, sp.indices,
+                                                  sp.data, cap)
+    table = spmv.row_blocks(ip, max_entries, max_rows)
+    assert table.dtype == np.int32
+    # the blocks partition the rows, in order
+    assert table[0] == 0 and table[-1] == sp.shape[0]
+    assert np.all(np.diff(table) > 0)
+    assert np.diff(table).max() <= (max_rows
+                                    or spmv.max_block_rows(max_entries))
+    # each block's entries span at most max_entries / 4 aligned chunks
+    mat = spmv.CappedCSR.from_csr(CSR.from_scipy(sp), "cpu", torch.float64,
+                                  cap=cap).reblocked(max_entries, max_rows)
+    np.testing.assert_array_equal(mat.block_rows.numpy(), table)
+    np.testing.assert_array_equal(mat.block_ptr.numpy(), ip[table])
+    e0, e1 = ip[table[:-1]], ip[table[1:]]
+    assert np.all(e1 - e0 <= max_entries)
+    assert np.all(-(-e1 // 4) - e0 // 4 <= max_entries // 4)
+    # reducing each row in the kernels' order gives scipy's y
+    for k in (1, 5):
+        x = _x(sp.shape[1], k, np.float64, seed=k)
+        y = _walk(table, max_entries, ip, ix, v, x)
+        np.add.at(y, tr, tv[:, None] * x[tc] if k > 1 else tv * x[tc])
+        ref = sp @ x
+        np.testing.assert_allclose(y, ref, rtol=0,
+                                   atol=1e-12 * np.abs(ref).max())
+
+
+def test_row_block_table_rejects():
+    ip = np.array([0, 64, 64, 100])
+    with pytest.raises(ValueError, match="does not fit"):
+        spmv.row_blocks(ip, 64)
+    with pytest.raises(ValueError):
+        spmv.row_blocks(ip, 2046)
+    with pytest.raises(ValueError):
+        spmv.row_blocks(ip, 1024, spmv.max_block_rows(1024) + 1)
+    assert list(spmv.row_blocks(np.array([0]))) == [0]
+
+
+def test_row_block_sweep_cli_on_cpu(capsys):
+    from tpu_amg_torch.tools import rowblocks
+
+    records = rowblocks.run(["--device", "cpu", "--fem-side", "16",
+                             "--poisson-side", "8", "--reps", "1",
+                             "--entries", "256", "1024", "--rows", "0",
+                             "100"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert "plain version" in lines[0] and len(lines) == 1 + 5 + 6 * 4
+    sweep = [r for r in records if r["design"] == "rowblock"]
+    assert [(r["matrix"], r["k"], r["entries"], r["rows"])
+            for r in sweep[:8]] == [
+        ("fem16", 1, 256, 128), ("fem16", 1, 256, 100),
+        ("fem16", 1, 1024, 512), ("fem16", 1, 1024, 100),
+        ("poisson8", 1, 256, 128), ("poisson8", 1, 256, 100),
+        ("poisson8", 1, 1024, 512), ("poisson8", 1, 1024, 100)]
+    assert [r["matrix"] for r in records if r["design"] == "rowgroup"] == [
+        "fem16", "poisson8", "P", "R", "A1"]
+    assert all(r["err"] == 0.0 and r["blocks"] >= 1 for r in sweep)
+
+
+def test_sa_step_shapes():
+    from tpu_amg_torch.tools import rowblocks
+    from tpu_amg_torch.utils.problems import unstructured_poisson_3d
+
+    a, coords = unstructured_poisson_3d(12, return_coords=True)
+    p, r, a1 = rowblocks.sa_step(a, coords)
+    nc = p.shape[1]
+    # about 6.4 points an aggregate; R = P^T; A1 = R A P is symmetric
+    assert 1728 / 9 < nc < 1728 / 4
+    assert r.shape == (nc, 1728) and a1.shape == (nc, nc)
+    sp, sr, sa1 = p.to_scipy(), r.to_scipy(), a1.to_scipy()
+    assert abs(sr - sp.T).max() == 0
+    assert abs(sa1 - sa1.T).max() <= 1e-12 * abs(sa1).max()
+    # P's columns sum the smoothed aggregates: (I - 2/3 D^-1 A) 1 = 1 - tiny
+    np.testing.assert_allclose(sp.sum(1).A.ravel(), 1.0, atol=1e-6)
 
 
 @pytest.fixture
@@ -197,7 +357,7 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
-@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("k", [1, 7, 8, 64])
 @pytest.mark.parametrize("name", list(MATRICES))
 def test_kernels_match_plain_on_card(cuda, name, k, dtype, tol):
     sp = _scipy(name)
@@ -210,4 +370,37 @@ def test_kernels_match_plain_on_card(cuda, name, k, dtype, tol):
     assert spmv.csr_spmv_launches == launches[0] + 1
     assert spmv.coo_patch_launches == launches[1] + (mat.n_tail > 0)
     scale = float(ref.abs().max())
+    assert float((y - ref).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("k", [1, 3, 7, 33])
+@pytest.mark.parametrize("n,entries,rows", [(1, 1024, 512), (255, 1024, 100),
+                                            (257, 1024, 512),
+                                            (1000, 512, 200),
+                                            (4099, 1024, 37), (3, 256, 128),
+                                            (1001, 256, 128),
+                                            (4097, 512, 256),
+                                            (2000, 512, 19)])
+def test_kernel_on_ragged_blocks_on_card(cuda, n, entries, rows, k, dtype,
+                                         tol):
+    # row counts that are no multiple of a block, empty rows, rows of up
+    # to the cap, and tables of small blocks
+    rng = np.random.default_rng(n)
+    deg = np.where(rng.random(n) < 0.2, 0, rng.integers(1, 65, n))
+    m = 3 * n + 5
+    a = sps.csr_matrix((rng.standard_normal(deg.sum()),
+                        rng.integers(0, m, deg.sum()),
+                        np.r_[0, np.cumsum(deg)]), shape=(n, m))
+    mat = spmv.CappedCSR.from_csr(CSR.from_scipy(a), cuda,
+                                  dtype).reblocked(entries, rows)
+    x = torch.from_numpy(_x(m, k, np.float64)).to(cuda, dtype)
+    before = spmv.csr_spmv_launches_by_shape[(n, m, k)]
+    y = spmv.csr_spmv_capped(mat, x)
+    ref = spmv.plain_csr_spmv_capped(mat, x)
+    torch.cuda.synchronize()
+    assert spmv.csr_spmv_launches_by_shape[(n, m, k)] == before + 1
+    scale = max(float(ref.abs().max()), 1.0)
     assert float((y - ref).abs().max()) <= tol * scale

@@ -79,10 +79,13 @@ def _random_csr(seed=0, n=300, m=307):
     return CSR.from_coo(rows, cols, rng.standard_normal(len(rows)), (n, m))
 
 
-def _numpy_mode(csr, cap, group, x, mode, zero):
-    """The modes' definitions over the first ``cap`` entries of each row."""
+def _numpy_mode(csr, cap, x, mode, zero):
+    """The modes' definitions over the first ``cap`` entries of each row:
+    y (n,) for the reducing modes, the terms P in capped-CSR order for
+    the ``nored`` modes."""
     n = csr.nrows
-    out = np.zeros((n, group) if mode in ("nored", "nogather_nored") else n)
+    y = np.zeros(n)
+    terms = []
     for r in range(n):
         start = csr.indptr[r]
         end = min(csr.indptr[r + 1], start + cap)
@@ -90,15 +93,13 @@ def _numpy_mode(csr, cap, group, x, mode, zero):
             v, c = csr.data[j], float(csr.indices[j])
             term = {
                 "full": v * x[int(c)], "nored": v * x[int(c)],
-                "nogather": v * x[r] + zero * c,
-                "nogather_nored": v * x[r] + zero * c,
-                "streamonly": v + zero * c, "dataonly": v,
-            }[mode]
-            if out.ndim == 2:
-                out[r, (j - start) % group] += term
-            else:
-                out[r] += term
-    return out
+                "rowgroup": v * x[int(c)], "dataonly": v,
+            }.get(mode, v + zero * c)
+            terms.append(term)
+            y[r] += term
+        if mode == "nogather":
+            y[r] *= x[r]
+    return np.array(terms) if mode in ("nored", "nogather_nored") else y
 
 
 @pytest.mark.parametrize("mode", spmv_stages.MODES)
@@ -110,7 +111,7 @@ def test_plain_modes_match_their_definitions(mode, zero):
     x = np.random.default_rng(1).standard_normal(a.shape[1])
     got = spmv_stages.csr_spmv_stages(mat, torch.from_numpy(x), mode, zero)
     assert tuple(got.shape) == spmv_stages.out_shape(mat, mode)
-    ref = _numpy_mode(a, mat.cap, mat.group, x, mode, zero)
+    ref = _numpy_mode(a, mat.cap, x, mode, zero)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-12, atol=1e-12)
 
 
@@ -121,25 +122,35 @@ def test_nored_partials_sum_to_full(dtype):
     x = wellablate.make_x(csr.nrows, "cpu", dtype)
     full = spmv_stages.csr_spmv_stages(mat, x, "full")
     parts = spmv_stages.csr_spmv_stages(mat, x, "nored")
-    assert parts.shape == (csr.nrows, mat.group)
+    assert parts.shape == (mat.data.numel(),)
     tol = 1e-12 if dtype == torch.float64 else 1e-5
-    torch.testing.assert_close(parts.sum(1), full, rtol=tol, atol=tol)
+    sums = torch.zeros_like(full).index_add_(0, mat.rows(), parts)
+    torch.testing.assert_close(sums, full, rtol=tol, atol=tol)
     # full is K1's function on the capped part
     torch.testing.assert_close(full, spmv.csr_spmv_capped(mat, x),
                                rtol=tol, atol=tol)
 
 
 def test_stage_bytes_of_the_fem_matrix():
-    # values + indices + int64 row pointers + x + y, each once
+    # values + indices + the int32 block table (rows, first entries) +
+    # int64 row pointers (none where no row is reduced) + x + output,
+    # each once
     csr = unstructured_fem_system(16)
     mat = spmv.CappedCSR.from_csr(csr, "cpu", torch.float32)
-    n, nnz = csr.nrows, csr.nnz
-    base = 8 * (n + 1) + 4 * nnz
-    assert spmv_stages.stage_bytes(mat, "full") == base + 4 * nnz + 8 * n
-    assert spmv_stages.stage_bytes(mat, "streamonly") == base + 4 * nnz + 4 * n
-    assert spmv_stages.stage_bytes(mat, "dataonly") == base + 4 * n
+    n, nnz, bounds = csr.nrows, csr.nnz, mat.n_blocks + 1
+    assert bounds == 3  # 256 rows, 1,792 entries: two blocks of <= 1024
+    rows = 8 * bounds + 8 * (n + 1)
+    assert spmv_stages.stage_bytes(mat, "full") == 8 * nnz + rows + 8 * n
+    assert spmv_stages.stage_bytes(mat, "nogather") == 8 * nnz + rows + 8 * n
+    assert (spmv_stages.stage_bytes(mat, "streamonly")
+            == 8 * nnz + rows + 4 * n)
+    assert spmv_stages.stage_bytes(mat, "dataonly") == 4 * nnz + rows + 4 * n
     assert (spmv_stages.stage_bytes(mat, "nored")
-            == base + 4 * nnz + 4 * n + 4 * n * mat.group)
+            == 8 * nnz + 8 * bounds + 4 * n + 4 * nnz)
+    assert (spmv_stages.stage_bytes(mat, "nogather_nored")
+            == 8 * nnz + 8 * bounds + 4 * nnz)
+    assert (spmv_stages.stage_bytes(mat, "rowgroup")
+            == 8 * nnz + 8 * (n + 1) + 8 * n)
 
 
 def test_rejects_bad_input():
@@ -185,11 +196,22 @@ def cuda():
     return torch.device("cuda")
 
 
+def test_rowgroup_lanes():
+    # the power of two nearest the mean capped row length, within [2, 32]
+    for deg, lanes in ((1, 2), (3, 4), (7, 8), (16, 16), (23, 32), (64, 32)):
+        indptr = np.arange(0, 10 * deg + 1, deg)
+        csr = CSR(indptr=indptr, indices=np.arange(10 * deg) % 10,
+                  data=np.ones(10 * deg), shape=(10, 10))
+        mat = spmv.CappedCSR.from_csr(csr, "cpu", torch.float64)
+        assert spmv_stages.rowgroup_lanes(mat) == lanes
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("entries", spmv.KERNEL_BLOCK_ENTRIES)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_kernel_matches_plain_on_card(cuda, dtype):
+def test_kernel_matches_plain_on_card(cuda, dtype, entries):
     csr = unstructured_fem_system(64)
-    mat = spmv.CappedCSR.from_csr(csr, cuda, dtype)
+    mat = spmv.CappedCSR.from_csr(csr, cuda, dtype).reblocked(entries)
     x = wellablate.make_x(csr.nrows, cuda, dtype)
     before = spmv_stages.stages_launches
     full = spmv_stages.csr_spmv_stages(mat, x, "full")

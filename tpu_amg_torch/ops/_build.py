@@ -2,14 +2,15 @@
 
 Libraries go to ``build/tpu_amg_torch/`` at the repository root (listed
 in ``.gitignore``), never into a package directory.  A library is
-rebuilt when it is missing or older than its source.  The compiler
+rebuilt when it is missing or older than its source or any header the
+source includes (for a CUDA source: every ``*.cuh`` beside it).  The compiler
 writes to a per-process temporary name that is renamed into place, so
 processes that build at the same time never load a half-written file.
 A failed build raises; there is no fallback.
 
 CUDA sources build with ``nvcc`` for ``sm_90a`` into a plain-C shared
 library each, loaded with ctypes; each library has one source, so that
-its freshness check stays the source's own.
+its freshness check stays the source's and its headers' own.
 """
 
 from __future__ import annotations
@@ -23,11 +24,15 @@ REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "tpu_amg_torch"
 
 
-def build_library(name: str, source: Path, compile_cmd: list) -> Path:
+def build_library(name: str, source: Path, compile_cmd: list,
+                  headers=()) -> Path:
     """Build ``source`` into ``BUILD_DIR / name`` with ``compile_cmd``
-    (the compiler and its flags; the source and ``-o`` are appended)."""
+    (the compiler and its flags; the source and ``-o`` are appended),
+    unless the library is newer than ``source`` and every one of
+    ``headers``."""
     out = BUILD_DIR / name
-    if out.exists() and out.stat().st_mtime >= source.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in (source, *headers))
+    if out.exists() and out.stat().st_mtime >= newest:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{name}.{os.getpid()}.tmp")
@@ -51,9 +56,11 @@ def nvcc_path() -> str:
 
 
 def build_cuda_library(name: str, source: Path) -> Path:
-    """Build one ``.cu`` file with nvcc for ``sm_90a`` into ``name``."""
+    """Build one ``.cu`` file with nvcc for ``sm_90a`` into ``name``; the
+    ``.cuh`` headers of its directory count for its freshness."""
     cmd = [
         nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC",
     ]
-    return build_library(name, source, cmd)
+    return build_library(name, source, cmd,
+                         headers=sorted(source.parent.glob("*.cuh")))

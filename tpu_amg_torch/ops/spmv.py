@@ -13,9 +13,14 @@ rectangular.
   (``tpu_amg/ops/well_pallas.py::_stray_kernel``).  The split is the
   same: a row-length capped main kernel plus a patch for what spills.
 - Both are bound by bytes (values + indices + gathered x + y), not by
-  operations.  This first version is deliberately simple (CUDA C++ in
-  ``tpu_amg_torch/csrc/spmv.cu``: a group of lanes per row, shuffle
-  reduce; one atomic add per tail entry); speed comes in later changes.
+  operations.  K1 is a row-block streaming kernel (CUDA C++ in
+  ``tpu_amg_torch/csrc/csr_rowblock.cuh``, instantiated by
+  ``csrc/spmv.cu``): :func:`row_blocks` cuts the rows once, on the
+  host, into blocks of at most ``BLOCK_ENTRIES`` entries and
+  :func:`max_block_rows` rows; one thread block streams a row block's
+  entries in coalesced loads, stages the products in shared memory and
+  reduces its rows from there.  K2 is one atomic add per tail entry and
+  column.
 - ``cap`` defaults to 64: at that cap the hub rows of a smoothed-SA
   restriction (a few hundred entries) spill, so K2 runs on the main
   path.  :func:`split_capped` makes the split once, when an operator is
@@ -25,7 +30,8 @@ Each kernel has a plain PyTorch version beside it (gather ``x[cols] *
 vals``, then ``index_add_`` over rows).  A wrapper takes the plain
 version only when its tensors lie on the CPU; for a CUDA tensor it
 launches the kernel or raises.  Each wrapper counts its launches in a
-module integer (``csr_spmv_launches``, ``coo_patch_launches``).
+module integer (``csr_spmv_launches``, ``coo_patch_launches``); K1's are
+also counted by (rows, cols, k) in ``csr_spmv_launches_by_shape``.
 
 The kernels are compiled with nvcc for ``sm_90a`` into
 ``build/tpu_amg_torch/libamg_kernels.so`` at first launch and loaded
@@ -34,6 +40,7 @@ with ctypes; sums accumulate in the value type (float64 or float32).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -49,15 +56,25 @@ from tpu_amg_torch.ops._build import build_cuda_library
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "spmv.cu"
 DEFAULT_CAP = 64
 MAX_COLUMNS = 64
+# K1's row blocks: S entries at most (the kernel is compiled for each S of
+# KERNEL_BLOCK_ENTRIES: S / 4 threads, a 4-entry chunk each) and R rows at
+# most (R <= max_block_rows(S), the kernel's shared row-pointer array).
+# S = 1024 was the fastest on the SA path's A0 in the sweeps of
+# tools/rowblocks.py (PERF.md).
+BLOCK_ENTRIES = 1024
+KERNEL_BLOCK_ENTRIES = (256, 512, 1024)
+_INT32_MAX = 2**31 - 1
 
 csr_spmv_launches = 0
 coo_patch_launches = 0
+csr_spmv_launches_by_shape = collections.Counter()
 
 
 def reset_launch_counts() -> None:
     global csr_spmv_launches, coo_patch_launches
     csr_spmv_launches = 0
     coo_patch_launches = 0
+    csr_spmv_launches_by_shape.clear()
 
 
 @functools.cache
@@ -68,7 +85,7 @@ def kernel_lib() -> ctypes.CDLL:
     for suffix in ("f64", "f32"):
         fn = getattr(dll, f"csr_spmv_capped_{suffix}")
         fn.restype = i32
-        fn.argtypes = [i64, i32, i32, vp, vp, vp, vp, vp, vp]
+        fn.argtypes = [i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
         fn = getattr(dll, f"coo_patch_{suffix}")
         fn.restype = i32
         fn.argtypes = [i64, i32, vp, vp, vp, vp, vp, vp]
@@ -101,13 +118,51 @@ def split_capped(indptr, indices, data, cap: int):
     )
 
 
-def _group_size(cap_indptr: np.ndarray) -> int:
-    """Lanes per row for K1: the power of two nearest the mean row
-    length of the capped part, within [2, 32]."""
-    n = len(cap_indptr) - 1
-    mean = cap_indptr[-1] / max(n, 1)
-    g = 2 ** int(np.rint(np.log2(max(mean, 1.0))))
-    return int(min(max(g, 2), 32))
+def max_block_rows(max_entries: int) -> int:
+    """The most rows a row block of ``max_entries`` may hold: two a
+    thread of the kernel's block (its shared row-pointer array)."""
+    return max_entries // 2
+
+
+def row_blocks(cap_indptr: np.ndarray, max_entries: int = BLOCK_ENTRIES,
+               max_rows: int | None = None) -> np.ndarray:
+    """K1's row-block table (int32, n_blocks + 1): block b holds rows
+    ``table[b]`` to ``table[b + 1]``, whose entries span at most
+    ``max_entries / 4`` aligned 4-entry chunks (so at most
+    ``max_entries`` entries), and at most ``max_rows`` rows (by default
+    :func:`max_block_rows`).
+
+    Rows go to buckets by the chunk of their first entry, ``wc`` chunks a
+    bucket, ``wc`` = the budget less the chunks a longest row can reach
+    past its bucket; a bucket of more than ``max_rows`` rows is split.
+    Every row with entries fits: its length is at most the cap."""
+    if max_entries % 4 or max_entries < 4:
+        raise ValueError(f"max_entries {max_entries}: a positive multiple of 4")
+    most = max_block_rows(max_entries)
+    max_rows = most if max_rows is None else max_rows
+    if not 1 <= max_rows <= most:
+        raise ValueError(f"max_rows {max_rows}: 1..{most}")
+    indptr = np.asarray(cap_indptr, dtype=np.int64)
+    n = len(indptr) - 1
+    longest = int(np.diff(indptr).max()) if n else 0
+    wc = max_entries // 4 - (longest + 2) // 4
+    if wc < 1:
+        raise ValueError(f"a row of {longest} entries does not fit a block "
+                         f"of {max_entries}")
+    bucket = indptr[:-1] // 4 // wc
+    row = np.arange(n, dtype=np.int64)
+    first = np.maximum.accumulate(
+        np.where(np.r_[True, bucket[1:] != bucket[:-1]], row, 0))
+    starts = np.flatnonzero((row - first) % max_rows == 0)
+    return np.r_[starts, n].astype(np.int32)
+
+
+def _table(cap_indptr: np.ndarray, device, max_entries: int,
+           max_rows: int | None) -> dict:
+    rows = row_blocks(cap_indptr, max_entries, max_rows)
+    return dict(block_rows=to_device(rows, device, torch.int32),
+                block_ptr=to_device(cap_indptr[rows], device, torch.int32),
+                block_entries=max_entries)
 
 
 @dataclasses.dataclass
@@ -115,7 +170,11 @@ class CappedCSR:
     """A CSR matrix on one device, split for K1 (capped rows) + K2 (tail).
 
     ``indptr`` int64, ``indices``/``tail_rows``/``tail_cols`` int32,
-    values in the working dtype."""
+    values in the working dtype.  K1's row-block table, built for blocks
+    of ``block_entries``: ``block_rows`` (int32, n_blocks + 1, from
+    :func:`row_blocks`) and ``block_ptr``, the first entry of each block
+    (``indptr[block_rows]``, int32), so that a block's bounds are two
+    loads of the table."""
 
     indptr: torch.Tensor
     indices: torch.Tensor
@@ -125,7 +184,9 @@ class CappedCSR:
     tail_vals: torch.Tensor
     shape: Tuple[int, int]
     cap: int
-    group: int
+    block_rows: torch.Tensor
+    block_ptr: torch.Tensor
+    block_entries: int
     # expanded row ids of the capped part, for the plain version
     _rows: torch.Tensor = dataclasses.field(default=None, repr=False)
 
@@ -145,8 +206,15 @@ class CappedCSR:
             tail_vals=to_device(tv, device, dtype),
             shape=tuple(csr.shape),
             cap=cap,
-            group=_group_size(ip),
+            **_table(ip, device, BLOCK_ENTRIES, None),
         )
+
+    def reblocked(self, max_entries: int,
+                  max_rows: int | None = None) -> "CappedCSR":
+        """The same matrix with a row-block table of other sizes."""
+        return dataclasses.replace(
+            self, **_table(self.indptr.cpu().numpy(), self.device,
+                           max_entries, max_rows))
 
     @property
     def device(self) -> torch.device:
@@ -163,6 +231,10 @@ class CappedCSR:
     @property
     def n_tail(self) -> int:
         return self.tail_vals.numel()
+
+    @property
+    def n_blocks(self) -> int:
+        return self.block_rows.numel() - 1
 
     def rows(self) -> torch.Tensor:
         if self._rows is None:
@@ -186,6 +258,14 @@ class CappedCSR:
             np.concatenate([rows, t_rows]), np.concatenate([cols, t_cols]),
             np.concatenate([vals, t_vals]), self.shape,
         )
+
+
+def k1_bytes(mat: CappedCSR, k: int = 1) -> int:
+    """The bytes K1 must move at k columns, each once: capped values and
+    indices, int64 row pointers, X (m, k) and Y (n, k)."""
+    isz = mat.data.element_size()
+    n, m = mat.shape
+    return mat.data.numel() * (isz + 4) + 8 * (n + 1) + (m + n) * k * isz
 
 
 def check_x(mat, x: torch.Tensor) -> int:
@@ -220,6 +300,21 @@ def _kernel(name: str, x: torch.Tensor):
     return getattr(kernel_lib(), f"{name}_{_SUFFIX[x.dtype]}")
 
 
+def kernel_entries(mat: CappedCSR, k: int = 1) -> int:
+    """The row-block kernels' configuration for ``mat``'s table (its S),
+    after the checks their 32-bit offsets and the SpMM's 16-byte copies
+    need."""
+    if mat.block_entries not in KERNEL_BLOCK_ENTRIES:
+        raise ValueError(f"blocks of {mat.block_entries} entries; the "
+                         f"kernels take {KERNEL_BLOCK_ENTRIES}")
+    if max(mat.data.numel(), max(mat.shape) * k) > _INT32_MAX:
+        raise ValueError(f"A {mat.shape} with {mat.data.numel()} entries "
+                         f"at k = {k} passes 32-bit offsets")
+    if mat.indices.data_ptr() % 16 or mat.data.data_ptr() % 16:
+        raise ValueError("indices and values must be 16-byte aligned")
+    return mat.block_entries
+
+
 def plain_csr_spmv_capped(mat: CappedCSR, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K1 (same contract, any device)."""
     x2 = x.reshape(mat.shape[1], -1)
@@ -244,18 +339,21 @@ def csr_spmv_capped(mat: CappedCSR, x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return plain_csr_spmv_capped(mat, x)
     fn = _kernel("csr_spmv_capped", x)
+    entries = kernel_entries(mat, k)
     y = torch.empty((mat.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                     device=x.device)
     if mat.shape[0] == 0:
         return y
     with torch.cuda.device(x.device):
         code = fn(
-            mat.shape[0], k, mat.group, mat.indptr.data_ptr(),
+            mat.n_blocks, k, entries, mat.block_rows.data_ptr(),
+            mat.block_ptr.data_ptr(), mat.indptr.data_ptr(),
             mat.indices.data_ptr(), mat.data.data_ptr(), x.data_ptr(),
             y.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(code, "csr_spmv_capped")
     csr_spmv_launches += 1
+    csr_spmv_launches_by_shape[(*mat.shape, k)] += 1
     return y
 
 

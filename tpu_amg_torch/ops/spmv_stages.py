@@ -1,19 +1,22 @@
 """Stage ablations of K1 on the device: KW ``csr_spmv_stages``.
 
-``csr_spmv_stages(mat, x, mode, zero=0.0)`` runs K1 (``csr_spmv_capped``)
-with stages taken out, on the capped part of a :class:`CappedCSR`, k = 1,
-float64 or float32, with K1's group size ``mat.group`` and lane order.
-j runs over the capped entries of row r, from ``start = indptr[r]``:
+``csr_spmv_stages(mat, x, mode, zero=0.0)`` runs K1 (``csr_spmv_capped``,
+the row-block streaming kernel) with one stage taken out, on the capped
+part of a :class:`CappedCSR` and its row-block table, k = 1, float64 or
+float32.  j runs over the capped entries of row r:
 
-- ``full``: y[r] = Σ v_j·x[c_j], K1's arithmetic in K1's lane and
-  shuffle order: bitwise equal to ``csr_spmv_capped``;
-- ``nogather``: y[r] = Σ (v_j·x[r] + zero·c_j) = x[r]·Σ v_j + zero·Σ c_j:
-  the indices are read, the x read is contiguous;
-- ``nored``: P[r, l] = Σ over j with (j − start) mod G = l of v_j·x[c_j],
-  shape (n, G): no shuffle reduce;
-- ``nogather_nored``: the two combined;
+- ``full``: y[r] = Σ v_j·x[c_j], K1 itself (the same template
+  instantiation): bitwise equal to ``csr_spmv_capped``;
+- ``nogather``: y[r] = x[r]·Σ (v_j + zero·c_j): the indices are read, x
+  only at the row, contiguously, after the reduce;
+- ``nored``: P[j] = v_j·x[c_j], shape (capped nnz,): the terms go
+  straight out, with no shared memory, row pointers or reduce;
+- ``nogather_nored``: P[j] = v_j + zero·c_j: the two combined;
 - ``streamonly``: y[r] = Σ (v_j + zero·c_j): no x read;
-- ``dataonly``: y[r] = Σ v_j: the indices are not read.
+- ``dataonly``: y[r] = Σ v_j: the indices are not read;
+- ``rowgroup``: y[r] = Σ v_j·x[c_j] by the design K1 had before (a group
+  of :func:`rowgroup_lanes` lanes a row on consecutive entries, a
+  shuffle reduce), so that one run times the old design beside the new.
 
 ``zero`` is a runtime scalar, 0.0 in every timing, so that the compiler
 keeps the index loads.
@@ -40,9 +43,10 @@ merge, and a layout-free CSR kernel has none of these.
 The plain PyTorch version beside the kernel is index arithmetic and
 ``index_add_``.  The wrapper takes it only when its tensors lie on the
 CPU; for a CUDA tensor it launches the kernel (CUDA C++ in
-``tpu_amg_torch/csrc/spmv_stages.cu``, compiled with nvcc for
-``sm_90a`` into ``build/tpu_amg_torch/libamg_stages.so`` at first launch)
-or raises.  Launches are counted in ``stages_launches``.
+``tpu_amg_torch/csrc/spmv_stages.cu`` on ``csrc/csr_rowblock.cuh``,
+compiled with nvcc for ``sm_90a`` into
+``build/tpu_amg_torch/libamg_stages.so`` at first launch) or raises.
+Launches are counted in ``stages_launches``.
 """
 
 from __future__ import annotations
@@ -51,14 +55,15 @@ import ctypes
 import functools
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from tpu_amg_torch.ops._build import build_cuda_library
-from tpu_amg_torch.ops.spmv import CappedCSR
+from tpu_amg_torch.ops.spmv import CappedCSR, kernel_entries
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "spmv_stages.cu"
 MODES = ("full", "nogather", "nored", "nogather_nored", "streamonly",
-         "dataonly")
+         "dataonly", "rowgroup")
 _NO_REDUCE = ("nored", "nogather_nored")
 
 stages_launches = 0
@@ -77,7 +82,8 @@ def kernel_lib() -> ctypes.CDLL:
     for suffix, scalar in (("f64", ctypes.c_double), ("f32", ctypes.c_float)):
         fn = getattr(dll, f"csr_spmv_stages_{suffix}")
         fn.restype = i32
-        fn.argtypes = [i64, i32, i32, vp, vp, vp, vp, scalar, vp, vp]
+        fn.argtypes = [i64, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp,
+                       scalar, vp, vp]
     dll.stages_error_string.restype = ctypes.c_char_p
     dll.stages_error_string.argtypes = [i32]
     return dll
@@ -100,29 +106,40 @@ def _check(mat: CappedCSR, x: torch.Tensor, mode: str) -> None:
                          f"has more rows than columns")
 
 
+def rowgroup_lanes(mat: CappedCSR) -> int:
+    """``rowgroup``'s lanes a row: the power of two nearest the mean row
+    length of the capped part, within [2, 32]."""
+    mean = mat.data.numel() / max(mat.shape[0], 1)
+    g = 2 ** int(np.rint(np.log2(max(mean, 1.0))))
+    return int(min(max(g, 2), 32))
+
+
 def out_shape(mat: CappedCSR, mode: str):
-    return ((mat.shape[0], mat.group) if mode in _NO_REDUCE
+    return ((mat.data.numel(),) if mode in _NO_REDUCE
             else (mat.shape[0],))
 
 
 def stage_bytes(mat: CappedCSR, mode: str) -> int:
-    """Bytes the mode must move, each read once: row pointers and values
-    always, indices but in ``dataonly``, x (whole for a gather, the
-    first n entries for ``nogather``), and the output written once."""
+    """Bytes the mode must move, each read once: values always; indices
+    but in ``dataonly``; the row-block table (each block's first row and
+    entry) but in ``rowgroup``; the row pointers wherever rows are
+    reduced; x whole for a gather, its first n entries for ``nogather``;
+    and the output, written once."""
     isz = mat.data.element_size()
     n, m = mat.shape
     nnz = mat.data.numel()
-    total = 8 * (n + 1) + nnz * isz
+    total = nnz * isz
     if mode != "dataonly":
         total += 4 * nnz
-    if mode in ("full", "nored"):
+    if mode != "rowgroup":
+        total += 8 * (mat.n_blocks + 1)
+    if mode not in _NO_REDUCE:
+        total += 8 * (n + 1)
+    if mode in ("full", "nored", "rowgroup"):
         total += m * isz
-    elif mode.startswith("nogather"):
+    elif mode == "nogather":
         total += n * isz
-    out = 1
-    for d in out_shape(mat, mode):
-        out *= d
-    return total + out * isz
+    return total + int(np.prod(out_shape(mat, mode))) * isz
 
 
 def plain_csr_spmv_stages(mat: CappedCSR, x: torch.Tensor, mode: str,
@@ -132,25 +149,17 @@ def plain_csr_spmv_stages(mat: CappedCSR, x: torch.Tensor, mode: str,
     rows = mat.rows()
     cols = mat.indices.long()
     v = mat.data
-    if mode in ("full", "nored"):
-        contrib = v * x[cols]
-    elif mode in ("nogather", "nogather_nored"):
-        contrib = v * x[rows] + zero * cols.to(v.dtype)
-    elif mode == "streamonly":
-        contrib = v + zero * cols.to(v.dtype)
+    if mode in ("full", "nored", "rowgroup"):
+        term = v * x[cols]
+    elif mode == "dataonly":
+        term = v
     else:
-        contrib = v
-    n = mat.shape[0]
+        term = v + zero * cols.to(v.dtype)
     if mode in _NO_REDUCE:
-        g = mat.group
-        lane = (torch.arange(v.numel(), device=v.device)
-                - mat.indptr[:-1][rows]) % g
-        out = torch.zeros(n * g, dtype=v.dtype, device=v.device)
-        out.index_add_(0, rows * g + lane, contrib)
-        return out.view(n, g)
-    out = torch.zeros(n, dtype=v.dtype, device=v.device)
-    out.index_add_(0, rows, contrib)
-    return out
+        return term
+    out = torch.zeros(mat.shape[0], dtype=v.dtype, device=v.device)
+    out.index_add_(0, rows, term)
+    return out * x[:mat.shape[0]] if mode == "nogather" else out
 
 
 def csr_spmv_stages(mat: CappedCSR, x: torch.Tensor, mode: str,
@@ -164,15 +173,18 @@ def csr_spmv_stages(mat: CappedCSR, x: torch.Tensor, mode: str,
         raise RuntimeError(f"no kernel for tensors on {x.device}")
     if x.dtype not in _SUFFIX:
         raise TypeError(f"no kernel for {x.dtype}")
+    entries = kernel_entries(mat)
     lib = kernel_lib()
     y = torch.empty(out_shape(mat, mode), dtype=x.dtype, device=x.device)
     if mat.shape[0] == 0:
         return y
     with torch.cuda.device(x.device):
         code = getattr(lib, f"csr_spmv_stages_{_SUFFIX[x.dtype]}")(
-            mat.shape[0], mat.group, MODES.index(mode), mat.indptr.data_ptr(),
-            mat.indices.data_ptr(), mat.data.data_ptr(), x.data_ptr(),
-            zero, y.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            mat.shape[0], mat.n_blocks, entries, rowgroup_lanes(mat),
+            MODES.index(mode), mat.block_rows.data_ptr(),
+            mat.block_ptr.data_ptr(), mat.indptr.data_ptr(),
+            mat.indices.data_ptr(), mat.data.data_ptr(), x.data_ptr(), zero,
+            y.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     if code != 0:
         msg = lib.stages_error_string(code).decode()

@@ -3,7 +3,7 @@
 Builds ``unstructured_fem_system(side)`` (the harnesses' matrix: the
 jittered-Delaunay 2-D FEM Laplacian, RCM-ordered; side 1024 is the 1M
 matrix of ``tools/wellablate2.py``), splits it into a ``CappedCSR``
-(K1's cap and group size), draws x from a numpy seed, and times
+(K1's cap and row-block table), draws x from a numpy seed, and times
 ``csr_spmv_stages`` in each mode (:mod:`tpu_amg_torch.ops.spmv_stages`).
 Per mode it prints the time per call, Gnnz/s, GB/s of the bytes the
 mode must move, those bytes, and the bound: the bytes over the card's
@@ -90,7 +90,9 @@ def run(argv=None):
              else "cpu (plain version, host clock)")
     print(f"# csr_spmv_stages on {where}; unstructured_fem_system"
           f"({args.side}): n={csr.nrows} nnz={csr.nnz} (capped "
-          f"{mat.data.numel()}, tail {mat.n_tail}), group {mat.group}, "
+          f"{mat.data.numel()}, tail {mat.n_tail}), {mat.n_blocks} row "
+          f"blocks of <= {mat.block_entries} entries, rowgroup "
+          f"{spmv_stages.rowgroup_lanes(mat)} lanes a row, "
           f"{args.dtype}; built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     records = time_modes(mat, x, modes, args.reps, f"fem{args.side}")
