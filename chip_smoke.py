@@ -109,22 +109,6 @@ def run(cmd) -> str:
                           check=True).stdout.strip()
 
 
-def smoke_config(device: str, **overrides):
-    import torch
-
-    from tpu_amg_torch.solver import SolverConfig
-
-    # the scalar 3-D config of tools/setup3d.py, in float64
-    kw = dict(
-        coarsening_near_null_dim=8, interp_near_null_dim=2,
-        coarsening_factor=16.0, smoothing_steps=1, smoothing_iters=10,
-        coarsest_dim=1500, dense_threshold=8192, sa_trunc_tol=0.1,
-        coarse_drop_tol=0.01, dtype=torch.float64, device=device,
-    )
-    kw.update(overrides)
-    return SolverConfig(**kw)
-
-
 def heavy_row_matrix(seed: int = 0):
     """Random rectangular CSR with rows of 1-120 entries and duplicates
     summed: with cap 16 most rows spill to the tail."""
@@ -639,7 +623,7 @@ def main() -> int:
                                    spmv_stages, stream)
     from tpu_amg_torch.ops import dia as dia_ops
     from tpu_amg_torch.preconditioners.multigrid_builder import MultigridConfig
-    from tpu_amg_torch.solver import AMGSolver
+    from tpu_amg_torch.solver import AMGSolver, scalar_3d_config
     from tpu_amg_torch.solvers import cg
     from tpu_amg_torch.sparse.dia import DIA
     from tpu_amg_torch.structured import build_structured_multigrid
@@ -697,7 +681,7 @@ def main() -> int:
     a = unstructured_poisson_3d(args.side)
     say(f"problem: unstructured_poisson_3d({args.side}): n={a.nrows} "
         f"nnz={a.nnz} built in {time.perf_counter() - t0:.1f} s")
-    cfg = smoke_config("cuda")
+    cfg = scalar_3d_config("cuda")
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -758,6 +742,17 @@ def main() -> int:
 
     # ---- 3b. kernels vs plain at every sparse matrix of the main path
     k_boot = cfg.coarsening_near_null_dim - 1  # the bootstrap's block width
+    levels = solver.preconditioner.levels
+
+    def sa_mat(letter, lvl, csr):
+        """The float64 matrix the solver itself runs (its row-block table
+        included) where it is a CappedCSR; else one built from ``csr``."""
+        op = (getattr(levels[lvl], letter.lower()) if lvl < len(levels)
+              else None)
+        mat = getattr(op, "mat", None)
+        return (mat if isinstance(mat, spmv.CappedCSR)
+                else spmv.CappedCSR.from_csr(csr, "cuda", torch.float64))
+
     # (every A, P and R of the hierarchy that K1 ran on, and levels 0-1's)
     sa_cases = {}
     for lvl in range(h.num_levels):
@@ -773,8 +768,9 @@ def main() -> int:
             ks = {1, 8} | ran | ({k_boot} if name == "A0" else set())
             kernel_cases(
                 name,
-                {dt: spmv.CappedCSR.from_csr(csr, "cuda", dt)
-                 for dt in (torch.float64, torch.float32)},
+                {torch.float64: sa_mat(letter, lvl, csr),
+                 torch.float32: spmv.CappedCSR.from_csr(csr, "cuda",
+                                                        torch.float32)},
                 args.reps, results, sorted(ks),
             )
     check({"A0", "P0", "R0", "A1", "P1", "R1"} <= set(sa_cases),
@@ -800,7 +796,7 @@ def main() -> int:
 
     # ---- 5. small input: card vs the plain versions on the CPU
     small = unstructured_poisson_3d(16)
-    scfg = smoke_config("cuda", coarsest_dim=100, dense_threshold=200)
+    scfg = scalar_3d_config("cuda", coarsest_dim=100, dense_threshold=200)
     s_gpu = AMGSolver.setup(small, scfg)
     mg_cpu = MultigridConfig(
         smoother=scfg.smoother, smoothing_steps=scfg.smoothing_steps,
@@ -946,9 +942,8 @@ def main() -> int:
 
     # ---- 10-12. the stage ablation, the copy probes, the primitives
     stages_entry = ablation_phase(
-        {"SA A0": a_mat,
-         "SA R0": spmv.CappedCSR.from_csr(h.restrictions[0], "cuda"),
-         "SA A1": spmv.CappedCSR.from_csr(h.matrices[1], "cuda")},
+        {"SA A0": a_mat, "SA R0": sa_mat("R", 0, h.restrictions[0]),
+         "SA A1": sa_mat("A", 1, h.matrices[1])},
         args.reps)
     dma_entry = dma_phase(args.reps)
     primitives_entry = primitives_phase(args.reps)

@@ -78,3 +78,9 @@ def test_cuda_sources_count_their_headers(monkeypatch):
     _build.build_cuda_library("libamg_kernels.so", src)
     assert src.parent / "csr_rowblock.cuh" in seen["headers"]
     assert "arch=compute_90a,code=sm_90a" in seen["cmd"]
+    assert not any(flag.startswith("-D") for flag in seen["cmd"])
+    # the row-block probe's builds of other sizes
+    _build.build_cuda_library("libamg_kernels_s1024.so", src,
+                              defines=["ROWBLOCK_ENTRIES=1024"])
+    assert seen["name"] == "libamg_kernels_s1024.so"
+    assert "-DROWBLOCK_ENTRIES=1024" in seen["cmd"]

@@ -238,7 +238,7 @@ def _lanes(rows, threads):
 
 def _walk(table, entries, indptr, indices, data, x):
     """The row-block kernels' sums in their order, in numpy, for blocks
-    of ``entries`` (min(entries / 4, 256) threads).  k = 1: lane
+    of ``entries`` (entries / 4 threads).  k = 1: lane
     l of a row's L lanes sums terms l, l + L, ... in turn, then the
     shuffle tree halves the lanes; k > 1: each (row, column) sums its
     terms in turn."""
@@ -252,7 +252,7 @@ def _walk(table, entries, indptr, indices, data, x):
         return y
     terms = data * x[indices]
     blocks = np.diff(table)
-    lanes = np.repeat(_lanes(blocks, min(entries // 4, 256)), blocks)
+    lanes = np.repeat(_lanes(blocks, entries // 4), blocks)
     part = np.zeros((len(length), 32))
     for t in range(length.max(initial=0)):
         for lane in range(32):
@@ -265,26 +265,28 @@ def _walk(table, entries, indptr, indices, data, x):
     return part[:, 0]
 
 
-@pytest.mark.parametrize("blocks", [(s, None) for s in
-                                    spmv.KERNEL_BLOCK_ENTRIES] + [(256, 16)])
+# the sizes the row-block probe builds; K1's S (BLOCK_ENTRIES) is one
+@pytest.mark.parametrize("max_entries", [256, 512, 1024, 2048])
 @pytest.mark.parametrize("name,cap", TABLE_CASES)
-def test_row_block_table(name, cap, blocks):
+def test_row_block_table(name, cap, max_entries):
     sp = _table_matrix(name)
-    max_entries, max_rows = blocks
     (ip, ix, v), (tr, tc, tv) = spmv.split_capped(sp.indptr, sp.indices,
                                                   sp.data, cap)
-    table = spmv.row_blocks(ip, max_entries, max_rows)
+    table = spmv.row_blocks(ip, max_entries)
     assert table.dtype == np.int32
-    # the blocks partition the rows, in order
+    # the blocks partition the rows, in order, at most S / 2 a block
     assert table[0] == 0 and table[-1] == sp.shape[0]
     assert np.all(np.diff(table) > 0)
-    assert np.diff(table).max() <= (max_rows
-                                    or spmv.max_block_rows(max_entries))
+    assert np.diff(table).max() <= max_entries // 2
+    tensors = spmv.block_table(ip, "cpu", max_entries)
+    np.testing.assert_array_equal(tensors["block_rows"].numpy(), table)
+    np.testing.assert_array_equal(tensors["block_ptr"].numpy(), ip[table])
+    if max_entries == spmv.BLOCK_ENTRIES:
+        mat = spmv.CappedCSR.from_csr(CSR.from_scipy(sp), "cpu",
+                                      torch.float64, cap=cap)
+        np.testing.assert_array_equal(mat.block_rows.numpy(), table)
+        assert mat.n_blocks == len(table) - 1
     # each block's entries span at most max_entries / 4 aligned chunks
-    mat = spmv.CappedCSR.from_csr(CSR.from_scipy(sp), "cpu", torch.float64,
-                                  cap=cap).reblocked(max_entries, max_rows)
-    np.testing.assert_array_equal(mat.block_rows.numpy(), table)
-    np.testing.assert_array_equal(mat.block_ptr.numpy(), ip[table])
     e0, e1 = ip[table[:-1]], ip[table[1:]]
     assert np.all(e1 - e0 <= max_entries)
     assert np.all(-(-e1 // 4) - e0 // 4 <= max_entries // 4)
@@ -304,47 +306,57 @@ def test_row_block_table_rejects():
         spmv.row_blocks(ip, 64)
     with pytest.raises(ValueError):
         spmv.row_blocks(ip, 2046)
-    with pytest.raises(ValueError):
-        spmv.row_blocks(ip, 1024, spmv.max_block_rows(1024) + 1)
     assert list(spmv.row_blocks(np.array([0]))) == [0]
 
 
 def test_row_block_sweep_cli_on_cpu(capsys):
     from tpu_amg_torch.tools import rowblocks
 
-    records = rowblocks.run(["--device", "cpu", "--fem-side", "16",
-                             "--poisson-side", "8", "--reps", "1",
-                             "--entries", "256", "1024", "--rows", "0",
-                             "100"])
+    records, on_path = rowblocks.run(["--device", "cpu", "--side", "12",
+                                      "--fem-side", "16", "--reps", "1",
+                                      "--entries", "256", "1024"])
     lines = capsys.readouterr().out.strip().splitlines()
-    assert "plain version" in lines[0] and len(lines) == 1 + 5 + 6 * 4
-    sweep = [r for r in records if r["design"] == "rowblock"]
-    assert [(r["matrix"], r["k"], r["entries"], r["rows"])
-            for r in sweep[:8]] == [
-        ("fem16", 1, 256, 128), ("fem16", 1, 256, 100),
-        ("fem16", 1, 1024, 512), ("fem16", 1, 1024, 100),
-        ("poisson8", 1, 256, 128), ("poisson8", 1, 256, 100),
-        ("poisson8", 1, 1024, 512), ("poisson8", 1, 1024, 100)]
-    assert [r["matrix"] for r in records if r["design"] == "rowgroup"] == [
-        "fem16", "poisson8", "P", "R", "A1"]
+    assert "plain version" in lines[0] and "(12)" in lines[0]
+    # the FEM matrix, then the SA path's levels 0-1 (1,728 rows: two
+    # levels, so A0, P0, R0 and A1), each at k = 1: no launch is counted
+    # on the CPU
+    matrices = ["fem16", "A0", "P0", "R0", "A1"]
+    assert len(lines) == 1 + len(matrices) + 1
+    assert [r["matrix"] for r in records] == [m for m in matrices
+                                              for _ in range(4)]
+    assert [r["design"] for r in records[:4]] == ["rowgroup", "library",
+                                                  "S=256", "S=1024"]
+    sweep = [r for r in records if r["design"].startswith("S=")]
     assert all(r["err"] == 0.0 and r["blocks"] >= 1 for r in sweep)
+    assert records[0]["dtype"] == "float32" and records[4]["dtype"] == "float64"
+    assert on_path == {256: (0.0, 0.0), 1024: (0.0, 0.0)}
 
 
-def test_sa_step_shapes():
+def test_probe_copies_are_separate():
     from tpu_amg_torch.tools import rowblocks
-    from tpu_amg_torch.utils.problems import unstructured_poisson_3d
 
-    a, coords = unstructured_poisson_3d(12, return_coords=True)
-    p, r, a1 = rowblocks.sa_step(a, coords)
-    nc = p.shape[1]
-    # about 6.4 points an aggregate; R = P^T; A1 = R A P is symmetric
-    assert 1728 / 9 < nc < 1728 / 4
-    assert r.shape == (nc, 1728) and a1.shape == (nc, nc)
-    sp, sr, sa1 = p.to_scipy(), r.to_scipy(), a1.to_scipy()
-    assert abs(sr - sp.T).max() == 0
-    assert abs(sa1 - sa1.T).max() <= 1e-12 * abs(sa1).max()
-    # P's columns sum the smoothed aggregates: (I - 2/3 D^-1 A) 1 = 1 - tiny
-    np.testing.assert_allclose(sp.sum(1).A.ravel(), 1.0, atol=1e-6)
+    sp = _scipy("rectangular")
+    mat = spmv.CappedCSR.from_csr(CSR.from_scipy(sp), "cpu", torch.float64)
+    x = torch.from_numpy(_x(sp.shape[1], 1, np.float64))
+    pairs = rowblocks.copies(mat, x, 3)
+    assert pairs[0] == (mat, x) and len(pairs) == 3
+    ptrs = {(m.data.data_ptr(), m.indices.data_ptr(), v.data_ptr())
+            for m, v in pairs}
+    assert len(ptrs) == 3
+    for m, v in pairs[1:]:
+        assert m.block_rows is mat.block_rows
+        assert torch.equal(spmv.spmv(m, v), spmv.spmv(mat, x))
+
+
+def test_library_must_match_the_tables():
+    def row_block_entries():
+        return 512
+
+    dll = type("Lib", (), {"_name": "libk.so"})()
+    dll.row_block_entries = row_block_entries
+    spmv.check_block_entries(dll, 512)
+    with pytest.raises(RuntimeError, match="compiled for row blocks of 512"):
+        spmv.check_block_entries(dll)
 
 
 @pytest.fixture
@@ -377,25 +389,19 @@ def test_kernels_match_plain_on_card(cuda, name, k, dtype, tol):
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
 @pytest.mark.parametrize("k", [1, 3, 7, 33])
-@pytest.mark.parametrize("n,entries,rows", [(1, 1024, 512), (255, 1024, 100),
-                                            (257, 1024, 512),
-                                            (1000, 512, 200),
-                                            (4099, 1024, 37), (3, 256, 128),
-                                            (1001, 256, 128),
-                                            (4097, 512, 256),
-                                            (2000, 512, 19)])
-def test_kernel_on_ragged_blocks_on_card(cuda, n, entries, rows, k, dtype,
-                                         tol):
+@pytest.mark.parametrize("n,longest", [(1, 64), (255, 64), (257, 64),
+                                       (1000, 64), (4099, 64), (3, 64),
+                                       (1001, 2), (4097, 2), (2000, 1)])
+def test_kernel_on_ragged_blocks_on_card(cuda, n, longest, k, dtype, tol):
     # row counts that are no multiple of a block, empty rows, rows of up
-    # to the cap, and tables of small blocks
+    # to the cap, and rows so short that blocks end at S / 2 rows
     rng = np.random.default_rng(n)
-    deg = np.where(rng.random(n) < 0.2, 0, rng.integers(1, 65, n))
+    deg = np.where(rng.random(n) < 0.2, 0, rng.integers(1, longest + 1, n))
     m = 3 * n + 5
     a = sps.csr_matrix((rng.standard_normal(deg.sum()),
                         rng.integers(0, m, deg.sum()),
                         np.r_[0, np.cumsum(deg)]), shape=(n, m))
-    mat = spmv.CappedCSR.from_csr(CSR.from_scipy(a), cuda,
-                                  dtype).reblocked(entries, rows)
+    mat = spmv.CappedCSR.from_csr(CSR.from_scipy(a), cuda, dtype)
     x = torch.from_numpy(_x(m, k, np.float64)).to(cuda, dtype)
     before = spmv.csr_spmv_launches_by_shape[(n, m, k)]
     y = spmv.csr_spmv_capped(mat, x)

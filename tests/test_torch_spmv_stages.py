@@ -138,7 +138,8 @@ def test_stage_bytes_of_the_fem_matrix():
     csr = unstructured_fem_system(16)
     mat = spmv.CappedCSR.from_csr(csr, "cpu", torch.float32)
     n, nnz, bounds = csr.nrows, csr.nnz, mat.n_blocks + 1
-    assert bounds == 3  # 256 rows, 1,792 entries: two blocks of <= 1024
+    # 256 rows, 1,792 entries: eight blocks of <= 256
+    assert spmv.BLOCK_ENTRIES == 256 and bounds == 9
     rows = 8 * bounds + 8 * (n + 1)
     assert spmv_stages.stage_bytes(mat, "full") == 8 * nnz + rows + 8 * n
     assert spmv_stages.stage_bytes(mat, "nogather") == 8 * nnz + rows + 8 * n
@@ -207,11 +208,10 @@ def test_rowgroup_lanes():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entries", spmv.KERNEL_BLOCK_ENTRIES)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_kernel_matches_plain_on_card(cuda, dtype, entries):
+def test_kernel_matches_plain_on_card(cuda, dtype):
     csr = unstructured_fem_system(64)
-    mat = spmv.CappedCSR.from_csr(csr, cuda, dtype).reblocked(entries)
+    mat = spmv.CappedCSR.from_csr(csr, cuda, dtype)
     x = wellablate.make_x(csr.nrows, cuda, dtype)
     before = spmv_stages.stages_launches
     full = spmv_stages.csr_spmv_stages(mat, x, "full")

@@ -6,7 +6,8 @@
 // SC'14) on K1's capped CSR.  The host (tpu_amg_torch/ops/spmv.py
 // `row_blocks`) cuts the rows once into row blocks of consecutive rows
 // whose entry range [indptr[r0], indptr[r1]) spans at most S / 4 aligned
-// 4-entry chunks (so at most S entries) and at most S / 2 rows; the cap
+// 4-entry chunks (so at most S entries, S = ROWBLOCK_ENTRIES, fixed when
+// the library is compiled) and at most S / 2 rows; the cap
 // (64) guarantees that a row fits.  Beside each block's first row the
 // table holds its first entry, so a block's bounds are loads of the table
 // alone.  One thread block of NT = S / 4 threads a row block, 4 entries a
@@ -43,7 +44,21 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// S, the row block's entries: the host's table (ops/spmv.py
+// BLOCK_ENTRIES) must be cut for the same S.  Only the row-block probe
+// (tools/rowblocks.py) builds other sizes, with -DROWBLOCK_ENTRIES=S.
+// S = 256 (64 threads): the least time over the SA path's K1 launches in
+// that probe, on the path's own matrices (PERF.md).
+#ifndef ROWBLOCK_ENTRIES
+#define ROWBLOCK_ENTRIES 256
+#endif
+
 namespace rowblock {
+
+constexpr int kEntries = ROWBLOCK_ENTRIES;
+constexpr int kThreads = kEntries / 4;  // 4 entries a thread
+static_assert(kEntries % 128 == 0 && kEntries >= 128 && kEntries <= 2048,
+              "S: whole warps of 4-entry threads, at most 512 threads");
 
 enum Mode : int {
   kFull = 0,
@@ -284,43 +299,24 @@ spmm_kernel(int k, int team, const int* __restrict__ block_rows,
   spmm_block<T, NT>(b, sm, k, team, x, y);
 }
 
-// One row-block size (NT threads, a thread block a row block): k = 1 is
-// y = A x in mode M, k > 1 the SpMM (M = kFull).
-template <typename T, int M, int NT>
-int launch_blocks(int n_blocks, int k, const int* block_rows,
-                  const int* block_ptr, const int64_t* indptr,
-                  const int32_t* indices, const T* vals, const T* x, T zero,
-                  T* y, cudaStream_t s) {
+// A thread block of kThreads a row block: k = 1 is y = A x in mode M,
+// k > 1 the SpMM (M = kFull).
+template <typename T, int M>
+int launch(int n_blocks, int k, const int* block_rows, const int* block_ptr,
+           const int64_t* indptr, const int32_t* indices, const T* vals,
+           const T* x, T zero, T* y, cudaStream_t s) {
+  if (n_blocks <= 0) return 0;
   if (k == 1) {
-    spmv_kernel<T, M, NT><<<n_blocks, NT, 0, s>>>(
+    spmv_kernel<T, M, kThreads><<<n_blocks, kThreads, 0, s>>>(
         block_rows, block_ptr, indptr, indices, vals, x, zero, y);
   } else {
     int team = 1;
     while (team < k && team < 32) team *= 2;
-    spmm_kernel<T, NT><<<n_blocks, NT, Smem<T, NT>::kBytes, s>>>(
+    spmm_kernel<T, kThreads><<<n_blocks, kThreads,
+                               Smem<T, kThreads>::kBytes, s>>>(
         k, team, block_rows, block_ptr, indptr, indices, vals, x, y);
   }
   return 0;
-}
-
-// `entries` (the table's S: 256, 512 or 1024) picks the thread block.
-template <typename T, int M>
-int launch(int n_blocks, int entries, int k, const int* block_rows,
-           const int* block_ptr, const int64_t* indptr, const int32_t* indices,
-           const T* vals, const T* x, T zero, T* y, cudaStream_t s) {
-  if (n_blocks <= 0) return 0;
-  switch (entries) {
-#define ROWBLOCK_CASE(S)                                                  \
-  case S:                                                                \
-    return launch_blocks<T, M, S / 4>(n_blocks, k, block_rows, block_ptr, \
-                                      indptr, indices, vals, x, zero, y, s);
-    ROWBLOCK_CASE(256)
-    ROWBLOCK_CASE(512)
-    ROWBLOCK_CASE(1024)
-#undef ROWBLOCK_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace rowblock

@@ -26,7 +26,7 @@
 // value and index, then x) with about one entry a lane, too few bytes in
 // flight to stream.  So K1 is the row-block streaming design of
 // csr_rowblock.cuh: each thread block streams a fixed range of up to
-// 1,024 entries in coalesced loads that depend on no row pointer, stages
+// 256 entries in coalesced loads that depend on no row pointer, stages
 // products (k = 1) or (value, column) pairs (k > 1) in shared memory, and
 // reduces rows from there; k = 1 has no column loop, and k > 1 reads each
 // value and index once, with X rows read contiguously across lanes.  K2
@@ -61,12 +61,12 @@ __global__ void coo_patch_kernel(int64_t n_entries, int k,
 }
 
 template <typename T>
-int csr_spmv_capped(int n_blocks, int k, int entries,
-                    const void* block_rows, const void* block_ptr,
-                    const void* indptr, const void* indices, const void* vals,
-                    const void* x, void* y, void* stream) {
+int csr_spmv_capped(int n_blocks, int k, const void* block_rows,
+                    const void* block_ptr, const void* indptr,
+                    const void* indices, const void* vals, const void* x,
+                    void* y, void* stream) {
   const int code = rowblock::launch<T, rowblock::kFull>(
-      n_blocks, entries, k, static_cast<const int*>(block_rows),
+      n_blocks, k, static_cast<const int*>(block_rows),
       static_cast<const int*>(block_ptr), static_cast<const int64_t*>(indptr),
       static_cast<const int32_t*>(indices), static_cast<const T*>(vals),
       static_cast<const T*>(x), T(0), static_cast<T*>(y),
@@ -97,22 +97,23 @@ const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int csr_spmv_capped_f64(int n_blocks, int k, int entries,
-                        const void* block_rows, const void* block_ptr,
-                        const void* indptr, const void* indices,
-                        const void* vals, const void* x, void* y,
-                        void* stream) {
-  return csr_spmv_capped<double>(n_blocks, k, entries, block_rows, block_ptr,
-                                 indptr, indices, vals, x, y, stream);
+// The S this library was compiled for: the host cuts its tables to it.
+int row_block_entries() { return rowblock::kEntries; }
+
+int csr_spmv_capped_f64(int n_blocks, int k, const void* block_rows,
+                        const void* block_ptr, const void* indptr,
+                        const void* indices, const void* vals, const void* x,
+                        void* y, void* stream) {
+  return csr_spmv_capped<double>(n_blocks, k, block_rows, block_ptr, indptr,
+                                 indices, vals, x, y, stream);
 }
 
-int csr_spmv_capped_f32(int n_blocks, int k, int entries,
-                        const void* block_rows, const void* block_ptr,
-                        const void* indptr, const void* indices,
-                        const void* vals, const void* x, void* y,
-                        void* stream) {
-  return csr_spmv_capped<float>(n_blocks, k, entries, block_rows, block_ptr,
-                                indptr, indices, vals, x, y, stream);
+int csr_spmv_capped_f32(int n_blocks, int k, const void* block_rows,
+                        const void* block_ptr, const void* indptr,
+                        const void* indices, const void* vals, const void* x,
+                        void* y, void* stream) {
+  return csr_spmv_capped<float>(n_blocks, k, block_rows, block_ptr, indptr,
+                                indices, vals, x, y, stream);
 }
 
 int coo_patch_f64(int64_t n_entries, int k, const void* rows, const void* cols,

@@ -98,8 +98,8 @@ int rowgroup(int64_t n_rows, int group, const int64_t* ip, const int32_t* ix,
 }
 
 template <typename T>
-int csr_spmv_stages(int64_t n_rows, int n_blocks, int entries, int group,
-                    int mode, const void* block_rows, const void* block_ptr,
+int csr_spmv_stages(int64_t n_rows, int n_blocks, int group, int mode,
+                    const void* block_rows, const void* block_ptr,
                     const void* indptr, const void* indices, const void* vals,
                     const void* x, T zero, void* y, void* stream) {
   using namespace rowblock;
@@ -114,8 +114,7 @@ int csr_spmv_stages(int64_t n_rows, int n_blocks, int entries, int group,
   int code = 0;
 #define STAGES_CASE(m)                                                  \
   case m:                                                               \
-    code = launch<T, m>(n_blocks, entries, 1, br, bp, ip, ix, v, xx, zero, \
-                        yy, s);                                         \
+    code = launch<T, m>(n_blocks, 1, br, bp, ip, ix, v, xx, zero, yy, s); \
     break;
   switch (mode) {
     STAGES_CASE(kFull)
@@ -140,22 +139,25 @@ const char* stages_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int csr_spmv_stages_f64(int64_t n_rows, int n_blocks, int entries, int group,
+// The S this library was compiled for: K1's, so that `full` is K1.
+int row_block_entries() { return rowblock::kEntries; }
+
+int csr_spmv_stages_f64(int64_t n_rows, int n_blocks, int group,
                         int mode, const void* block_rows, const void* block_ptr,
                         const void* indptr, const void* indices,
                         const void* vals, const void* x, double zero, void* y,
                         void* stream) {
-  return csr_spmv_stages<double>(n_rows, n_blocks, entries, group, mode,
+  return csr_spmv_stages<double>(n_rows, n_blocks, group, mode,
                                  block_rows, block_ptr, indptr, indices, vals,
                                  x, zero, y, stream);
 }
 
-int csr_spmv_stages_f32(int64_t n_rows, int n_blocks, int entries, int group,
+int csr_spmv_stages_f32(int64_t n_rows, int n_blocks, int group,
                         int mode, const void* block_rows, const void* block_ptr,
                         const void* indptr, const void* indices,
                         const void* vals, const void* x, float zero, void* y,
                         void* stream) {
-  return csr_spmv_stages<float>(n_rows, n_blocks, entries, group, mode,
+  return csr_spmv_stages<float>(n_rows, n_blocks, group, mode,
                                 block_rows, block_ptr, indptr, indices, vals, x,
                                 zero, y, stream);
 }

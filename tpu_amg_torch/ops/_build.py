@@ -55,12 +55,13 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build_cuda_library(name: str, source: Path) -> Path:
-    """Build one ``.cu`` file with nvcc for ``sm_90a`` into ``name``; the
-    ``.cuh`` headers of its directory count for its freshness."""
+def build_cuda_library(name: str, source: Path, defines=()) -> Path:
+    """Build one ``.cu`` file with nvcc for ``sm_90a`` into ``name``, with
+    the macros ``defines`` ("NAME=VALUE"); the ``.cuh`` headers of its
+    directory count for its freshness."""
     cmd = [
         nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", *(f"-D{d}" for d in defines),
     ]
     return build_library(name, source, cmd,
                          headers=sorted(source.parent.glob("*.cuh")))

@@ -16,8 +16,8 @@ rectangular.
   operations.  K1 is a row-block streaming kernel (CUDA C++ in
   ``tpu_amg_torch/csrc/csr_rowblock.cuh``, instantiated by
   ``csrc/spmv.cu``): :func:`row_blocks` cuts the rows once, on the
-  host, into blocks of at most ``BLOCK_ENTRIES`` entries and
-  :func:`max_block_rows` rows; one thread block streams a row block's
+  host, into blocks of at most ``BLOCK_ENTRIES`` entries and half as
+  many rows; one thread block streams a row block's
   entries in coalesced loads, stages the products in shared memory and
   reduces its rows from there.  K2 is one atomic add per tail entry and
   column.
@@ -56,13 +56,11 @@ from tpu_amg_torch.ops._build import build_cuda_library
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "spmv.cu"
 DEFAULT_CAP = 64
 MAX_COLUMNS = 64
-# K1's row blocks: S entries at most (the kernel is compiled for each S of
-# KERNEL_BLOCK_ENTRIES: S / 4 threads, a 4-entry chunk each) and R rows at
-# most (R <= max_block_rows(S), the kernel's shared row-pointer array).
-# S = 1024 was the fastest on the SA path's A0 in the sweeps of
-# tools/rowblocks.py (PERF.md).
-BLOCK_ENTRIES = 1024
-KERNEL_BLOCK_ENTRIES = (256, 512, 1024)
+# K1's row blocks: S entries and S / 2 rows at most; the kernel library is
+# compiled for this S (ROWBLOCK_ENTRIES in csrc/csr_rowblock.cuh: S / 4
+# threads, 4 entries each).  Chosen by tools/rowblocks.py on the SA path's
+# own matrices (PERF.md).
+BLOCK_ENTRIES = 256
 _INT32_MAX = 2**31 - 1
 
 csr_spmv_launches = 0
@@ -77,21 +75,38 @@ def reset_launch_counts() -> None:
     csr_spmv_launches_by_shape.clear()
 
 
-@functools.cache
-def kernel_lib() -> ctypes.CDLL:
-    """The kernel library, compiled with nvcc on first call."""
-    dll = ctypes.CDLL(str(build_cuda_library("libamg_kernels.so", SOURCE)))
+def check_block_entries(dll: ctypes.CDLL, entries: int = BLOCK_ENTRIES):
+    """Raise unless the library ``dll`` was compiled for row blocks of
+    ``entries``."""
+    dll.row_block_entries.restype = ctypes.c_int
+    built = dll.row_block_entries()
+    if built != entries:
+        raise RuntimeError(f"{dll._name} is compiled for row blocks of "
+                           f"{built} entries, the tables are cut for {entries}")
+
+
+def bind_kernel_lib(path: Path, entries: int = BLOCK_ENTRIES) -> ctypes.CDLL:
+    """Load a build of ``spmv.cu`` compiled for row blocks of
+    ``entries`` and declare its entry points."""
+    dll = ctypes.CDLL(str(path))
+    check_block_entries(dll, entries)
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for suffix in ("f64", "f32"):
         fn = getattr(dll, f"csr_spmv_capped_{suffix}")
         fn.restype = i32
-        fn.argtypes = [i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
+        fn.argtypes = [i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
         fn = getattr(dll, f"coo_patch_{suffix}")
         fn.restype = i32
         fn.argtypes = [i64, i32, vp, vp, vp, vp, vp, vp]
     dll.kernel_error_string.restype = ctypes.c_char_p
     dll.kernel_error_string.argtypes = [i32]
     return dll
+
+
+@functools.cache
+def kernel_lib() -> ctypes.CDLL:
+    """The kernel library, compiled with nvcc on first call."""
+    return bind_kernel_lib(build_cuda_library("libamg_kernels.so", SOURCE))
 
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
@@ -118,30 +133,21 @@ def split_capped(indptr, indices, data, cap: int):
     )
 
 
-def max_block_rows(max_entries: int) -> int:
-    """The most rows a row block of ``max_entries`` may hold: two a
-    thread of the kernel's block (its shared row-pointer array)."""
-    return max_entries // 2
-
-
-def row_blocks(cap_indptr: np.ndarray, max_entries: int = BLOCK_ENTRIES,
-               max_rows: int | None = None) -> np.ndarray:
+def row_blocks(cap_indptr: np.ndarray,
+               max_entries: int = BLOCK_ENTRIES) -> np.ndarray:
     """K1's row-block table (int32, n_blocks + 1): block b holds rows
     ``table[b]`` to ``table[b + 1]``, whose entries span at most
     ``max_entries / 4`` aligned 4-entry chunks (so at most
-    ``max_entries`` entries), and at most ``max_rows`` rows (by default
-    :func:`max_block_rows`).
+    ``max_entries`` entries), and at most ``max_entries / 2`` rows (two
+    a thread of the kernel's block: its shared row-pointer array).
 
     Rows go to buckets by the chunk of their first entry, ``wc`` chunks a
     bucket, ``wc`` = the budget less the chunks a longest row can reach
-    past its bucket; a bucket of more than ``max_rows`` rows is split.
-    Every row with entries fits: its length is at most the cap."""
+    past its bucket; a bucket of more rows than that is split.  Every row
+    with entries fits: its length is at most the cap."""
     if max_entries % 4 or max_entries < 4:
         raise ValueError(f"max_entries {max_entries}: a positive multiple of 4")
-    most = max_block_rows(max_entries)
-    max_rows = most if max_rows is None else max_rows
-    if not 1 <= max_rows <= most:
-        raise ValueError(f"max_rows {max_rows}: 1..{most}")
+    max_rows = max_entries // 2
     indptr = np.asarray(cap_indptr, dtype=np.int64)
     n = len(indptr) - 1
     longest = int(np.diff(indptr).max()) if n else 0
@@ -157,12 +163,13 @@ def row_blocks(cap_indptr: np.ndarray, max_entries: int = BLOCK_ENTRIES,
     return np.r_[starts, n].astype(np.int32)
 
 
-def _table(cap_indptr: np.ndarray, device, max_entries: int,
-           max_rows: int | None) -> dict:
-    rows = row_blocks(cap_indptr, max_entries, max_rows)
+def block_table(cap_indptr: np.ndarray, device,
+                max_entries: int = BLOCK_ENTRIES) -> dict:
+    """:func:`row_blocks` on ``device`` as a ``CappedCSR``'s
+    ``block_rows`` and ``block_ptr``."""
+    rows = row_blocks(cap_indptr, max_entries)
     return dict(block_rows=to_device(rows, device, torch.int32),
-                block_ptr=to_device(cap_indptr[rows], device, torch.int32),
-                block_entries=max_entries)
+                block_ptr=to_device(cap_indptr[rows], device, torch.int32))
 
 
 @dataclasses.dataclass
@@ -171,7 +178,7 @@ class CappedCSR:
 
     ``indptr`` int64, ``indices``/``tail_rows``/``tail_cols`` int32,
     values in the working dtype.  K1's row-block table, built for blocks
-    of ``block_entries``: ``block_rows`` (int32, n_blocks + 1, from
+    of ``BLOCK_ENTRIES``: ``block_rows`` (int32, n_blocks + 1, from
     :func:`row_blocks`) and ``block_ptr``, the first entry of each block
     (``indptr[block_rows]``, int32), so that a block's bounds are two
     loads of the table."""
@@ -186,7 +193,6 @@ class CappedCSR:
     cap: int
     block_rows: torch.Tensor
     block_ptr: torch.Tensor
-    block_entries: int
     # expanded row ids of the capped part, for the plain version
     _rows: torch.Tensor = dataclasses.field(default=None, repr=False)
 
@@ -206,15 +212,8 @@ class CappedCSR:
             tail_vals=to_device(tv, device, dtype),
             shape=tuple(csr.shape),
             cap=cap,
-            **_table(ip, device, BLOCK_ENTRIES, None),
+            **block_table(ip, device),
         )
-
-    def reblocked(self, max_entries: int,
-                  max_rows: int | None = None) -> "CappedCSR":
-        """The same matrix with a row-block table of other sizes."""
-        return dataclasses.replace(
-            self, **_table(self.indptr.cpu().numpy(), self.device,
-                           max_entries, max_rows))
 
     @property
     def device(self) -> torch.device:
@@ -300,19 +299,14 @@ def _kernel(name: str, x: torch.Tensor):
     return getattr(kernel_lib(), f"{name}_{_SUFFIX[x.dtype]}")
 
 
-def kernel_entries(mat: CappedCSR, k: int = 1) -> int:
-    """The row-block kernels' configuration for ``mat``'s table (its S),
-    after the checks their 32-bit offsets and the SpMM's 16-byte copies
-    need."""
-    if mat.block_entries not in KERNEL_BLOCK_ENTRIES:
-        raise ValueError(f"blocks of {mat.block_entries} entries; the "
-                         f"kernels take {KERNEL_BLOCK_ENTRIES}")
+def check_row_block_kernel(mat: CappedCSR, k: int = 1) -> None:
+    """The checks the row-block kernels' 32-bit offsets and the SpMM's
+    16-byte copies need."""
     if max(mat.data.numel(), max(mat.shape) * k) > _INT32_MAX:
         raise ValueError(f"A {mat.shape} with {mat.data.numel()} entries "
                          f"at k = {k} passes 32-bit offsets")
     if mat.indices.data_ptr() % 16 or mat.data.data_ptr() % 16:
         raise ValueError("indices and values must be 16-byte aligned")
-    return mat.block_entries
 
 
 def plain_csr_spmv_capped(mat: CappedCSR, x: torch.Tensor) -> torch.Tensor:
@@ -332,28 +326,36 @@ def plain_coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor) -> None:
     )
 
 
-def csr_spmv_capped(mat: CappedCSR, x: torch.Tensor) -> torch.Tensor:
-    """K1: Y = A_cap X (the first ``mat.cap`` entries of every row)."""
-    global csr_spmv_launches
-    k = check_x(mat, x)
-    if x.device.type == "cpu":
-        return plain_csr_spmv_capped(mat, x)
-    fn = _kernel("csr_spmv_capped", x)
-    entries = kernel_entries(mat, k)
+def launch_csr_spmv_capped(fn, mat: CappedCSR, x: torch.Tensor,
+                           k: int) -> torch.Tensor:
+    """Launch ``fn``, a ``csr_spmv_capped_*`` entry point of a kernel
+    library, on CUDA tensors; counts nothing."""
+    check_row_block_kernel(mat, k)
     y = torch.empty((mat.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                     device=x.device)
     if mat.shape[0] == 0:
         return y
     with torch.cuda.device(x.device):
         code = fn(
-            mat.n_blocks, k, entries, mat.block_rows.data_ptr(),
+            mat.n_blocks, k, mat.block_rows.data_ptr(),
             mat.block_ptr.data_ptr(), mat.indptr.data_ptr(),
             mat.indices.data_ptr(), mat.data.data_ptr(), x.data_ptr(),
             y.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(code, "csr_spmv_capped")
-    csr_spmv_launches += 1
-    csr_spmv_launches_by_shape[(*mat.shape, k)] += 1
+    return y
+
+
+def csr_spmv_capped(mat: CappedCSR, x: torch.Tensor) -> torch.Tensor:
+    """K1: Y = A_cap X (the first ``mat.cap`` entries of every row)."""
+    global csr_spmv_launches
+    k = check_x(mat, x)
+    if x.device.type == "cpu":
+        return plain_csr_spmv_capped(mat, x)
+    y = launch_csr_spmv_capped(_kernel("csr_spmv_capped", x), mat, x, k)
+    if mat.shape[0]:
+        csr_spmv_launches += 1
+        csr_spmv_launches_by_shape[(*mat.shape, k)] += 1
     return y
 
 

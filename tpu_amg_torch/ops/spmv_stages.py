@@ -59,7 +59,8 @@ import numpy as np
 import torch
 
 from tpu_amg_torch.ops._build import build_cuda_library
-from tpu_amg_torch.ops.spmv import CappedCSR, kernel_entries
+from tpu_amg_torch.ops.spmv import (CappedCSR, check_block_entries,
+                                    check_row_block_kernel)
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "spmv_stages.cu"
 MODES = ("full", "nogather", "nored", "nogather_nored", "streamonly",
@@ -78,12 +79,13 @@ def reset_launch_counts() -> None:
 def kernel_lib() -> ctypes.CDLL:
     """The ablation library, compiled with nvcc on first call."""
     dll = ctypes.CDLL(str(build_cuda_library("libamg_stages.so", SOURCE)))
+    check_block_entries(dll)
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for suffix, scalar in (("f64", ctypes.c_double), ("f32", ctypes.c_float)):
         fn = getattr(dll, f"csr_spmv_stages_{suffix}")
         fn.restype = i32
-        fn.argtypes = [i64, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp,
-                       scalar, vp, vp]
+        fn.argtypes = [i64, i32, i32, i32, vp, vp, vp, vp, vp, vp, scalar,
+                       vp, vp]
     dll.stages_error_string.restype = ctypes.c_char_p
     dll.stages_error_string.argtypes = [i32]
     return dll
@@ -173,14 +175,14 @@ def csr_spmv_stages(mat: CappedCSR, x: torch.Tensor, mode: str,
         raise RuntimeError(f"no kernel for tensors on {x.device}")
     if x.dtype not in _SUFFIX:
         raise TypeError(f"no kernel for {x.dtype}")
-    entries = kernel_entries(mat)
+    check_row_block_kernel(mat)
     lib = kernel_lib()
     y = torch.empty(out_shape(mat, mode), dtype=x.dtype, device=x.device)
     if mat.shape[0] == 0:
         return y
     with torch.cuda.device(x.device):
         code = getattr(lib, f"csr_spmv_stages_{_SUFFIX[x.dtype]}")(
-            mat.shape[0], mat.n_blocks, entries, rowgroup_lanes(mat),
+            mat.shape[0], mat.n_blocks, rowgroup_lanes(mat),
             MODES.index(mode), mat.block_rows.data_ptr(),
             mat.block_ptr.data_ptr(), mat.indptr.data_ptr(),
             mat.indices.data_ptr(), mat.data.data_ptr(), x.data_ptr(), zero,

@@ -70,6 +70,20 @@ class SolverConfig:
         resolve_device(self.device)
 
 
+def scalar_3d_config(device: str = "cuda", **overrides) -> SolverConfig:
+    """The scalar 3-D SA config of the JAX package's ``tools/setup3d.py``,
+    in float64: the SA path of ``chip_smoke.py`` and of the row-block
+    probe (``tools/rowblocks.py``)."""
+    kw = dict(
+        coarsening_near_null_dim=8, interp_near_null_dim=2,
+        coarsening_factor=16.0, smoothing_steps=1, smoothing_iters=10,
+        coarsest_dim=1500, dense_threshold=8192, sa_trunc_tol=0.1,
+        coarse_drop_tol=0.01, dtype=torch.float64, device=device,
+    )
+    kw.update(overrides)
+    return SolverConfig(**kw)
+
+
 class AMGSolver:
     def __init__(self, a: CSR, preconditioner, hierarchy=None,
                  config: Optional[SolverConfig] = None):

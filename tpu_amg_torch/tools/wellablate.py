@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from tpu_amg_torch.ops import spmv_stages
-from tpu_amg_torch.ops.spmv import CappedCSR
+from tpu_amg_torch.ops.spmv import BLOCK_ENTRIES, CappedCSR
 from tpu_amg_torch.utils.timing import call_ms, hbm_bound_ms
 
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
@@ -91,7 +91,7 @@ def run(argv=None):
     print(f"# csr_spmv_stages on {where}; unstructured_fem_system"
           f"({args.side}): n={csr.nrows} nnz={csr.nnz} (capped "
           f"{mat.data.numel()}, tail {mat.n_tail}), {mat.n_blocks} row "
-          f"blocks of <= {mat.block_entries} entries, rowgroup "
+          f"blocks of <= {BLOCK_ENTRIES} entries, rowgroup "
           f"{spmv_stages.rowgroup_lanes(mat)} lanes a row, "
           f"{args.dtype}; built in {time.perf_counter() - t0:.1f} s",
           flush=True)
