@@ -12,18 +12,22 @@ Phases, one printed line per result; any failed check exits non-zero:
      heavy-row matrix with a small cap, then every A, P and R of the SA
      path's hierarchy that K1 ran on (and all of levels 0 and 1); mv and
      mm (k=8, every k the SA path ran on that matrix, and for A0 the
-     bootstrap's k=7), float64 and float32; errors, and the device's
+     bootstrap's k=7), float64 and float32; errors, two K2 calls bitwise
+     equal, the tail's rows and longest row, and the device's
      time per call: CUDA events around the replay of a CUDA graph of 50
      calls (median of 5 replays); beside them, at every k, the library's
      own SpMV or SpMM (a torch sparse CSR tensor of the capped part, and
      of the tail, `@ x`) timed the same way, and the bound: the bytes
-     each call must move over the 3,350 GB/s data sheet; at k=1 also
+     each call must move over the 3,350 GB/s data sheet (for K2 also
+     its first design's, a row id per entry); at k=1 also
      K1's first design (`rowgroup`); then
-     K1's launches on the SA path by matrix, times (time - bound);
+     K1's and K2's launches on the SA path by matrix, times (time -
+     bound);
   4. SA path: AMGSolver.setup on unstructured_poisson_3d(side) with the
      scalar 3-D SA config, then 3 PCG solves of A x = A x_true (seeded
      x_true) to rtol 1e-6; the kernels' launch counts over that run must
-     be > 0, and K1's are printed by (rows, cols, k); the V-cycle's time
+     be > 0, and K1's and K2's are printed by (rows, cols, k); the
+     V-cycle's time
      as the solve runs it (enqueued from Python) and the device's own
      time for it (graph replays);
   5. a small SA input solved on the card and, from the same hierarchy,
@@ -31,19 +35,24 @@ Phases, one printed line per result; any failed check exits non-zero:
   6. stream probe: its entry point (python -m
      tpu_amg_torch.tools.streambench, 32 MiB per call) with the launch
      count read over that run; then every case against its plain
-     version on the same inputs (exact: they are integers), GB/s of
-     both, the kernel's from the entry point's run; the best
-     float32 case again at 1 GiB per call, past the 50 MB L2: the read
-     bandwidth of device memory;
+     version (torch.sum over the view) on the same inputs (exact: they
+     are integers), two calls bitwise equal, times and GB/s of both, the
+     kernel's from the entry point's run; the best float32 case again at
+     1 GiB per call, past the 50 MB L2: the read bandwidth of device
+     memory, beside torch.sum's and the copy probe's best configuration
+     on as many bytes;
   7. structured path: build_structured_multigrid on poisson3d(100)
      (1,000,000 dofs) in float64 (DIA levels through K3),
      its levels, then 3 PCG solves of A x = A x_true to rtol 1e-6; the
-     launch counts over that run must be > 0; the V-cycle's times;
+     launch counts over that run must be > 0, K2's printed by (rows,
+     cols, k); the V-cycle's times;
   8. K3 vs its plain version at that path's level-0 and level-1
      operators, k = 1, 7, 8, float64 and float32, with K1 + K2 on the
      same matrices as a capped CSR beside it; K1/K2 vs their plain
      versions at the path's CSR level (level 2, outside the DIA
-     envelope: most rows spill to K2), k = 1, 8, float64 and float32;
+     envelope: every row spills to K2), k = 1, 8 and every k the path
+     ran, float64 and float32, as in phase 3; then K2's launches on the
+     structured path, times (time - bound);
   9. a small structured input on the card and on the CPU: the two must
      agree;
  10. stage ablation of K1: its entry point (python -m
@@ -87,11 +96,13 @@ RTOL = 1e-6
 MAX_ITERS = 46  # twice the reference's 23 PCG iterations for this config
 STRUCTURED_SIDE = 100  # poisson3d(100): 1,000,000 dofs
 MAX_ITERS_STRUCTURED = 14  # twice the reference's 7 at poisson3d(100)
-TOL = {"float64": 1e-12, "float32": 1e-5}  # f64: atomics reorder sums
+# the kernels sum in another order than the plain versions
+TOL = {"float64": 1e-12, "float32": 1e-5}
 STREAM_MIB = 32  # the harness's TOTAL (tools/streambench.py:25)
 STREAM_BIG_MIB = 1024  # past the card's 50 MB L2
 FEM_SIDE = 1024  # unstructured_fem_system(1024): the harnesses' 1M matrix
 PRIMITIVE_OP = "gather_fma"  # the WELL stage-B core: the kernels-line case
+COPY_BEST = "depth= 2 unit=64KB"  # the copy probe's best at 1 GiB (PR 3)
 
 
 def say(msg: str) -> None:
@@ -136,22 +147,35 @@ def tail_csr(mat):
     """K2's tail of a CappedCSR as its own torch CSR tensor."""
     import torch
 
-    counts = torch.bincount(mat.tail_rows.long(), minlength=mat.shape[0])
+    counts = torch.zeros(mat.shape[0], dtype=torch.int64, device=mat.device)
+    counts[mat.tail_row_ids.long()] = (mat.tail_ptr[1:]
+                                       - mat.tail_ptr[:-1]).long()
     indptr = torch.zeros(mat.shape[0] + 1, dtype=torch.int64,
                          device=mat.device)
     indptr[1:] = torch.cumsum(counts, 0)
     return torch_csr(indptr, mat.tail_cols, mat.tail_vals, mat.shape)
 
 
-def k2_bytes(mat, k: int) -> int:
-    """K2 at k columns: the tail's rows, columns and values, the X rows
-    it reads, and the Y rows it reads and writes, each once."""
+def k2_bytes(mat, k: int):
+    """K2 at k columns, each input once: the tail's columns and values,
+    its row table (row ids and starts), the X rows it reads, and the Y
+    rows it reads and writes.  Also the first design's (a row id per
+    entry, no table), for the record."""
     import torch
 
     isz = mat.data.element_size()
     cols = int(torch.unique(mat.tail_cols).numel())
-    rows = int(torch.unique(mat.tail_rows).numel())
-    return mat.n_tail * (8 + isz) + (cols + 2 * rows) * k * isz
+    rows = mat.n_tail_rows
+    xy = (cols + 2 * rows) * k * isz
+    return (mat.n_tail * (4 + isz) + 4 * (2 * rows + 1) + xy,
+            mat.n_tail * (8 + isz) + xy)
+
+
+def tail_shape(mat) -> str:
+    """The tail's rows and its longest row, as printed."""
+    lens = mat.tail_ptr[1:] - mat.tail_ptr[:-1]
+    return (f"{mat.n_tail_rows} tail rows, longest "
+            f"{int(lens.max()) if mat.n_tail_rows else 0}")
 
 
 def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
@@ -176,11 +200,14 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
             p1 = spmv.plain_csr_spmv_capped(mat, x)
             y2 = torch.zeros_like(y1)
             p2 = torch.zeros_like(y1)
+            again = torch.zeros_like(y1)
             spmv.coo_patch(mat, x, y2)
+            spmv.coo_patch(mat, x, again)
             spmv.plain_coo_patch(mat, x, p2)
             y = y1 + y2
             p = p1 + p2
             torch.cuda.synchronize()
+            same = torch.equal(y2, again)
             scale = float(p.abs().max())
             rel = float((y - p).abs().max()) / max(scale, 1e-300)
             err1 = float((y1 - p1).abs().max())
@@ -198,7 +225,8 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
                                 reps, graph=True)
             lib = dict(k1_lib_ms=median_ms(lambda: lib1 @ x, reps, graph=True),
                        k1_bound_ms=hbm_bound_ms(spmv.k1_bytes(mat, k)),
-                       k2_lib_ms=None, k2_bound_ms=None, rowgroup_ms=None)
+                       k2_lib_ms=None, k2_bound_ms=None,
+                       k2_old_bound_ms=None, rowgroup_ms=None)
             if k == 1:
                 lib["rowgroup_ms"] = median_ms(
                     lambda: spmv_stages.csr_spmv_stages(mat, x, "rowgroup"),
@@ -206,9 +234,11 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
             if lib2 is not None:
                 lib["k2_lib_ms"] = median_ms(lambda: lib2 @ x, reps,
                                              graph=True)
-                lib["k2_bound_ms"] = hbm_bound_ms(k2_bytes(mat, k))
+                new, old = k2_bytes(mat, k)
+                lib["k2_bound_ms"] = hbm_bound_ms(new)
+                lib["k2_old_bound_ms"] = hbm_bound_ms(old)
             check(
-                rel <= TOL[dname],
+                rel <= TOL[dname] and same,
                 f"kernels {name} {dname} k={k}: shape {mat.shape} "
                 f"nnz {mat.nnz} tail {mat.n_tail} row blocks "
                 f"{mat.n_blocks}: max rel err {rel:.3e} (limit "
@@ -220,13 +250,35 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
                 + f"; K2 {t2:.4f} ms plain {t2p:.4f} ms"
                 + ("" if lib2 is None else
                    f" library {lib['k2_lib_ms']:.4f} ms bound "
-                   f"{lib['k2_bound_ms']:.4f} ms"),
+                   f"{lib['k2_bound_ms']:.4f} ms (first design's "
+                   f"{lib['k2_old_bound_ms']:.4f}; {tail_shape(mat)}); two "
+                   f"K2 calls bitwise equal: {same}"),
             )
             results.append(dict(case=name, dtype=dname, k=k,
                                 shape=tuple(mat.shape), err1=err1,
                                 err2=err2, k1_ms=t1, k1_plain_ms=t1p,
                                 k2_ms=t2, k2_plain_ms=t2p,
                                 n_tail=mat.n_tail, **lib))
+
+
+def say_excess(kernel, key, path, by_shape, results, cases):
+    """Print a kernel's launches x (time - bound) on a path, for each
+    (rows, cols, k) it ran there, from the float64 times of ``cases``."""
+    excess, total = [], 0.0
+    for shape, count in sorted(by_shape.items()):
+        case = next((c for c in results if c["dtype"] == "float64"
+                     and (*c["shape"], c["k"]) == shape
+                     and c["case"] in cases), None)
+        if case is None:
+            excess.append(f"{shape}: {count} launches, not timed")
+            continue
+        ms = count * (case[f"{key}_ms"] - case[f"{key}_bound_ms"])
+        total += ms
+        excess.append(f"{case['case']} k={shape[2]} {shape}: {count} x "
+                      f"({case[f'{key}_ms'] * 1e3:.2f} - "
+                      f"{case[f'{key}_bound_ms'] * 1e3:.2f} us) = {ms:.3f} ms")
+    say(f"{kernel} on {path}, launches x (time - bound), float64: "
+        f"{total:.3f} ms in all; " + "; ".join(excess))
 
 
 def reset_counts() -> None:
@@ -240,13 +292,14 @@ def reset_counts() -> None:
 def stream_cases(bench_records, reps):
     """Every case of the probe against its plain version on the inputs
     the entry point timed (seed 0, 32 MiB per call), with the kernel's
-    time from the entry point's run; the best float32 case again past
-    L2.  Returns (per-case records, best float32 record, its record past
-    L2)."""
+    time from the entry point's run, and two calls bitwise equal; the
+    best float32 case again past L2, beside torch.sum and the copy
+    probe's best configuration on as many bytes.  Returns (per-case
+    records, best float32 record, its record past L2)."""
     import torch
 
     from tpu_amg_torch.ops import stream
-    from tpu_amg_torch.tools import streambench
+    from tpu_amg_torch.tools import dmabench, streambench
     from tpu_amg_torch.utils.timing import hbm_bound_ms, median_ms
 
     dev = torch.device("cuda")
@@ -257,9 +310,11 @@ def stream_cases(bench_records, reps):
         inputs = streambench.make_inputs(case, STREAM_MIB << 20, dev, g)
         carry = torch.full((8, 128), 1.0, device=dev)
         y = stream.stream_sum(inputs, carry)
+        again = stream.stream_sum(inputs, carry)
         p = stream.plain_stream_sum(inputs, carry)
         torch.cuda.synchronize()
         err = float((y - p).abs().max())
+        same = torch.equal(y, again)
         t = bench["ms"]
         tp = median_ms(lambda: stream.plain_stream_sum(inputs, carry), reps,
                        graph=True)
@@ -271,12 +326,14 @@ def stream_cases(bench_records, reps):
                    plain_gbps=nbytes / tp / 1e6,
                    bound_ms=hbm_bound_ms(nbytes + bench["tiles"] * 4096))
         records.append(rec)
-        check(err == 0.0,
+        check(err == 0.0 and same,
               f"stream {case.name}: {nbytes} B per call, max abs err "
-              f"{err:.1e} (limit 0: integer inputs); kernel {t * 1e3:.1f} us "
+              f"{err:.1e} (limit 0: integer inputs), two calls bitwise "
+              f"equal: {same}; kernel {t * 1e3:.2f} us "
               f"{rec['gbps']:.1f} GB/s, plain (torch.sum, the library "
-              f"call) {tp * 1e3:.1f} us {rec['plain_gbps']:.1f} GB/s, "
-              f"bound {rec['bound_ms'] * 1e3:.1f} us")
+              f"call) {tp * 1e3:.2f} us {rec['plain_gbps']:.1f} GB/s "
+              f"({'at or under' if t <= tp else 'over'} it), bound "
+              f"{rec['bound_ms'] * 1e3:.1f} us")
         del inputs
     best = max((r for r in records if r["dtype"] == "torch.float32"),
                key=lambda r: r["gbps"])
@@ -288,8 +345,13 @@ def stream_cases(bench_records, reps):
     t = median_ms(lambda: stream.stream_sum(inputs, carry), 20, graph=True)
     tp = median_ms(lambda: stream.plain_stream_sum(inputs, carry), 20,
                    graph=True)
+    del inputs
+    # the copy probe's best configuration, both engines, on as many bytes
+    copy = dmabench.run(["--total-mib", str(STREAM_BIG_MIB), "--reps", "10",
+                         COPY_BEST])
     big = dict(name=case.name, ms=t, plain_ms=tp, gbps=nbytes / t / 1e6,
-               plain_gbps=nbytes / tp / 1e6)
+               plain_gbps=nbytes / tp / 1e6,
+               copy_gbps=max(r["gbps"] for r in copy))
     return records, best, big
 
 
@@ -722,15 +784,19 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = (spmv.csr_spmv_launches, spmv.coo_patch_launches)
     k1_by_shape = dict(spmv.csr_spmv_launches_by_shape)
+    k2_by_shape = dict(spmv.coo_patch_launches_by_shape)
     solve_counts = (launches[0] - setup_counts[0],
                     launches[1] - setup_counts[1])
     check(
         min(solve_counts) > 0 and min(launches) > 0
-        and sum(k1_by_shape.values()) == launches[0],
+        and sum(k1_by_shape.values()) == launches[0]
+        and sum(k2_by_shape.values()) == launches[1],
         f"launches over the SA path: csr_spmv_capped {launches[0]} "
         f"(solves {solve_counts[0]}), coo_patch {launches[1]} "
         f"(solves {solve_counts[1]}); csr_spmv_capped by (rows, cols, k): "
-        + ", ".join(f"{key} {v}" for key, v in sorted(k1_by_shape.items())),
+        + ", ".join(f"{key} {v}" for key, v in sorted(k1_by_shape.items()))
+        + "; coo_patch by (rows, cols, k): "
+        + ", ".join(f"{key} {v}" for key, v in sorted(k2_by_shape.items())),
     )
     r = torch.from_numpy(np.random.default_rng(7).standard_normal(a.nrows)).cuda()
     t_vc = median_ms(lambda: solver.apply_preconditioner(r), 20)
@@ -776,23 +842,9 @@ def main() -> int:
     check({"A0", "P0", "R0", "A1", "P1", "R1"} <= set(sa_cases),
           "sparse matrices of the SA path timed: " + ", ".join(
               f"{k} {v}" for k, v in sa_cases.items()))
-    # K1's excess over its bound on the SA path: launches x (time - bound)
-    # for each (rows, cols, k) it ran, from the float64 times above
-    excess, total = [], 0.0
-    for key, count in sorted(k1_by_shape.items()):
-        case = next((c for c in results if c["dtype"] == "float64"
-                     and (*c["shape"], c["k"]) == key
-                     and c["case"] in sa_cases), None)
-        if case is None:
-            excess.append(f"{key}: {count} launches, not timed")
-            continue
-        ms = count * (case["k1_ms"] - case["k1_bound_ms"])
-        total += ms
-        excess.append(f"{case['case']} k={key[2]} {key}: {count} x "
-                      f"({case['k1_ms'] * 1e3:.2f} - "
-                      f"{case['k1_bound_ms'] * 1e3:.2f} us) = {ms:.3f} ms")
-    say(f"K1 on the SA path, launches x (time - bound), float64: {total:.3f} "
-        f"ms in all; " + "; ".join(excess))
+    # K1's and K2's excess over their bounds on the SA path
+    say_excess("K1", "k1", "the SA path", k1_by_shape, results, sa_cases)
+    say_excess("K2", "k2", "the SA path", k2_by_shape, results, sa_cases)
 
     # ---- 5. small input: card vs the plain versions on the CPU
     small = unstructured_poisson_3d(16)
@@ -832,7 +884,9 @@ def main() -> int:
         f"({big['ms'] * 1e3:.1f} us per call): device memory, "
         f"{big['gbps'] / HBM_DATASHEET_GBPS:.1%} of the "
         f"{HBM_DATASHEET_GBPS:.0f} GB/s data sheet; plain version "
-        f"{big['plain_gbps']:.1f} GB/s ({big['plain_ms'] * 1e3:.1f} us)")
+        f"(torch.sum) {big['plain_gbps']:.1f} GB/s "
+        f"({big['plain_ms'] * 1e3:.1f} us); copy probe "
+        f"({COPY_BEST}, best engine) {big['copy_gbps']:.1f} GB/s")
 
     # ---- 7. structured path: DIA levels through K3
     side = STRUCTURED_SIDE
@@ -877,6 +931,7 @@ def main() -> int:
     s_launches = dict(dia_spmv=dia_ops.dia_spmv_launches,
                       csr_spmv_capped=spmv.csr_spmv_launches,
                       coo_patch=spmv.coo_patch_launches)
+    s_k2_by_shape = dict(spmv.coo_patch_launches_by_shape)
     csr_levels = [lvl.a.mat for lvl in smg.levels
                   if isinstance(lvl.a, SparseOperator)
                   and not isinstance(lvl.a.mat, DIA)]
@@ -886,7 +941,9 @@ def main() -> int:
         and (not any(m.n_tail for m in csr_levels)
              or s_launches["coo_patch"] > 0),
         "launches over the structured path: " + ", ".join(
-            f"{k} {v}" for k, v in s_launches.items()),
+            f"{k} {v}" for k, v in s_launches.items())
+        + "; coo_patch by (rows, cols, k): " + ", ".join(
+            f"{key} {v}" for key, v in sorted(s_k2_by_shape.items())),
     )
     rs = torch.from_numpy(np.random.default_rng(7).standard_normal(ps.nrows)).cuda()
     t_svc = median_ms(lambda: smg.mv(rs), 20)
@@ -905,16 +962,21 @@ def main() -> int:
                          args.reps, dia_results)
     check(len(csr_levels) > 0, f"the structured path has "
           f"{len(csr_levels)} CSR levels (expected level 2)")
+    s_cases = set()
     for lvl, level in enumerate(smg.levels):
         mat = getattr(level.a, "mat", None)
         if isinstance(mat, spmv.CappedCSR):
+            s_cases.add(f"S{lvl}")
+            ran = {key[2] for key in s_k2_by_shape if key[:2] == mat.shape}
             kernel_cases(
                 f"S{lvl}",
                 {torch.float64: mat,
                  torch.float32: spmv.CappedCSR.from_csr(
                      mat.to_csr(), "cuda", torch.float32)},
-                args.reps, results,
+                args.reps, results, sorted({1, 8} | ran),
             )
+    say_excess("K2", "k2", "the structured path", s_k2_by_shape, results,
+               s_cases)
 
     # ---- 9. small structured input: card vs the plain versions on the CPU
     n24 = 24
@@ -956,6 +1018,7 @@ def main() -> int:
                   and c["dtype"] == "float64"]
     a0 = next(c for c in main_cases if c["case"] == "A0" and c["k"] == 1)
     r0 = next(c for c in main_cases if c["case"] == "R0" and c["k"] == 1)
+    s2 = next(c for c in main_cases if c["case"] == "S2" and c["k"] == 1)
     d0 = next(c for c in dia_results if c["case"] == "A0"
               and c["dtype"] == "float64" and c["k"] == 1)
     kernels = [
@@ -974,7 +1037,12 @@ def main() -> int:
              max_abs_err=max(c["err2"] for c in main_cases),
              ms=r0["k2_ms"], plain_ms=r0["k2_plain_ms"],
              bound_ms=r0["k2_bound_ms"], bound_by="bytes",
-             library_ms=r0["k2_lib_ms"]),
+             library_ms=r0["k2_lib_ms"],
+             # the structured path's level 2 (f64, k = 1) beside R0's tail
+             launches_structured=s_launches["coo_patch"],
+             level2_ms=s2["k2_ms"], level2_plain_ms=s2["k2_plain_ms"],
+             level2_bound_ms=s2["k2_bound_ms"],
+             level2_library_ms=s2["k2_lib_ms"]),
         # the structured path runs float64 at A0 and A1
         dict(name="dia_spmv", route="cuda",
              source="tpu_amg_torch/csrc/dia.cu",

@@ -410,3 +410,177 @@ def test_kernel_on_ragged_blocks_on_card(cuda, n, longest, k, dtype, tol):
     assert spmv.csr_spmv_launches_by_shape[(n, m, k)] == before + 1
     scale = max(float(ref.abs().max()), 1.0)
     assert float((y - ref).abs().max()) <= tol * scale
+
+
+def _hub_rows():
+    # 2000 rows of 3-10 entries, and three hub rows of 1,000, 2,500 and
+    # 5,000
+    rng = np.random.default_rng(13)
+    n, m = 2000, 6000
+    deg = rng.integers(3, 11, n)
+    deg[[5, 700, 1999]] = [1000, 2500, 5000]
+    rows = np.repeat(np.arange(n), deg)
+    cols = np.concatenate([np.sort(rng.choice(m, d, replace=False))
+                           for d in deg])
+    return sps.csr_matrix((rng.standard_normal(len(rows)), (rows, cols)),
+                          shape=(n, m))
+
+
+def _level2_like(n=3000, seed=14):
+    # rows of 120-190 entries: about 90 past cap 64, as on the structured
+    # path's level 2
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(120, 191, n)
+    rows = np.repeat(np.arange(n), deg)
+    cols = np.concatenate([np.sort(rng.choice(n, d, replace=False))
+                           for d in deg])
+    return sps.csr_matrix((rng.standard_normal(len(rows)), (rows, cols)),
+                          shape=(n, n))
+
+
+def _random_csr(seed):
+    rng = np.random.default_rng(seed)
+    n, m = rng.integers(1, 400, 2)
+    deg = rng.integers(0, 60, n)
+    a = sps.csr_matrix((rng.standard_normal(deg.sum()),
+                        rng.integers(0, m, deg.sum()),
+                        np.r_[0, np.cumsum(deg)]), shape=(n, m))
+    a.sum_duplicates()
+    return a
+
+
+# (name, matrix, cap): no tail; every row spilling; empty rows; a
+# rectangular shape; one hub row of 5,000 entries; random CSRs and caps
+TAIL_CASES = {
+    "no_tail": (lambda: _scipy("random_banded"), 64),
+    "all_spill": (lambda: _level2_like(300), 64),
+    "empty_rows": (_empty_rows, 16),
+    "rectangular": (lambda: _scipy("rectangular"), 4),
+    "hub_row": (_hub_rows, 64),
+    **{f"random{seed}": (lambda seed=seed: _random_csr(seed), cap)
+       for seed, cap in ((0, 1), (1, 5), (2, 17), (3, 64))},
+}
+
+
+@pytest.mark.parametrize("name", list(TAIL_CASES))
+def test_tail_row_table(name):
+    make, cap = TAIL_CASES[name]
+    sp = make()
+    (_, _, _), (tr, tc, tv) = spmv.split_capped(sp.indptr, sp.indices,
+                                                sp.data, cap)
+    row_ids, ptr = spmv.tail_row_table(sp.indptr, cap)
+    assert row_ids.dtype == np.int32 and ptr.dtype == np.int32
+    assert ptr[0] == 0 and ptr[-1] == len(tr) and len(ptr) == len(row_ids) + 1
+    assert np.all(np.diff(row_ids) > 0) and np.all(np.diff(ptr) > 0)
+    # the table reproduces split_capped's tail rows, entry by entry
+    np.testing.assert_array_equal(np.repeat(row_ids, np.diff(ptr)), tr)
+    np.testing.assert_array_equal(row_ids,
+                                  np.flatnonzero(np.diff(sp.indptr) > cap))
+    mat = spmv.CappedCSR.from_csr(CSR.from_scipy(sp), "cpu", torch.float64,
+                                  cap=cap)
+    np.testing.assert_array_equal(mat.tail_row_ids.numpy(), row_ids)
+    np.testing.assert_array_equal(mat.tail_ptr.numpy(), ptr)
+    np.testing.assert_array_equal(mat.tail_rows().numpy(), tr)
+    np.testing.assert_array_equal(mat.tail_cols.numpy(), tc)
+    long_rows = mat.tail_long.numpy()
+    np.testing.assert_array_equal(
+        long_rows, np.flatnonzero(np.diff(ptr) > spmv.LONG_TAIL_ROW))
+    assert mat.n_tail_rows == len(row_ids)
+    if name == "no_tail":
+        assert mat.n_tail == 0 and mat.n_tail_rows == 0
+    if name == "all_spill":
+        assert mat.n_tail_rows == sp.shape[0]
+    if name == "hub_row":
+        assert list(np.diff(ptr)[long_rows]) == [1000 - 64, 2500 - 64,
+                                                 5000 - 64]
+
+
+def _k2_walk(row_ids, ptr, long_rows, cols, vals, x, k):
+    """K2's sums in the kernel's order, in numpy: a team of W warps a row
+    (8 for the long rows), groups of G lanes, group q summing entries q,
+    q + groups, ... in turn; the shuffle tree over a warp's groups, then
+    the warps in order."""
+    x2 = x.reshape(len(x), -1)
+    g_lanes = 1
+    while g_lanes < k and g_lanes < 32:
+        g_lanes *= 2
+    per_warp = 32 // g_lanes
+    out = np.zeros((len(row_ids), x2.shape[1]))
+    is_long = np.zeros(len(row_ids), bool)
+    is_long[long_rows] = True
+    for i in range(len(row_ids)):
+        warps = 8 if is_long[i] else 1
+        groups = warps * per_warp
+        e = np.arange(ptr[i], ptr[i + 1])
+        part = np.zeros((groups, x2.shape[1]))
+        for q in range(groups):
+            for j in e[q::groups]:
+                part[q] += vals[j] * x2[cols[j]]
+        total = np.zeros(x2.shape[1])
+        for w in range(warps):
+            p = part[w * per_warp:(w + 1) * per_warp].copy()
+            o = per_warp // 2
+            while o >= 1:
+                p[:per_warp - o] += p[o:]
+                o //= 2
+            total = p[0] if w == 0 else total + p[0]
+        out[i] = total
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 7, 8])
+@pytest.mark.parametrize("name", list(TAIL_CASES))
+def test_plain_k2_from_table_matches_scipy(name, k):
+    make, cap = TAIL_CASES[name]
+    sp = make()
+    mat = spmv.CappedCSR.from_csr(CSR.from_scipy(sp), "cpu", torch.float64,
+                                  cap=cap)
+    (ip, ix, v), (tr, tc, tv) = spmv.split_capped(sp.indptr, sp.indices,
+                                                  sp.data, cap)
+    tail = sps.csr_matrix((tv, (tr, tc)), shape=sp.shape)
+    x = _x(sp.shape[1], k, np.float64, seed=k)
+    ref = tail @ x
+    scale = max(np.abs(ref).max(initial=0.0), 1.0)
+    y = torch.zeros(ref.shape, dtype=torch.float64)
+    spmv.coo_patch(mat, torch.from_numpy(x), y)
+    np.testing.assert_allclose(y.numpy(), ref, rtol=0, atol=1e-12 * scale)
+    # the kernel's own order of sums, on the rows that spill
+    walk = _k2_walk(mat.tail_row_ids.numpy(), mat.tail_ptr.numpy(),
+                    mat.tail_long.numpy(), tc, tv, x, k)
+    np.testing.assert_allclose(walk, ref.reshape(len(ref), -1)[
+        mat.tail_row_ids.numpy()], rtol=0, atol=1e-12 * scale)
+    # and on top of K1 it gives the whole product
+    full = spmv.spmv(mat, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(full, sp @ x, rtol=0,
+                               atol=1e-12 * max(np.abs(sp @ x).max(initial=0),
+                                                1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("k", [1, 7, 8])
+@pytest.mark.parametrize("name", ["hub_row", "all_spill", "level2",
+                                  "rectangular", "empty_rows"])
+def test_k2_matches_plain_on_card(cuda, name, k, dtype, tol):
+    if name == "level2":
+        sp, cap = _level2_like(), 64
+    else:
+        make, cap = TAIL_CASES[name]
+        sp = make()
+    mat = spmv.CappedCSR.from_csr(CSR.from_scipy(sp), cuda, dtype, cap=cap)
+    x = torch.from_numpy(_x(sp.shape[1], k, np.float64)).to(cuda, dtype)
+    y0 = torch.from_numpy(_x(sp.shape[0], k, np.float64, seed=5)).to(cuda,
+                                                                      dtype)
+    before = spmv.coo_patch_launches_by_shape[(*sp.shape, k)]
+    y = y0.clone()
+    spmv.coo_patch(mat, x, y)
+    again = y0.clone()
+    spmv.coo_patch(mat, x, again)
+    ref = y0.clone()
+    spmv.plain_coo_patch(mat, x, ref)
+    torch.cuda.synchronize()
+    assert spmv.coo_patch_launches_by_shape[(*sp.shape, k)] == before + 2
+    assert torch.equal(y, again)  # one writer a row: the same bits
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((y - ref).abs().max()) <= tol * scale

@@ -124,6 +124,50 @@ def test_cli_on_cpu(capsys):
     assert len(lines) == 3 and all("GB/s" in line for line in lines[1:])
 
 
+def _walk(q0, q1, n_in, groups):
+    """The (input, chunk) pairs a block of the kernel reads for split
+    [q0, q1): items f = i nq + (q - q0), group g taking items g, then
+    steps of UNROLL items, each ``groups`` on from the last."""
+    nq = q1 - q0
+    seen = []
+    for g in range(groups):
+        for f in range(g, n_in * nq, stream.UNROLL * groups):
+            seen += [(fu // nq, q0 + fu % nq)
+                     for fu in range(f, f + stream.UNROLL * groups, groups)
+                     if fu < n_in * nq]
+    return seen
+
+
+@pytest.mark.parametrize("total_mib", [32, 1024])
+@pytest.mark.parametrize("name", [c.name for c in streambench.CASES])
+def test_launch_plan_covers_every_chunk(name, total_mib):
+    case = next(c for c in streambench.CASES if c.name == name)
+    tiles = case.tiles(total_mib << 20)
+    size = torch.tensor([], dtype=case.dtype).element_size()
+    args = (tiles, case.rows, case.width, size, case.n_in, 132)
+    plan = stream.launch_plan(*args)
+    assert plan == stream.launch_plan(*args)
+    assert plan.grid == (plan.splits, tiles) and tiles <= stream.MAX_TILES
+    assert plan.scratch == (None if plan.splits == 1
+                            else (tiles, plan.splits, 8, 128))
+    chunks = (case.rows // 8) * (case.width // 128)
+    groups = 4 // size  # chunks a block's step of loads takes
+    ranges = stream.split_chunks(chunks, plan.splits)
+    # every chunk of every input read exactly once in a tile, by one
+    # split's block
+    seen = sorted(p for q0, q1 in ranges
+                  for p in _walk(q0, q1, case.n_in, groups))
+    assert seen == [(i, q) for i in range(case.n_in) for q in range(chunks)]
+    # each split has a full step of loads where the tile has one, and
+    # the grid fills the card where the tiles allow
+    per_split = -(-stream.UNROLL * groups // case.n_in)  # chunks
+    assert all(case.n_in * (q1 - q0) >= min(stream.UNROLL * groups,
+                                            case.n_in * chunks)
+               for q0, q1 in ranges)
+    assert (plan.splits == max(1, chunks // per_split)
+            or plan.splits == max(1, stream.BLOCKS_PER_SM * 132 // tiles))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -132,15 +176,21 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", [c.name for c in streambench.CASES])
-def test_kernel_matches_plain_on_card(cuda, name):
+@pytest.mark.parametrize("total_mib", [4, 64])
+@pytest.mark.parametrize("name,engine",
+                         [(c.name, e) for c in streambench.CASES
+                          for e in stream.ENGINES
+                          if e != "bulk" or c.layout == "case"])
+def test_kernel_matches_plain_on_card(cuda, name, engine, total_mib):
     case = next(c for c in streambench.CASES if c.name == name)
     g = torch.Generator(device=cuda).manual_seed(0)
-    inputs = streambench.make_inputs(case, 4 << 20, cuda, g)
+    inputs = streambench.make_inputs(case, total_mib << 20, cuda, g)
     carry = torch.full((8, 128), 3.0, device=cuda)
     before = stream.stream_sum_launches
-    got = stream.stream_sum(inputs, carry)
+    got = stream.stream_sum(inputs, carry, engine)
+    again = stream.stream_sum(inputs, carry, engine)
     ref = stream.plain_stream_sum(inputs, carry)
     torch.cuda.synchronize()
-    assert stream.stream_sum_launches == before + 1
+    assert stream.stream_sum_launches == before + 2
     assert torch.equal(got, ref)
+    assert torch.equal(got, again)

@@ -8,9 +8,11 @@
 //                       CSR row.  Replaces the WELL SpMV Pallas kernel
 //                       tpu_amg/ops/well_pallas.py `_kernel` (:77),
 //                       launched by `_well_spmv_call` (:312).
-//   K2 coo_patch        Y[r_t, :] += v_t X[c_t, :] for the entries of rows
-//                       longer than `cap`.  Replaces the stray-patch Pallas
-//                       kernel (tpu_amg/ops/well_pallas.py `_stray_kernel`).
+//   K2 coo_patch        Y[r, :] += sum of v X[c, :] over the entries of
+//                       row r past `cap` (the tail), for every row that
+//                       spills.  Replaces the stray-patch Pallas kernel
+//                       tpu_amg/ops/well_pallas.py `_stray_kernel` (:457),
+//                       launched by `_stray_patch_call` (:485).
 //
 // They keep the TPU kernels' contract (y = A x, and Y = A X for a
 // row-major (n, k) X, square or rectangular A, a row-length capped main
@@ -29,35 +31,121 @@
 // 256 entries in coalesced loads that depend on no row pointer, stages
 // products (k = 1) or (value, column) pairs (k > 1) in shared memory, and
 // reduces rows from there; k = 1 has no column loop, and k > 1 reads each
-// value and index once, with X rows read contiguously across lanes.  K2
-// is one atomic add per (tail entry, column).  Sums accumulate in the
-// value type.
+// value and index once, with X rows read contiguously across lanes.
 //
-// The host side (tpu_amg_torch/ops/spmv.py) builds the row-block table,
-// allocates every output, passes PyTorch's current stream, and checks the
-// returned cudaGetLastError().
+// K2 must move the tail's values and columns, its row table (row id and
+// start of each spilling row), the X rows it gathers and the Y rows it
+// reads and writes.  Its first design, one atomic add per (entry,
+// column), carried a row id per entry and serialised the ~89 adds a row
+// of the structured path's level 2 on one address.  The tail is in CSR
+// order, so K2 is a segmented row reduction on the host's row table: a
+// warp owns a spilling row (a block of 8 warps a row longer than
+// `long_row` entries, the hub rows of a smoothed-SA R); its lanes form
+// groups of G (the power of two at or above k, at most 32), a group takes
+// entries g, g + groups, ... (4 entries' value, column and X loads in
+// flight a lane), and lane c of a group sums columns c and c + G of X, so
+// values and columns are read once a row and each X row contiguously.
+// The groups are summed by a shuffle tree, the warps of a long row in
+// shared memory, in a fixed order; one lane adds the row's sum into Y
+// with a plain load-add-store.  One writer a row: no atomics, and the
+// same Y on every call.  Sums accumulate in the value type.
+//
+// The host side (tpu_amg_torch/ops/spmv.py) builds the row-block table and
+// the tail row table, allocates every output, passes PyTorch's current
+// stream, and checks the returned cudaGetLastError().
 
 #include "csr_rowblock.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kPatchWarps = 8;  // a block of K2: 8 rows, or 1 long row
+constexpr int kPatchUnroll = 4;
+constexpr int kMaxColumns = 64;
 
-// One thread per (tail entry, column); rows repeat across entries, so the
-// adds are atomic (native for double on sm_60 and later).
+// Tail row i of the table, entries [e0, e1), owned by a team of W warps
+// (threads 0 .. 32 W - 1 of the team; W > 1: the whole block).
+template <typename T, int W>
+__device__ __forceinline__ void patch_row(int row, int e0, int e1, int k,
+                                          int G, const int32_t* __restrict__ cols,
+                                          const T* __restrict__ vals,
+                                          const T* __restrict__ x,
+                                          T* __restrict__ y) {
+  const int tid = threadIdx.x % (32 * W);
+  const int lane = tid % 32;
+  const int c0 = lane % G;  // this lane's columns: c0 and c0 + G
+  const int groups = 32 * W / G;
+  T acc0 = T(0), acc1 = T(0);
+  for (int j = e0 + tid / G; j < e1; j += kPatchUnroll * groups) {
+    T v[kPatchUnroll];
+    int c[kPatchUnroll];
+#pragma unroll
+    for (int u = 0; u < kPatchUnroll; ++u) {
+      const int ju = j + u * groups;
+      v[u] = ju < e1 ? __ldg(vals + ju) : T(0);
+      c[u] = ju < e1 ? __ldg(cols + ju) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kPatchUnroll; ++u) {
+      if (j + u * groups < e1) {
+        const T* xr = x + c[u] * k;
+        if (c0 < k) acc0 += v[u] * __ldg(xr + c0);
+        if (c0 + G < k) acc1 += v[u] * __ldg(xr + c0 + G);
+      }
+    }
+  }
+  // the warp's groups, by a fixed shuffle tree: lanes 0 .. G - 1 hold them
+  for (int o = 16; o >= G; o >>= 1) {
+    acc0 += __shfl_down_sync(0xffffffffu, acc0, o);
+    acc1 += __shfl_down_sync(0xffffffffu, acc1, o);
+  }
+  T* yr = y + row * k;
+  if constexpr (W == 1) {
+    if (lane < G) {
+      if (c0 < k) yr[c0] += acc0;
+      if (c0 + G < k) yr[c0 + G] += acc1;
+    }
+  } else {
+    // the warps' sums, added in warp order
+    __shared__ T red[W][kMaxColumns];
+    const int warp = tid / 32;
+    if (lane < G) {
+      if (c0 < k) red[warp][c0] = acc0;
+      if (c0 + G < k) red[warp][c0 + G] = acc1;
+    }
+    __syncthreads();
+    if (tid < k) {
+      T s = red[0][tid];
+#pragma unroll
+      for (int w = 1; w < W; ++w) s += red[w][tid];
+      yr[tid] += s;
+    }
+  }
+}
+
+// Blocks [0, n_long): one long tail row each, listed in `long_rows`;
+// then blocks of kPatchWarps warps, warp w of block b owning table row
+// (b - n_long) kPatchWarps + w unless that row is long.
 template <typename T>
-__global__ void coo_patch_kernel(int64_t n_entries, int k,
-                                 const int32_t* __restrict__ rows,
-                                 const int32_t* __restrict__ cols,
-                                 const T* __restrict__ vals,
-                                 const T* __restrict__ x,
-                                 T* __restrict__ y) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= n_entries * k) return;
-  const int64_t t = tid / k;
-  const int c = static_cast<int>(tid % k);
-  atomicAdd(&y[static_cast<int64_t>(rows[t]) * k + c],
-            vals[t] * x[static_cast<int64_t>(cols[t]) * k + c]);
+__global__ void __launch_bounds__(32 * kPatchWarps)
+coo_patch_kernel(int n_rows, int n_long, int long_row, int k, int G,
+                 const int32_t* __restrict__ row_ids,
+                 const int32_t* __restrict__ ptr,
+                 const int32_t* __restrict__ long_rows,
+                 const int32_t* __restrict__ cols, const T* __restrict__ vals,
+                 const T* __restrict__ x, T* __restrict__ y) {
+  if (static_cast<int>(blockIdx.x) < n_long) {
+    const int i = __ldg(long_rows + blockIdx.x);
+    patch_row<T, kPatchWarps>(__ldg(row_ids + i), __ldg(ptr + i),
+                              __ldg(ptr + i + 1), k, G, cols, vals, x, y);
+    return;
+  }
+  const int i = (static_cast<int>(blockIdx.x) - n_long) * kPatchWarps +
+                static_cast<int>(threadIdx.x) / 32;
+  if (i >= n_rows) return;  // the warp's lanes leave together
+  const int e0 = __ldg(ptr + i);
+  const int e1 = __ldg(ptr + i + 1);
+  if (e1 - e0 > long_row) return;  // a block of its own takes it
+  patch_row<T, 1>(__ldg(row_ids + i), e0, e1, k, G, cols, vals, x, y);
 }
 
 template <typename T>
@@ -76,13 +164,21 @@ int csr_spmv_capped(int n_blocks, int k, const void* block_rows,
 }
 
 template <typename T>
-int coo_patch(int64_t n_entries, int k, const void* rows, const void* cols,
+int coo_patch(int n_rows, int n_long, int long_row, int k, const void* row_ids,
+              const void* ptr, const void* long_rows, const void* cols,
               const void* vals, const void* x, void* y, void* stream) {
-  if (n_entries > 0) {
-    const int64_t threads = n_entries * k;
-    const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-    coo_patch_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        n_entries, k, static_cast<const int32_t*>(rows),
+  if (k < 1 || k > kMaxColumns || n_long > n_rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_rows > 0) {
+    int G = 1;
+    while (G < k && G < 32) G *= 2;
+    const unsigned blocks = static_cast<unsigned>(
+        n_long + (n_rows + kPatchWarps - 1) / kPatchWarps);
+    coo_patch_kernel<T><<<blocks, 32 * kPatchWarps, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        n_rows, n_long, long_row, k, G, static_cast<const int32_t*>(row_ids),
+        static_cast<const int32_t*>(ptr), static_cast<const int32_t*>(long_rows),
         static_cast<const int32_t*>(cols), static_cast<const T*>(vals),
         static_cast<const T*>(x), static_cast<T*>(y));
   }
@@ -116,14 +212,20 @@ int csr_spmv_capped_f32(int n_blocks, int k, const void* block_rows,
                                 indices, vals, x, y, stream);
 }
 
-int coo_patch_f64(int64_t n_entries, int k, const void* rows, const void* cols,
-                  const void* vals, const void* x, void* y, void* stream) {
-  return coo_patch<double>(n_entries, k, rows, cols, vals, x, y, stream);
+int coo_patch_f64(int n_rows, int n_long, int long_row, int k,
+                  const void* row_ids, const void* ptr, const void* long_rows,
+                  const void* cols, const void* vals, const void* x, void* y,
+                  void* stream) {
+  return coo_patch<double>(n_rows, n_long, long_row, k, row_ids, ptr,
+                           long_rows, cols, vals, x, y, stream);
 }
 
-int coo_patch_f32(int64_t n_entries, int k, const void* rows, const void* cols,
-                  const void* vals, const void* x, void* y, void* stream) {
-  return coo_patch<float>(n_entries, k, rows, cols, vals, x, y, stream);
+int coo_patch_f32(int n_rows, int n_long, int long_row, int k,
+                  const void* row_ids, const void* ptr, const void* long_rows,
+                  const void* cols, const void* vals, const void* x, void* y,
+                  void* stream) {
+  return coo_patch<float>(n_rows, n_long, long_row, k, row_ids, ptr,
+                          long_rows, cols, vals, x, y, stream);
 }
 
 }  // extern "C"

@@ -16,18 +16,28 @@
 // block is cut into (8, 128) chunks, and every chunk is added into the
 // tile's (8, 128) float32 sum.
 //
-// Bound by bytes only: one add per element read.  Each thread owns one
-// 16-byte slot of the (8, 128) chunk (4 float32 or 16 int8 values) and
-// reads it with 128-bit loads from chunk after chunk on a grid-stride
-// loop, 4 chunks' loads issued before their adds; a block of 256
-// threads covers 1 (float32) or 4 (int8) chunks per load.  The slots of
-// a block are reduced in shared memory and added into the output with
-// atomics, so several blocks can share a tile.  The caller fills the output with the carry first.
-// int8 inputs are summed in int32 and float32 inputs in float32, so sums
+// Bound by bytes only: one add per element read, so what counts is the
+// bytes in flight on every SM.  The TPU's sequential grid carried a tile's
+// sum from step to step; here a tile's chunks are cut into `splits`
+// contiguous ranges, and one block of 256 threads takes one (tile, split)
+// item, the range's chunks of every input.  Each thread owns one 16-byte
+// slot of the (8, 128) chunk (4 float32 or 16 int8 values) and keeps
+// kUnroll = 8 of its 16-byte loads in flight (32 KB a block); the host
+// picks `splits` from the SM count so that the card holds several such
+// blocks an SM, and so that every split has at least one full step of
+// loads.  No float atomics: a block writes
+// its (8, 128) partial with plain stores into scratch, then takes an int
+// ticket for its tile; the block that draws the last ticket sums the
+// tile's partials in split order, adds the carry, writes the tile's
+// output and resets the ticket, so the next call (or a CUDA graph replay)
+// needs no memset.  With one split a block writes its output directly.
+// One launch a call, and the same bits on every call.  int8 inputs are
+// summed in int32 (partials too) and float32 inputs in float32, so sums
 // of integer-valued inputs are exact whatever the order.
 //
 // The host side (tpu_amg_torch/ops/stream.py) checks shapes, strides and
-// 16-byte alignment, passes PyTorch's current stream and checks the
+// 16-byte alignment, makes the launch plan, allocates the scratch, keeps
+// the per-device tickets, passes PyTorch's current stream and checks the
 // returned cudaGetLastError().
 
 #include <cstdint>
@@ -39,69 +49,203 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxInputs = 8;
 constexpr int kChunk = 8 * 128;
-constexpr int kUnroll = 4;  // chunks whose loads a thread keeps in flight
+constexpr int kUnroll = 8;  // 16-byte loads a thread keeps in flight
 
 struct Inputs {
   const void* ptr[kMaxInputs];
 };
 
+struct Shape {
+  int n_in, rows, width, splits;
+  int64_t row_stride, tile_stride;
+};
+
+// int8 sums are taken in int32 (exact, and without a conversion per
+// byte), float32 sums in float32; both become float32 at the end
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-stream_sum_kernel(Inputs in, int n_in, int rows, int width,
-                  int64_t row_stride, int64_t tile_stride,
-                  float* __restrict__ out) {
-  // int8 sums are taken in int32 (exact, and without a conversion per
-  // byte), float32 sums in float32; both become float32 at the end
-  using Acc = typename std::conditional<std::is_same<T, int8_t>::value, int,
-                                        float>::type;
+using Acc = typename std::conditional<std::is_same<T, int8_t>::value, int,
+                                      float>::type;
+
+// split s of a tile's n chunks is [begin(s), begin(s + 1))
+__device__ __forceinline__ unsigned split_begin(unsigned n, int s, int splits) {
+  return static_cast<unsigned>(static_cast<uint64_t>(n) * s / splits);
+}
+
+__device__ __forceinline__ unsigned bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ unsigned bits(int v) { return static_cast<unsigned>(v); }
+
+// The end of a (tile, split) item: acc holds this thread's values of the
+// block's (8, 128) sum at positions base .. base + V - 1 (threads with
+// has_slot; the others hold nothing).  Writes the tile's output directly
+// (one split) or the partial, and the last block of the tile sums them.
+template <typename A, int V, int NT>
+__device__ __forceinline__ void finish(const A (&acc)[V], bool has_slot,
+                                       int base, int64_t t, int split,
+                                       int splits, A* __restrict__ partials,
+                                       unsigned* __restrict__ tickets,
+                                       const float* __restrict__ carry,
+                                       float* __restrict__ out) {
+  if (splits == 1) {
+    if (has_slot) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        out[t * kChunk + base + j] = carry[base + j] + static_cast<float>(acc[j]);
+      }
+    }
+    return;
+  }
+  if (has_slot) {
+    A* p = partials + (t * splits + split) * kChunk + base;
+#pragma unroll
+    for (int j = 0; j < V; j += 4) {
+      *reinterpret_cast<uint4*>(p + j) = make_uint4(
+          bits(acc[j]), bits(acc[j + 1]), bits(acc[j + 2]), bits(acc[j + 3]));
+    }
+  }
+  __threadfence();  // the partial is visible to every block before the ticket
+  __syncthreads();
+  __shared__ unsigned ticket;
+  if (threadIdx.x == 0) ticket = atomicAdd(tickets + t, 1u);
+  __syncthreads();
+  if (ticket != static_cast<unsigned>(splits - 1)) return;
+  // the tile's last block: every partial is in; sum them in split order,
+  // 4 values a thread, kUnroll partials' loads in flight
+  if (threadIdx.x == 0) tickets[t] = 0;
+  const int o = 4 * threadIdx.x;
+  if (o >= kChunk) return;
+  const A* p = partials + t * splits * kChunk + o;
+  A s[4] = {A(0), A(0), A(0), A(0)};
+  for (int b = 0; b < splits; b += kUnroll) {
+    uint4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      v[u] = b + u < splits
+                 ? __ldcg(reinterpret_cast<const uint4*>(
+                       p + static_cast<int64_t>(b + u) * kChunk))
+                 : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const A* e = reinterpret_cast<const A*>(&v[u]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j] += e[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    out[t * kChunk + o + j] = carry[o + j] + static_cast<float>(s[j]);
+  }
+}
+
+// n / d for n < 2^31 by a multiply and a shift (d fixed for the block).
+struct Divider {
+  unsigned d, m, shift;
+  __device__ explicit Divider(unsigned divisor) : d(divisor) {
+    shift = 0;
+    while ((1u << shift) < d) ++shift;
+    m = static_cast<unsigned>(((uint64_t{1} << 32) * ((uint64_t{1} << shift) - d)) / d + 1);
+  }
+  __device__ __forceinline__ unsigned div(unsigned n) const {
+    return (__umulhi(n, m) + n) >> shift;
+  }
+};
+
+// A block's items and where they lie: item f = i nq + (q - q0) is chunk q
+// of input i (input-major, nq = q1 - q0 chunks in the split).
+template <typename T>
+struct Items {
+  const T* const* base;  // the inputs (shared memory)
+  int64_t tile;          // this thread's slot in the tile's first chunk
+  int64_t row_stride;
+  unsigned q0, n;
+  Divider nq, cols;      // chunks in the split; chunks in a row group
+};
+
+// Issue the loads of items f, f + G, ..., f + (U - 1) G; past the end:
+// zeros, not read.
+template <typename T, int U, int G>
+__device__ __forceinline__ void load_items(const Items<T>& it, unsigned f,
+                                           uint4 (&v)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const unsigned fu = f + u * G;
+    v[u] = make_uint4(0, 0, 0, 0);
+    if (fu < it.n) {
+      const unsigned i = it.nq.div(fu);
+      const unsigned q = it.q0 + (fu - i * it.nq.d);
+      const unsigned rr = it.cols.div(q);
+      const unsigned kk = q - rr * it.cols.d;
+      v[u] = __ldg(reinterpret_cast<const uint4*>(
+          it.base[i] + it.tile + static_cast<int64_t>(rr) * 8 * it.row_stride +
+          kk * 128));
+    }
+  }
+}
+
+template <typename T, typename A, int U, int V>
+__device__ __forceinline__ void add_items(const uint4 (&v)[U], A (&acc)[V]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const T* e = reinterpret_cast<const T*>(&v[u]);
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] += static_cast<A>(e[j]);
+  }
+}
+
+// Block (split, tile): the tile's chunks [q0, q1) of every input, as
+// items; each thread reads its slot of items group, group + groups, ...,
+// U items' loads a step, and issues the next step's loads before it adds
+// this step's, so its loads stay in flight from step to step; a short
+// split of several inputs keeps as many loads in flight as a long one.
+template <typename T, int U, int NT>
+__global__ void __launch_bounds__(NT)
+stream_sum_kernel(Inputs in, Shape sh, Acc<T>* __restrict__ partials,
+                  unsigned* __restrict__ tickets,
+                  const float* __restrict__ carry, float* __restrict__ out) {
+  using A = Acc<T>;
   constexpr int kVec = 16 / sizeof(T);          // values per 16-byte slot
   constexpr int kSlots = kChunk / kVec;         // slots per (8, 128) chunk
-  constexpr int kGroups = kThreads / kSlots;    // chunks in flight per block
+  constexpr int kGroups = NT / kSlots;    // chunks per block step
   constexpr int kSlotsPerRow = 128 / kVec;
+  __shared__ const T* base[kMaxInputs];
+#pragma unroll
+  for (int i = 0; i < kMaxInputs; ++i) {
+    if (threadIdx.x == i) base[i] = static_cast<const T*>(in.ptr[i]);
+  }
+  __syncthreads();
   const int slot = threadIdx.x % kSlots;
   const int group = threadIdx.x / kSlots;
   const int r = slot / kSlotsPerRow;
   const int l = (slot % kSlotsPerRow) * kVec;
+  const int split = blockIdx.x;
   const int64_t t = blockIdx.y;
-  const unsigned col_chunks = width / 128;
-  const unsigned n_chunks = (rows / 8) * col_chunks;
+  const unsigned col_chunks = sh.width / 128;
+  const unsigned n_chunks = (sh.rows / 8) * col_chunks;
+  const unsigned q0 = split_begin(n_chunks, split, sh.splits);
+  const unsigned nq = split_begin(n_chunks, split + 1, sh.splits) - q0;
+  const Items<T> it{base, t * sh.tile_stride + r * sh.row_stride + l,
+                    sh.row_stride, q0, nq * sh.n_in, Divider(nq > 0 ? nq : 1),
+                    Divider(col_chunks)};
 
-  Acc acc[kVec];
+  A acc[kVec];
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) acc[j] = Acc(0);
-  const unsigned stride = gridDim.x * kGroups;
-  for (unsigned q = blockIdx.x * kGroups + group; q < n_chunks;
-       q += kUnroll * stride) {
-    // kUnroll chunks' offsets, then their loads, then the adds: the
-    // loads of one step are independent and in flight together
-    int64_t off[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const unsigned qu = q + u * stride;
-      const unsigned rr = qu / col_chunks;
-      const unsigned kk = qu - rr * col_chunks;
-      off[u] = qu < n_chunks
-                   ? t * tile_stride + (rr * 8 + r) * row_stride + kk * 128 + l
-                   : -1;
-    }
-    for (int i = 0; i < n_in; ++i) {
-      const T* base = static_cast<const T*>(in.ptr[i]);
-      uint4 v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        v[u] = off[u] >= 0 ? __ldg(reinterpret_cast<const uint4*>(base + off[u]))
-                           : make_uint4(0, 0, 0, 0);
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const T* e = reinterpret_cast<const T*>(&v[u]);
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) acc[j] += static_cast<Acc>(e[j]);
-      }
-    }
+  for (int j = 0; j < kVec; ++j) acc[j] = A(0);
+  constexpr unsigned kStep = U * kGroups;
+  uint4 a[U], b[U];
+  unsigned f = group;
+  load_items<T, U, kGroups>(it, f, a);
+  while (true) {
+    load_items<T, U, kGroups>(it, f + kStep, b);
+    add_items<T, A, U, kVec>(a, acc);
+    if (f + kStep >= it.n) break;
+    load_items<T, U, kGroups>(it, f + 2 * kStep, a);
+    add_items<T, A, U, kVec>(b, acc);
+    if (f + 2 * kStep >= it.n) break;
+    f += 2 * kStep;
   }
   if constexpr (kGroups > 1) {
-    __shared__ Acc red[kThreads][kVec];
+    // the groups' sums of one slot, added in group order
+    __shared__ A red[NT][kVec];
 #pragma unroll
     for (int j = 0; j < kVec; ++j) red[threadIdx.x][j] = acc[j];
     __syncthreads();
@@ -112,30 +256,193 @@ stream_sum_kernel(Inputs in, int n_in, int rows, int width,
       }
     }
   }
-  if (group == 0) {
-    float* o = out + t * kChunk + r * 128 + l;
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) atomicAdd(&o[j], static_cast<float>(acc[j]));
+  finish<A, kVec, NT>(acc, group == 0, r * 128 + l, t, split, sh.splits, partials,
+                  tickets, carry, out);
+}
+
+// ---- TMA bulk-copy ring (stacked layout only: a split's chunks of one
+// input are one contiguous range)
+
+constexpr int kRing = 3;             // slots
+constexpr int kUnitBytes = 32 << 10;  // bytes a slot
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
   }
 }
 
+__device__ __forceinline__ void bulk_copy(unsigned char* dst,
+                                          const unsigned char* src, int bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// unit u of a block's share: input u % n_in, bytes [q U, q U + len) of
+// its range, q = u / n_in
+__device__ __forceinline__ void bulk_unit(const Inputs& in, int n_in,
+                                          int64_t start, int64_t range, int u,
+                                          const unsigned char** src, int* len) {
+  const int q = u / n_in;
+  const int i = u - q * n_in;
+  const int64_t off = static_cast<int64_t>(q) * kUnitBytes;
+  const int64_t left = range - off;
+  *len = static_cast<int>(left < kUnitBytes ? left : kUnitBytes);
+  *src = static_cast<const unsigned char*>(in.ptr[i]) + start + off;
+}
+
 template <typename T>
-int stream_sum(int n_in, const void* const* inputs, int64_t tiles, int64_t rows,
-               int64_t width, int64_t row_stride, int64_t tile_stride,
-               int splits, void* out, void* stream) {
-  // shapes and chunk indices within a tile are 32-bit
+__global__ void __launch_bounds__(kThreads)
+stream_sum_bulk_kernel(Inputs in, Shape sh, Acc<T>* __restrict__ partials,
+                       unsigned* __restrict__ tickets,
+                       const float* __restrict__ carry,
+                       float* __restrict__ out) {
+  using A = Acc<T>;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunkBytes = kChunk * sizeof(T);
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) uint64_t bars[kRing];
+  const int split = blockIdx.x;
+  const int64_t t = blockIdx.y;
+  const unsigned n_chunks = sh.rows / 8;
+  const unsigned q0 = split_begin(n_chunks, split, sh.splits);
+  const unsigned q1 = split_begin(n_chunks, split + 1, sh.splits);
+  const int64_t start = (t * sh.tile_stride + static_cast<int64_t>(q0) * kChunk) *
+                        static_cast<int64_t>(sizeof(T));
+  const int64_t range = static_cast<int64_t>(q1 - q0) * kChunkBytes;
+  const int per_input = static_cast<int>((range + kUnitBytes - 1) / kUnitBytes);
+  const int n = per_input * sh.n_in;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRing; ++i) mbar_init(&bars[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRing && i < n; ++i) {
+      const unsigned char* src;
+      int len;
+      bulk_unit(in, sh.n_in, start, range, i, &src, &len);
+      bulk_copy(ring + i * kUnitBytes, src, len, &bars[i]);
+    }
+  }
+  // this thread's 16 bytes of every 4 KB of a slot: position 16 tid of a
+  // float32 chunk, or of one of four int8 chunks
+  A acc[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) acc[j] = A(0);
+  for (int i = 0; i < n; ++i) {
+    const int slot = i % kRing;
+    mbar_wait(&bars[slot], static_cast<uint32_t>((i / kRing) & 1));
+    const unsigned char* src;
+    int len;
+    bulk_unit(in, sh.n_in, start, range, i, &src, &len);
+    const unsigned char* buf = ring + slot * kUnitBytes + 16 * threadIdx.x;
+#pragma unroll
+    for (int m = 0; m < kUnitBytes / 4096; ++m) {
+      if (m * 4096 + 16 * static_cast<int>(threadIdx.x) < len) {
+        const uint4 v = *reinterpret_cast<const uint4*>(buf + m * 4096);
+        const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) acc[j] += static_cast<A>(e[j]);
+      }
+    }
+    __syncthreads();  // every thread is done with the slot
+    if (threadIdx.x == 0 && i + kRing < n) {
+      bulk_unit(in, sh.n_in, start, range, i + kRing, &src, &len);
+      bulk_copy(ring + slot * kUnitBytes, src, len, &bars[slot]);
+    }
+  }
+  // threads of one int8 chunk position: reduce them in group order as the
+  // vector kernel does
+  constexpr int kSlots = kChunk / kVec;
+  constexpr int kGroups = kThreads / kSlots;
+  const int group = threadIdx.x / kSlots;
+  const int slot = threadIdx.x % kSlots;
+  if constexpr (kGroups > 1) {
+    __shared__ A red[kThreads][kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) red[threadIdx.x][j] = acc[j];
+    __syncthreads();
+    if (group == 0) {
+      for (int g = 1; g < kGroups; ++g) {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) acc[j] += red[g * kSlots + slot][j];
+      }
+    }
+  }
+  finish<A, kVec, kThreads>(acc, group == 0, slot * kVec, t, split, sh.splits, partials,
+                  tickets, carry, out);
+}
+
+template <typename T>
+int stream_sum(int engine, int n_in, const void* const* inputs, int64_t tiles,
+               int64_t rows, int64_t width, int64_t row_stride,
+               int64_t tile_stride, int splits, void* partials, void* tickets,
+               const void* carry, void* out, void* stream) {
+  // shapes and (input, chunk) items within a tile are 32-bit
   constexpr int64_t kMax32 = int64_t{1} << 31;
   if (n_in < 1 || n_in > kMaxInputs || splits < 1 || tiles > 65535 ||
-      rows >= kMax32 || width >= kMax32 || (rows / 8) * (width / 128) >= kMax32) {
+      rows >= kMax32 || width >= kMax32 ||
+      (rows / 8) * (width / 128) * n_in >= kMax32 ||
+      (splits > 1 && (partials == nullptr || tickets == nullptr)) ||
+      (engine == 1 && (width != 128 || row_stride != 128)) || engine < 0 ||
+      engine > 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (tiles > 0) {
     Inputs in{};
     for (int i = 0; i < n_in; ++i) in.ptr[i] = inputs[i];
+    const Shape sh{n_in, static_cast<int>(rows), static_cast<int>(width),
+                   splits, row_stride, tile_stride};
     const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(tiles));
-    stream_sum_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        in, n_in, static_cast<int>(rows), static_cast<int>(width), row_stride,
-        tile_stride, static_cast<float*>(out));
+    auto st = static_cast<cudaStream_t>(stream);
+    auto p = static_cast<Acc<T>*>(partials);
+    auto tk = static_cast<unsigned*>(tickets);
+    auto c = static_cast<const float*>(carry);
+    auto o = static_cast<float*>(out);
+    if (engine == 0) {
+      stream_sum_kernel<T, 8, 256><<<grid, 256, 0, st>>>(in, sh, p, tk, c, o);
+    } else if (engine == 2) {
+      stream_sum_kernel<T, 4, 256><<<grid, 256, 0, st>>>(in, sh, p, tk, c, o);
+    } else if (engine == 3) {
+      stream_sum_kernel<T, 8, 512><<<grid, 512, 0, st>>>(in, sh, p, tk, c, o);
+    } else if (engine == 4) {
+      stream_sum_kernel<T, 4, 512><<<grid, 512, 0, st>>>(in, sh, p, tk, c, o);
+    } else {
+      constexpr int smem = kRing * kUnitBytes;
+      const cudaError_t err = cudaFuncSetAttribute(
+          stream_sum_bulk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      stream_sum_bulk_kernel<T><<<grid, kThreads, smem, st>>>(in, sh, p, tk, c,
+                                                              o);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -148,18 +455,26 @@ const char* stream_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int stream_sum_f32(int n_in, const void* const* inputs, int64_t tiles,
-                   int64_t rows, int64_t width, int64_t row_stride,
-                   int64_t tile_stride, int splits, void* out, void* stream) {
-  return stream_sum<float>(n_in, inputs, tiles, rows, width, row_stride,
-                           tile_stride, splits, out, stream);
+// engine 0: 16-byte vector loads, 8 a step; 1: a ring of TMA bulk copies
+// (stacked layout only); 2: 16-byte vector loads, 4 a step
+int stream_sum_f32(int engine, int n_in, const void* const* inputs,
+                   int64_t tiles, int64_t rows, int64_t width,
+                   int64_t row_stride, int64_t tile_stride, int splits,
+                   void* partials, void* tickets, const void* carry, void* out,
+                   void* stream) {
+  return stream_sum<float>(engine, n_in, inputs, tiles, rows, width, row_stride,
+                           tile_stride, splits, partials, tickets, carry, out,
+                           stream);
 }
 
-int stream_sum_i8(int n_in, const void* const* inputs, int64_t tiles,
-                  int64_t rows, int64_t width, int64_t row_stride,
-                  int64_t tile_stride, int splits, void* out, void* stream) {
-  return stream_sum<int8_t>(n_in, inputs, tiles, rows, width, row_stride,
-                            tile_stride, splits, out, stream);
+int stream_sum_i8(int engine, int n_in, const void* const* inputs,
+                  int64_t tiles, int64_t rows, int64_t width,
+                  int64_t row_stride, int64_t tile_stride, int splits,
+                  void* partials, void* tickets, const void* carry, void* out,
+                  void* stream) {
+  return stream_sum<int8_t>(engine, n_in, inputs, tiles, rows, width,
+                            row_stride, tile_stride, splits, partials, tickets,
+                            carry, out, stream);
 }
 
 }  // extern "C"

@@ -19,8 +19,12 @@ rectangular.
   host, into blocks of at most ``BLOCK_ENTRIES`` entries and half as
   many rows; one thread block streams a row block's
   entries in coalesced loads, stages the products in shared memory and
-  reduces its rows from there.  K2 is one atomic add per tail entry and
-  column.
+  reduces its rows from there.  K2 is a segmented row reduction over the
+  tail, which keeps CSR order: :func:`tail_row_table` lists once, on the
+  host, the rows that spill and where each one's tail starts; a warp
+  owns such a row (a block of 8 warps a row of more than
+  ``LONG_TAIL_ROW`` tail entries), sums it in a fixed order and adds it
+  into Y: one writer a row, no atomics.
 - ``cap`` defaults to 64: at that cap the hub rows of a smoothed-SA
   restriction (a few hundred entries) spill, so K2 runs on the main
   path.  :func:`split_capped` makes the split once, when an operator is
@@ -30,8 +34,9 @@ Each kernel has a plain PyTorch version beside it (gather ``x[cols] *
 vals``, then ``index_add_`` over rows).  A wrapper takes the plain
 version only when its tensors lie on the CPU; for a CUDA tensor it
 launches the kernel or raises.  Each wrapper counts its launches in a
-module integer (``csr_spmv_launches``, ``coo_patch_launches``); K1's are
-also counted by (rows, cols, k) in ``csr_spmv_launches_by_shape``.
+module integer (``csr_spmv_launches``, ``coo_patch_launches``), and by
+(rows, cols, k) in ``csr_spmv_launches_by_shape`` and
+``coo_patch_launches_by_shape``.
 
 The kernels are compiled with nvcc for ``sm_90a`` into
 ``build/tpu_amg_torch/libamg_kernels.so`` at first launch and loaded
@@ -61,11 +66,15 @@ MAX_COLUMNS = 64
 # threads, 4 entries each).  Chosen by tools/rowblocks.py on the SA path's
 # own matrices (PERF.md).
 BLOCK_ENTRIES = 256
+# K2: a tail row of more entries than this takes a block of 8 warps, the
+# others a warp each
+LONG_TAIL_ROW = 256
 _INT32_MAX = 2**31 - 1
 
 csr_spmv_launches = 0
 coo_patch_launches = 0
 csr_spmv_launches_by_shape = collections.Counter()
+coo_patch_launches_by_shape = collections.Counter()
 
 
 def reset_launch_counts() -> None:
@@ -73,6 +82,7 @@ def reset_launch_counts() -> None:
     csr_spmv_launches = 0
     coo_patch_launches = 0
     csr_spmv_launches_by_shape.clear()
+    coo_patch_launches_by_shape.clear()
 
 
 def check_block_entries(dll: ctypes.CDLL, entries: int = BLOCK_ENTRIES):
@@ -90,14 +100,14 @@ def bind_kernel_lib(path: Path, entries: int = BLOCK_ENTRIES) -> ctypes.CDLL:
     ``entries`` and declare its entry points."""
     dll = ctypes.CDLL(str(path))
     check_block_entries(dll, entries)
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
     for suffix in ("f64", "f32"):
         fn = getattr(dll, f"csr_spmv_capped_{suffix}")
         fn.restype = i32
         fn.argtypes = [i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
         fn = getattr(dll, f"coo_patch_{suffix}")
         fn.restype = i32
-        fn.argtypes = [i64, i32, vp, vp, vp, vp, vp, vp]
+        fn.argtypes = [i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
     dll.kernel_error_string.restype = ctypes.c_char_p
     dll.kernel_error_string.argtypes = [i32]
     return dll
@@ -131,6 +141,26 @@ def split_capped(indptr, indices, data, cap: int):
         (cap_indptr, indices[head], data[head]),
         (rows[tail], indices[tail], data[tail]),
     )
+
+
+def tail_row_table(indptr, cap: int):
+    """K2's tail row table: the rows longer than ``cap`` (int32,
+    increasing) and where each one's tail starts in the tail arrays of
+    :func:`split_capped` (int32, one more entry than there are such
+    rows)."""
+    spill = np.diff(np.asarray(indptr, dtype=np.int64)) - cap
+    row_ids = np.flatnonzero(spill > 0)
+    ptr = np.zeros(len(row_ids) + 1, dtype=np.int64)
+    np.cumsum(spill[row_ids], out=ptr[1:])
+    if ptr[-1] > _INT32_MAX:
+        raise ValueError(f"a tail of {ptr[-1]} entries passes 32-bit offsets")
+    return row_ids.astype(np.int32), ptr.astype(np.int32)
+
+
+def long_tail_rows(tail_ptr: np.ndarray) -> np.ndarray:
+    """The positions in the tail row table of the rows that K2 gives a
+    block of their own (int32)."""
+    return np.flatnonzero(np.diff(tail_ptr) > LONG_TAIL_ROW).astype(np.int32)
 
 
 def row_blocks(cap_indptr: np.ndarray,
@@ -176,43 +206,52 @@ def block_table(cap_indptr: np.ndarray, device,
 class CappedCSR:
     """A CSR matrix on one device, split for K1 (capped rows) + K2 (tail).
 
-    ``indptr`` int64, ``indices``/``tail_rows``/``tail_cols`` int32,
-    values in the working dtype.  K1's row-block table, built for blocks
-    of ``BLOCK_ENTRIES``: ``block_rows`` (int32, n_blocks + 1, from
+    ``indptr`` int64, ``indices``/``tail_cols`` int32, values in the
+    working dtype.  K1's row-block table, built for blocks of
+    ``BLOCK_ENTRIES``: ``block_rows`` (int32, n_blocks + 1, from
     :func:`row_blocks`) and ``block_ptr``, the first entry of each block
     (``indptr[block_rows]``, int32), so that a block's bounds are two
-    loads of the table."""
+    loads of the table.  K2's tail row table (:func:`tail_row_table`):
+    ``tail_row_ids`` and ``tail_ptr``, and ``tail_long``, the table
+    positions of the rows longer than ``LONG_TAIL_ROW``."""
 
     indptr: torch.Tensor
     indices: torch.Tensor
     data: torch.Tensor
-    tail_rows: torch.Tensor
     tail_cols: torch.Tensor
     tail_vals: torch.Tensor
     shape: Tuple[int, int]
     cap: int
     block_rows: torch.Tensor
     block_ptr: torch.Tensor
-    # expanded row ids of the capped part, for the plain version
+    tail_row_ids: torch.Tensor
+    tail_ptr: torch.Tensor
+    tail_long: torch.Tensor
+    # expanded row ids of the capped part and of the tail, for the plain
+    # versions
     _rows: torch.Tensor = dataclasses.field(default=None, repr=False)
+    _tail_rows: torch.Tensor = dataclasses.field(default=None, repr=False)
 
     @staticmethod
     def from_csr(csr, device, dtype=torch.float64, cap: int = DEFAULT_CAP):
         if cap < 1:
             raise ValueError(f"cap must be >= 1, got {cap}")
-        (ip, ix, v), (tr, tc, tv) = split_capped(
+        (ip, ix, v), (_, tc, tv) = split_capped(
             csr.indptr, csr.indices, csr.data, cap
         )
+        row_ids, ptr = tail_row_table(csr.indptr, cap)
         return CappedCSR(
             indptr=to_device(ip, device, torch.int64),
             indices=to_device(ix, device, torch.int32),
             data=to_device(v, device, dtype),
-            tail_rows=to_device(tr, device, torch.int32),
             tail_cols=to_device(tc, device, torch.int32),
             tail_vals=to_device(tv, device, dtype),
             shape=tuple(csr.shape),
             cap=cap,
             **block_table(ip, device),
+            tail_row_ids=to_device(row_ids, device, torch.int32),
+            tail_ptr=to_device(ptr, device, torch.int32),
+            tail_long=to_device(long_tail_rows(ptr), device, torch.int32),
         )
 
     @property
@@ -235,6 +274,10 @@ class CappedCSR:
     def n_blocks(self) -> int:
         return self.block_rows.numel() - 1
 
+    @property
+    def n_tail_rows(self) -> int:
+        return self.tail_row_ids.numel()
+
     def rows(self) -> torch.Tensor:
         if self._rows is None:
             counts = self.indptr[1:] - self.indptr[:-1]
@@ -242,6 +285,14 @@ class CappedCSR:
                 torch.arange(self.shape[0], device=self.device), counts
             )
         return self._rows
+
+    def tail_rows(self) -> torch.Tensor:
+        """The row of every tail entry (int64), from the tail row table."""
+        if self._tail_rows is None:
+            self._tail_rows = torch.repeat_interleave(
+                self.tail_row_ids.long(),
+                (self.tail_ptr[1:] - self.tail_ptr[:-1]).long())
+        return self._tail_rows
 
     def to_csr(self):
         """The matrix on the host, capped part and tail together."""
@@ -251,7 +302,7 @@ class CappedCSR:
             return [t.cpu().numpy() for t in ts]
 
         rows, cols, vals = host(self.rows(), self.indices, self.data)
-        t_rows, t_cols, t_vals = host(self.tail_rows, self.tail_cols,
+        t_rows, t_cols, t_vals = host(self.tail_rows(), self.tail_cols,
                                       self.tail_vals)
         return CSR.from_coo(
             np.concatenate([rows, t_rows]), np.concatenate([cols, t_cols]),
@@ -322,7 +373,7 @@ def plain_coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor) -> None:
     x2 = x.reshape(mat.shape[1], -1)
     y2 = y.view(mat.shape[0], -1)
     y2.index_add_(
-        0, mat.tail_rows.long(), mat.tail_vals[:, None] * x2[mat.tail_cols.long()]
+        0, mat.tail_rows(), mat.tail_vals[:, None] * x2[mat.tail_cols.long()]
     )
 
 
@@ -360,7 +411,8 @@ def csr_spmv_capped(mat: CappedCSR, x: torch.Tensor) -> torch.Tensor:
 
 
 def coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor) -> None:
-    """K2: y[r_t] += v_t · x[c_t] over the tail entries, in place."""
+    """K2: y[r] += Σ v · x[c] over the tail entries of each row r, in
+    place."""
     global coo_patch_launches
     k = check_x(mat, x)
     if (y.shape != (mat.shape[0],) + tuple(x.shape[1:])
@@ -374,14 +426,19 @@ def coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor) -> None:
         plain_coo_patch(mat, x, y)
         return
     fn = _kernel("coo_patch", x)
+    if max(mat.shape) * k > _INT32_MAX:
+        raise ValueError(f"A {mat.shape} at k = {k} passes 32-bit offsets")
     with torch.cuda.device(x.device):
         code = fn(
-            mat.n_tail, k, mat.tail_rows.data_ptr(), mat.tail_cols.data_ptr(),
+            mat.n_tail_rows, mat.tail_long.numel(), LONG_TAIL_ROW, k,
+            mat.tail_row_ids.data_ptr(), mat.tail_ptr.data_ptr(),
+            mat.tail_long.data_ptr(), mat.tail_cols.data_ptr(),
             mat.tail_vals.data_ptr(), x.data_ptr(), y.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(code, "coo_patch")
     coo_patch_launches += 1
+    coo_patch_launches_by_shape[(*mat.shape, k)] += 1
 
 
 def spmv(mat: CappedCSR, x: torch.Tensor) -> torch.Tensor:
