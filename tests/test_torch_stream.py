@@ -126,16 +126,15 @@ def test_cli_on_cpu(capsys):
 
 def _walk(q0, q1, n_in, groups):
     """The (input, chunk) pairs a block of the kernel reads for split
-    [q0, q1): items f = i nq + (q - q0), group g taking items g, then
-    steps of UNROLL items, each ``groups`` on from the last."""
-    nq = q1 - q0
-    seen = []
-    for g in range(groups):
-        for f in range(g, n_in * nq, stream.UNROLL * groups):
-            seen += [(fu // nq, q0 + fu % nq)
-                     for fu in range(f, f + stream.UNROLL * groups, groups)
-                     if fu < n_in * nq]
-    return seen
+    [q0, q1) of a tile: items f (chunk-major: input f % n_in of chunk
+    q0 + f // n_in), step s of thread group g taking items s·U·groups +
+    g + u·groups, u < U, until the split's items are done."""
+    n = (q1 - q0) * n_in
+    step = stream.UNROLL * groups
+    steps = max(1, -(-n // step))
+    return [(f % n_in, q0 + f // n_in)
+            for s in range(steps) for g in range(groups)
+            for f in range(s * step + g, (s + 1) * step, groups) if f < n]
 
 
 @pytest.mark.parametrize("total_mib", [32, 1024])
@@ -147,25 +146,28 @@ def test_launch_plan_covers_every_chunk(name, total_mib):
     args = (tiles, case.rows, case.width, size, case.n_in, 132)
     plan = stream.launch_plan(*args)
     assert plan == stream.launch_plan(*args)
-    assert plan.grid == (plan.splits, tiles) and tiles <= stream.MAX_TILES
+    assert plan.grid == (plan.splits, plan.blocks)
+    # one block an SM at most, at most 8 a tile; the scratch of split
+    # tiles' partials
+    assert plan.splits * plan.blocks <= 132
+    assert 1 <= plan.splits <= stream.MAX_SPLITS
     assert plan.scratch == (None if plan.splits == 1
                             else (tiles, plan.splits, 8, 128))
-    chunks = (case.rows // 8) * (case.width // 128)
-    groups = 4 // size  # chunks a block's step of loads takes
-    ranges = stream.split_chunks(chunks, plan.splits)
+    # every tile taken by exactly one row of blocks (persistent rows walk
+    # tiles b, b + blocks, ...); a split tile has a row of its own
+    rows_of = [t for b in range(plan.blocks) for t in range(b, tiles,
+                                                            plan.blocks)]
+    assert sorted(rows_of) == list(range(tiles))
+    assert plan.splits == 1 or plan.blocks == tiles
     # every chunk of every input read exactly once in a tile, by one
     # split's block
-    seen = sorted(p for q0, q1 in ranges
+    chunks = (case.rows // 8) * (case.width // 128)
+    groups = stream.step_chunks(size)
+    seen = sorted(p for q0, q1 in stream.split_chunks(chunks, plan.splits)
                   for p in _walk(q0, q1, case.n_in, groups))
     assert seen == [(i, q) for i in range(case.n_in) for q in range(chunks)]
-    # each split has a full step of loads where the tile has one, and
-    # the grid fills the card where the tiles allow
-    per_split = -(-stream.UNROLL * groups // case.n_in)  # chunks
-    assert all(case.n_in * (q1 - q0) >= min(stream.UNROLL * groups,
-                                            case.n_in * chunks)
-               for q0, q1 in ranges)
-    assert (plan.splits == max(1, chunks // per_split)
-            or plan.splits == max(1, stream.BLOCKS_PER_SM * 132 // tiles))
+    # the grid fills the card: a block an SM where the tiles allow
+    assert plan.splits * plan.blocks >= min(132, tiles) or plan.splits == 8
 
 
 @pytest.fixture
@@ -177,18 +179,15 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("total_mib", [4, 64])
-@pytest.mark.parametrize("name,engine",
-                         [(c.name, e) for c in streambench.CASES
-                          for e in stream.ENGINES
-                          if e != "bulk" or c.layout == "case"])
-def test_kernel_matches_plain_on_card(cuda, name, engine, total_mib):
+@pytest.mark.parametrize("name", [c.name for c in streambench.CASES])
+def test_kernel_matches_plain_on_card(cuda, name, total_mib):
     case = next(c for c in streambench.CASES if c.name == name)
     g = torch.Generator(device=cuda).manual_seed(0)
     inputs = streambench.make_inputs(case, total_mib << 20, cuda, g)
     carry = torch.full((8, 128), 3.0, device=cuda)
     before = stream.stream_sum_launches
-    got = stream.stream_sum(inputs, carry, engine)
-    again = stream.stream_sum(inputs, carry, engine)
+    got = stream.stream_sum(inputs, carry)
+    again = stream.stream_sum(inputs, carry)
     ref = stream.plain_stream_sum(inputs, carry)
     torch.cuda.synchronize()
     assert stream.stream_sum_launches == before + 2

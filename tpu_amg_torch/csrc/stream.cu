@@ -16,29 +16,36 @@
 // block is cut into (8, 128) chunks, and every chunk is added into the
 // tile's (8, 128) float32 sum.
 //
-// Bound by bytes only: one add per element read, so what counts is the
-// bytes in flight on every SM.  The TPU's sequential grid carried a tile's
-// sum from step to step; here a tile's chunks are cut into `splits`
-// contiguous ranges, and one block of 256 threads takes one (tile, split)
-// item, the range's chunks of every input.  Each thread owns one 16-byte
-// slot of the (8, 128) chunk (4 float32 or 16 int8 values) and keeps
-// kUnroll = 8 of its 16-byte loads in flight (32 KB a block); the host
-// picks `splits` from the SM count so that the card holds several such
-// blocks an SM, and so that every split has at least one full step of
-// loads.  No float atomics: a block writes
-// its (8, 128) partial with plain stores into scratch, then takes an int
-// ticket for its tile; the block that draws the last ticket sums the
-// tile's partials in split order, adds the carry, writes the tile's
-// output and resets the ticket, so the next call (or a CUDA graph replay)
-// needs no memset.  With one split a block writes its output directly.
+// Bound by bytes only: one add per element read, so what counts is that
+// every SM keeps its loads in flight without a break.  The TPU's
+// sequential grid carried a tile's sum from step to step; here one block
+// of 512 threads runs on each SM.  Each thread owns one 16-byte slot of
+// an (8, 128) chunk (4 float32 or 16 int8 values), reads 8 (input, chunk)
+// items a step with 16-byte loads, and issues the next step's loads
+// before it adds this step's, so 16 loads (256 bytes) a thread, 128 KB an
+// SM, stay in flight from step to step and from tile to tile.
+//   - As many tiles as SMs or more: the blocks are persistent, block b
+//     taking tiles b, b + grid, ...; a finished tile's sum is written with
+//     plain stores while the next tile's loads are in flight.
+//   - Fewer tiles than SMs: a tile's chunks are cut into `splits` (at most
+//     8) contiguous ranges, one block each.  No float atomics: a block
+//     writes its (8, 128) partial with plain stores into scratch, then
+//     takes an int ticket for its tile; the block that draws the last
+//     ticket loads the tile's partials all at once, sums them in split
+//     order, adds the carry, writes the tile and resets the ticket, so the
+//     next call (or a CUDA graph replay) needs no memset.
 // One launch a call, and the same bits on every call.  int8 inputs are
 // summed in int32 (partials too) and float32 inputs in float32, so sums
-// of integer-valued inputs are exact whatever the order.
+// of integer-valued inputs are exact whatever the order.  (Tried and
+// dropped, PERF.md: a ring of TMA bulk copies into shared memory, no
+// faster than these loads at 1 GiB; a thread-block cluster a split tile,
+// its partials summed through distributed shared memory, slower, since
+// clusters of several of these SM-filling blocks do not all fit on the
+// card at once.)
 //
 // The host side (tpu_amg_torch/ops/stream.py) checks shapes, strides and
-// 16-byte alignment, makes the launch plan, allocates the scratch, keeps
-// the per-device tickets, passes PyTorch's current stream and checks the
-// returned cudaGetLastError().
+// 16-byte alignment, makes the launch plan, passes PyTorch's current
+// stream and checks the returned cudaGetLastError().
 
 #include <cstdint>
 #include <type_traits>
@@ -46,10 +53,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kMaxInputs = 8;
+constexpr int kMaxSplits = 8;  // blocks a tile
 constexpr int kChunk = 8 * 128;
-constexpr int kUnroll = 8;  // 16-byte loads a thread keeps in flight
+constexpr int kUnroll = 8;  // 16-byte loads a thread issues a step
 
 struct Inputs {
   const void* ptr[kMaxInputs];
@@ -57,7 +65,7 @@ struct Inputs {
 
 struct Shape {
   int n_in, rows, width, splits;
-  int64_t row_stride, tile_stride;
+  int64_t row_stride, tile_stride, tiles;
 };
 
 // int8 sums are taken in int32 (exact, and without a conversion per
@@ -74,140 +82,80 @@ __device__ __forceinline__ unsigned split_begin(unsigned n, int s, int splits) {
 __device__ __forceinline__ unsigned bits(float v) { return __float_as_uint(v); }
 __device__ __forceinline__ unsigned bits(int v) { return static_cast<unsigned>(v); }
 
-// The end of a (tile, split) item: acc holds this thread's values of the
-// block's (8, 128) sum at positions base .. base + V - 1 (threads with
-// has_slot; the others hold nothing).  Writes the tile's output directly
-// (one split) or the partial, and the last block of the tile sums them.
-template <typename A, int V, int NT>
-__device__ __forceinline__ void finish(const A (&acc)[V], bool has_slot,
-                                       int base, int64_t t, int split,
-                                       int splits, A* __restrict__ partials,
-                                       unsigned* __restrict__ tickets,
-                                       const float* __restrict__ carry,
-                                       float* __restrict__ out) {
-  if (splits == 1) {
-    if (has_slot) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        out[t * kChunk + base + j] = carry[base + j] + static_cast<float>(acc[j]);
-      }
-    }
-    return;
-  }
-  if (has_slot) {
-    A* p = partials + (t * splits + split) * kChunk + base;
-#pragma unroll
-    for (int j = 0; j < V; j += 4) {
-      *reinterpret_cast<uint4*>(p + j) = make_uint4(
-          bits(acc[j]), bits(acc[j + 1]), bits(acc[j + 2]), bits(acc[j + 3]));
-    }
-  }
-  __threadfence();  // the partial is visible to every block before the ticket
-  __syncthreads();
-  __shared__ unsigned ticket;
-  if (threadIdx.x == 0) ticket = atomicAdd(tickets + t, 1u);
-  __syncthreads();
-  if (ticket != static_cast<unsigned>(splits - 1)) return;
-  // the tile's last block: every partial is in; sum them in split order,
-  // 4 values a thread, kUnroll partials' loads in flight
-  if (threadIdx.x == 0) tickets[t] = 0;
-  const int o = 4 * threadIdx.x;
-  if (o >= kChunk) return;
-  const A* p = partials + t * splits * kChunk + o;
-  A s[4] = {A(0), A(0), A(0), A(0)};
-  for (int b = 0; b < splits; b += kUnroll) {
-    uint4 v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      v[u] = b + u < splits
-                 ? __ldcg(reinterpret_cast<const uint4*>(
-                       p + static_cast<int64_t>(b + u) * kChunk))
-                 : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const A* e = reinterpret_cast<const A*>(&v[u]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[j] += e[j];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    out[t * kChunk + o + j] = carry[o + j] + static_cast<float>(s[j]);
-  }
-}
-
-// n / d for n < 2^31 by a multiply and a shift (d fixed for the block).
+// n / d for n < 2^31 by a multiply and a shift (d fixed for the kernel).
 struct Divider {
   unsigned d, m, shift;
   __device__ explicit Divider(unsigned divisor) : d(divisor) {
     shift = 0;
     while ((1u << shift) < d) ++shift;
-    m = static_cast<unsigned>(((uint64_t{1} << 32) * ((uint64_t{1} << shift) - d)) / d + 1);
+    m = static_cast<unsigned>(
+        ((uint64_t{1} << 32) * ((uint64_t{1} << shift) - d)) / d + 1);
   }
   __device__ __forceinline__ unsigned div(unsigned n) const {
     return (__umulhi(n, m) + n) >> shift;
   }
 };
 
-// A block's items and where they lie: item f = i nq + (q - q0) is chunk q
-// of input i (input-major, nq = q1 - q0 chunks in the split).
+// A block's items within a tile: item f (chunk-major, f < n) is input
+// f % n_in of chunk q0 + f / n_in of its split.
 template <typename T>
 struct Items {
   const T* const* base;  // the inputs (shared memory)
-  int64_t tile;          // this thread's slot in the tile's first chunk
-  int64_t row_stride;
+  int64_t slot;          // this thread's slot in a tile's first chunk
+  int64_t row_stride, tile_stride;
   unsigned q0, n;
-  Divider nq, cols;      // chunks in the split; chunks in a row group
+  Divider n_in, cols;  // inputs; chunks in a row group
 };
 
-// Issue the loads of items f, f + G, ..., f + (U - 1) G; past the end:
-// zeros, not read.
-template <typename T, int U, int G>
-__device__ __forceinline__ void load_items(const Items<T>& it, unsigned f,
-                                           uint4 (&v)[U]) {
+// Issue the loads of items f, f + G, ..., f + (kUnroll - 1) G of tile t;
+// past the end: zeros, not read.
+template <typename T, int G>
+__device__ __forceinline__ void load_items(const Items<T>& it, int64_t t,
+                                           unsigned f, uint4 (&v)[kUnroll]) {
 #pragma unroll
-  for (int u = 0; u < U; ++u) {
+  for (int u = 0; u < kUnroll; ++u) {
     const unsigned fu = f + u * G;
     v[u] = make_uint4(0, 0, 0, 0);
     if (fu < it.n) {
-      const unsigned i = it.nq.div(fu);
-      const unsigned q = it.q0 + (fu - i * it.nq.d);
+      const unsigned c = it.n_in.div(fu);
+      const unsigned i = fu - c * it.n_in.d;
+      const unsigned q = it.q0 + c;
       const unsigned rr = it.cols.div(q);
       const unsigned kk = q - rr * it.cols.d;
       v[u] = __ldg(reinterpret_cast<const uint4*>(
-          it.base[i] + it.tile + static_cast<int64_t>(rr) * 8 * it.row_stride +
-          kk * 128));
+          it.base[i] + t * it.tile_stride + it.slot +
+          static_cast<int64_t>(rr) * 8 * it.row_stride + kk * 128));
     }
   }
 }
 
-template <typename T, typename A, int U, int V>
-__device__ __forceinline__ void add_items(const uint4 (&v)[U], A (&acc)[V]) {
+template <typename T, typename A, int V>
+__device__ __forceinline__ void add_items(const uint4 (&v)[kUnroll],
+                                          A (&acc)[V]) {
 #pragma unroll
-  for (int u = 0; u < U; ++u) {
+  for (int u = 0; u < kUnroll; ++u) {
     const T* e = reinterpret_cast<const T*>(&v[u]);
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[j] += static_cast<A>(e[j]);
   }
 }
 
-// Block (split, tile): the tile's chunks [q0, q1) of every input, as
-// items; each thread reads its slot of items group, group + groups, ...,
-// U items' loads a step, and issues the next step's loads before it adds
-// this step's, so its loads stay in flight from step to step; a short
-// split of several inputs keeps as many loads in flight as a long one.
-template <typename T, int U, int NT>
-__global__ void __launch_bounds__(NT)
+// Grid (splits, blocks of tiles): block (s, b) reads split s of tiles
+// b, b + gridDim.y, ... (splits > 1: gridDim.y is the tile count).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
 stream_sum_kernel(Inputs in, Shape sh, Acc<T>* __restrict__ partials,
                   unsigned* __restrict__ tickets,
                   const float* __restrict__ carry, float* __restrict__ out) {
   using A = Acc<T>;
   constexpr int kVec = 16 / sizeof(T);          // values per 16-byte slot
   constexpr int kSlots = kChunk / kVec;         // slots per (8, 128) chunk
-  constexpr int kGroups = NT / kSlots;    // chunks per block step
+  constexpr int kGroups = kThreads / kSlots;    // chunks a step of loads
   constexpr int kSlotsPerRow = 128 / kVec;
+  constexpr unsigned kStep = kUnroll * kGroups;  // items a step
   __shared__ const T* base[kMaxInputs];
+  __shared__ A red[kThreads][kVec];  // the groups' sums of each slot
+  __shared__ unsigned ticket;
 #pragma unroll
   for (int i = 0; i < kMaxInputs; ++i) {
     if (threadIdx.x == i) base[i] = static_cast<const T*>(in.ptr[i]);
@@ -218,232 +166,149 @@ stream_sum_kernel(Inputs in, Shape sh, Acc<T>* __restrict__ partials,
   const int r = slot / kSlotsPerRow;
   const int l = (slot % kSlotsPerRow) * kVec;
   const int split = blockIdx.x;
-  const int64_t t = blockIdx.y;
   const unsigned col_chunks = sh.width / 128;
   const unsigned n_chunks = (sh.rows / 8) * col_chunks;
   const unsigned q0 = split_begin(n_chunks, split, sh.splits);
   const unsigned nq = split_begin(n_chunks, split + 1, sh.splits) - q0;
-  const Items<T> it{base, t * sh.tile_stride + r * sh.row_stride + l,
-                    sh.row_stride, q0, nq * sh.n_in, Divider(nq > 0 ? nq : 1),
-                    Divider(col_chunks)};
+  const Items<T> it{base, r * sh.row_stride + l, sh.row_stride,
+                    sh.tile_stride, q0, nq * sh.n_in,
+                    Divider(sh.n_in), Divider(col_chunks)};
+  // steps a tile (an empty tile takes one step of no loads)
+  const unsigned steps = it.n > 0 ? (it.n + kStep - 1) / kStep : 1;
 
   A acc[kVec];
 #pragma unroll
   for (int j = 0; j < kVec; ++j) acc[j] = A(0);
-  constexpr unsigned kStep = U * kGroups;
-  uint4 a[U], b[U];
-  unsigned f = group;
-  load_items<T, U, kGroups>(it, f, a);
+
+  // the tile whose last step was just added: its sum to out
+  auto flush = [&](int64_t t) {
+    if constexpr (kGroups > 1) {
+      __syncthreads();  // the last tile's sums are read
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) red[threadIdx.x][j] = acc[j];
+      __syncthreads();
+      if (group == 0) {
+        for (int g = 1; g < kGroups; ++g) {
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) acc[j] += red[g * kSlots + slot][j];
+        }
+      }
+    }
+    const int o = r * 128 + l;
+    if (sh.splits == 1) {
+      if (group == 0) {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          out[t * kChunk + o + j] = carry[o + j] + static_cast<float>(acc[j]);
+        }
+      }
+    } else {
+      if (group == 0) {
+        A* p = partials + (t * sh.splits + split) * kChunk + o;
+#pragma unroll
+        for (int j = 0; j < kVec; j += 4) {
+          *reinterpret_cast<uint4*>(p + j) =
+              make_uint4(bits(acc[j]), bits(acc[j + 1]), bits(acc[j + 2]),
+                         bits(acc[j + 3]));
+        }
+      }
+      __syncthreads();  // the block's partial is written
+      if (threadIdx.x == 0) {
+        __threadfence();  // ... and visible to every block before its ticket
+        ticket = atomicAdd(tickets + t, 1u);
+        __threadfence();
+      }
+      __syncthreads();
+      if (ticket == static_cast<unsigned>(sh.splits - 1)) {
+        // the tile's last block: every partial is in; all loaded at once,
+        // summed in split order, 4 values a thread
+        if (threadIdx.x == 0) tickets[t] = 0;
+        const int p = 4 * threadIdx.x;
+        if (p < kChunk) {
+          const A* src = partials + t * sh.splits * kChunk + p;
+          uint4 v[kMaxSplits];
+#pragma unroll
+          for (int b = 0; b < kMaxSplits; ++b) {
+            v[b] = b < sh.splits ? __ldcg(reinterpret_cast<const uint4*>(
+                                       src + b * kChunk))
+                                 : make_uint4(0, 0, 0, 0);
+          }
+          A s[4] = {A(0), A(0), A(0), A(0)};
+#pragma unroll
+          for (int b = 0; b < kMaxSplits; ++b) {
+            const A* e = reinterpret_cast<const A*>(&v[b]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s[j] += e[j];
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            out[t * kChunk + p + j] = carry[p + j] + static_cast<float>(s[j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) acc[j] = A(0);
+  };
+
+  // two cursors over (tile, step): the loads run one step ahead of the
+  // adds, from tile to tile
+  int64_t lt = blockIdx.y, at = blockIdx.y;
+  unsigned ls = 0, as = 0;
+  auto advance = [&](int64_t& t, unsigned& s) {
+    if (++s == steps) {
+      s = 0;
+      t += gridDim.y;
+    }
+  };
+  uint4 a[kUnroll], b[kUnroll];
+  load_items<T, kGroups>(it, lt, ls * kStep + group, a);
+  advance(lt, ls);
   while (true) {
-    load_items<T, U, kGroups>(it, f + kStep, b);
-    add_items<T, A, U, kVec>(a, acc);
-    if (f + kStep >= it.n) break;
-    load_items<T, U, kGroups>(it, f + 2 * kStep, a);
-    add_items<T, A, U, kVec>(b, acc);
-    if (f + 2 * kStep >= it.n) break;
-    f += 2 * kStep;
-  }
-  if constexpr (kGroups > 1) {
-    // the groups' sums of one slot, added in group order
-    __shared__ A red[NT][kVec];
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) red[threadIdx.x][j] = acc[j];
-    __syncthreads();
-    if (group == 0) {
-      for (int g = 1; g < kGroups; ++g) {
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) acc[j] += red[g * kSlots + slot][j];
-      }
+    const bool more_b = lt < sh.tiles;  // the same for every thread
+    if (more_b) {
+      load_items<T, kGroups>(it, lt, ls * kStep + group, b);
+      advance(lt, ls);
     }
+    add_items<T, A, kVec>(a, acc);
+    if (as + 1 == steps) flush(at);
+    advance(at, as);
+    if (!more_b) break;
+    const bool more_a = lt < sh.tiles;
+    if (more_a) {
+      load_items<T, kGroups>(it, lt, ls * kStep + group, a);
+      advance(lt, ls);
+    }
+    add_items<T, A, kVec>(b, acc);
+    if (as + 1 == steps) flush(at);
+    advance(at, as);
+    if (!more_a) break;
   }
-  finish<A, kVec, NT>(acc, group == 0, r * 128 + l, t, split, sh.splits, partials,
-                  tickets, carry, out);
-}
-
-// ---- TMA bulk-copy ring (stacked layout only: a split's chunks of one
-// input are one contiguous range)
-
-constexpr int kRing = 3;             // slots
-constexpr int kUnitBytes = 32 << 10;  // bytes a slot
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void bulk_copy(unsigned char* dst,
-                                          const unsigned char* src, int bytes,
-                                          uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// unit u of a block's share: input u % n_in, bytes [q U, q U + len) of
-// its range, q = u / n_in
-__device__ __forceinline__ void bulk_unit(const Inputs& in, int n_in,
-                                          int64_t start, int64_t range, int u,
-                                          const unsigned char** src, int* len) {
-  const int q = u / n_in;
-  const int i = u - q * n_in;
-  const int64_t off = static_cast<int64_t>(q) * kUnitBytes;
-  const int64_t left = range - off;
-  *len = static_cast<int>(left < kUnitBytes ? left : kUnitBytes);
-  *src = static_cast<const unsigned char*>(in.ptr[i]) + start + off;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-stream_sum_bulk_kernel(Inputs in, Shape sh, Acc<T>* __restrict__ partials,
-                       unsigned* __restrict__ tickets,
-                       const float* __restrict__ carry,
-                       float* __restrict__ out) {
-  using A = Acc<T>;
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunkBytes = kChunk * sizeof(T);
-  extern __shared__ __align__(128) unsigned char ring[];
-  __shared__ __align__(8) uint64_t bars[kRing];
-  const int split = blockIdx.x;
-  const int64_t t = blockIdx.y;
-  const unsigned n_chunks = sh.rows / 8;
-  const unsigned q0 = split_begin(n_chunks, split, sh.splits);
-  const unsigned q1 = split_begin(n_chunks, split + 1, sh.splits);
-  const int64_t start = (t * sh.tile_stride + static_cast<int64_t>(q0) * kChunk) *
-                        static_cast<int64_t>(sizeof(T));
-  const int64_t range = static_cast<int64_t>(q1 - q0) * kChunkBytes;
-  const int per_input = static_cast<int>((range + kUnitBytes - 1) / kUnitBytes);
-  const int n = per_input * sh.n_in;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < kRing; ++i) mbar_init(&bars[i]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < kRing && i < n; ++i) {
-      const unsigned char* src;
-      int len;
-      bulk_unit(in, sh.n_in, start, range, i, &src, &len);
-      bulk_copy(ring + i * kUnitBytes, src, len, &bars[i]);
-    }
-  }
-  // this thread's 16 bytes of every 4 KB of a slot: position 16 tid of a
-  // float32 chunk, or of one of four int8 chunks
-  A acc[kVec];
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) acc[j] = A(0);
-  for (int i = 0; i < n; ++i) {
-    const int slot = i % kRing;
-    mbar_wait(&bars[slot], static_cast<uint32_t>((i / kRing) & 1));
-    const unsigned char* src;
-    int len;
-    bulk_unit(in, sh.n_in, start, range, i, &src, &len);
-    const unsigned char* buf = ring + slot * kUnitBytes + 16 * threadIdx.x;
-#pragma unroll
-    for (int m = 0; m < kUnitBytes / 4096; ++m) {
-      if (m * 4096 + 16 * static_cast<int>(threadIdx.x) < len) {
-        const uint4 v = *reinterpret_cast<const uint4*>(buf + m * 4096);
-        const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) acc[j] += static_cast<A>(e[j]);
-      }
-    }
-    __syncthreads();  // every thread is done with the slot
-    if (threadIdx.x == 0 && i + kRing < n) {
-      bulk_unit(in, sh.n_in, start, range, i + kRing, &src, &len);
-      bulk_copy(ring + slot * kUnitBytes, src, len, &bars[slot]);
-    }
-  }
-  // threads of one int8 chunk position: reduce them in group order as the
-  // vector kernel does
-  constexpr int kSlots = kChunk / kVec;
-  constexpr int kGroups = kThreads / kSlots;
-  const int group = threadIdx.x / kSlots;
-  const int slot = threadIdx.x % kSlots;
-  if constexpr (kGroups > 1) {
-    __shared__ A red[kThreads][kVec];
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) red[threadIdx.x][j] = acc[j];
-    __syncthreads();
-    if (group == 0) {
-      for (int g = 1; g < kGroups; ++g) {
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) acc[j] += red[g * kSlots + slot][j];
-      }
-    }
-  }
-  finish<A, kVec, kThreads>(acc, group == 0, slot * kVec, t, split, sh.splits, partials,
-                  tickets, carry, out);
-}
-
-template <typename T>
-int stream_sum(int engine, int n_in, const void* const* inputs, int64_t tiles,
+int stream_sum(int n_in, const void* const* inputs, int64_t tiles,
                int64_t rows, int64_t width, int64_t row_stride,
-               int64_t tile_stride, int splits, void* partials, void* tickets,
-               const void* carry, void* out, void* stream) {
+               int64_t tile_stride, int splits, int blocks, void* partials,
+               void* tickets, const void* carry, void* out, void* stream) {
   // shapes and (input, chunk) items within a tile are 32-bit
   constexpr int64_t kMax32 = int64_t{1} << 31;
-  if (n_in < 1 || n_in > kMaxInputs || splits < 1 || tiles > 65535 ||
+  if (n_in < 1 || n_in > kMaxInputs || splits < 1 || splits > kMaxSplits ||
+      blocks < 1 || blocks > 65535 || blocks > tiles ||
+      (splits > 1 && (blocks != tiles || partials == nullptr ||
+                      tickets == nullptr)) ||
       rows >= kMax32 || width >= kMax32 ||
-      (rows / 8) * (width / 128) * n_in >= kMax32 ||
-      (splits > 1 && (partials == nullptr || tickets == nullptr)) ||
-      (engine == 1 && (width != 128 || row_stride != 128)) || engine < 0 ||
-      engine > 4) {
+      (rows / 8) * (width / 128) * n_in >= kMax32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (tiles > 0) {
-    Inputs in{};
-    for (int i = 0; i < n_in; ++i) in.ptr[i] = inputs[i];
-    const Shape sh{n_in, static_cast<int>(rows), static_cast<int>(width),
-                   splits, row_stride, tile_stride};
-    const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(tiles));
-    auto st = static_cast<cudaStream_t>(stream);
-    auto p = static_cast<Acc<T>*>(partials);
-    auto tk = static_cast<unsigned*>(tickets);
-    auto c = static_cast<const float*>(carry);
-    auto o = static_cast<float*>(out);
-    if (engine == 0) {
-      stream_sum_kernel<T, 8, 256><<<grid, 256, 0, st>>>(in, sh, p, tk, c, o);
-    } else if (engine == 2) {
-      stream_sum_kernel<T, 4, 256><<<grid, 256, 0, st>>>(in, sh, p, tk, c, o);
-    } else if (engine == 3) {
-      stream_sum_kernel<T, 8, 512><<<grid, 512, 0, st>>>(in, sh, p, tk, c, o);
-    } else if (engine == 4) {
-      stream_sum_kernel<T, 4, 512><<<grid, 512, 0, st>>>(in, sh, p, tk, c, o);
-    } else {
-      constexpr int smem = kRing * kUnitBytes;
-      const cudaError_t err = cudaFuncSetAttribute(
-          stream_sum_bulk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      stream_sum_bulk_kernel<T><<<grid, kThreads, smem, st>>>(in, sh, p, tk, c,
-                                                              o);
-    }
-  }
+  Inputs in{};
+  for (int i = 0; i < n_in; ++i) in.ptr[i] = inputs[i];
+  const Shape sh{n_in, static_cast<int>(rows), static_cast<int>(width),
+                 splits, row_stride, tile_stride, tiles};
+  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(blocks));
+  stream_sum_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      in, sh, static_cast<Acc<T>*>(partials), static_cast<unsigned*>(tickets),
+      static_cast<const float*>(carry), static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -455,25 +320,21 @@ const char* stream_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// engine 0: 16-byte vector loads, 8 a step; 1: a ring of TMA bulk copies
-// (stacked layout only); 2: 16-byte vector loads, 4 a step
-int stream_sum_f32(int engine, int n_in, const void* const* inputs,
-                   int64_t tiles, int64_t rows, int64_t width,
-                   int64_t row_stride, int64_t tile_stride, int splits,
-                   void* partials, void* tickets, const void* carry, void* out,
-                   void* stream) {
-  return stream_sum<float>(engine, n_in, inputs, tiles, rows, width, row_stride,
-                           tile_stride, splits, partials, tickets, carry, out,
-                           stream);
+int stream_sum_f32(int n_in, const void* const* inputs, int64_t tiles,
+                   int64_t rows, int64_t width, int64_t row_stride,
+                   int64_t tile_stride, int splits, int blocks, void* partials,
+                   void* tickets, const void* carry, void* out, void* stream) {
+  return stream_sum<float>(n_in, inputs, tiles, rows, width, row_stride,
+                           tile_stride, splits, blocks, partials, tickets,
+                           carry, out, stream);
 }
 
-int stream_sum_i8(int engine, int n_in, const void* const* inputs,
-                  int64_t tiles, int64_t rows, int64_t width,
-                  int64_t row_stride, int64_t tile_stride, int splits,
-                  void* partials, void* tickets, const void* carry, void* out,
-                  void* stream) {
-  return stream_sum<int8_t>(engine, n_in, inputs, tiles, rows, width,
-                            row_stride, tile_stride, splits, partials, tickets,
+int stream_sum_i8(int n_in, const void* const* inputs, int64_t tiles,
+                  int64_t rows, int64_t width, int64_t row_stride,
+                  int64_t tile_stride, int splits, int blocks, void* partials,
+                  void* tickets, const void* carry, void* out, void* stream) {
+  return stream_sum<int8_t>(n_in, inputs, tiles, rows, width, row_stride,
+                            tile_stride, splits, blocks, partials, tickets,
                             carry, out, stream);
 }
 

@@ -20,22 +20,22 @@ so that only the last tile survives; that is a Mosaic artefact, and
 here every tile's sum is returned.
 
 The kernel (CUDA C++ in ``tpu_amg_torch/csrc/stream.cu``) is bound by
-bytes only.  :func:`launch_plan` cuts each tile's chunks into ``splits``
-contiguous ranges, one block of 256 threads a (tile, split) item (the
-range's chunks of every input), each thread keeping 8 16-byte loads in
-flight; the splits come from the SM count (``BLOCKS_PER_SM`` blocks an
-SM, each split at least one full step of loads).  A block writes its (8, 128) partial into a scratch tensor
-with plain stores; the tile's last block (an int ticket per tile, kept
-per device and reset by the kernel) sums the partials in split order and
-adds the carry: one launch a call, no float atomics, the same bits on
-every call.  Its plain PyTorch version beside it is ``reshape`` +
+bytes only.  One block of 512 threads runs on each SM, each thread
+keeping 16 16-byte loads in flight across steps and tiles.
+:func:`launch_plan` makes the grid from the SM count: with as many tiles
+as SMs or more, persistent blocks walk the tiles; with fewer, each
+tile's chunks are cut into ``splits`` ranges (at most 8), one block
+each: a block writes its (8, 128) partial into a scratch tensor with
+plain stores, and the tile's last block (an int ticket per tile, kept
+per device and reset by the kernel) sums the partials in split order.
+One launch a call, no float atomics, and the same bits on every call;
+calls on one device share its tickets, so they must not run on two
+streams at once.  Its plain PyTorch version beside it is ``reshape`` +
 ``sum``.  The wrapper takes the plain version only when its tensors lie
-on the CPU; for a CUDA tensor it launches the kernel or raises.  Calls
-on one device share its tickets, so they must not run on two streams at
-once.  Launches are counted in ``stream_sum_launches``.  The kernel is
-compiled with nvcc for ``sm_90a`` into
-``build/tpu_amg_torch/libamg_stream.so`` at first launch and loaded with
-ctypes.
+on the CPU; for a CUDA tensor it launches the kernel or raises.  Launches are counted in
+``stream_sum_launches``.  The kernel is compiled with nvcc for
+``sm_90a`` into ``build/tpu_amg_torch/libamg_stream.so`` at first
+launch and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -52,14 +52,9 @@ from tpu_amg_torch.ops._build import build_cuda_library
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "stream.cu"
 MAX_INPUTS = 8
-MAX_TILES = 65535  # the grid's second dimension
-UNROLL = 8  # 16-byte loads a thread keeps in flight (kUnroll in stream.cu)
-BLOCKS_PER_SM = 8  # (tile, split) blocks the plan aims for on every SM
-# 16-byte loads (8 or 4 a step, blocks of 256 or 512 threads); a ring of
-# TMA bulk copies
-ENGINES = ("lsu", "bulk", "lsu4", "lsu512", "lsu4x512")
-_ENGINE_STEP = {"lsu": (8, 256), "bulk": (8, 256), "lsu4": (4, 256),
-                "lsu512": (8, 512), "lsu4x512": (4, 512)}
+THREADS = 512  # a block (kThreads in stream.cu)
+UNROLL = 8  # 16-byte loads a thread issues a step (kUnroll)
+MAX_SPLITS = 8  # blocks a tile (kMaxSplits)
 
 stream_sum_launches = 0
 
@@ -77,7 +72,7 @@ def kernel_lib() -> ctypes.CDLL:
     for suffix in ("f32", "i8"):
         fn = getattr(dll, f"stream_sum_{suffix}")
         fn.restype = i32
-        fn.argtypes = [i32, i32, ctypes.POINTER(vp), i64, i64, i64, i64, i64,
+        fn.argtypes = [i32, ctypes.POINTER(vp), i64, i64, i64, i64, i64, i32,
                        i32, vp, vp, vp, vp, vp]
     dll.stream_error_string.restype = ctypes.c_char_p
     dll.stream_error_string.argtypes = [i32]
@@ -89,33 +84,55 @@ _SUFFIX = {torch.float32: "f32", torch.int8: "i8"}
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """One launch of the kernel: ``splits`` blocks a tile on a grid of
-    (splits, tiles); with more than one split, the partials go to a
-    scratch tensor of ``scratch`` shape."""
+    """One launch of the kernel: a grid of (``splits``, ``blocks``)
+    blocks; block (s, b) reads split s of tiles b, b + blocks, ...; with
+    more than one split, the partials go to a scratch tensor of shape
+    ``scratch``."""
 
     splits: int
-    grid: Tuple[int, int]
-    scratch: Optional[Tuple[int, int, int, int]]
+    blocks: int
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        return self.splits, self.blocks
+
+    @property
+    def scratch(self) -> Optional[Tuple[int, int, int, int]]:
+        if self.splits == 1:
+            return None
+        return self.blocks, self.splits, 8, 128
+
+
+def step_chunks(element_size: int) -> int:
+    """Chunks a block's step of loads spans: a thread's slot is 16 bytes
+    of an (8, 128) chunk, so a chunk takes 256 (float32) or 64 (int8)
+    threads."""
+    return THREADS * element_size // 256
 
 
 def launch_plan(tiles: int, rows: int, width: int, element_size: int,
-                n_in: int, sms: int, blocks_per_sm: float = BLOCKS_PER_SM,
-                engine: str = "lsu") -> Plan:
-    """The kernel's launch for ``tiles`` blocks of (rows, width) values of
-    ``element_size`` bytes in each of ``n_in`` inputs, on a card of
-    ``sms`` SMs: a pure function of these.  A block's step of loads
-    takes ``UNROLL`` (input, chunk) items a thread, a chunk being one
-    (8, 128) chunk (float32) or four (int8); every split gets at least
-    one full step where the tile has one, and the grid aims for
-    ``blocks_per_sm`` blocks an SM."""
-    unroll, threads = _ENGINE_STEP[engine]
+                n_in: int, sms: int) -> Plan:
+    """The kernel's launch for ``tiles`` (≥ 1) blocks of (rows, width)
+    values of ``element_size`` bytes in each of ``n_in`` inputs, on a
+    card of ``sms`` SMs: a pure function of these.  With as many tiles as
+    SMs or more, one persistent block an SM; with fewer, the tiles' chunks
+    are split over up to ``MAX_SPLITS`` blocks a tile, as many as keep
+    the grid within one block an SM and give every split a full step of
+    loads (``UNROLL`` items a thread)."""
+    if tiles >= sms:
+        return Plan(1, sms)
     chunks = (rows // 8) * (width // 128)
-    per_split = -(-unroll * (threads // 256) * (4 // element_size)
-                  // n_in)  # chunks
-    want = max(1, int(blocks_per_sm * sms) // max(tiles, 1))
-    splits = max(1, min(want, chunks // per_split))
-    return Plan(splits, (splits, tiles),
-                (tiles, splits, 8, 128) if splits > 1 else None)
+    per_split = -(-UNROLL * step_chunks(element_size) // n_in)
+    return Plan(max(1, min(MAX_SPLITS, sms // tiles, chunks // per_split)),
+                tiles)
+
+
+@functools.cache
+def _tickets(device: torch.device) -> torch.Tensor:
+    """The device's per-tile tickets (split tiles are fewer than the
+    SMs): zero between calls, the kernel resets what it takes."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return torch.zeros(sms, dtype=torch.int32, device=device)
 
 
 def split_chunks(chunks: int, splits: int) -> List[Tuple[int, int]]:
@@ -123,13 +140,6 @@ def split_chunks(chunks: int, splits: int) -> List[Tuple[int, int]]:
     cuts them (``split_begin`` in stream.cu)."""
     return [(chunks * s // splits, chunks * (s + 1) // splits)
             for s in range(splits)]
-
-
-@functools.cache
-def _tickets(device: torch.device) -> torch.Tensor:
-    """The device's per-tile tickets: zero between calls (the kernel
-    resets what it takes)."""
-    return torch.zeros(MAX_TILES, dtype=torch.int32, device=device)
 
 
 def wide_layout(arr: torch.Tensor, width: int) -> torch.Tensor:
@@ -175,9 +185,8 @@ def plain_stream_sum(inputs: Sequence[torch.Tensor],
     return out
 
 
-def stream_sum(inputs: Sequence[torch.Tensor], carry: torch.Tensor,
-               engine: str = "lsu",
-               blocks_per_sm: float = BLOCKS_PER_SM) -> torch.Tensor:
+def stream_sum(inputs: Sequence[torch.Tensor],
+               carry: torch.Tensor) -> torch.Tensor:
     """S1/S2: the per-tile (8, 128) sums of every input, plus ``carry``."""
     global stream_sum_launches
     tiles, rows, width = _check(inputs, carry)
@@ -190,10 +199,6 @@ def stream_sum(inputs: Sequence[torch.Tensor], carry: torch.Tensor,
     if (x0.stride(0) * size % 16 or x0.stride(1) * size % 16
             or any(x.data_ptr() % 16 for x in inputs)):
         raise ValueError("the probe needs 16-byte aligned inputs and strides")
-    if tiles > MAX_TILES:
-        raise ValueError(f"{tiles} tiles; the probe takes at most {MAX_TILES}")
-    if engine not in ENGINES:
-        raise ValueError(f"engine {engine!r}: one of {ENGINES}")
     if not carry.is_contiguous():
         raise ValueError("carry must be contiguous")
     lib = kernel_lib()
@@ -201,18 +206,21 @@ def stream_sum(inputs: Sequence[torch.Tensor], carry: torch.Tensor,
     if tiles == 0:
         return out
     sms = torch.cuda.get_device_properties(x0.device).multi_processor_count
-    plan = launch_plan(tiles, rows, width, size, len(inputs), sms,
-                       blocks_per_sm, engine)
-    partials = (None if plan.scratch is None else torch.empty(
-        plan.scratch, device=x0.device,
-        dtype=torch.int32 if x0.dtype == torch.int8 else torch.float32))
+    plan = launch_plan(tiles, rows, width, size, len(inputs), sms)
+    partials = tickets = None
+    if plan.scratch is not None:
+        partials = torch.empty(
+            plan.scratch, device=x0.device,
+            dtype=torch.int32 if x0.dtype == torch.int8 else torch.float32)
+        tickets = _tickets(x0.device)
     ptrs = (ctypes.c_void_p * len(inputs))(*(x.data_ptr() for x in inputs))
     with torch.cuda.device(x0.device):
         code = getattr(lib, f"stream_sum_{_SUFFIX[x0.dtype]}")(
-            ENGINES.index(engine), len(inputs), ptrs, tiles, rows, width,
-            x0.stride(1), x0.stride(0), plan.splits,
+            len(inputs), ptrs, tiles, rows, width, x0.stride(1), x0.stride(0),
+            plan.splits, plan.blocks,
             None if partials is None else partials.data_ptr(),
-            _tickets(x0.device).data_ptr(), carry.data_ptr(), out.data_ptr(),
+            None if tickets is None else tickets.data_ptr(),
+            carry.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     if code != 0:

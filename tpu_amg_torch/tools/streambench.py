@@ -15,8 +15,7 @@ the CPU the plain PyTorch version runs, timed with the host clock: a
 number of the CPU, not of the card.
 
 Usage: python -m tpu_amg_torch.tools.streambench [--device cuda]
-           [--total-mib 32] [--reps 50] [--engine lsu]
-           [--blocks-per-sm 8] [case-substring ...]
+           [--total-mib 32] [--reps 50] [case-substring ...]
 """
 
 from __future__ import annotations
@@ -87,14 +86,12 @@ def make_inputs(case: Case, total_bytes: int, device,
 
 
 def time_case(case: Case, total_bytes: int, device, reps: int,
-              seed: int = 0, **launch) -> dict:
-    """Time ``stream_sum`` on the case (``launch``: its engine and
-    blocks_per_sm); returns the case's record."""
+              seed: int = 0) -> dict:
+    """Time ``stream_sum`` on the case; returns the case's record."""
     g = torch.Generator(device=device).manual_seed(seed)
     inputs = make_inputs(case, total_bytes, device, g)
     carry = torch.zeros(8, 128, dtype=torch.float32, device=device)
-    ms = call_ms(lambda: stream.stream_sum(inputs, carry, **launch), device,
-                 reps)
+    ms = call_ms(lambda: stream.stream_sum(inputs, carry), device, reps)
     tiles = case.tiles(total_bytes)
     nbytes = tiles * case.tile_bytes
     return dict(name=case.name, tiles=tiles, tile_bytes=case.tile_bytes,
@@ -109,11 +106,6 @@ def run(argv=None) -> List[dict]:
     ap.add_argument("--total-mib", type=int, default=TOTAL_MIB,
                     help="MiB read per call (default: the harness's 32)")
     ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--engine", choices=stream.ENGINES, default="lsu",
-                    help="16-byte loads, 8 (lsu) or 4 (lsu4) a step, or a "
-                         "ring of TMA bulk copies (bulk: stacked cases only)")
-    ap.add_argument("--blocks-per-sm", type=float, default=stream.BLOCKS_PER_SM,
-                    help="blocks an SM the launch plan aims for")
     ap.add_argument("select", nargs="*",
                     help="run only cases whose name holds one of these")
     args = ap.parse_args(argv)
@@ -129,8 +121,7 @@ def run(argv=None) -> List[dict]:
     for case in CASES:
         if args.select and not any(s in case.name for s in args.select):
             continue
-        rec = time_case(case, args.total_mib << 20, device, args.reps,
-                        engine=args.engine, blocks_per_sm=args.blocks_per_sm)
+        rec = time_case(case, args.total_mib << 20, device, args.reps)
         print(f"{case.name:44s} tiles={rec['tiles']:6d} "
               f"blk={rec['tile_bytes'] // 1024:5d}KB "
               f"{rec['ms'] * 1e3:9.1f}us  {rec['gbps']:7.1f} GB/s", flush=True)
