@@ -124,15 +124,15 @@ def test_cli_on_cpu(capsys):
     assert len(lines) == 3 and all("GB/s" in line for line in lines[1:])
 
 
-def _walk(q0, q1, n_in, groups):
-    """The (input, chunk) pairs a block of the kernel reads for split
-    [q0, q1) of a tile: items f (chunk-major: input f % n_in of chunk
-    q0 + f // n_in), step s of thread group g taking items s·U·groups +
-    g + u·groups, u < U, until the split's items are done."""
-    n = (q1 - q0) * n_in
+def _walk(n_in, chunks, groups):
+    """The (input, chunk) pairs a block of the kernel reads of a tile:
+    items f (chunk-major: input f % n_in of chunk f // n_in), step s of
+    thread group g taking items s·U·groups + g + u·groups, u < U, until
+    the tile's items are done."""
+    n = n_in * chunks
     step = stream.UNROLL * groups
     steps = max(1, -(-n // step))
-    return [(f % n_in, q0 + f // n_in)
+    return [(f % n_in, f // n_in)
             for s in range(steps) for g in range(groups)
             for f in range(s * step + g, (s + 1) * step, groups) if f < n]
 
@@ -146,28 +146,33 @@ def test_launch_plan_covers_every_chunk(name, total_mib):
     args = (tiles, case.rows, case.width, size, case.n_in, 132)
     plan = stream.launch_plan(*args)
     assert plan == stream.launch_plan(*args)
-    assert plan.grid == (plan.splits, plan.blocks)
-    # one block an SM at most, at most 8 a tile; the scratch of split
-    # tiles' partials
-    assert plan.splits * plan.blocks <= 132
-    assert 1 <= plan.splits <= stream.MAX_SPLITS
-    assert plan.scratch == (None if plan.splits == 1
-                            else (tiles, plan.splits, 8, 128))
+    assert plan.grid == (plan.parts, plan.blocks)
+    # one block an SM at most; a tile shared by 1, 2, 4 or 8 blocks
+    assert plan.parts * plan.blocks <= 132
+    assert plan.parts in (1, 2, 4, 8)
     # every tile taken by exactly one row of blocks (persistent rows walk
-    # tiles b, b + blocks, ...); a split tile has a row of its own
+    # tiles b, b + blocks, ...); a shared tile has a row of its own
     rows_of = [t for b in range(plan.blocks) for t in range(b, tiles,
                                                             plan.blocks)]
     assert sorted(rows_of) == list(range(tiles))
-    assert plan.splits == 1 or plan.blocks == tiles
-    # every chunk of every input read exactly once in a tile, by one
-    # split's block
+    assert plan.parts == 1 or plan.blocks == tiles
+    # each block of a tile owns 8 / parts rows of its (8, 128) sum, and
+    # reads them from every chunk of every input exactly once
+    owned = sorted(p * (8 // plan.parts) + r for p in range(plan.parts)
+                   for r in range(8 // plan.parts))
+    assert owned == list(range(8))
     chunks = (case.rows // 8) * (case.width // 128)
-    groups = stream.step_chunks(size)
-    seen = sorted(p for q0, q1 in stream.split_chunks(chunks, plan.splits)
-                  for p in _walk(q0, q1, case.n_in, groups))
+    groups = stream.step_chunks(size, plan.parts)
+    seen = sorted(_walk(case.n_in, chunks, groups))
     assert seen == [(i, q) for i in range(case.n_in) for q in range(chunks)]
-    # the grid fills the card: a block an SM where the tiles allow
-    assert plan.splits * plan.blocks >= min(132, tiles) or plan.splits == 8
+    # the grid fills the card where the tiles allow; a shared tile gives
+    # each of its blocks a full step of loads
+    assert plan.parts == 1 or case.n_in * chunks >= stream.UNROLL * groups
+    assert (plan.parts * plan.blocks >= min(132, tiles)
+            and (plan.parts == stream.MAX_PARTS
+                 or 2 * plan.parts * tiles > 132 or plan.parts == 1
+                 or case.n_in * chunks
+                 < stream.UNROLL * stream.step_chunks(size, 2 * plan.parts)))
 
 
 @pytest.fixture

@@ -20,28 +20,27 @@
 // every SM keeps its loads in flight without a break.  The TPU's
 // sequential grid carried a tile's sum from step to step; here one block
 // of 512 threads runs on each SM.  Each thread owns one 16-byte slot of
-// an (8, 128) chunk (4 float32 or 16 int8 values), reads 8 (input, chunk)
-// items a step with 16-byte loads, and issues the next step's loads
-// before it adds this step's, so 16 loads (256 bytes) a thread, 128 KB an
-// SM, stay in flight from step to step and from tile to tile.
+// the tile's (8, 128) sum (4 float32 or 16 int8 values), reads 8
+// (input, chunk) items a step with 16-byte loads, and issues the next
+// step's loads before it adds this step's, so 16 loads (256 bytes) a
+// thread, 128 KB an SM, stay in flight from step to step and from tile to
+// tile.
 //   - As many tiles as SMs or more: the blocks are persistent, block b
 //     taking tiles b, b + grid, ...; a finished tile's sum is written with
 //     plain stores while the next tile's loads are in flight.
-//   - Fewer tiles than SMs: a tile's chunks are cut into `splits` (at most
-//     8) contiguous ranges, one block each.  No float atomics: a block
-//     writes its (8, 128) partial with plain stores into scratch, then
-//     takes an int ticket for its tile; the block that draws the last
-//     ticket loads the tile's partials all at once, sums them in split
-//     order, adds the carry, writes the tile and resets the ticket, so the
-//     next call (or a CUDA graph replay) needs no memset.
-// One launch a call, and the same bits on every call.  int8 inputs are
-// summed in int32 (partials too) and float32 inputs in float32, so sums
-// of integer-valued inputs are exact whatever the order.  (Tried and
+//   - Fewer tiles than SMs: a tile is shared by P = 2, 4 or 8 blocks, each
+//     owning 8 / P of the rows of the (8, 128) sum: it reads those rows of
+//     every chunk (runs of at least 512 bytes) and writes them.  No block
+//     needs another's sums.
+// So no atomics, no scratch and no second launch: one launch a call, each
+// output written once, and the same bits on every call.  int8 inputs are
+// summed in int32 and float32 inputs in float32, so sums of
+// integer-valued inputs are exact whatever the order.  (Tried and
 // dropped, PERF.md: a ring of TMA bulk copies into shared memory, no
-// faster than these loads at 1 GiB; a thread-block cluster a split tile,
-// its partials summed through distributed shared memory, slower, since
-// clusters of several of these SM-filling blocks do not all fit on the
-// card at once.)
+// faster than these loads at 1 GiB; splitting a tile's chunks over
+// blocks whose partials the last one sums, after an int ticket, or
+// through distributed shared memory in a thread-block cluster, both
+// slower than sharing out its rows.)
 //
 // The host side (tpu_amg_torch/ops/stream.py) checks shapes, strides and
 // 16-byte alignment, makes the launch plan, passes PyTorch's current
@@ -55,7 +54,6 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kMaxInputs = 8;
-constexpr int kMaxSplits = 8;  // blocks a tile
 constexpr int kChunk = 8 * 128;
 constexpr int kUnroll = 8;  // 16-byte loads a thread issues a step
 
@@ -64,7 +62,7 @@ struct Inputs {
 };
 
 struct Shape {
-  int n_in, rows, width, splits;
+  int n_in, rows, width;
   int64_t row_stride, tile_stride, tiles;
 };
 
@@ -73,14 +71,6 @@ struct Shape {
 template <typename T>
 using Acc = typename std::conditional<std::is_same<T, int8_t>::value, int,
                                       float>::type;
-
-// split s of a tile's n chunks is [begin(s), begin(s + 1))
-__device__ __forceinline__ unsigned split_begin(unsigned n, int s, int splits) {
-  return static_cast<unsigned>(static_cast<uint64_t>(n) * s / splits);
-}
-
-__device__ __forceinline__ unsigned bits(float v) { return __float_as_uint(v); }
-__device__ __forceinline__ unsigned bits(int v) { return static_cast<unsigned>(v); }
 
 // n / d for n < 2^31 by a multiply and a shift (d fixed for the kernel).
 struct Divider {
@@ -96,14 +86,14 @@ struct Divider {
   }
 };
 
-// A block's items within a tile: item f (chunk-major, f < n) is input
-// f % n_in of chunk q0 + f / n_in of its split.
+// A tile's items: item f (chunk-major, f < n) is input f % n_in of
+// chunk f / n_in.
 template <typename T>
 struct Items {
   const T* const* base;  // the inputs (shared memory)
   int64_t slot;          // this thread's slot in a tile's first chunk
   int64_t row_stride, tile_stride;
-  unsigned q0, n;
+  unsigned n;
   Divider n_in, cols;  // inputs; chunks in a row group
 };
 
@@ -117,9 +107,8 @@ __device__ __forceinline__ void load_items(const Items<T>& it, int64_t t,
     const unsigned fu = f + u * G;
     v[u] = make_uint4(0, 0, 0, 0);
     if (fu < it.n) {
-      const unsigned c = it.n_in.div(fu);
-      const unsigned i = fu - c * it.n_in.d;
-      const unsigned q = it.q0 + c;
+      const unsigned q = it.n_in.div(fu);
+      const unsigned i = fu - q * it.n_in.d;
       const unsigned rr = it.cols.div(q);
       const unsigned kk = q - rr * it.cols.d;
       v[u] = __ldg(reinterpret_cast<const uint4*>(
@@ -140,22 +129,20 @@ __device__ __forceinline__ void add_items(const uint4 (&v)[kUnroll],
   }
 }
 
-// Grid (splits, blocks of tiles): block (s, b) reads split s of tiles
-// b, b + gridDim.y, ... (splits > 1: gridDim.y is the tile count).
-template <typename T>
+// Grid (P, blocks of tiles): block (p, b) owns rows [p 8 / P, (p + 1) 8 / P)
+// of the (8, 128) sums of tiles b, b + gridDim.y, ...
+template <typename T, int P>
 __global__ void __launch_bounds__(kThreads, 1)
-stream_sum_kernel(Inputs in, Shape sh, Acc<T>* __restrict__ partials,
-                  unsigned* __restrict__ tickets,
-                  const float* __restrict__ carry, float* __restrict__ out) {
+stream_sum_kernel(Inputs in, Shape sh, const float* __restrict__ carry,
+                  float* __restrict__ out) {
   using A = Acc<T>;
-  constexpr int kVec = 16 / sizeof(T);          // values per 16-byte slot
-  constexpr int kSlots = kChunk / kVec;         // slots per (8, 128) chunk
-  constexpr int kGroups = kThreads / kSlots;    // chunks a step of loads
+  constexpr int kVec = 16 / sizeof(T);            // values per 16-byte slot
   constexpr int kSlotsPerRow = 128 / kVec;
-  constexpr unsigned kStep = kUnroll * kGroups;  // items a step
+  constexpr int kSlots = kChunk / kVec / P;       // slots of a block's rows
+  constexpr int kGroups = kThreads / kSlots;      // chunks a step of loads
+  constexpr unsigned kStep = kUnroll * kGroups;   // items a step
   __shared__ const T* base[kMaxInputs];
   __shared__ A red[kThreads][kVec];  // the groups' sums of each slot
-  __shared__ unsigned ticket;
 #pragma unroll
   for (int i = 0; i < kMaxInputs; ++i) {
     if (threadIdx.x == i) base[i] = static_cast<const T*>(in.ptr[i]);
@@ -163,16 +150,13 @@ stream_sum_kernel(Inputs in, Shape sh, Acc<T>* __restrict__ partials,
   __syncthreads();
   const int slot = threadIdx.x % kSlots;
   const int group = threadIdx.x / kSlots;
-  const int r = slot / kSlotsPerRow;
+  const int r = blockIdx.x * (8 / P) + slot / kSlotsPerRow;
   const int l = (slot % kSlotsPerRow) * kVec;
-  const int split = blockIdx.x;
   const unsigned col_chunks = sh.width / 128;
   const unsigned n_chunks = (sh.rows / 8) * col_chunks;
-  const unsigned q0 = split_begin(n_chunks, split, sh.splits);
-  const unsigned nq = split_begin(n_chunks, split + 1, sh.splits) - q0;
   const Items<T> it{base, r * sh.row_stride + l, sh.row_stride,
-                    sh.tile_stride, q0, nq * sh.n_in,
-                    Divider(sh.n_in), Divider(col_chunks)};
+                    sh.tile_stride, n_chunks * sh.n_in, Divider(sh.n_in),
+                    Divider(col_chunks)};
   // steps a tile (an empty tile takes one step of no loads)
   const unsigned steps = it.n > 0 ? (it.n + kStep - 1) / kStep : 1;
 
@@ -180,7 +164,8 @@ stream_sum_kernel(Inputs in, Shape sh, Acc<T>* __restrict__ partials,
 #pragma unroll
   for (int j = 0; j < kVec; ++j) acc[j] = A(0);
 
-  // the tile whose last step was just added: its sum to out
+  // the tile whose last step was just added: its sums, group by group in
+  // order, to out
   auto flush = [&](int64_t t) {
     if constexpr (kGroups > 1) {
       __syncthreads();  // the last tile's sums are read
@@ -194,57 +179,11 @@ stream_sum_kernel(Inputs in, Shape sh, Acc<T>* __restrict__ partials,
         }
       }
     }
-    const int o = r * 128 + l;
-    if (sh.splits == 1) {
-      if (group == 0) {
+    if (group == 0) {
+      const int o = r * 128 + l;
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) {
-          out[t * kChunk + o + j] = carry[o + j] + static_cast<float>(acc[j]);
-        }
-      }
-    } else {
-      if (group == 0) {
-        A* p = partials + (t * sh.splits + split) * kChunk + o;
-#pragma unroll
-        for (int j = 0; j < kVec; j += 4) {
-          *reinterpret_cast<uint4*>(p + j) =
-              make_uint4(bits(acc[j]), bits(acc[j + 1]), bits(acc[j + 2]),
-                         bits(acc[j + 3]));
-        }
-      }
-      __syncthreads();  // the block's partial is written
-      if (threadIdx.x == 0) {
-        __threadfence();  // ... and visible to every block before its ticket
-        ticket = atomicAdd(tickets + t, 1u);
-        __threadfence();
-      }
-      __syncthreads();
-      if (ticket == static_cast<unsigned>(sh.splits - 1)) {
-        // the tile's last block: every partial is in; all loaded at once,
-        // summed in split order, 4 values a thread
-        if (threadIdx.x == 0) tickets[t] = 0;
-        const int p = 4 * threadIdx.x;
-        if (p < kChunk) {
-          const A* src = partials + t * sh.splits * kChunk + p;
-          uint4 v[kMaxSplits];
-#pragma unroll
-          for (int b = 0; b < kMaxSplits; ++b) {
-            v[b] = b < sh.splits ? __ldcg(reinterpret_cast<const uint4*>(
-                                       src + b * kChunk))
-                                 : make_uint4(0, 0, 0, 0);
-          }
-          A s[4] = {A(0), A(0), A(0), A(0)};
-#pragma unroll
-          for (int b = 0; b < kMaxSplits; ++b) {
-            const A* e = reinterpret_cast<const A*>(&v[b]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[j] += e[j];
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            out[t * kChunk + p + j] = carry[p + j] + static_cast<float>(s[j]);
-          }
-        }
+      for (int j = 0; j < kVec; ++j) {
+        out[t * kChunk + o + j] = carry[o + j] + static_cast<float>(acc[j]);
       }
     }
 #pragma unroll
@@ -289,26 +228,30 @@ stream_sum_kernel(Inputs in, Shape sh, Acc<T>* __restrict__ partials,
 template <typename T>
 int stream_sum(int n_in, const void* const* inputs, int64_t tiles,
                int64_t rows, int64_t width, int64_t row_stride,
-               int64_t tile_stride, int splits, int blocks, void* partials,
-               void* tickets, const void* carry, void* out, void* stream) {
+               int64_t tile_stride, int parts, int blocks, const void* carry,
+               void* out, void* stream) {
   // shapes and (input, chunk) items within a tile are 32-bit
   constexpr int64_t kMax32 = int64_t{1} << 31;
-  if (n_in < 1 || n_in > kMaxInputs || splits < 1 || splits > kMaxSplits ||
-      blocks < 1 || blocks > 65535 || blocks > tiles ||
-      (splits > 1 && (blocks != tiles || partials == nullptr ||
-                      tickets == nullptr)) ||
-      rows >= kMax32 || width >= kMax32 ||
-      (rows / 8) * (width / 128) * n_in >= kMax32) {
+  if (n_in < 1 || n_in > kMaxInputs || blocks < 1 || blocks > 65535 ||
+      blocks > tiles || (parts > 1 && blocks != tiles) || rows >= kMax32 ||
+      width >= kMax32 || (rows / 8) * (width / 128) * n_in >= kMax32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Inputs in{};
   for (int i = 0; i < n_in; ++i) in.ptr[i] = inputs[i];
   const Shape sh{n_in, static_cast<int>(rows), static_cast<int>(width),
-                 splits, row_stride, tile_stride, tiles};
-  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(blocks));
-  stream_sum_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, sh, static_cast<Acc<T>*>(partials), static_cast<unsigned*>(tickets),
-      static_cast<const float*>(carry), static_cast<float*>(out));
+                 row_stride, tile_stride, tiles};
+  const dim3 grid(static_cast<unsigned>(parts), static_cast<unsigned>(blocks));
+  auto st = static_cast<cudaStream_t>(stream);
+  auto c = static_cast<const float*>(carry);
+  auto o = static_cast<float*>(out);
+  switch (parts) {
+    case 1: stream_sum_kernel<T, 1><<<grid, kThreads, 0, st>>>(in, sh, c, o); break;
+    case 2: stream_sum_kernel<T, 2><<<grid, kThreads, 0, st>>>(in, sh, c, o); break;
+    case 4: stream_sum_kernel<T, 4><<<grid, kThreads, 0, st>>>(in, sh, c, o); break;
+    case 8: stream_sum_kernel<T, 8><<<grid, kThreads, 0, st>>>(in, sh, c, o); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -322,20 +265,18 @@ const char* stream_error_string(int code) {
 
 int stream_sum_f32(int n_in, const void* const* inputs, int64_t tiles,
                    int64_t rows, int64_t width, int64_t row_stride,
-                   int64_t tile_stride, int splits, int blocks, void* partials,
-                   void* tickets, const void* carry, void* out, void* stream) {
+                   int64_t tile_stride, int parts, int blocks,
+                   const void* carry, void* out, void* stream) {
   return stream_sum<float>(n_in, inputs, tiles, rows, width, row_stride,
-                           tile_stride, splits, blocks, partials, tickets,
-                           carry, out, stream);
+                           tile_stride, parts, blocks, carry, out, stream);
 }
 
 int stream_sum_i8(int n_in, const void* const* inputs, int64_t tiles,
                   int64_t rows, int64_t width, int64_t row_stride,
-                  int64_t tile_stride, int splits, int blocks, void* partials,
-                  void* tickets, const void* carry, void* out, void* stream) {
+                  int64_t tile_stride, int parts, int blocks,
+                  const void* carry, void* out, void* stream) {
   return stream_sum<int8_t>(n_in, inputs, tiles, rows, width, row_stride,
-                            tile_stride, splits, blocks, partials, tickets,
-                            carry, out, stream);
+                            tile_stride, parts, blocks, carry, out, stream);
 }
 
 }  // extern "C"

@@ -23,15 +23,11 @@ The kernel (CUDA C++ in ``tpu_amg_torch/csrc/stream.cu``) is bound by
 bytes only.  One block of 512 threads runs on each SM, each thread
 keeping 16 16-byte loads in flight across steps and tiles.
 :func:`launch_plan` makes the grid from the SM count: with as many tiles
-as SMs or more, persistent blocks walk the tiles; with fewer, each
-tile's chunks are cut into ``splits`` ranges (at most 8), one block
-each: a block writes its (8, 128) partial into a scratch tensor with
-plain stores, and the tile's last block (an int ticket per tile, kept
-per device and reset by the kernel) sums the partials in split order.
-One launch a call, no float atomics, and the same bits on every call;
-calls on one device share its tickets, so they must not run on two
-streams at once.  Its plain PyTorch version beside it is ``reshape`` +
-``sum``.  The wrapper takes the plain version only when its tensors lie
+as SMs or more, persistent blocks walk the tiles; with fewer, a tile is
+shared by ``parts`` = 2, 4 or 8 blocks, each owning 8 / parts rows of
+its (8, 128) sum.  One launch a call, no atomics, no scratch, each
+output written once, and the same bits on every call.  Its plain
+PyTorch version beside it is ``reshape`` + ``sum``.  The wrapper takes the plain version only when its tensors lie
 on the CPU; for a CUDA tensor it launches the kernel or raises.  Launches are counted in
 ``stream_sum_launches``.  The kernel is compiled with nvcc for
 ``sm_90a`` into ``build/tpu_amg_torch/libamg_stream.so`` at first
@@ -44,7 +40,7 @@ import ctypes
 import dataclasses
 import functools
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -54,7 +50,7 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "stream.cu"
 MAX_INPUTS = 8
 THREADS = 512  # a block (kThreads in stream.cu)
 UNROLL = 8  # 16-byte loads a thread issues a step (kUnroll)
-MAX_SPLITS = 8  # blocks a tile (kMaxSplits)
+MAX_PARTS = 8  # blocks a tile: one row of the (8, 128) sum each
 
 stream_sum_launches = 0
 
@@ -73,7 +69,7 @@ def kernel_lib() -> ctypes.CDLL:
         fn = getattr(dll, f"stream_sum_{suffix}")
         fn.restype = i32
         fn.argtypes = [i32, ctypes.POINTER(vp), i64, i64, i64, i64, i64, i32,
-                       i32, vp, vp, vp, vp, vp]
+                       i32, vp, vp, vp]
     dll.stream_error_string.restype = ctypes.c_char_p
     dll.stream_error_string.argtypes = [i32]
     return dll
@@ -84,30 +80,23 @@ _SUFFIX = {torch.float32: "f32", torch.int8: "i8"}
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """One launch of the kernel: a grid of (``splits``, ``blocks``)
-    blocks; block (s, b) reads split s of tiles b, b + blocks, ...; with
-    more than one split, the partials go to a scratch tensor of shape
-    ``scratch``."""
+    """One launch of the kernel: a grid of (``parts``, ``blocks``) blocks;
+    block (p, b) owns rows [8 p / parts, 8 (p + 1) / parts) of the sums
+    of tiles b, b + blocks, ..."""
 
-    splits: int
+    parts: int
     blocks: int
 
     @property
     def grid(self) -> Tuple[int, int]:
-        return self.splits, self.blocks
-
-    @property
-    def scratch(self) -> Optional[Tuple[int, int, int, int]]:
-        if self.splits == 1:
-            return None
-        return self.blocks, self.splits, 8, 128
+        return self.parts, self.blocks
 
 
-def step_chunks(element_size: int) -> int:
+def step_chunks(element_size: int, parts: int = 1) -> int:
     """Chunks a block's step of loads spans: a thread's slot is 16 bytes
-    of an (8, 128) chunk, so a chunk takes 256 (float32) or 64 (int8)
-    threads."""
-    return THREADS * element_size // 256
+    of a block's rows of an (8, 128) chunk, which take 256 / parts
+    (float32) or 64 / parts (int8) threads."""
+    return THREADS * parts // (64 * element_size)
 
 
 def launch_plan(tiles: int, rows: int, width: int, element_size: int,
@@ -115,31 +104,18 @@ def launch_plan(tiles: int, rows: int, width: int, element_size: int,
     """The kernel's launch for ``tiles`` (≥ 1) blocks of (rows, width)
     values of ``element_size`` bytes in each of ``n_in`` inputs, on a
     card of ``sms`` SMs: a pure function of these.  With as many tiles as
-    SMs or more, one persistent block an SM; with fewer, the tiles' chunks
-    are split over up to ``MAX_SPLITS`` blocks a tile, as many as keep
-    the grid within one block an SM and give every split a full step of
-    loads (``UNROLL`` items a thread)."""
+    SMs or more, one persistent block an SM; with fewer, the most parts
+    (a power of two up to ``MAX_PARTS``) that keep the grid within one
+    block an SM and give every block a full step of loads (``UNROLL``
+    items a thread)."""
     if tiles >= sms:
         return Plan(1, sms)
-    chunks = (rows // 8) * (width // 128)
-    per_split = -(-UNROLL * step_chunks(element_size) // n_in)
-    return Plan(max(1, min(MAX_SPLITS, sms // tiles, chunks // per_split)),
-                tiles)
-
-
-@functools.cache
-def _tickets(device: torch.device) -> torch.Tensor:
-    """The device's per-tile tickets (split tiles are fewer than the
-    SMs): zero between calls, the kernel resets what it takes."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return torch.zeros(sms, dtype=torch.int32, device=device)
-
-
-def split_chunks(chunks: int, splits: int) -> List[Tuple[int, int]]:
-    """The chunk ranges [begin, end) of a tile's splits, as the kernel
-    cuts them (``split_begin`` in stream.cu)."""
-    return [(chunks * s // splits, chunks * (s + 1) // splits)
-            for s in range(splits)]
+    items = n_in * (rows // 8) * (width // 128)
+    parts = 1
+    while (2 * parts <= MAX_PARTS and 2 * parts * tiles <= sms
+           and items >= UNROLL * step_chunks(element_size, 2 * parts)):
+        parts *= 2
+    return Plan(parts, tiles)
 
 
 def wide_layout(arr: torch.Tensor, width: int) -> torch.Tensor:
@@ -207,20 +183,11 @@ def stream_sum(inputs: Sequence[torch.Tensor],
         return out
     sms = torch.cuda.get_device_properties(x0.device).multi_processor_count
     plan = launch_plan(tiles, rows, width, size, len(inputs), sms)
-    partials = tickets = None
-    if plan.scratch is not None:
-        partials = torch.empty(
-            plan.scratch, device=x0.device,
-            dtype=torch.int32 if x0.dtype == torch.int8 else torch.float32)
-        tickets = _tickets(x0.device)
     ptrs = (ctypes.c_void_p * len(inputs))(*(x.data_ptr() for x in inputs))
     with torch.cuda.device(x0.device):
         code = getattr(lib, f"stream_sum_{_SUFFIX[x0.dtype]}")(
             len(inputs), ptrs, tiles, rows, width, x0.stride(1), x0.stride(0),
-            plan.splits, plan.blocks,
-            None if partials is None else partials.data_ptr(),
-            None if tickets is None else tickets.data_ptr(),
-            carry.data_ptr(), out.data_ptr(),
+            plan.parts, plan.blocks, carry.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     if code != 0:
