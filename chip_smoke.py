@@ -102,7 +102,7 @@ STREAM_MIB = 32  # the harness's TOTAL (tools/streambench.py:25)
 STREAM_BIG_MIB = 1024  # past the card's 50 MB L2
 FEM_SIDE = 1024  # unstructured_fem_system(1024): the harnesses' 1M matrix
 PRIMITIVE_OP = "gather_fma"  # the WELL stage-B core: the kernels-line case
-COPY_BEST = "depth= 2 unit=64KB"  # the copy probe's best at 1 GiB (PR 3)
+COPY_BEST = "depth= 2 unit=64KB"  # a best case of the copy sweep at 1 GiB
 
 
 def say(msg: str) -> None:

@@ -157,12 +157,6 @@ def tail_row_table(indptr, cap: int):
     return row_ids.astype(np.int32), ptr.astype(np.int32)
 
 
-def long_tail_rows(tail_ptr: np.ndarray) -> np.ndarray:
-    """The positions in the tail row table of the rows that K2 gives a
-    block of their own (int32)."""
-    return np.flatnonzero(np.diff(tail_ptr) > LONG_TAIL_ROW).astype(np.int32)
-
-
 def row_blocks(cap_indptr: np.ndarray,
                max_entries: int = BLOCK_ENTRIES) -> np.ndarray:
     """K1's row-block table (int32, n_blocks + 1): block b holds rows
@@ -240,6 +234,7 @@ class CappedCSR:
             csr.indptr, csr.indices, csr.data, cap
         )
         row_ids, ptr = tail_row_table(csr.indptr, cap)
+        long_rows = np.flatnonzero(np.diff(ptr) > LONG_TAIL_ROW)
         return CappedCSR(
             indptr=to_device(ip, device, torch.int64),
             indices=to_device(ix, device, torch.int32),
@@ -251,7 +246,7 @@ class CappedCSR:
             **block_table(ip, device),
             tail_row_ids=to_device(row_ids, device, torch.int32),
             tail_ptr=to_device(ptr, device, torch.int32),
-            tail_long=to_device(long_tail_rows(ptr), device, torch.int32),
+            tail_long=to_device(long_rows, device, torch.int32),
         )
 
     @property
