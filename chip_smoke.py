@@ -172,10 +172,27 @@ def k2_bytes(mat, k: int):
 
 
 def tail_shape(mat) -> str:
-    """The tail's rows and its longest row, as printed."""
+    """The tail's rows, their mean and longest length, as printed."""
     lens = mat.tail_ptr[1:] - mat.tail_ptr[:-1]
-    return (f"{mat.n_tail_rows} tail rows, longest "
+    return (f"{mat.n_tail_rows} tail rows, mean "
+            f"{mat.n_tail / max(mat.n_tail_rows, 1):.1f}, longest "
             f"{int(lens.max()) if mat.n_tail_rows else 0}")
+
+
+def k2_lanes_sweep(mat, x, k, reps) -> dict:
+    """K2's time at every team width it takes at k columns (lanes a tail
+    row), through the uncounted launcher, on a zeroed Y."""
+    import torch
+
+    from tpu_amg_torch.ops import spmv
+    from tpu_amg_torch.utils.timing import median_ms
+
+    yz = torch.zeros((mat.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                     device=x.device)
+    first = spmv.k2_lanes(0, k)
+    return {lanes: median_ms(
+        lambda lanes=lanes: spmv.launch_coo_patch(mat, x, yz, k, lanes),
+        reps, graph=True) for lanes in (1, 2, 4, 8, 16, 32) if lanes >= first}
 
 
 def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
@@ -226,7 +243,8 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
             lib = dict(k1_lib_ms=median_ms(lambda: lib1 @ x, reps, graph=True),
                        k1_bound_ms=hbm_bound_ms(spmv.k1_bytes(mat, k)),
                        k2_lib_ms=None, k2_bound_ms=None,
-                       k2_old_bound_ms=None, rowgroup_ms=None)
+                       k2_old_bound_ms=None, rowgroup_ms=None,
+                       k2_lanes=None, k2_by_lanes=None)
             if k == 1:
                 lib["rowgroup_ms"] = median_ms(
                     lambda: spmv_stages.csr_spmv_stages(mat, x, "rowgroup"),
@@ -237,6 +255,9 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
                 new, old = k2_bytes(mat, k)
                 lib["k2_bound_ms"] = hbm_bound_ms(new)
                 lib["k2_old_bound_ms"] = hbm_bound_ms(old)
+                lib["k2_lanes"] = spmv.k2_lanes(mat.tail_longest, k)
+                if dtype == torch.float64 and k in (1, 8):
+                    lib["k2_by_lanes"] = k2_lanes_sweep(mat, x, k, reps)
             check(
                 rel <= TOL[dname] and same,
                 f"kernels {name} {dname} k={k}: shape {mat.shape} "
@@ -251,8 +272,13 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
                 + ("" if lib2 is None else
                    f" library {lib['k2_lib_ms']:.4f} ms bound "
                    f"{lib['k2_bound_ms']:.4f} ms (first design's "
-                   f"{lib['k2_old_bound_ms']:.4f}; {tail_shape(mat)}); two "
-                   f"K2 calls bitwise equal: {same}"),
+                   f"{lib['k2_old_bound_ms']:.4f}; {tail_shape(mat)}; "
+                   f"{lib['k2_lanes']} lanes a row"
+                   + ("" if lib["k2_by_lanes"] is None else
+                      "; by lanes a row: " + ", ".join(
+                          f"{n} {t * 1e3:.2f} us"
+                          for n, t in lib["k2_by_lanes"].items()))
+                   + f"); two K2 calls bitwise equal: {same}"),
             )
             results.append(dict(case=name, dtype=dname, k=k,
                                 shape=tuple(mat.shape), err1=err1,
@@ -293,9 +319,10 @@ def stream_cases(bench_records, reps):
     """Every case of the probe against its plain version on the inputs
     the entry point timed (seed 0, 32 MiB per call), with the kernel's
     time from the entry point's run, and two calls bitwise equal; the
-    single-input float32 cases again past L2, beside torch.sum, and the
-    copy probe's best configuration on as many bytes.  Returns (per-case
-    records, best float32 record, the best record past L2)."""
+    single-input float32 cases again past L2, checked the same way and
+    timed beside torch.sum and their bound, and the copy probe's best
+    configuration on as many bytes.  Returns (the records at 32 MiB, the
+    best float32 one, the records past L2, the best of those)."""
     import torch
 
     from tpu_amg_torch.ops import stream
@@ -332,8 +359,9 @@ def stream_cases(bench_records, reps):
               f"equal: {same}; kernel {t * 1e3:.2f} us "
               f"{rec['gbps']:.1f} GB/s, plain (torch.sum, the library "
               f"call) {tp * 1e3:.2f} us {rec['plain_gbps']:.1f} GB/s "
-              f"({'at or under' if t <= tp else 'over'} it), bound "
-              f"{rec['bound_ms'] * 1e3:.1f} us")
+              f"({'at or under' if t <= tp else 'over'} it); bytes over "
+              f"the HBM rate {rec['bound_ms'] * 1e3:.1f} us (held in L2: "
+              f"not a floor)")
         del inputs
     best = max((r for r in records if r["dtype"] == "torch.float32"),
                key=lambda r: r["gbps"])
@@ -345,23 +373,36 @@ def stream_cases(bench_records, reps):
         g = torch.Generator(device=dev).manual_seed(0)
         inputs = streambench.make_inputs(case, STREAM_BIG_MIB << 20, dev, g)
         carry = torch.zeros(8, 128, device=dev)
-        nbytes = case.tiles(STREAM_BIG_MIB << 20) * case.tile_bytes
+        tiles = case.tiles(STREAM_BIG_MIB << 20)
+        nbytes = tiles * case.tile_bytes
+        y = stream.stream_sum(inputs, carry)
+        again = stream.stream_sum(inputs, carry)
+        p = stream.plain_stream_sum(inputs, carry)
+        torch.cuda.synchronize()
+        err = float((y - p).abs().max())
+        same = torch.equal(y, again)
+        del y, again, p
         t = median_ms(lambda: stream.stream_sum(inputs, carry), 20,
                       graph=True)
         tp = median_ms(lambda: stream.plain_stream_sum(inputs, carry), 20,
                        graph=True)
         del inputs
-        bigs.append(dict(name=case.name, ms=t, plain_ms=tp,
-                         gbps=nbytes / t / 1e6, plain_gbps=nbytes / tp / 1e6))
-        say(f"stream {case.name} at {STREAM_BIG_MIB} MiB: kernel "
-            f"{t * 1e3:.1f} us {bigs[-1]['gbps']:.1f} GB/s, torch.sum "
-            f"{tp * 1e3:.1f} us {bigs[-1]['plain_gbps']:.1f} GB/s")
+        # past L2 the bytes over the HBM rate are a floor
+        bigs.append(dict(name=case.name, err=err, ms=t, plain_ms=tp,
+                         gbps=nbytes / t / 1e6, plain_gbps=nbytes / tp / 1e6,
+                         bound_ms=hbm_bound_ms(nbytes + tiles * 4096)))
+        check(err == 0.0 and same,
+              f"stream {case.name} at {STREAM_BIG_MIB} MiB: max abs err "
+              f"{err:.1e} (limit 0), two calls bitwise equal: {same}; "
+              f"kernel {t * 1e3:.1f} us {bigs[-1]['gbps']:.1f} GB/s, "
+              f"torch.sum {tp * 1e3:.1f} us {bigs[-1]['plain_gbps']:.1f} "
+              f"GB/s, bound {bigs[-1]['bound_ms'] * 1e3:.1f} us")
     big = max(bigs, key=lambda r: r["gbps"])
     # the copy probe's best configuration, both engines, on as many bytes
     copy = dmabench.run(["--total-mib", str(STREAM_BIG_MIB), "--reps", "10",
                          COPY_BEST])
     big["copy_gbps"] = max(r["gbps"] for r in copy)
-    return records, best, big
+    return records, best, bigs, big
 
 
 def ablation_phase(sa_mats, reps):
@@ -886,7 +927,7 @@ def main() -> int:
     stream_launches = stream.stream_sum_launches
     check(stream_launches > 0,
           f"launches over the stream probe: stream_sum {stream_launches}")
-    stream_recs, best, big = stream_cases(bench_recs, args.reps)
+    stream_recs, best, bigs, big = stream_cases(bench_recs, args.reps)
     say(f"stream read bandwidth: best float32 case {best['name']!r}: "
         f"{best['gbps']:.1f} GB/s at {STREAM_MIB} MiB per call (held in "
         f"the 50 MB L2); best at {STREAM_BIG_MIB} MiB {big['name']!r}: "
@@ -1063,14 +1104,16 @@ def main() -> int:
              ms=d0["ms"], plain_ms=d0["plain_ms"],
              bound_ms=d0["bound_ms"], bound_by="bytes",
              library_ms=d0["lib_ms"]),
+        # the best float32 case past L2, where the HBM rate is a floor
         dict(name="stream_sum", route="cuda",
              source="tpu_amg_torch/csrc/stream.cu",
              replaces="tools/streambench.py:38, tools/streambench.py:96",
              launches=stream_launches,
-             max_abs_err=max(r["err"] for r in stream_recs),
-             ms=best["ms"], plain_ms=best["plain_ms"],
-             bound_ms=best["bound_ms"], bound_by="bytes",
-             library_ms=best["plain_ms"]),
+             max_abs_err=max(r["err"] for r in stream_recs + bigs),
+             case=f"{big['name']} at {STREAM_BIG_MIB} MiB",
+             ms=big["ms"], plain_ms=big["plain_ms"],
+             bound_ms=big["bound_ms"], bound_by="bytes",
+             library_ms=big["plain_ms"]),
         stages_entry, dma_entry, primitives_entry,
     ]
     say(json.dumps({"kernels": kernels}))

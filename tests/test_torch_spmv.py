@@ -359,6 +359,17 @@ def test_library_must_match_the_tables():
         spmv.check_block_entries(dll)
 
 
+@pytest.mark.parametrize("built", [spmv.LONG_TAIL_ROW, 256])
+def test_library_must_match_the_long_rows(built):
+    dll = type("Lib", (), {"_name": "libk.so"})()
+    dll.long_tail_row = lambda: built
+    if built == spmv.LONG_TAIL_ROW:
+        spmv.check_long_tail_row(dll)
+    else:
+        with pytest.raises(RuntimeError, match="long tail rows past 256"):
+            spmv.check_long_tail_row(dll)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -485,6 +496,8 @@ def test_tail_row_table(name):
     long_rows = mat.tail_long.numpy()
     np.testing.assert_array_equal(
         long_rows, np.flatnonzero(np.diff(ptr) > spmv.LONG_TAIL_ROW))
+    lens = np.diff(ptr)
+    assert mat.tail_longest == lens[lens <= spmv.LONG_TAIL_ROW].max(initial=0)
     assert mat.n_tail_rows == len(row_ids)
     if name == "no_tail":
         assert mat.n_tail == 0 and mat.n_tail_rows == 0
@@ -495,21 +508,21 @@ def test_tail_row_table(name):
                                                  5000 - 64]
 
 
-def _k2_walk(row_ids, ptr, long_rows, cols, vals, x, k):
-    """K2's sums in the kernel's order, in numpy: a team of W warps a row
-    (8 for the long rows), groups of G lanes, group q summing entries q,
-    q + groups, ... in turn; the shuffle tree over a warp's groups, then
-    the warps in order."""
+def _k2_walk(row_ids, ptr, long_rows, cols, vals, x, k, lanes):
+    """K2's sums in the kernel's order, in numpy: a team of ``lanes``
+    lanes a row (8 warps for the long rows), groups of G lanes, group q
+    summing entries q, q + groups, ... in turn; the shuffle tree over a
+    team's groups within a warp, then the warps in order."""
     x2 = x.reshape(len(x), -1)
     g_lanes = 1
     while g_lanes < k and g_lanes < 32:
         g_lanes *= 2
-    per_warp = 32 // g_lanes
     out = np.zeros((len(row_ids), x2.shape[1]))
     is_long = np.zeros(len(row_ids), bool)
     is_long[long_rows] = True
     for i in range(len(row_ids)):
-        warps = 8 if is_long[i] else 1
+        warps, team = (8, 32) if is_long[i] else (1, lanes)
+        per_warp = team // g_lanes
         groups = warps * per_warp
         e = np.arange(ptr[i], ptr[i + 1])
         part = np.zeros((groups, x2.shape[1]))
@@ -526,6 +539,15 @@ def _k2_walk(row_ids, ptr, long_rows, cols, vals, x, k):
             total = p[0] if w == 0 else total + p[0]
         out[i] = total
     return out
+
+
+@pytest.mark.parametrize("longest,k,lanes", [
+    (0, 1, 1), (4, 1, 1), (5, 1, 2), (10, 1, 4), (60, 1, 16), (128, 1, 32),
+    (3, 7, 8), (10, 8, 32), (0, 64, 32)])
+def test_k2_lanes(longest, k, lanes):
+    # teams of G lanes (G = the power of two at or above k) or more, so
+    # that the longest row owned by a team takes one step of loads
+    assert spmv.k2_lanes(longest, k) == lanes
 
 
 @pytest.mark.parametrize("k", [1, 7, 8])
@@ -545,10 +567,11 @@ def test_plain_k2_from_table_matches_scipy(name, k):
     spmv.coo_patch(mat, torch.from_numpy(x), y)
     np.testing.assert_allclose(y.numpy(), ref, rtol=0, atol=1e-12 * scale)
     # the kernel's own order of sums, on the rows that spill
-    walk = _k2_walk(mat.tail_row_ids.numpy(), mat.tail_ptr.numpy(),
-                    mat.tail_long.numpy(), tc, tv, x, k)
-    np.testing.assert_allclose(walk, ref.reshape(len(ref), -1)[
-        mat.tail_row_ids.numpy()], rtol=0, atol=1e-12 * scale)
+    for lanes in sorted({spmv.k2_lanes(mat.tail_longest, k), 32}):
+        walk = _k2_walk(mat.tail_row_ids.numpy(), mat.tail_ptr.numpy(),
+                        mat.tail_long.numpy(), tc, tv, x, k, lanes)
+        np.testing.assert_allclose(walk, ref.reshape(len(ref), -1)[
+            mat.tail_row_ids.numpy()], rtol=0, atol=1e-12 * scale)
     # and on top of K1 it gives the whole product
     full = spmv.spmv(mat, torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(full, sp @ x, rtol=0,
@@ -584,3 +607,45 @@ def test_k2_matches_plain_on_card(cuda, name, k, dtype, tol):
     assert torch.equal(y, again)  # one writer a row: the same bits
     scale = max(float(ref.abs().max()), 1.0)
     assert float((y - ref).abs().max()) <= tol * scale
+
+
+def _valid_lanes(k):
+    return [lanes for lanes in (1, 2, 4, 8, 16, 32)
+            if lanes >= min(32, 1 << (k - 1).bit_length())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,k,lanes", [
+    (name, k, lanes) for name in ("hub_row", "level2", "empty_rows")
+    for k in (1, 8) for lanes in _valid_lanes(k)])
+def test_k2_every_lanes_on_card(cuda, name, k, lanes):
+    # K2 at each team width, not only the one k2_lanes picks: against the
+    # plain version, and two calls bitwise equal
+    if name == "level2":
+        sp, cap = _level2_like(), 64
+    else:
+        make, cap = TAIL_CASES[name]
+        sp = make()
+    mat = spmv.CappedCSR.from_csr(CSR.from_scipy(sp), cuda, torch.float64,
+                                  cap=cap)
+    x = torch.from_numpy(_x(sp.shape[1], k, np.float64)).to(cuda)
+    y0 = torch.from_numpy(_x(sp.shape[0], k, np.float64, seed=5)).to(cuda)
+    y, again, ref = y0.clone(), y0.clone(), y0.clone()
+    before = spmv.coo_patch_launches
+    spmv.launch_coo_patch(mat, x, y, k, lanes)
+    spmv.launch_coo_patch(mat, x, again, k, lanes)
+    spmv.plain_coo_patch(mat, x, ref)
+    torch.cuda.synchronize()
+    assert spmv.coo_patch_launches == before  # measurement launches
+    assert torch.equal(y, again)
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((y - ref).abs().max()) <= 1e-12 * scale
+
+
+def test_k2_launcher_refuses_cpu_tensors():
+    sp = _hub_rows()
+    mat = spmv.CappedCSR.from_csr(CSR.from_scipy(sp), "cpu", torch.float64)
+    x = torch.zeros(sp.shape[1], dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        spmv.launch_coo_patch(mat, x, torch.zeros(sp.shape[0],
+                                                  dtype=torch.float64), 1, 32)

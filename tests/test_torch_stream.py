@@ -144,35 +144,34 @@ def test_launch_plan_covers_every_chunk(name, total_mib):
     tiles = case.tiles(total_mib << 20)
     size = torch.tensor([], dtype=case.dtype).element_size()
     args = (tiles, case.rows, case.width, size, case.n_in, 132)
-    plan = stream.launch_plan(*args)
-    assert plan == stream.launch_plan(*args)
-    assert plan.grid == (plan.parts, plan.blocks)
+    parts, blocks = stream.launch_plan(*args)
+    assert (parts, blocks) == stream.launch_plan(*args)
     # one block an SM at most; a tile shared by 1, 2, 4 or 8 blocks
-    assert plan.parts * plan.blocks <= 132
-    assert plan.parts in (1, 2, 4, 8)
+    assert parts * blocks <= 132
+    assert parts in (1, 2, 4, 8)
     # every tile taken by exactly one row of blocks (persistent rows walk
     # tiles b, b + blocks, ...); a shared tile has a row of its own
-    rows_of = [t for b in range(plan.blocks) for t in range(b, tiles,
-                                                            plan.blocks)]
+    rows_of = [t for b in range(blocks) for t in range(b, tiles,
+                                                            blocks)]
     assert sorted(rows_of) == list(range(tiles))
-    assert plan.parts == 1 or plan.blocks == tiles
+    assert parts == 1 or blocks == tiles
     # each block of a tile owns 8 / parts rows of its (8, 128) sum, and
     # reads them from every chunk of every input exactly once
-    owned = sorted(p * (8 // plan.parts) + r for p in range(plan.parts)
-                   for r in range(8 // plan.parts))
+    owned = sorted(p * (8 // parts) + r for p in range(parts)
+                   for r in range(8 // parts))
     assert owned == list(range(8))
     chunks = (case.rows // 8) * (case.width // 128)
-    groups = stream.step_chunks(size, plan.parts)
+    groups = stream.step_chunks(size, parts)
     seen = sorted(_walk(case.n_in, chunks, groups))
     assert seen == [(i, q) for i in range(case.n_in) for q in range(chunks)]
     # the grid fills the card where the tiles allow; a shared tile gives
     # each of its blocks a full step of loads
-    assert plan.parts == 1 or case.n_in * chunks >= stream.UNROLL * groups
-    assert (plan.parts * plan.blocks >= min(132, tiles)
-            and (plan.parts == stream.MAX_PARTS
-                 or 2 * plan.parts * tiles > 132 or plan.parts == 1
+    assert parts == 1 or case.n_in * chunks >= stream.UNROLL * groups
+    assert (parts * blocks >= min(132, tiles)
+            and (parts == stream.MAX_PARTS
+                 or 2 * parts * tiles > 132 or parts == 1
                  or case.n_in * chunks
-                 < stream.UNROLL * stream.step_chunks(size, 2 * plan.parts)))
+                 < stream.UNROLL * stream.step_chunks(size, 2 * parts)))
 
 
 @pytest.fixture

@@ -39,16 +39,22 @@
 // column), carried a row id per entry and serialised the ~89 adds a row
 // of the structured path's level 2 on one address.  The tail is in CSR
 // order, so K2 is a segmented row reduction on the host's row table: a
-// warp owns a spilling row (a block of 8 warps a row longer than
-// `long_row` entries, the hub rows of a smoothed-SA R); its lanes form
-// groups of G (the power of two at or above k, at most 32), a group takes
-// entries g, g + groups, ... (4 entries' value, column and X loads in
-// flight a lane), and lane c of a group sums columns c and c + G of X, so
-// values and columns are read once a row and each X row contiguously.
-// The groups are summed by a shuffle tree, the warps of a long row in
-// shared memory, in a fixed order; one lane adds the row's sum into Y
-// with a plain load-add-store.  One writer a row: no atomics, and the
-// same Y on every call.  Sums accumulate in the value type.
+// team of L lanes owns a spilling row (a block of 8 warps a row of more
+// than kLongTailRow entries, the hub rows of a smoothed-SA R).  The
+// team's lanes form groups of G (the power of two at or above k, at most
+// 32), a group takes entries g, g + groups, ... (4 entries' value,
+// column and X loads in flight a lane), and lane c of a group sums
+// columns c and c + G of X, so values and columns are read once a row
+// and each X row contiguously.  The host picks L (1-32, at least G) so
+// that the longest row the teams own takes one step of loads: a short
+// tail (the SA path's A1: rows of 10 tail entries on average) then puts
+// several rows in a warp.  A short tail is bound by its chain of
+// dependent loads (row table, then entries and Y, then X), so Y is
+// loaded beside the entries, not after the sum.  The groups are summed
+// by a shuffle tree, the warps of a long row in shared memory, in a
+// fixed order; one lane adds the row's sum into Y with a plain store.
+// One writer a row: no atomics, and the same Y on every call.  Sums
+// accumulate in the value type.
 //
 // The host side (tpu_amg_torch/ops/spmv.py) builds the row-block table and
 // the tail row table, allocates every output, passes PyTorch's current
@@ -58,22 +64,40 @@
 
 namespace {
 
-constexpr int kPatchWarps = 8;  // a block of K2: 8 rows, or 1 long row
+constexpr int kPatchThreads = 256;  // a block of K2
 constexpr int kPatchUnroll = 4;
 constexpr int kMaxColumns = 64;
+// a tail row of more entries than a warp's step of loads at k = 1 takes a
+// block of its own (the host lists such rows, tail_long)
+constexpr int kLongTailRow = kPatchUnroll * 32;
 
-// Tail row i of the table, entries [e0, e1), owned by a team of W warps
-// (threads 0 .. 32 W - 1 of the team; W > 1: the whole block).
-template <typename T, int W>
-__device__ __forceinline__ void patch_row(int row, int e0, int e1, int k,
-                                          int G, const int32_t* __restrict__ cols,
+// Tail row [e0, e1) of `row`, owned by a team of W warps of L lanes each
+// (W > 1: the whole block, L = 32).  Every lane of a warp calls it, so the
+// shuffles see the whole warp; a lane whose team owns no row passes
+// owns = false and e0 = e1.
+template <typename T, int L, int W>
+__device__ __forceinline__ void patch_row(bool owns, int row, int e0, int e1,
+                                          int k, int G,
+                                          const int32_t* __restrict__ cols,
                                           const T* __restrict__ vals,
                                           const T* __restrict__ x,
                                           T* __restrict__ y) {
-  const int tid = threadIdx.x % (32 * W);
-  const int lane = tid % 32;
+  const int tid = threadIdx.x % (L * W);  // in the team
+  const int lane = tid % L;               // in the team's part of a warp
   const int c0 = lane % G;  // this lane's columns: c0 and c0 + G
-  const int groups = 32 * W / G;
+  const int groups = L * W / G;
+  T* yr = y + static_cast<int64_t>(row) * k;
+  // the row's Y, loaded beside its entries: lanes 0 .. G - 1 (W = 1) or
+  // threads 0 .. k - 1 (W > 1) write it
+  T y0 = T(0), y1 = T(0);
+  if (owns) {
+    if constexpr (W == 1) {
+      if (lane < G && c0 < k) y0 = yr[c0];
+      if (lane < G && c0 + G < k) y1 = yr[c0 + G];
+    } else {
+      if (tid < k) y0 = yr[tid];
+    }
+  }
   T acc0 = T(0), acc1 = T(0);
   for (int j = e0 + tid / G; j < e1; j += kPatchUnroll * groups) {
     T v[kPatchUnroll];
@@ -87,22 +111,25 @@ __device__ __forceinline__ void patch_row(int row, int e0, int e1, int k,
 #pragma unroll
     for (int u = 0; u < kPatchUnroll; ++u) {
       if (j + u * groups < e1) {
-        const T* xr = x + c[u] * k;
+        const T* xr = x + static_cast<int64_t>(c[u]) * k;
         if (c0 < k) acc0 += v[u] * __ldg(xr + c0);
         if (c0 + G < k) acc1 += v[u] * __ldg(xr + c0 + G);
       }
     }
   }
-  // the warp's groups, by a fixed shuffle tree: lanes 0 .. G - 1 hold them
-  for (int o = 16; o >= G; o >>= 1) {
-    acc0 += __shfl_down_sync(0xffffffffu, acc0, o);
-    acc1 += __shfl_down_sync(0xffffffffu, acc1, o);
+  // the team's groups, by a fixed shuffle tree within L lanes: lanes
+  // 0 .. G - 1 of the team hold them
+#pragma unroll
+  for (int o = L / 2; o >= 1; o >>= 1) {
+    if (o >= G) {
+      acc0 += __shfl_down_sync(0xffffffffu, acc0, o, L);
+      acc1 += __shfl_down_sync(0xffffffffu, acc1, o, L);
+    }
   }
-  T* yr = y + row * k;
   if constexpr (W == 1) {
-    if (lane < G) {
-      if (c0 < k) yr[c0] += acc0;
-      if (c0 + G < k) yr[c0 + G] += acc1;
+    if (owns && lane < G) {
+      if (c0 < k) yr[c0] = y0 + acc0;
+      if (c0 + G < k) yr[c0 + G] = y1 + acc1;
     }
   } else {
     // the warps' sums, added in warp order
@@ -117,17 +144,17 @@ __device__ __forceinline__ void patch_row(int row, int e0, int e1, int k,
       T s = red[0][tid];
 #pragma unroll
       for (int w = 1; w < W; ++w) s += red[w][tid];
-      yr[tid] += s;
+      yr[tid] = y0 + s;
     }
   }
 }
 
 // Blocks [0, n_long): one long tail row each, listed in `long_rows`;
-// then blocks of kPatchWarps warps, warp w of block b owning table row
-// (b - n_long) kPatchWarps + w unless that row is long.
-template <typename T>
-__global__ void __launch_bounds__(32 * kPatchWarps)
-coo_patch_kernel(int n_rows, int n_long, int long_row, int k, int G,
+// then blocks of teams of L lanes, team q of block b owning table row
+// (b - n_long) kPatchThreads / L + q unless that row is long.
+template <typename T, int L>
+__global__ void __launch_bounds__(kPatchThreads)
+coo_patch_kernel(int n_rows, int n_long, int k, int G,
                  const int32_t* __restrict__ row_ids,
                  const int32_t* __restrict__ ptr,
                  const int32_t* __restrict__ long_rows,
@@ -135,17 +162,34 @@ coo_patch_kernel(int n_rows, int n_long, int long_row, int k, int G,
                  const T* __restrict__ x, T* __restrict__ y) {
   if (static_cast<int>(blockIdx.x) < n_long) {
     const int i = __ldg(long_rows + blockIdx.x);
-    patch_row<T, kPatchWarps>(__ldg(row_ids + i), __ldg(ptr + i),
-                              __ldg(ptr + i + 1), k, G, cols, vals, x, y);
+    patch_row<T, 32, kPatchThreads / 32>(true, __ldg(row_ids + i),
+                                         __ldg(ptr + i), __ldg(ptr + i + 1),
+                                         k, G, cols, vals, x, y);
     return;
   }
-  const int i = (static_cast<int>(blockIdx.x) - n_long) * kPatchWarps +
-                static_cast<int>(threadIdx.x) / 32;
-  if (i >= n_rows) return;  // the warp's lanes leave together
-  const int e0 = __ldg(ptr + i);
-  const int e1 = __ldg(ptr + i + 1);
-  if (e1 - e0 > long_row) return;  // a block of its own takes it
-  patch_row<T, 1>(__ldg(row_ids + i), e0, e1, k, G, cols, vals, x, y);
+  const int i = (static_cast<int>(blockIdx.x) - n_long) * (kPatchThreads / L) +
+                static_cast<int>(threadIdx.x) / L;
+  int row = 0, e0 = 0, e1 = 0;
+  if (i < n_rows) {
+    row = __ldg(row_ids + i);
+    e0 = __ldg(ptr + i);
+    e1 = __ldg(ptr + i + 1);
+  }
+  // a long row's block takes it
+  const bool owns = i < n_rows && e1 - e0 <= kLongTailRow;
+  patch_row<T, L, 1>(owns, row, e0, owns ? e1 : e0, k, G, cols, vals, x, y);
+}
+
+template <typename T, int L>
+void launch_patch(unsigned blocks, cudaStream_t stream, int n_rows,
+                  int n_long, int k, int G, const void* row_ids,
+                  const void* ptr, const void* long_rows, const void* cols,
+                  const void* vals, const void* x, void* y) {
+  coo_patch_kernel<T, L><<<blocks, kPatchThreads, 0, stream>>>(
+      n_rows, n_long, k, G, static_cast<const int32_t*>(row_ids),
+      static_cast<const int32_t*>(ptr), static_cast<const int32_t*>(long_rows),
+      static_cast<const int32_t*>(cols), static_cast<const T*>(vals),
+      static_cast<const T*>(x), static_cast<T*>(y));
 }
 
 template <typename T>
@@ -164,23 +208,30 @@ int csr_spmv_capped(int n_blocks, int k, const void* block_rows,
 }
 
 template <typename T>
-int coo_patch(int n_rows, int n_long, int long_row, int k, const void* row_ids,
+int coo_patch(int n_rows, int n_long, int k, int lanes, const void* row_ids,
               const void* ptr, const void* long_rows, const void* cols,
               const void* vals, const void* x, void* y, void* stream) {
-  if (k < 1 || k > kMaxColumns || n_long > n_rows) {
+  int G = 1;
+  while (G < k && G < 32) G *= 2;
+  if (k < 1 || k > kMaxColumns || n_long > n_rows || lanes < G ||
+      lanes > 32 || (lanes & (lanes - 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_rows > 0) {
-    int G = 1;
-    while (G < k && G < 32) G *= 2;
-    const unsigned blocks = static_cast<unsigned>(
-        n_long + (n_rows + kPatchWarps - 1) / kPatchWarps);
-    coo_patch_kernel<T><<<blocks, 32 * kPatchWarps, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        n_rows, n_long, long_row, k, G, static_cast<const int32_t*>(row_ids),
-        static_cast<const int32_t*>(ptr), static_cast<const int32_t*>(long_rows),
-        static_cast<const int32_t*>(cols), static_cast<const T*>(vals),
-        static_cast<const T*>(x), static_cast<T*>(y));
+    const int teams = kPatchThreads / lanes;
+    const unsigned blocks =
+        static_cast<unsigned>(n_long + (n_rows + teams - 1) / teams);
+    auto st = static_cast<cudaStream_t>(stream);
+    switch (lanes) {
+#define K2_LANES(L)                                                         \
+  case L:                                                                   \
+    launch_patch<T, L>(blocks, st, n_rows, n_long, k, G, row_ids, ptr,      \
+                       long_rows, cols, vals, x, y);                        \
+    break;
+      K2_LANES(1) K2_LANES(2) K2_LANES(4) K2_LANES(8) K2_LANES(16)
+      K2_LANES(32)
+#undef K2_LANES
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -195,6 +246,9 @@ const char* kernel_error_string(int code) {
 
 // The S this library was compiled for: the host cuts its tables to it.
 int row_block_entries() { return rowblock::kEntries; }
+
+// K2's long-row length: the host lists the rows past it (tail_long).
+int long_tail_row() { return kLongTailRow; }
 
 int csr_spmv_capped_f64(int n_blocks, int k, const void* block_rows,
                         const void* block_ptr, const void* indptr,
@@ -212,20 +266,20 @@ int csr_spmv_capped_f32(int n_blocks, int k, const void* block_rows,
                                 indices, vals, x, y, stream);
 }
 
-int coo_patch_f64(int n_rows, int n_long, int long_row, int k,
+int coo_patch_f64(int n_rows, int n_long, int k, int lanes,
                   const void* row_ids, const void* ptr, const void* long_rows,
                   const void* cols, const void* vals, const void* x, void* y,
                   void* stream) {
-  return coo_patch<double>(n_rows, n_long, long_row, k, row_ids, ptr,
-                           long_rows, cols, vals, x, y, stream);
+  return coo_patch<double>(n_rows, n_long, k, lanes, row_ids, ptr, long_rows,
+                           cols, vals, x, y, stream);
 }
 
-int coo_patch_f32(int n_rows, int n_long, int long_row, int k,
+int coo_patch_f32(int n_rows, int n_long, int k, int lanes,
                   const void* row_ids, const void* ptr, const void* long_rows,
                   const void* cols, const void* vals, const void* x, void* y,
                   void* stream) {
-  return coo_patch<float>(n_rows, n_long, long_row, k, row_ids, ptr,
-                          long_rows, cols, vals, x, y, stream);
+  return coo_patch<float>(n_rows, n_long, k, lanes, row_ids, ptr, long_rows,
+                          cols, vals, x, y, stream);
 }
 
 }  // extern "C"

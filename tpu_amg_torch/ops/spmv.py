@@ -21,10 +21,10 @@ rectangular.
   entries in coalesced loads, stages the products in shared memory and
   reduces its rows from there.  K2 is a segmented row reduction over the
   tail, which keeps CSR order: :func:`tail_row_table` lists once, on the
-  host, the rows that spill and where each one's tail starts; a warp
-  owns such a row (a block of 8 warps a row of more than
-  ``LONG_TAIL_ROW`` tail entries), sums it in a fixed order and adds it
-  into Y: one writer a row, no atomics.
+  host, the rows that spill and where each one's tail starts; a team
+  of :func:`k2_lanes` lanes owns such a row (a block of 8 warps a row
+  of more than ``LONG_TAIL_ROW`` tail entries), sums it in a fixed
+  order and adds it into Y: one writer a row, no atomics.
 - ``cap`` defaults to 64: at that cap the hub rows of a smoothed-SA
   restriction (a few hundred entries) spill, so K2 runs on the main
   path.  :func:`split_capped` makes the split once, when an operator is
@@ -66,9 +66,11 @@ MAX_COLUMNS = 64
 # threads, 4 entries each).  Chosen by tools/rowblocks.py on the SA path's
 # own matrices (PERF.md).
 BLOCK_ENTRIES = 256
-# K2: a tail row of more entries than this takes a block of 8 warps, the
-# others a warp each
-LONG_TAIL_ROW = 256
+# K2: a tail row of more entries than this (a warp's step of loads at
+# k = 1: 4 entries a lane) takes a block of 8 warps; the library is
+# compiled for it (kLongTailRow in csrc/spmv.cu)
+LONG_TAIL_ROW = 128
+K2_UNROLL = 4  # entries a lane of K2 loads a step (kPatchUnroll)
 _INT32_MAX = 2**31 - 1
 
 csr_spmv_launches = 0
@@ -95,11 +97,23 @@ def check_block_entries(dll: ctypes.CDLL, entries: int = BLOCK_ENTRIES):
                            f"{built} entries, the tables are cut for {entries}")
 
 
+def check_long_tail_row(dll: ctypes.CDLL):
+    """Raise unless the library ``dll`` takes K2's long rows past
+    ``LONG_TAIL_ROW`` entries, as the host lists them."""
+    dll.long_tail_row.restype = ctypes.c_int
+    built = dll.long_tail_row()
+    if built != LONG_TAIL_ROW:
+        raise RuntimeError(f"{dll._name} takes long tail rows past {built} "
+                           f"entries, the tables list those past "
+                           f"{LONG_TAIL_ROW}")
+
+
 def bind_kernel_lib(path: Path, entries: int = BLOCK_ENTRIES) -> ctypes.CDLL:
     """Load a build of ``spmv.cu`` compiled for row blocks of
     ``entries`` and declare its entry points."""
     dll = ctypes.CDLL(str(path))
     check_block_entries(dll, entries)
+    check_long_tail_row(dll)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for suffix in ("f64", "f32"):
         fn = getattr(dll, f"csr_spmv_capped_{suffix}")
@@ -157,6 +171,20 @@ def tail_row_table(indptr, cap: int):
     return row_ids.astype(np.int32), ptr.astype(np.int32)
 
 
+def k2_lanes(longest: int, k: int) -> int:
+    """K2's lanes a tail row at k columns: groups of G lanes (the power of
+    two at or above k, at most 32), as many groups as give the longest
+    row the teams own (``longest`` entries, at most ``LONG_TAIL_ROW``)
+    one step of ``K2_UNROLL`` loads a lane; a power of two from G to 32."""
+    group = 1
+    while group < k and group < 32:
+        group *= 2
+    lanes = group
+    while lanes < 32 and K2_UNROLL * (lanes // group) < longest:
+        lanes *= 2
+    return lanes
+
+
 def row_blocks(cap_indptr: np.ndarray,
                max_entries: int = BLOCK_ENTRIES) -> np.ndarray:
     """K1's row-block table (int32, n_blocks + 1): block b holds rows
@@ -206,8 +234,9 @@ class CappedCSR:
     :func:`row_blocks`) and ``block_ptr``, the first entry of each block
     (``indptr[block_rows]``, int32), so that a block's bounds are two
     loads of the table.  K2's tail row table (:func:`tail_row_table`):
-    ``tail_row_ids`` and ``tail_ptr``, and ``tail_long``, the table
-    positions of the rows longer than ``LONG_TAIL_ROW``."""
+    ``tail_row_ids`` and ``tail_ptr``, ``tail_long``, the table
+    positions of the rows longer than ``LONG_TAIL_ROW``, and
+    ``tail_longest``, the longest of the others (0 without a tail)."""
 
     indptr: torch.Tensor
     indices: torch.Tensor
@@ -221,6 +250,7 @@ class CappedCSR:
     tail_row_ids: torch.Tensor
     tail_ptr: torch.Tensor
     tail_long: torch.Tensor
+    tail_longest: int
     # expanded row ids of the capped part and of the tail, for the plain
     # versions
     _rows: torch.Tensor = dataclasses.field(default=None, repr=False)
@@ -234,7 +264,9 @@ class CappedCSR:
             csr.indptr, csr.indices, csr.data, cap
         )
         row_ids, ptr = tail_row_table(csr.indptr, cap)
-        long_rows = np.flatnonzero(np.diff(ptr) > LONG_TAIL_ROW)
+        lens = np.diff(ptr)
+        long_rows = np.flatnonzero(lens > LONG_TAIL_ROW)
+        short = lens[lens <= LONG_TAIL_ROW]
         return CappedCSR(
             indptr=to_device(ip, device, torch.int64),
             indices=to_device(ix, device, torch.int32),
@@ -247,6 +279,7 @@ class CappedCSR:
             tail_row_ids=to_device(row_ids, device, torch.int32),
             tail_ptr=to_device(ptr, device, torch.int32),
             tail_long=to_device(long_rows, device, torch.int32),
+            tail_longest=int(short.max(initial=0)),
         )
 
     @property
@@ -405,6 +438,24 @@ def csr_spmv_capped(mat: CappedCSR, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def launch_coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor,
+                     k: int, lanes: int) -> None:
+    """Launch K2 with ``lanes`` lanes a tail row on CUDA tensors (x
+    checked, a tail present); counts nothing."""
+    fn = _kernel("coo_patch", x)
+    if max(mat.shape) * k > _INT32_MAX:
+        raise ValueError(f"A {mat.shape} at k = {k} passes 32-bit offsets")
+    with torch.cuda.device(x.device):
+        code = fn(
+            mat.n_tail_rows, mat.tail_long.numel(), k, lanes,
+            mat.tail_row_ids.data_ptr(), mat.tail_ptr.data_ptr(),
+            mat.tail_long.data_ptr(), mat.tail_cols.data_ptr(),
+            mat.tail_vals.data_ptr(), x.data_ptr(), y.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(code, "coo_patch")
+
+
 def coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor) -> None:
     """K2: y[r] += Σ v · x[c] over the tail entries of each row r, in
     place."""
@@ -420,18 +471,7 @@ def coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor) -> None:
     if x.device.type == "cpu":
         plain_coo_patch(mat, x, y)
         return
-    fn = _kernel("coo_patch", x)
-    if max(mat.shape) * k > _INT32_MAX:
-        raise ValueError(f"A {mat.shape} at k = {k} passes 32-bit offsets")
-    with torch.cuda.device(x.device):
-        code = fn(
-            mat.n_tail_rows, mat.tail_long.numel(), LONG_TAIL_ROW, k,
-            mat.tail_row_ids.data_ptr(), mat.tail_ptr.data_ptr(),
-            mat.tail_long.data_ptr(), mat.tail_cols.data_ptr(),
-            mat.tail_vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(code, "coo_patch")
+    launch_coo_patch(mat, x, y, k, k2_lanes(mat.tail_longest, k))
     coo_patch_launches += 1
     coo_patch_launches_by_shape[(*mat.shape, k)] += 1
 

@@ -37,7 +37,6 @@ launch and loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 from pathlib import Path
 from typing import Sequence, Tuple
@@ -78,20 +77,6 @@ def kernel_lib() -> ctypes.CDLL:
 _SUFFIX = {torch.float32: "f32", torch.int8: "i8"}
 
 
-@dataclasses.dataclass(frozen=True)
-class Plan:
-    """One launch of the kernel: a grid of (``parts``, ``blocks``) blocks;
-    block (p, b) owns rows [8 p / parts, 8 (p + 1) / parts) of the sums
-    of tiles b, b + blocks, ..."""
-
-    parts: int
-    blocks: int
-
-    @property
-    def grid(self) -> Tuple[int, int]:
-        return self.parts, self.blocks
-
-
 def step_chunks(element_size: int, parts: int = 1) -> int:
     """Chunks a block's step of loads spans: a thread's slot is 16 bytes
     of a block's rows of an (8, 128) chunk, which take 256 / parts
@@ -100,22 +85,24 @@ def step_chunks(element_size: int, parts: int = 1) -> int:
 
 
 def launch_plan(tiles: int, rows: int, width: int, element_size: int,
-                n_in: int, sms: int) -> Plan:
-    """The kernel's launch for ``tiles`` (≥ 1) blocks of (rows, width)
-    values of ``element_size`` bytes in each of ``n_in`` inputs, on a
-    card of ``sms`` SMs: a pure function of these.  With as many tiles as
+                n_in: int, sms: int) -> Tuple[int, int]:
+    """The kernel's grid (``parts``, ``blocks``) for ``tiles`` (≥ 1)
+    blocks of (rows, width) values of ``element_size`` bytes in each of
+    ``n_in`` inputs, on a card of ``sms`` SMs: a pure function of these.
+    Block (p, b) owns rows [8 p / parts, 8 (p + 1) / parts) of the sums
+    of tiles b, b + blocks, ...  With as many tiles as
     SMs or more, one persistent block an SM; with fewer, the most parts
     (a power of two up to ``MAX_PARTS``) that keep the grid within one
     block an SM and give every block a full step of loads (``UNROLL``
     items a thread)."""
     if tiles >= sms:
-        return Plan(1, sms)
+        return 1, sms
     items = n_in * (rows // 8) * (width // 128)
     parts = 1
     while (2 * parts <= MAX_PARTS and 2 * parts * tiles <= sms
            and items >= UNROLL * step_chunks(element_size, 2 * parts)):
         parts *= 2
-    return Plan(parts, tiles)
+    return parts, tiles
 
 
 def wide_layout(arr: torch.Tensor, width: int) -> torch.Tensor:
@@ -182,12 +169,12 @@ def stream_sum(inputs: Sequence[torch.Tensor],
     if tiles == 0:
         return out
     sms = torch.cuda.get_device_properties(x0.device).multi_processor_count
-    plan = launch_plan(tiles, rows, width, size, len(inputs), sms)
+    parts, blocks = launch_plan(tiles, rows, width, size, len(inputs), sms)
     ptrs = (ctypes.c_void_p * len(inputs))(*(x.data_ptr() for x in inputs))
     with torch.cuda.device(x0.device):
         code = getattr(lib, f"stream_sum_{_SUFFIX[x0.dtype]}")(
             len(inputs), ptrs, tiles, rows, width, x0.stride(1), x0.stride(0),
-            plan.parts, plan.blocks, carry.data_ptr(), out.data_ptr(),
+            parts, blocks, carry.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     if code != 0:
