@@ -496,8 +496,6 @@ def test_tail_row_table(name):
     long_rows = mat.tail_long.numpy()
     np.testing.assert_array_equal(
         long_rows, np.flatnonzero(np.diff(ptr) > spmv.LONG_TAIL_ROW))
-    lens = np.diff(ptr)
-    assert mat.tail_longest == lens[lens <= spmv.LONG_TAIL_ROW].max(initial=0)
     assert mat.n_tail_rows == len(row_ids)
     if name == "no_tail":
         assert mat.n_tail == 0 and mat.n_tail_rows == 0
@@ -541,13 +539,11 @@ def _k2_walk(row_ids, ptr, long_rows, cols, vals, x, k, lanes):
     return out
 
 
-@pytest.mark.parametrize("longest,k,lanes", [
-    (0, 1, 1), (4, 1, 1), (5, 1, 2), (10, 1, 4), (60, 1, 16), (128, 1, 32),
-    (3, 7, 8), (10, 8, 32), (0, 64, 32)])
-def test_k2_lanes(longest, k, lanes):
-    # teams of G lanes (G = the power of two at or above k) or more, so
-    # that the longest row owned by a team takes one step of loads
-    assert spmv.k2_lanes(longest, k) == lanes
+def _valid_lanes(k):
+    """The team widths K2 takes at k columns: G (the power of two at or
+    above k, at most 32) to 32."""
+    return [lanes for lanes in (1, 2, 4, 8, 16, 32)
+            if lanes >= min(32, 1 << (k - 1).bit_length())]
 
 
 @pytest.mark.parametrize("k", [1, 7, 8])
@@ -566,8 +562,9 @@ def test_plain_k2_from_table_matches_scipy(name, k):
     y = torch.zeros(ref.shape, dtype=torch.float64)
     spmv.coo_patch(mat, torch.from_numpy(x), y)
     np.testing.assert_allclose(y.numpy(), ref, rtol=0, atol=1e-12 * scale)
-    # the kernel's own order of sums, on the rows that spill
-    for lanes in sorted({spmv.k2_lanes(mat.tail_longest, k), 32}):
+    # the kernel's own order of sums, on the rows that spill, at K2's
+    # team width and at the narrowest the kernel takes
+    for lanes in sorted({_valid_lanes(k)[0], spmv.K2_LANES}):
         walk = _k2_walk(mat.tail_row_ids.numpy(), mat.tail_ptr.numpy(),
                         mat.tail_long.numpy(), tc, tv, x, k, lanes)
         np.testing.assert_allclose(walk, ref.reshape(len(ref), -1)[
@@ -607,11 +604,6 @@ def test_k2_matches_plain_on_card(cuda, name, k, dtype, tol):
     assert torch.equal(y, again)  # one writer a row: the same bits
     scale = max(float(ref.abs().max()), 1.0)
     assert float((y - ref).abs().max()) <= tol * scale
-
-
-def _valid_lanes(k):
-    return [lanes for lanes in (1, 2, 4, 8, 16, 32)
-            if lanes >= min(32, 1 << (k - 1).bit_length())]
 
 
 @pytest.mark.cuda

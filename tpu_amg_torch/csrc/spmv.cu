@@ -45,16 +45,16 @@
 // 32), a group takes entries g, g + groups, ... (4 entries' value,
 // column and X loads in flight a lane), and lane c of a group sums
 // columns c and c + G of X, so values and columns are read once a row
-// and each X row contiguously.  The host picks L (1-32, at least G) so
-// that the longest row the teams own takes one step of loads: a short
-// tail (the SA path's A1: rows of 10 tail entries on average) then puts
-// several rows in a warp.  A short tail is bound by its chain of
-// dependent loads (row table, then entries and Y, then X), so Y is
-// loaded beside the entries, not after the sum.  The groups are summed
-// by a shuffle tree, the warps of a long row in shared memory, in a
-// fixed order; one lane adds the row's sum into Y with a plain store.
-// One writer a row: no atomics, and the same Y on every call.  Sums
-// accumulate in the value type.
+// and each X row contiguously.  L is 32, a warp a row: teams of 1-16
+// lanes (several rows a warp) measured slower on tails shaped like both
+// paths', the SA path's short A1 tail included (PERF.md), since a team's
+// longest row then takes more steps of dependent loads.  A short tail is
+// bound by that chain (row table, then entries, then X), one load longer
+// than the first design's (entries with their row ids, then X).  The
+// groups are summed by a shuffle tree, the warps of a long row in shared
+// memory, in a fixed order; one lane adds the row's sum into Y with a
+// plain load-add-store.  One writer a row: no atomics, and the same Y on
+// every call.  Sums accumulate in the value type.
 //
 // The host side (tpu_amg_torch/ops/spmv.py) builds the row-block table and
 // the tail row table, allocates every output, passes PyTorch's current
@@ -86,18 +86,6 @@ __device__ __forceinline__ void patch_row(bool owns, int row, int e0, int e1,
   const int lane = tid % L;               // in the team's part of a warp
   const int c0 = lane % G;  // this lane's columns: c0 and c0 + G
   const int groups = L * W / G;
-  T* yr = y + static_cast<int64_t>(row) * k;
-  // the row's Y, loaded beside its entries: lanes 0 .. G - 1 (W = 1) or
-  // threads 0 .. k - 1 (W > 1) write it
-  T y0 = T(0), y1 = T(0);
-  if (owns) {
-    if constexpr (W == 1) {
-      if (lane < G && c0 < k) y0 = yr[c0];
-      if (lane < G && c0 + G < k) y1 = yr[c0 + G];
-    } else {
-      if (tid < k) y0 = yr[tid];
-    }
-  }
   T acc0 = T(0), acc1 = T(0);
   for (int j = e0 + tid / G; j < e1; j += kPatchUnroll * groups) {
     T v[kPatchUnroll];
@@ -111,7 +99,7 @@ __device__ __forceinline__ void patch_row(bool owns, int row, int e0, int e1,
 #pragma unroll
     for (int u = 0; u < kPatchUnroll; ++u) {
       if (j + u * groups < e1) {
-        const T* xr = x + static_cast<int64_t>(c[u]) * k;
+        const T* xr = x + c[u] * k;
         if (c0 < k) acc0 += v[u] * __ldg(xr + c0);
         if (c0 + G < k) acc1 += v[u] * __ldg(xr + c0 + G);
       }
@@ -126,10 +114,11 @@ __device__ __forceinline__ void patch_row(bool owns, int row, int e0, int e1,
       acc1 += __shfl_down_sync(0xffffffffu, acc1, o, L);
     }
   }
+  T* yr = y + row * k;
   if constexpr (W == 1) {
     if (owns && lane < G) {
-      if (c0 < k) yr[c0] = y0 + acc0;
-      if (c0 + G < k) yr[c0 + G] = y1 + acc1;
+      if (c0 < k) yr[c0] += acc0;
+      if (c0 + G < k) yr[c0 + G] += acc1;
     }
   } else {
     // the warps' sums, added in warp order
@@ -144,7 +133,7 @@ __device__ __forceinline__ void patch_row(bool owns, int row, int e0, int e1,
       T s = red[0][tid];
 #pragma unroll
       for (int w = 1; w < W; ++w) s += red[w][tid];
-      yr[tid] = y0 + s;
+      yr[tid] += s;
     }
   }
 }

@@ -72,6 +72,20 @@ template <typename T>
 using Acc = typename std::conditional<std::is_same<T, int8_t>::value, int,
                                       float>::type;
 
+// n / d for n < 2^31 by a multiply and a shift (d fixed for the kernel).
+struct Divider {
+  unsigned d, m, shift;
+  __device__ explicit Divider(unsigned divisor) : d(divisor) {
+    shift = 0;
+    while ((1u << shift) < d) ++shift;
+    m = static_cast<unsigned>(
+        ((uint64_t{1} << 32) * ((uint64_t{1} << shift) - d)) / d + 1);
+  }
+  __device__ __forceinline__ unsigned div(unsigned n) const {
+    return (__umulhi(n, m) + n) >> shift;
+  }
+};
+
 // A tile's items: item f (chunk-major, f < n) is input f % n_in of
 // chunk f / n_in.
 template <typename T>
@@ -79,7 +93,8 @@ struct Items {
   const T* const* base;  // the inputs (shared memory)
   int64_t slot;          // this thread's slot in a tile's first chunk
   int64_t row_stride, tile_stride;
-  unsigned n, n_in, cols;  // items; inputs; chunks in a row group
+  unsigned n;
+  Divider n_in, cols;  // inputs; chunks in a row group
 };
 
 // Issue the loads of items f, f + G, ..., f + (kUnroll - 1) G of tile t;
@@ -92,10 +107,10 @@ __device__ __forceinline__ void load_items(const Items<T>& it, int64_t t,
     const unsigned fu = f + u * G;
     v[u] = make_uint4(0, 0, 0, 0);
     if (fu < it.n) {
-      const unsigned q = fu / it.n_in;
-      const unsigned i = fu - q * it.n_in;
-      const unsigned rr = q / it.cols;
-      const unsigned kk = q - rr * it.cols;
+      const unsigned q = it.n_in.div(fu);
+      const unsigned i = fu - q * it.n_in.d;
+      const unsigned rr = it.cols.div(q);
+      const unsigned kk = q - rr * it.cols.d;
       v[u] = __ldg(reinterpret_cast<const uint4*>(
           it.base[i] + t * it.tile_stride + it.slot +
           static_cast<int64_t>(rr) * 8 * it.row_stride + kk * 128));
@@ -140,8 +155,8 @@ stream_sum_kernel(Inputs in, Shape sh, const float* __restrict__ carry,
   const unsigned col_chunks = sh.width / 128;
   const unsigned n_chunks = (sh.rows / 8) * col_chunks;
   const Items<T> it{base, r * sh.row_stride + l, sh.row_stride,
-                    sh.tile_stride, n_chunks * sh.n_in,
-                    static_cast<unsigned>(sh.n_in), col_chunks};
+                    sh.tile_stride, n_chunks * sh.n_in, Divider(sh.n_in),
+                    Divider(col_chunks)};
   // steps a tile (an empty tile takes one step of no loads)
   const unsigned steps = it.n > 0 ? (it.n + kStep - 1) / kStep : 1;
 

@@ -21,10 +21,10 @@ rectangular.
   entries in coalesced loads, stages the products in shared memory and
   reduces its rows from there.  K2 is a segmented row reduction over the
   tail, which keeps CSR order: :func:`tail_row_table` lists once, on the
-  host, the rows that spill and where each one's tail starts; a team
-  of :func:`k2_lanes` lanes owns such a row (a block of 8 warps a row
-  of more than ``LONG_TAIL_ROW`` tail entries), sums it in a fixed
-  order and adds it into Y: one writer a row, no atomics.
+  host, the rows that spill and where each one's tail starts; a warp
+  owns such a row (a block of 8 warps a row of more than
+  ``LONG_TAIL_ROW`` tail entries), sums it in a fixed order and adds it
+  into Y: one writer a row, no atomics.
 - ``cap`` defaults to 64: at that cap the hub rows of a smoothed-SA
   restriction (a few hundred entries) spill, so K2 runs on the main
   path.  :func:`split_capped` makes the split once, when an operator is
@@ -70,7 +70,9 @@ BLOCK_ENTRIES = 256
 # k = 1: 4 entries a lane) takes a block of 8 warps; the library is
 # compiled for it (kLongTailRow in csrc/spmv.cu)
 LONG_TAIL_ROW = 128
-K2_UNROLL = 4  # entries a lane of K2 loads a step (kPatchUnroll)
+# K2's lanes a tail row: a warp (the kernel also takes teams of 1-16
+# lanes, several rows a warp, which measured slower; PERF.md)
+K2_LANES = 32
 _INT32_MAX = 2**31 - 1
 
 csr_spmv_launches = 0
@@ -171,20 +173,6 @@ def tail_row_table(indptr, cap: int):
     return row_ids.astype(np.int32), ptr.astype(np.int32)
 
 
-def k2_lanes(longest: int, k: int) -> int:
-    """K2's lanes a tail row at k columns: groups of G lanes (the power of
-    two at or above k, at most 32), as many groups as give the longest
-    row the teams own (``longest`` entries, at most ``LONG_TAIL_ROW``)
-    one step of ``K2_UNROLL`` loads a lane; a power of two from G to 32."""
-    group = 1
-    while group < k and group < 32:
-        group *= 2
-    lanes = group
-    while lanes < 32 and K2_UNROLL * (lanes // group) < longest:
-        lanes *= 2
-    return lanes
-
-
 def row_blocks(cap_indptr: np.ndarray,
                max_entries: int = BLOCK_ENTRIES) -> np.ndarray:
     """K1's row-block table (int32, n_blocks + 1): block b holds rows
@@ -234,9 +222,8 @@ class CappedCSR:
     :func:`row_blocks`) and ``block_ptr``, the first entry of each block
     (``indptr[block_rows]``, int32), so that a block's bounds are two
     loads of the table.  K2's tail row table (:func:`tail_row_table`):
-    ``tail_row_ids`` and ``tail_ptr``, ``tail_long``, the table
-    positions of the rows longer than ``LONG_TAIL_ROW``, and
-    ``tail_longest``, the longest of the others (0 without a tail)."""
+    ``tail_row_ids`` and ``tail_ptr``, and ``tail_long``, the table
+    positions of the rows longer than ``LONG_TAIL_ROW``."""
 
     indptr: torch.Tensor
     indices: torch.Tensor
@@ -250,7 +237,6 @@ class CappedCSR:
     tail_row_ids: torch.Tensor
     tail_ptr: torch.Tensor
     tail_long: torch.Tensor
-    tail_longest: int
     # expanded row ids of the capped part and of the tail, for the plain
     # versions
     _rows: torch.Tensor = dataclasses.field(default=None, repr=False)
@@ -264,9 +250,7 @@ class CappedCSR:
             csr.indptr, csr.indices, csr.data, cap
         )
         row_ids, ptr = tail_row_table(csr.indptr, cap)
-        lens = np.diff(ptr)
-        long_rows = np.flatnonzero(lens > LONG_TAIL_ROW)
-        short = lens[lens <= LONG_TAIL_ROW]
+        long_rows = np.flatnonzero(np.diff(ptr) > LONG_TAIL_ROW)
         return CappedCSR(
             indptr=to_device(ip, device, torch.int64),
             indices=to_device(ix, device, torch.int32),
@@ -279,7 +263,6 @@ class CappedCSR:
             tail_row_ids=to_device(row_ids, device, torch.int32),
             tail_ptr=to_device(ptr, device, torch.int32),
             tail_long=to_device(long_rows, device, torch.int32),
-            tail_longest=int(short.max(initial=0)),
         )
 
     @property
@@ -439,9 +422,11 @@ def csr_spmv_capped(mat: CappedCSR, x: torch.Tensor) -> torch.Tensor:
 
 
 def launch_coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor,
-                     k: int, lanes: int) -> None:
-    """Launch K2 with ``lanes`` lanes a tail row on CUDA tensors (x
-    checked, a tail present); counts nothing."""
+                     k: int, lanes: int = K2_LANES) -> None:
+    """Launch K2 on CUDA tensors (x checked, a tail present) with teams
+    of ``lanes`` lanes a tail row: a power of two from the group width
+    (the power of two at or above k, at most 32) to 32.  Counts
+    nothing."""
     fn = _kernel("coo_patch", x)
     if max(mat.shape) * k > _INT32_MAX:
         raise ValueError(f"A {mat.shape} at k = {k} passes 32-bit offsets")
@@ -471,7 +456,7 @@ def coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor) -> None:
     if x.device.type == "cpu":
         plain_coo_patch(mat, x, y)
         return
-    launch_coo_patch(mat, x, y, k, k2_lanes(mat.tail_longest, k))
+    launch_coo_patch(mat, x, y, k)
     coo_patch_launches += 1
     coo_patch_launches_by_shape[(*mat.shape, k)] += 1
 
