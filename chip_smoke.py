@@ -192,7 +192,7 @@ def k2_lanes_sweep(mat, x, k, reps) -> dict:
     first = min(32, 1 << (k - 1).bit_length())  # the group width
     return {lanes: median_ms(
         lambda lanes=lanes: spmv.launch_coo_patch(mat, x, yz, k, lanes),
-        reps, graph=True) for lanes in (1, 2, 4, 8, 16, 32) if lanes >= first}
+        reps, graph=True) for lanes in (8, 16, 32) if lanes >= first}
 
 
 def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
@@ -244,7 +244,7 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
                        k1_bound_ms=hbm_bound_ms(spmv.k1_bytes(mat, k)),
                        k2_lib_ms=None, k2_bound_ms=None,
                        k2_old_bound_ms=None, rowgroup_ms=None,
-                       k2_by_lanes=None)
+                       k2_by_lanes=None, k2_lanes=None)
             if k == 1:
                 lib["rowgroup_ms"] = median_ms(
                     lambda: spmv_stages.csr_spmv_stages(mat, x, "rowgroup"),
@@ -257,6 +257,8 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
                 lib["k2_old_bound_ms"] = hbm_bound_ms(old)
                 if dtype == torch.float64 and k in (1, 8):
                     lib["k2_by_lanes"] = k2_lanes_sweep(mat, x, k, reps)
+                    lib["k2_lanes"] = spmv.k2_lanes(
+                        mat.n_tail_rows, k, spmv.sm_count(x.device.index))
             check(
                 rel <= TOL[dname] and same,
                 f"kernels {name} {dname} k={k}: shape {mat.shape} "
@@ -273,7 +275,8 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
                    f"{lib['k2_bound_ms']:.4f} ms (first design's "
                    f"{lib['k2_old_bound_ms']:.4f}; {tail_shape(mat)}"
                    + ("" if lib["k2_by_lanes"] is None else
-                      f"; by lanes a row ({spmv.K2_LANES} in use): " + ", ".join(
+                      f"; by lanes a row ({lib['k2_lanes']} in use): "
+                      + ", ".join(
                           f"{n} {t * 1e3:.2f} us"
                           for n, t in lib["k2_by_lanes"].items()))
                    + f"); two K2 calls bitwise equal: {same}"),

@@ -540,10 +540,20 @@ def _k2_walk(row_ids, ptr, long_rows, cols, vals, x, k, lanes):
 
 
 def _valid_lanes(k):
-    """The team widths K2 takes at k columns: G (the power of two at or
-    above k, at most 32) to 32."""
-    return [lanes for lanes in (1, 2, 4, 8, 16, 32)
+    """The team widths K2 takes at k columns: 8, 16 and 32, no fewer
+    than G (the power of two at or above k, at most 32)."""
+    return [lanes for lanes in (8, 16, 32)
             if lanes >= min(32, 1 << (k - 1).bit_length())]
+
+
+@pytest.mark.parametrize("n_rows,k,lanes", [
+    (0, 1, 32), (2220, 1, 32), (6676, 1, 32), (8448, 1, 32), (8449, 1, 16),
+    (15569, 1, 16), (17298, 1, 8), (10**6, 1, 8), (15569, 8, 32),
+    (10**6, 64, 32)])
+def test_k2_lanes(n_rows, k, lanes):
+    # a warp a row while every row's warp is resident at once on 132 SMs
+    # of 2048 threads (8448 warps); past that, at k = 1, 16 or 8 lanes
+    assert spmv.k2_lanes(n_rows, k, 132) == lanes
 
 
 @pytest.mark.parametrize("k", [1, 7, 8])
@@ -564,7 +574,8 @@ def test_plain_k2_from_table_matches_scipy(name, k):
     np.testing.assert_allclose(y.numpy(), ref, rtol=0, atol=1e-12 * scale)
     # the kernel's own order of sums, on the rows that spill, at K2's
     # team width and at the narrowest the kernel takes
-    for lanes in sorted({_valid_lanes(k)[0], spmv.K2_LANES}):
+    for lanes in sorted({_valid_lanes(k)[0],
+                         spmv.k2_lanes(mat.n_tail_rows, k, 132), 32}):
         walk = _k2_walk(mat.tail_row_ids.numpy(), mat.tail_ptr.numpy(),
                         mat.tail_long.numpy(), tc, tv, x, k, lanes)
         np.testing.assert_allclose(walk, ref.reshape(len(ref), -1)[

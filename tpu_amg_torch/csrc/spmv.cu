@@ -45,12 +45,14 @@
 // 32), a group takes entries g, g + groups, ... (4 entries' value,
 // column and X loads in flight a lane), and lane c of a group sums
 // columns c and c + G of X, so values and columns are read once a row
-// and each X row contiguously.  L is 32, a warp a row: teams of 1-16
-// lanes (several rows a warp) measured slower on tails shaped like both
-// paths', the SA path's short A1 tail included (PERF.md), since a team's
-// longest row then takes more steps of dependent loads.  A short tail is
-// bound by that chain (row table, then entries, then X), one load longer
-// than the first design's (entries with their row ids, then X).  The
+// and each X row contiguously.  The host picks L: a warp (L = 32), or
+// at k = 1, where the tail has more rows than the card holds warps at
+// once, 16 or 8 lanes, so that every row is in flight (the structured
+// path's level 2: 15,569 rows).  Fewer lanes on a tail that fits (the
+// SA path's short A1 tail) measured slower (PERF.md): a team's longest
+// row then takes more steps of dependent loads.  A short tail is bound
+// by that chain (row table, then entries, then X), one load longer than
+// the first design's (entries with their row ids, then X).  The
 // groups are summed by a shuffle tree, the warps of a long row in shared
 // memory, in a fixed order; one lane adds the row's sum into Y with a
 // plain load-add-store.  One writer a row: no atomics, and the same Y on
@@ -203,7 +205,7 @@ int coo_patch(int n_rows, int n_long, int k, int lanes, const void* row_ids,
   int G = 1;
   while (G < k && G < 32) G *= 2;
   if (k < 1 || k > kMaxColumns || n_long > n_rows || lanes < G ||
-      lanes > 32 || (lanes & (lanes - 1))) {
+      (lanes != 8 && lanes != 16 && lanes != 32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_rows > 0) {
@@ -217,8 +219,7 @@ int coo_patch(int n_rows, int n_long, int k, int lanes, const void* row_ids,
     launch_patch<T, L>(blocks, st, n_rows, n_long, k, G, row_ids, ptr,      \
                        long_rows, cols, vals, x, y);                        \
     break;
-      K2_LANES(1) K2_LANES(2) K2_LANES(4) K2_LANES(8) K2_LANES(16)
-      K2_LANES(32)
+      K2_LANES(8) K2_LANES(16) K2_LANES(32)
 #undef K2_LANES
     }
   }

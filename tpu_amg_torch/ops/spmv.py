@@ -21,10 +21,10 @@ rectangular.
   entries in coalesced loads, stages the products in shared memory and
   reduces its rows from there.  K2 is a segmented row reduction over the
   tail, which keeps CSR order: :func:`tail_row_table` lists once, on the
-  host, the rows that spill and where each one's tail starts; a warp
-  owns such a row (a block of 8 warps a row of more than
-  ``LONG_TAIL_ROW`` tail entries), sums it in a fixed order and adds it
-  into Y: one writer a row, no atomics.
+  host, the rows that spill and where each one's tail starts; a team
+  of :func:`k2_lanes` lanes owns such a row (a block of 8 warps a row
+  of more than ``LONG_TAIL_ROW`` tail entries), sums it in a fixed
+  order and adds it into Y: one writer a row, no atomics.
 - ``cap`` defaults to 64: at that cap the hub rows of a smoothed-SA
   restriction (a few hundred entries) spill, so K2 runs on the main
   path.  :func:`split_capped` makes the split once, when an operator is
@@ -70,9 +70,9 @@ BLOCK_ENTRIES = 256
 # k = 1: 4 entries a lane) takes a block of 8 warps; the library is
 # compiled for it (kLongTailRow in csrc/spmv.cu)
 LONG_TAIL_ROW = 128
-# K2's lanes a tail row: a warp (the kernel also takes teams of 1-16
-# lanes, several rows a warp, which measured slower; PERF.md)
-K2_LANES = 32
+# K2 takes teams of no fewer lanes a tail row than this (k2_lanes)
+K2_MIN_LANES = 8
+THREADS_PER_SM = 2048  # resident on a Hopper SM
 _INT32_MAX = 2**31 - 1
 
 csr_spmv_launches = 0
@@ -171,6 +171,24 @@ def tail_row_table(indptr, cap: int):
     if ptr[-1] > _INT32_MAX:
         raise ValueError(f"a tail of {ptr[-1]} entries passes 32-bit offsets")
     return row_ids.astype(np.int32), ptr.astype(np.int32)
+
+
+def k2_lanes(n_rows: int, k: int, sms: int) -> int:
+    """K2's lanes a tail row for a tail of ``n_rows`` rows at k columns
+    on a card of ``sms`` SMs: a warp, or at k = 1 half as many, down to
+    ``K2_MIN_LANES``, while the rows' teams would not all be resident at
+    once (chosen on both paths' tails, PERF.md)."""
+    lanes = 32
+    while (k == 1 and lanes > K2_MIN_LANES
+           and n_rows * lanes > sms * THREADS_PER_SM):
+        lanes //= 2
+    return lanes
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def row_blocks(cap_indptr: np.ndarray,
@@ -422,10 +440,10 @@ def csr_spmv_capped(mat: CappedCSR, x: torch.Tensor) -> torch.Tensor:
 
 
 def launch_coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor,
-                     k: int, lanes: int = K2_LANES) -> None:
+                     k: int, lanes: int) -> None:
     """Launch K2 on CUDA tensors (x checked, a tail present) with teams
-    of ``lanes`` lanes a tail row: a power of two from the group width
-    (the power of two at or above k, at most 32) to 32.  Counts
+    of ``lanes`` lanes a tail row: 8, 16 or 32, and no fewer than the
+    group width (the power of two at or above k, at most 32).  Counts
     nothing."""
     fn = _kernel("coo_patch", x)
     if max(mat.shape) * k > _INT32_MAX:
@@ -456,7 +474,8 @@ def coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor) -> None:
     if x.device.type == "cpu":
         plain_coo_patch(mat, x, y)
         return
-    launch_coo_patch(mat, x, y, k)
+    launch_coo_patch(mat, x, y, k,
+                     k2_lanes(mat.n_tail_rows, k, sm_count(x.device.index)))
     coo_patch_launches += 1
     coo_patch_launches_by_shape[(*mat.shape, k)] += 1
 
