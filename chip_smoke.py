@@ -6,8 +6,9 @@ Phases, one printed line per result; any failed check exits non-zero:
   1. device: nvidia-smi's name and power limit, torch / CUDA / nvcc / g++;
   2. builds: the six CUDA kernel libraries (nvcc: K1 + K2, K3, the
      stream probe, K1's stage ablations, the copy probe, the primitive
-     probe) and the native host library (g++), from the sources in this
-     checkout, all seven compilers started together;
+     probe), the primitive probe's three other designs of its gathers
+     and the native host library (g++), from the sources in this
+     checkout, all ten compilers started together;
   3. K1/K2 vs their plain PyTorch versions on the card: a random
      heavy-row matrix with a small cap, then every A, P and R of the SA
      path's hierarchy that K1 ran on (and all of levels 0 and 1); mv and
@@ -63,16 +64,27 @@ Phases, one printed line per result; any failed check exits non-zero:
      matrix; `full` (= K1, the row-block design), `rowgroup` (K1's first
      design), the library's SpMV and the bound side by side;
  11. copy probes: the entry points python -m tpu_amg_torch.tools.dmabench
-     (D1's sweep, both engines, 32 MiB per call) and dmabench2 (D2-D4);
-     every case against its plain version, exactly (integer inputs); the
-     sweep again at 1 GiB per call, past the 50 MB L2, and its best case
-     against its plain version there;
+     (D1's sweep, both engines, 32 MiB per call, and the L2 read rate:
+     the larger of the sweep's and stream_sum's best at 32 MiB) and
+     dmabench2 (D2-D4, with the probe's fixed cost: its time on one 4 KB
+     unit a block, beside the first design's atomic mode and the clone
+     of the carry); every case against its plain version, exactly
+     (integer inputs), over two calls; the sweep again at 1 GiB per
+     call, past the 50 MB L2, and its best case against its plain
+     version there; D2's and D4's bound (their bytes over the L2 read
+     rate), the rate and its origin, the fixed cost and the share of
+     the bound;
  12. primitives: the entry point python -m
      tpu_amg_torch.tools.microbench_primitives at 4096 tiles (ns per op
-     against the issue-rate bound at the SM clock nvidia-smi reports);
-     every op against its plain version on the inputs it timed, at
-     inner 16 and 272; the SASS of the HI kernels (cuobjdump): every
-     step issued, nothing spilled to local memory.
+     against the issue-rate bound at the SM clock nvidia-smi reports,
+     each op's shared-memory wavefronts a warp gather and the design
+     floor they imply); every op against its plain version on the
+     inputs it timed, at inner 16 and 272; the gather ops in the other
+     designs of their gathers (the first design, `tile`, among them),
+     timed and checked the same way; the SASS of the HI kernels
+     (cuobjdump), of the kernel's design and of `tile`: every step's
+     gathers issued (LDS, and SHFL.IDX for the shuffled index gather),
+     nothing spilled to local memory.
 Every count is set to 0 just before each path (4, 6, 7, 10, 11, 12) and
 read just after it, before the comparison launches.  The last two lines
 are a JSON object of per-kernel results (with each kernel's bound and
@@ -85,6 +97,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -495,8 +508,9 @@ def ablation_phase(sa_mats, reps):
 
 def dma_phase(reps):
     """Phase 11: the copy probes through their entry points; every case
-    against its plain version; the sweep again at 1 GiB.  Returns the
-    kernels-line entry."""
+    against its plain version, twice; the sweep again at 1 GiB; D2's and
+    D4's bounds over the L2 read rate, and the probe's fixed cost.
+    Returns the kernels-line entry."""
     import torch
 
     from tpu_amg_torch.ops import dma
@@ -506,7 +520,8 @@ def dma_phase(reps):
     torch.cuda.synchronize()
     reset_counts()
     recs = dmabench.run(["--reps", str(reps)])
-    recs2, _ = dmabench2.run(["--reps", str(reps)])
+    l2 = recs[0]["l2"]
+    recs2, _, fixed = dmabench2.run(["--reps", str(reps)], l2=l2)
     big = dmabench.run(["--total-mib", str(STREAM_BIG_MIB), "--reps", "10"])
     torch.cuda.synchronize()
     launches = dma.dma_probe_launches
@@ -520,19 +535,23 @@ def dma_phase(reps):
         srcs = dmabench.make_inputs(case, rec["total_bytes"], dev, g)
         carry = torch.full((8, 128), 1.0, device=dev)
         args = (srcs, carry, rec["chunk_rows"], case.touch_every)
-        y = dma.dma_probe(*args, case.engine, case.depth, rec["unit"])
+        y = dma.dma_probe(*args, case.engine, case.depth, rec["unit"],
+                          case.piece)
+        again = dma.dma_probe(*args, case.engine, case.depth, rec["unit"],
+                              case.piece)
         p = dma.plain_dma_probe(*args)
         torch.cuda.synchronize()
-        err = float((y - p).abs().max())
+        err = float(max((y - p).abs().max(), (again - p).abs().max()))
         errs.append(err)
         rec["plain_ms"] = median_ms(lambda: dma.plain_dma_probe(*args), reps,
                                     graph=True)
         check(err == 0.0,
               f"dma {case.name}, {len(srcs)} x {srcs[0].numel() >> 18} MiB: "
-              f"max abs err {err:.1e} (limit 0: integer inputs); kernel "
-              f"{rec['ms'] * 1e3:.1f} us {rec['gbps']:.1f} GB/s, plain (the "
-              f"touched rows only) {rec['plain_ms'] * 1e3:.1f} us, bound "
-              f"{rec['bound_ms'] * 1e3:.1f} us")
+              f"max abs err {err:.1e} over two calls (limit 0: integer "
+              f"inputs); kernel {rec['ms'] * 1e3:.2f} us {rec['gbps']:.1f} "
+              f"GB/s, plain (the touched rows only) "
+              f"{rec['plain_ms'] * 1e3:.1f} us, bound "
+              f"{rec['bound_ms'] * 1e3:.2f} us ({rec['bound_rate']})")
         del srcs
     for engine in dma.ENGINES:
         mine = [r for r in recs if r["case"].engine == engine]
@@ -543,20 +562,45 @@ def dma_phase(reps):
             f"{STREAM_MIB} MiB ({b32['name']}, in L2), {b1g['gbps']:.1f} GB/s "
             f"at {STREAM_BIG_MIB} MiB ({b1g['name']}, device memory: "
             f"{b1g['gbps'] / HBM_DATASHEET_GBPS:.1%} of the data sheet)")
+    say(f"dma L2 read rate {l2['gbps']:.1f} GB/s ({l2['origin']}); the "
+        f"probe's fixed cost {fixed['ms'] * 1e3:.2f} us (one 4 KB unit a "
+        f"block; the first design's atomic mode "
+        f"{fixed['atomic_ms'] * 1e3:.2f} us, the carry's clone "
+        f"{fixed['clone_ms'] * 1e3:.2f} us; D2 as one bulk copy a block "
+        f"{fixed['d2_one_copy_ms'] * 1e3:.2f} us)")
+    in_l2 = {}
+    for name in ("bulk whole 8MB", "bulk same 16MB"):
+        r = next(r for r in recs2 if r["name"] == name)
+        in_l2[name] = r
+        say(f"dma {name}: {r['ms'] * 1e3:.2f} us against an L2 bound of "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bytes']} B at "
+            f"{l2['gbps']:.1f} GB/s): {r['bound_ms'] / r['ms']:.1%} of the "
+            f"bound; the fixed cost is {fixed['ms'] / r['ms']:.0%} of the "
+            f"call; the HBM data sheet's {r['hbm_bound_ms'] * 1e3:.2f} us "
+            f"is not a floor in L2")
+    d2, d4 = in_l2["bulk whole 8MB"], in_l2["bulk same 16MB"]
+    d3 = next(r for r in recs2 if r["name"] == "bulk multi 4x16MB")
     return dict(name="dma_probe", route="cuda",
                 source="tpu_amg_torch/csrc/dma.cu",
                 replaces="tools/dmabench.py:39, tools/dmabench2.py:61, "
                          "tools/dmabench2.py:88, tools/dmabench2.py:130",
                 launches=launches, max_abs_err=max(errs), ms=best_big["ms"],
                 plain_ms=best_big["plain_ms"], bound_ms=best_big["bound_ms"],
-                bound_by="bytes", library_ms=None)
+                bound_by="bytes", library_ms=None,
+                # D2-D4 (bulk); D2 and D4 bound over the L2 read rate
+                d2_ms=d2["ms"], d2_bound_ms=d2["bound_ms"],
+                d3_ms=d3["ms"], d3_bound_ms=d3["bound_ms"],
+                d4_ms=d4["ms"], d4_bound_ms=d4["bound_ms"],
+                l2_gbps=l2["gbps"], l2_origin=l2["origin"],
+                fixed_ms=fixed["ms"])
 
 
 def primitives_phase(reps):
     """Phase 12: the entry point at 4096 tiles; every op against its
     plain version on the inputs the entry point timed, at inner LO and
-    HI; the SASS counts of the LO and HI kernels.  Returns the
-    kernels-line entry."""
+    HI; the gathers' wavefronts and design floor; the other designs of
+    the gathers timed and checked on the gather ops; the SASS counts of
+    the LO and HI kernels.  Returns the kernels-line entry."""
     import torch
 
     from tpu_amg_torch.ops import primitives
@@ -571,23 +615,35 @@ def primitives_phase(reps):
     launches = primitives.primitive_probe_launches
     check(launches > 0, f"launches over the primitive probe: primitive_probe "
           f"{launches}")
+    # the other designs of the gathers, on the ops they change
+    gather_ops = list(primitives.REPLICATED)
+    others = {d: microbench_primitives.run(["--reps", str(reps), "--design", d,
+                                            *gather_ops])[0]
+              for d in primitives.DESIGNS if d != primitives.DESIGN}
     errs = []
+
+    def held(x, idx, op, inner, design, tiles):
+        y = primitives.primitive_probe(x, idx, op, inner, design)
+        p = primitives.plain_primitive_probe(x, idx, op, inner)
+        torch.cuda.synchronize()
+        err = float((y.float() - p.float()).abs().max())
+        scale = float(p.float().abs().max())
+        # a fused multiply-add rounds once where the plain version
+        # rounds twice; every other op is exact
+        limit = 1e-6 * scale if op in ("fma", "gather_fma") else 0.0
+        check(err <= limit, f"primitive {op} ({design}) at {tiles} tiles, "
+              f"inner {inner}: max abs err {err:.2e} (limit {limit:.1e})")
+        return err
+
     for rec in recs:
         op, tiles = rec["op"], rec["tiles"]
         # the entry point's inputs: make_inputs is seeded
         x, idx = primitives.make_inputs(op, tiles, dev)
         for inner in primitives.INNERS:
-            y = primitives.primitive_probe(x, idx, op, inner)
-            p = primitives.plain_primitive_probe(x, idx, op, inner)
-            torch.cuda.synchronize()
-            err = float((y.float() - p.float()).abs().max())
-            scale = float(p.float().abs().max())
-            # a fused multiply-add rounds once where the plain version
-            # rounds twice; every other op is exact
-            limit = 1e-6 * scale if op in ("fma", "gather_fma") else 0.0
-            errs.append(err)
-            check(err <= limit, f"primitive {op} at {tiles} tiles, inner "
-                  f"{inner}: max abs err {err:.2e} (limit {limit:.1e})")
+            errs.append(held(x, idx, op, inner, primitives.DESIGN, tiles))
+            if op in gather_ops:
+                for design in others:
+                    held(x, idx, op, inner, design, tiles)
         if op == PRIMITIVE_OP:
             main_rec = rec
             main_rec["plain_ms"] = median_ms(
@@ -595,11 +651,28 @@ def primitives_phase(reps):
                     x, idx, op, primitives.HI), 2, graph=True)
             bytes_ms = hbm_bound_ms(x.numel() * x.element_size() * 2
                                     + idx.numel() * idx.element_size())
-        del x, idx, y, p
-    unfolded = primitives.sass_unfolded(primitives.sass_instruction_counts())
-    check(all(ok for ok, _ in unfolded.values()),
-          "SASS of the HI kernels (every step issued, no spills): "
-          + "; ".join(desc for _, desc in unfolded.values()))
+        del x, idx
+    for design in (primitives.DESIGN, "tile"):
+        unfolded = primitives.sass_unfolded(
+            primitives.sass_instruction_counts(design), design)
+        check(all(ok for ok, _ in unfolded.values()),
+              f"SASS of the HI kernels, {design} gathers (every step's "
+              f"gathers issued, no spills): "
+              + "; ".join(desc for _, desc in unfolded.values()))
+    by_op = {r["op"]: r for r in recs}
+    for op in gather_ops:
+        r = by_op[op]
+        times = "; ".join(
+            f"{d} {o['hi_ms'] * 1e3:.1f} us, {o['ns_per_op']:.4f} ns/op, "
+            f"{o['wavefronts']:.2f} wavefronts"
+            for d, o in ((d, next(x for x in rs if x["op"] == op))
+                         for d, rs in others.items()))
+        say(f"primitive {op} at {r['tiles']} tiles, inner {primitives.HI}: "
+            f"{primitives.DESIGN} {r['hi_ms'] * 1e3:.1f} us, "
+            f"{r['ns_per_op']:.4f} ns/op against a bound of "
+            f"{r['bound_ns_per_op']:.4f} ({r['bound_ns_per_op'] / r['ns_per_op']:.1%}), "
+            f"{r['wavefronts']:.2f} wavefronts a gather, design floor "
+            f"{r['floor_ns_per_op']:.4f} ns/op; other designs: {times}")
     rec = main_rec
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ops_ms = rec["tiles"] * primitives.op_bound_ns(
@@ -610,13 +683,22 @@ def primitives_phase(reps):
         f"{max(ops_ms, bytes_ms) * 1e3:.1f} us (operations "
         f"{ops_ms * 1e3:.1f}, bytes {bytes_ms * 1e3:.1f}; SM clock "
         f"{rec['clock_mhz']:.0f} MHz)")
+    tile = next(x for x in others["tile"] if x["op"] == PRIMITIVE_OP)
+    pair = by_op["pair_gather"]
     return dict(name="primitive_probe", route="cuda",
                 source="tpu_amg_torch/csrc/primitives.cu",
                 replaces="tools/microbench_primitives.py:52",
                 launches=launches, max_abs_err=max(errs), ms=rec["hi_ms"],
                 plain_ms=rec["plain_ms"], bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                library_ms=None)
+                library_ms=None,
+                # the gathers' wavefronts (the first design's beside), and
+                # the first design's time in this run; pair_gather's
+                wavefronts=rec["wavefronts"],
+                tile_wavefronts=rec["tile_wavefronts"],
+                tile_ms=tile["hi_ms"], pair_gather_ms=pair["hi_ms"],
+                pair_gather_ns_per_op=pair["ns_per_op"],
+                pair_gather_bound_ns_per_op=pair["bound_ns_per_op"])
 
 
 def dia_to_csr(dia):
@@ -764,6 +846,11 @@ def main() -> int:
         "libamg_primitives.so (nvcc, sm_90a)": primitives.kernel_lib,
         "libamg_native.so (g++)": native.lib,
     }
+    # the primitive probe's other designs of its gathers, timed in phase 12
+    for design, n in primitives.DESIGNS.items():
+        if design != primitives.DESIGN:
+            builds[f"libamg_primitives_g{n}.so (nvcc, sm_90a, {design})"] = \
+                functools.partial(primitives.kernel_lib, design)
     for label in builds:
         (_build.BUILD_DIR / label.split()[0]).unlink(missing_ok=True)
 

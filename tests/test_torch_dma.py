@@ -15,6 +15,7 @@ import torch
 
 from tpu_amg_torch.ops import dma
 from tpu_amg_torch.tools import dmabench, dmabench2
+from tpu_amg_torch.utils import timing
 
 
 def _sources(n_src, rows, seed=0):
@@ -134,8 +135,8 @@ def test_sweep_fits_a_block():
 def test_cli_on_cpu(capsys):
     recs = dmabench.run(["--device", "cpu", "--total-mib", "1", "--reps", "1",
                          "depth= 2 unit= 4KB"])
-    recs2, base = dmabench2.run(["--device", "cpu", "--reps", "1",
-                                 "bulk same"])
+    recs2, base, fixed = dmabench2.run(["--device", "cpu", "--reps", "1",
+                                        "bulk same"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert "plain version" in lines[0] and "plain version" in lines[3]
     assert [r["name"] for r in recs] == ["bulk depth= 2 unit= 4KB",
@@ -143,8 +144,64 @@ def test_cli_on_cpu(capsys):
     assert [r["name"] for r in recs2] == ["bulk same 16MB"]
     assert recs2[0]["bytes"] == (16 << 20) + 4096
     assert base["bytes"] == 16 << 20
-    assert len(lines) == 6
-    assert all("GB/s" in line for line in lines if not line.startswith("#"))
+    # off the card no L2 rate is measured: every bound is the data sheet's
+    assert all(r["bound_rate"] == "HBM data sheet" for r in recs + recs2)
+    assert fixed["bytes"] == 132 * 4096 + 4096
+    assert len(lines) == 7 and lines[-1].startswith("fixed cost")
+    assert all("GB/s" in line for line in lines[:-1]
+               if not line.startswith("#"))
+
+
+def test_l2_bound_divides_by_the_rate():
+    assert timing.l2_bound_ms(8 << 20, 4000.0) == pytest.approx(
+        (8 << 20) / 4000e6)
+    # twice the rate, half the bound
+    assert timing.l2_bound_ms(1 << 20, 8000.0) == pytest.approx(
+        timing.l2_bound_ms(1 << 20, 4000.0) / 2)
+
+
+def test_bound_takes_the_l2_rate_only_in_l2(monkeypatch):
+    l2 = dict(gbps=4000.0, origin="stream_sum f32 1in rows=2048 at 32 MiB")
+    cuda = torch.device("cuda")
+    monkeypatch.setattr(dmabench, "in_l2", lambda n, d: n <= 50 << 20)
+    inside = dmabench.bound(8 << 20, cuda, l2)
+    assert inside["bound_ms"] == pytest.approx((8 << 20) / 4000e6)
+    assert inside["hbm_bound_ms"] == pytest.approx(
+        timing.hbm_bound_ms(8 << 20))
+    assert inside["bound_rate"].startswith("L2 4000.0 GB/s (stream_sum")
+    past = dmabench.bound(64 << 20, cuda, l2)
+    assert past["bound_ms"] == past["hbm_bound_ms"]
+    assert past["bound_rate"] == "HBM data sheet"
+    # no rate known: the data sheet's
+    assert dmabench.bound(8 << 20, cuda, None)["bound_rate"] == \
+        "HBM data sheet"
+
+
+@pytest.mark.parametrize("case", [c for c in dmabench2.cases()
+                                  if "multi" not in c.name],
+                         ids=lambda c: c.name)
+def test_plain_equals_the_harness_d2_d4(case):
+    # the harness's D2 and D4 at their own sizes (8 and 16 MB), through
+    # the plain version the kernel is held to, against numpy's statement
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 16, ((case.src_mib << 20) // 512, 128)).astype(
+        np.float32)
+    carry = _carry()
+    _, unit, rows = case.sizes(0, 132)
+    got = _probe([x], carry, rows, case.touch_every, engine=case.engine,
+                 depth=case.depth, unit=unit, piece=case.piece)
+    want = (_d2(x, carry) if "whole" in case.name
+            else _d4(x, carry, rows, case.touch_every))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_rejects_bad_piece_and_combine():
+    x = torch.zeros(1024, 128)
+    carry = torch.zeros(8, 128)
+    with pytest.raises(ValueError, match="piece"):
+        dma.dma_probe([x], carry, 8, piece=24)
+    with pytest.raises(ValueError, match="combine"):
+        dma.dma_probe([x], carry, 8, combine="tree")
 
 
 @pytest.fixture
@@ -155,20 +212,27 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("combine", dma.COMBINES)
 @pytest.mark.parametrize("engine", dma.ENGINES)
-@pytest.mark.parametrize("n_src,rows,touch_every,depth,unit", [
-    (1, 8, 1, 2, 4096), (1, 128, 0, 4, 16384), (1, 512, 1, 1, 65536),
-    (4, 2048, 1, 4, 32768), (1, 2048, 4, 4, 32768), (3, 64, 1, 16, 8192),
+@pytest.mark.parametrize("n_src,rows,touch_every,depth,unit,piece", [
+    (1, 8, 1, 2, 4096, None), (1, 128, 0, 4, 16384, None),
+    (1, 512, 1, 1, 65536, None), (1, 512, 1, 1, 65536, 16384),
+    (4, 2048, 1, 4, 32768, None), (1, 2048, 4, 4, 32768, 4096),
+    (3, 64, 1, 16, 8192, None),
 ])
-def test_kernel_matches_plain_on_card(cuda, engine, n_src, rows, touch_every,
-                                      depth, unit):
+def test_kernel_matches_plain_on_card(cuda, engine, combine, n_src, rows,
+                                      touch_every, depth, unit, piece):
     g = torch.Generator(device=cuda).manual_seed(0)
     srcs = [torch.randint(0, 16, (8192, 128), generator=g, device=cuda,
                           dtype=torch.float32) for _ in range(n_src)]
     carry = torch.full((8, 128), 3.0, device=cuda)
     before = dma.dma_probe_launches
-    got = dma.dma_probe(srcs, carry, rows, touch_every, engine, depth, unit)
+    got = dma.dma_probe(srcs, carry, rows, touch_every, engine, depth, unit,
+                        piece, combine)
+    again = dma.dma_probe(srcs, carry, rows, touch_every, engine, depth, unit,
+                          piece, combine)
     ref = dma.plain_dma_probe(srcs, carry, rows, touch_every)
     torch.cuda.synchronize()
-    assert dma.dma_probe_launches == before + 1
-    assert torch.equal(got, ref)
+    assert dma.dma_probe_launches == before + 2
+    # the ticket is back at 0 after each call: the second is right too
+    assert torch.equal(got, ref) and torch.equal(again, ref)

@@ -151,16 +151,172 @@ _SASS = """
 def test_sass_counts(monkeypatch):
     from unittest import mock
 
-    monkeypatch.setattr(primitives, "build_cuda_library", lambda *a: "lib.so")
+    monkeypatch.setattr(primitives, "build_cuda_library",
+                        lambda *a, **k: "lib.so")
     monkeypatch.setattr(primitives, "nvcc_path", lambda: "/cuda/bin/nvcc")
     monkeypatch.setattr(primitives.subprocess, "run",
                         mock.Mock(return_value=mock.Mock(stdout=_SASS)))
     counts = primitives.sass_instruction_counts()
     assert counts == {
-        ("lane_gather", 272): dict(total=4, LDS=1, FFMA=0, local=0, loop=True),
-        ("lane_gather", 16): dict(total=3, LDS=1, FFMA=0, local=1,
+        ("lane_gather", 272): dict(total=4, LDS=1, SHFL=0, FFMA=0, local=0,
+                                   loop=True),
+        ("lane_gather", 16): dict(total=3, LDS=1, SHFL=0, FFMA=0, local=1,
                                   loop=False),
     }
+
+
+_SASS_SHFL = """
+        Function : _ZN46_GLOBAL__N__x12probe_kernelIfiLi8ELi10ELi272EEEvPKT_PKT0_PS1_i
+.L_x_3:
+        /*0010*/                   SHFL.IDX PT, R5, R4, R6, 0x1f ;
+        /*0020*/                   PRMT R5, R5, 0x3210, R6 ;
+        /*0030*/                   LDS R7, [R8+0x40] ;
+        /*0040*/                   SHFL.BFLY PT, R9, R4, 0x1, 0x1f ;
+        /*0050*/                   FFMA R2, R7, R3, R2 ;
+        /*0060*/              @P0 BRA `(.L_x_3) ;
+"""
+
+
+def test_sass_counts_shuffles(monkeypatch):
+    # SHFL.IDX (the indexed shuffle of the pair's index gather) counts;
+    # a butterfly shuffle does not
+    from unittest import mock
+
+    monkeypatch.setattr(primitives, "build_cuda_library", lambda *a, **k: "l")
+    monkeypatch.setattr(primitives, "nvcc_path", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(primitives.subprocess, "run",
+                        mock.Mock(return_value=mock.Mock(stdout=_SASS_SHFL)))
+    counts = primitives.sass_instruction_counts()
+    assert counts == {("gather_fma", 272): dict(total=6, LDS=1, SHFL=1,
+                                                FFMA=1, local=0, loop=True)}
+
+
+def _counts(op, lds, shfl, ffma=0, local=0, loop=True):
+    return dict(total=1000, LDS=lds, SHFL=shfl, FFMA=ffma, local=local,
+                loop=loop)
+
+
+def test_sass_check_counts_shuffles_beside_loads():
+    # every op's HI block holds its 64 element-steps' gathers: the pair's
+    # index gather is a SHFL.IDX in the kernel's design, an LDS in the tile
+    # design; the check is no looser for either
+    good = {}
+    for op, info in primitives.OPS.items():
+        steps = primitives.BLOCK_K * primitives.per_thread(op)
+        shuffled = op in primitives.SHUFFLED
+        for inner in primitives.INNERS:
+            good[(op, inner)] = _counts(
+                op, steps * (info.loads - shuffled), steps * shuffled,
+                ffma=2000)
+    assert all(ok for ok, _ in primitives.sass_unfolded(good).values())
+    for op in primitives.SHUFFLED:
+        steps = primitives.BLOCK_K * primitives.per_thread(op)
+        short = dict(good)
+        short[(op, primitives.HI)] = _counts(op, steps, steps - 1)
+        assert not primitives.sass_unfolded(short)[op][0]
+        short[(op, primitives.HI)] = _counts(op, steps - 1, steps)
+        assert not primitives.sass_unfolded(short)[op][0]
+        # the tile design wants both gathers as loads, for 4 elements
+        tile_steps = primitives.BLOCK_K * primitives.per_thread(op, "tile")
+        assert tile_steps == primitives.BLOCK_K * primitives.PER_THREAD
+        assert not primitives.sass_unfolded(good, "tile")[op][0]
+        tile = dict(good)
+        tile[(op, primitives.HI)] = _counts(op, 2 * tile_steps, 0)
+        assert primitives.sass_unfolded(tile, "tile")[op][0]
+    steps = primitives.BLOCK_K * primitives.per_thread("gather_fma")
+    spilled = dict(good)
+    spilled[("gather_fma", primitives.LO)] = _counts("gather_fma", steps,
+                                                     steps, local=1)
+    assert not primitives.sass_unfolded(spilled)["gather_fma"][0]
+
+
+def test_warp_wavefronts():
+    lanes = np.arange(32)
+    # 32 distinct words in one bank: 32 wavefronts
+    assert primitives.warp_wavefronts(lanes * 32) == 32
+    # lane c reads word c (an identity gather): every lane its own bank
+    assert primitives.warp_wavefronts(lanes) == 1
+    # every lane reads one word: a broadcast
+    assert primitives.warp_wavefronts(np.full(32, 77)) == 1
+    # two words in each of 16 banks, a batch of loads at once
+    both = np.stack([lanes % 16 + 32 * (lanes // 16), lanes])
+    np.testing.assert_array_equal(primitives.warp_wavefronts(both), [2, 1])
+
+
+def test_shared_wavefronts_on_hand_built_tiles():
+    x = torch.zeros(1, 8, 128)
+    lane = torch.arange(128) % 32
+    # every lane at column idx + k = 32 (l mod 4) + k: 4 distinct words of
+    # one bank a warp load in the tile layout, one wavefront from the replica
+    idx = (32 * (torch.arange(128) % 4)).expand(1, 8, 8, 128).contiguous()
+    assert primitives.shared_wavefronts("lane_gather", x, idx.int(), 16,
+                                        "tile") == 4
+    assert primitives.shared_wavefronts("lane_gather", x, idx.int(), 16) == 1
+    # column = lane: an identity gather; a constant column: a broadcast
+    ident = lane.expand(1, 8, 8, 128).contiguous().int()
+    assert primitives.shared_wavefronts("lane_gather", x, ident, 16,
+                                        "tile") == 1
+    same = torch.zeros(1, 8, 8, 128, dtype=torch.int32)
+    assert primitives.shared_wavefronts("pair_gather", x, same, 16,
+                                        "tile") == 1
+    # ops without gathers have none
+    assert primitives.shared_wavefronts("add", x, same, 16) is None
+
+
+@pytest.mark.parametrize("op", ["lane_gather", "pair_gather", "gather_fma"])
+def test_shared_wavefronts_on_the_harness_inputs(op):
+    x, idx = primitives.make_inputs(op, 4, "cpu")
+    # random columns of a row: 2.7-2.9 deep in the fullest bank on
+    # average; the kernel's design takes one wavefront a gather
+    assert 2.7 <= primitives.shared_wavefronts(op, x, idx, 16, "tile") <= 2.9
+    assert primitives.shared_wavefronts(op, x, idx, 16) == 1.0
+    if op != "lane_gather":  # one of the pair's two gathers left as it was
+        half = primitives.shared_wavefronts(op, x, idx, 16, "shuffle")
+        assert 1.8 <= half <= 2.0
+
+
+@pytest.mark.parametrize("op", ["sub_gather", "roll_lane", "roll_sub"])
+def test_shared_wavefronts_of_distinct_banks(op):
+    x, idx = primitives.make_inputs(op, 2, "cpu")
+    for design in primitives.DESIGNS:
+        assert primitives.shared_wavefronts(op, x, idx, 16, design) == 1.0
+
+
+def test_design_floor():
+    # the load term of the bound, times the wavefronts
+    sms, clock = 132, 1980.0
+    assert primitives.design_floor_ns("gather_fma", 1.0, sms,
+                                      clock) == pytest.approx(
+        primitives.op_bound_ns("gather_fma", sms, clock))
+    assert primitives.design_floor_ns("lane_gather", 2.78, sms,
+                                      clock) == pytest.approx(
+        2.78 * primitives.op_bound_ns("lane_gather", sms, clock))
+
+
+def _shuffle_row(packed, m):
+    """The kernel's index gather of column m: byte m & 3 of lane m >> 2's
+    packed register (prmt.f4e keeps the byte in the low 8 bits)."""
+    word = packed[m >> 2]
+    return (word >> (8 * (m & 3))) & 0xff
+
+
+def test_packed_shuffle_equals_the_index_gather():
+    # a plain restatement of the kernel's packing (4 entries a lane, a
+    # byte each) and shuffle: every entry of every row of every array,
+    # and its low 3 bits for entries of any size
+    x, idx = primitives.make_inputs("gather_fma", 3, "cpu")
+    ix = idx.numpy().astype(np.int64)
+    ix[0, 0, 0, :4] = [1000, -3, 255, 7 + 256]  # beyond idx_max
+    for t in range(ix.shape[0]):
+        for mi in range(primitives.NIDX):
+            for s in range(8):
+                row = ix[t, mi, s]
+                b = row & 0xff
+                packed = b[0::4] | b[1::4] << 8 | b[2::4] << 16 | b[3::4] << 24
+                got = np.array([_shuffle_row(packed, m) for m in range(128)])
+                assert np.array_equal(got & 7, row & 7)
+                if t or mi or s:
+                    assert np.array_equal(got, row)
 
 
 def test_cli_on_cpu(capsys):
@@ -192,6 +348,25 @@ def test_kernel_matches_plain_on_card(cuda, op, inner):
     ref = primitives.plain_primitive_probe(x, idx, op, inner)
     torch.cuda.synchronize()
     assert primitives.primitive_probe_launches == before + 1
+    if op in _FUSED:
+        torch.testing.assert_close(got, ref, rtol=1e-6,
+                                   atol=1e-6 * float(ref.abs().max()))
+    else:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", list(primitives.REPLICATED))
+@pytest.mark.parametrize("design", [d for d in primitives.DESIGNS
+                                    if d != primitives.DESIGN])
+@pytest.mark.parametrize("inner", primitives.INNERS)
+def test_other_designs_match_plain_on_card(cuda, op, design, inner):
+    # the gathers' other designs, each its own library, on the ops they
+    # change
+    x, idx = primitives.make_inputs(op, 5, cuda)
+    got = primitives.primitive_probe(x, idx, op, inner, design)
+    ref = primitives.plain_primitive_probe(x, idx, op, inner)
+    torch.cuda.synchronize()
     if op in _FUSED:
         torch.testing.assert_close(got, ref, rtol=1e-6,
                                    atol=1e-6 * float(ref.abs().max()))

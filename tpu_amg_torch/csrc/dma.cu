@@ -30,9 +30,30 @@
 // different sources (D3) and a block's units are a contiguous range of
 // that order.  A touched chunk's first 8 rows (4 KB) always lie inside
 // one unit (units, chunks and sources are multiples of 4 KB); each of
-// the 256 threads adds one float4 of it.  The blocks' (8, 128) partials
-// go into the output, which the caller fills with the carry, by atomic
-// adds: exact for integer-valued inputs, whatever the order.
+// the 256 threads adds one float4 of it.
+//
+// A call whose bytes sit in the 50 MB L2 (8-32 MB) takes a few us, so the
+// call's fixed costs count as much as its copy rate.  Two are kept small:
+//
+//   combine  the kernel writes carry + the blocks' (8, 128) partials
+//            itself, with no launch before it to fill the output, in
+//            two rounds of tickets (one integer atomic a block a round):
+//            every block stores its partial and takes its group's ticket
+//            (12 blocks a group); the group's last block sums the
+//            group's partials, stores that and takes the groups' ticket;
+//            the last of those sums the carry and the groups' sums and
+//            writes the output.  Each round's loads are issued together
+//            (12 rows a thread), so a round costs one trip to L2, where
+//            one block summing 132 partials would take several.  The
+//            sums run in block order and the tickets go back to 0.
+//            (`atomic` mode, the first design, kept to time it: the
+//            caller fills the output with the carry and every block adds
+//            its partial there with 1,024 float atomics on the same
+//            1,024 addresses.)  Integer-valued inputs sum exactly in
+//            either order.
+//   piece    a bulk unit is issued as copies of at most `piece` bytes on
+//            the slot's one barrier, so that a block's whole share at
+//            depth 1 (D2) is still all on chip before it is summed.
 //
 // The host side (tpu_amg_torch/ops/dma.py) checks sizes and alignment,
 // sets the dynamic shared memory, passes PyTorch's current stream and
@@ -46,6 +67,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxSources = 8;
 constexpr int kHeadBytes = 8 * 128 * 4;  // the touched rows of a chunk
+constexpr int kGroup = 12;  // blocks whose partials one of them sums first
+constexpr int kMaxGroups = 64;
 
 struct Sources {
   const unsigned char* ptr[kMaxSources];
@@ -62,6 +85,14 @@ struct Plan {
   int unit_atoms;   // unit / 4 KB
   int chunk_atoms;  // chunk / 4 KB
   int touch_every;  // 0: touch nothing
+  int piece;        // bytes a bulk copy, a multiple of 16
+};
+
+// where the blocks' partials meet: partials null is the atomic mode
+struct Combine {
+  const float* carry;  // (8, 128)
+  float* partials;     // (blocks + groups, 8, 128)
+  unsigned* tickets;   // 1 + groups, 0 between calls
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -104,12 +135,77 @@ __device__ __forceinline__ void block_range(const Plan& p, int* first, int* n) {
   *n = static_cast<int>((b + 1) * total / nb - *first);
 }
 
-__device__ __forceinline__ void add_out(float* out, const float4& acc) {
-  float* o = out + 4 * threadIdx.x;
-  atomicAdd(o + 0, acc.x);
-  atomicAdd(o + 1, acc.y);
-  atomicAdd(o + 2, acc.z);
-  atomicAdd(o + 3, acc.w);
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// sum + rows 0..n-1 (n <= kGroup) of p, (8, 128) each: this thread's
+// float4 of every row, loaded together, added in row order
+__device__ __forceinline__ float4 sum_rows(const float* p, int n, float4 sum) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 v[kGroup];
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) {
+    v[j] = j < n ? __ldcg(reinterpret_cast<const float4*>(p) + j * kThreads +
+                          threadIdx.x)
+                 : zero;
+  }
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) add4(sum, v[j]);
+  return sum;
+}
+
+// true in the last of n blocks to call it with this ticket, which it
+// sets back to 0; the blocks' stores before the call are visible to it
+// (the barrier, then one thread's fence and atomic, as a grid sync does)
+__device__ __forceinline__ bool last_of(unsigned* ticket, unsigned n) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == n - 1;
+    if (last) {
+      *ticket = 0;
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  return last;
+}
+
+// out = carry + the partials (module comment)
+__device__ __forceinline__ void finish(const Combine& c, const float4& acc,
+                                       float* out) {
+  if (c.partials == nullptr) {  // atomic mode: out holds the carry
+    float* o = out + 4 * threadIdx.x;
+    atomicAdd(o + 0, acc.x);
+    atomicAdd(o + 1, acc.y);
+    atomicAdd(o + 2, acc.z);
+    atomicAdd(o + 3, acc.w);
+    return;
+  }
+  constexpr int kRow = 8 * 128;
+  const int nb = static_cast<int>(gridDim.x);
+  const int g = static_cast<int>(blockIdx.x) / kGroup;
+  const int groups = (nb + kGroup - 1) / kGroup;
+  const int in_group = min(kGroup, nb - g * kGroup);
+  float4* rows = reinterpret_cast<float4*>(c.partials);
+  rows[blockIdx.x * kThreads + threadIdx.x] = acc;
+  // the group's last block sums its partials into row nb + g
+  if (!last_of(c.tickets + 1 + g, in_group)) return;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  rows[(nb + g) * kThreads + threadIdx.x] =
+      sum_rows(c.partials + g * kGroup * kRow, in_group, zero);
+  // the last group's sums the carry and the groups' sums
+  if (!last_of(c.tickets, groups)) return;
+  float4 sum = reinterpret_cast<const float4*>(c.carry)[threadIdx.x];
+  for (int g0 = 0; g0 < groups; g0 += kGroup) {
+    sum = sum_rows(c.partials + (nb + g0) * kRow, min(kGroup, groups - g0), sum);
+  }
+  reinterpret_cast<float4*>(out)[threadIdx.x] = sum;
 }
 
 // ---- bulk (TMA) engine
@@ -144,16 +240,19 @@ __device__ __forceinline__ void bulk_issue(const Sources& s, const Plan& p,
                    smem_addr(bar)),
                "r"(len)
                : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(s.ptr[src] + off), "r"(len), "r"(smem_addr(bar))
-      : "memory");
+  for (int b = 0; b < len; b += p.piece) {
+    const int n = len - b < p.piece ? len - b : p.piece;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst + b)),
+        "l"(s.ptr[src] + off + b), "r"(n), "r"(smem_addr(bar))
+        : "memory");
+  }
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-dma_bulk_kernel(Sources s, Plan p, float* __restrict__ out) {
+dma_bulk_kernel(Sources s, Plan p, Combine c, float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char ring[];
   __shared__ __align__(8) uint64_t bars[D];
   int first, n;
@@ -178,7 +277,7 @@ dma_bulk_kernel(Sources s, Plan p, float* __restrict__ out) {
       bulk_issue(s, p, first + i + D, ring + slot * p.unit, &bars[slot]);
     }
   }
-  add_out(out, acc);
+  finish(c, acc, out);
 }
 
 // ---- lsu (cp.async) engine
@@ -202,7 +301,7 @@ __device__ __forceinline__ void lsu_commit() {
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-dma_lsu_kernel(Sources s, Plan p, float* __restrict__ out) {
+dma_lsu_kernel(Sources s, Plan p, Combine c, float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char ring[];
   int first, n;
   block_range(p, &first, &n);
@@ -223,24 +322,26 @@ dma_lsu_kernel(Sources s, Plan p, float* __restrict__ out) {
     lsu_commit();
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-  add_out(out, acc);
+  finish(c, acc, out);
 }
 
 template <typename Kernel>
 int launch(Kernel kernel, int blocks, int smem, const Sources& s,
-           const Plan& p, float* out, cudaStream_t stream) {
+           const Plan& p, const Combine& c, float* out, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, kThreads, smem, stream>>>(s, p, out);
+  kernel<<<blocks, kThreads, smem, stream>>>(s, p, c, out);
   return 0;
 }
 
 template <int D>
 int launch_depth(int engine, int blocks, int smem, const Sources& s,
-                 const Plan& p, float* out, cudaStream_t stream) {
-  return engine == 0 ? launch(dma_bulk_kernel<D>, blocks, smem, s, p, out, stream)
-                     : launch(dma_lsu_kernel<D>, blocks, smem, s, p, out, stream);
+                 const Plan& p, const Combine& c, float* out,
+                 cudaStream_t stream) {
+  return engine == 0
+             ? launch(dma_bulk_kernel<D>, blocks, smem, s, p, c, out, stream)
+             : launch(dma_lsu_kernel<D>, blocks, smem, s, p, c, out, stream);
 }
 
 }  // namespace
@@ -251,14 +352,21 @@ const char* dma_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// engine 0 = bulk (TMA), 1 = lsu (cp.async); depth in {1, 2, 4, 8, 16}
+// engine 0 = bulk (TMA), 1 = lsu (cp.async); depth in {1, 2, 4, 8, 16};
+// piece: bytes a bulk copy (a multiple of 16); partials null: the atomic
+// mode (out holds the carry; carry and tickets are not read); else carry
+// (8, 128), partials (blocks + groups, 8, 128) and 1 + groups tickets at 0,
+// groups = ceil(blocks / 12) <= 64
 int dma_probe(int engine, int depth, int n_src, const void* const* sources,
               int64_t src_bytes, int unit, int64_t chunk_bytes,
-              int64_t touch_every, int blocks, void* out, void* stream) {
+              int64_t touch_every, int piece, int blocks, const void* carry,
+              void* partials, void* tickets, void* out, void* stream) {
   if (n_src < 1 || n_src > kMaxSources || unit <= 0 || unit % kHeadBytes ||
       src_bytes <= 0 || src_bytes % kHeadBytes || chunk_bytes <= 0 ||
       chunk_bytes % kHeadBytes || touch_every < 0 || blocks < 1 ||
-      (engine != 0 && engine != 1)) {
+      piece <= 0 || piece % 16 || (engine != 0 && engine != 1) ||
+      (partials != nullptr && (carry == nullptr || tickets == nullptr ||
+                               blocks > kGroup * kMaxGroups))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Sources s{};
@@ -273,17 +381,19 @@ int dma_probe(int engine, int depth, int n_src, const void* const* sources,
   }
   Plan p{n_src, src_bytes, static_cast<int>(units_per_src), unit,
          unit / kHeadBytes, static_cast<int>(chunk_bytes / kHeadBytes),
-         static_cast<int>(touch_every)};
+         static_cast<int>(touch_every), piece};
+  Combine c{static_cast<const float*>(carry), static_cast<float*>(partials),
+            static_cast<unsigned*>(tickets)};
   const int smem = depth * unit;
   auto o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   int code;
   switch (depth) {
-    case 1: code = launch_depth<1>(engine, blocks, smem, s, p, o, st); break;
-    case 2: code = launch_depth<2>(engine, blocks, smem, s, p, o, st); break;
-    case 4: code = launch_depth<4>(engine, blocks, smem, s, p, o, st); break;
-    case 8: code = launch_depth<8>(engine, blocks, smem, s, p, o, st); break;
-    case 16: code = launch_depth<16>(engine, blocks, smem, s, p, o, st); break;
+    case 1: code = launch_depth<1>(engine, blocks, smem, s, p, c, o, st); break;
+    case 2: code = launch_depth<2>(engine, blocks, smem, s, p, c, o, st); break;
+    case 4: code = launch_depth<4>(engine, blocks, smem, s, p, c, o, st); break;
+    case 8: code = launch_depth<8>(engine, blocks, smem, s, p, c, o, st); break;
+    case 16: code = launch_depth<16>(engine, blocks, smem, s, p, c, o, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (code != 0) return code;

@@ -23,29 +23,59 @@
 //   bf16_sub     bfloat16 x[(i + k) & 15, l] over (16, 128)
 //   gather_fma   pair_gather times x
 //
-// What bounds it is the SM's issue rate: 128 thread instructions a clock
-// (4 schedulers, a warp instruction each) and 32 lanes' shared-memory
-// loads a clock (one 128-byte wavefront).  The design keeps
-// everything else out of the loop: one block per tile, 4 elements per
-// thread, the tile's x (and, where an op reads another lane's index, its
-// idx) staged once in shared memory; lane and row ops are shared-memory
-// reads across a row of 128 or down the tile's rows; the 8 index arrays
-// and x stay in registers, indexed only by constants.  `inner` is a
-// template parameter (the harness's LO = 16 and HI = 272), the k loop runs
-// in blocks of 16 unrolled steps (fma's in full, so that its c_k folds),
-// and a runtime step and volatile shared-memory reads keep the compiler
-// from merging the body of one k with another's (below): the HI loop
-// issues 17x the LO loop's body, which the SASS (cuobjdump --dump-sass)
-// confirms.  The time per op is the
-// difference of the two calls over (HI - LO) tile-ops, as in the harness.
+// What bounds it is the SM's issue rate, 128 thread instructions a clock
+// (4 schedulers, a warp instruction each), and its shared-memory pipe, one
+// warp's access a clock (a wavefront: one word from each of the 32 banks).
+// A warp's lanes that read distinct words of one bank take a wavefront
+// each, so a gather with data-random columns costs more than one: on the
+// harness's inputs a warp's 32 random columns m of one row fall, on
+// average, 2.78 deep in the fullest bank (ops/primitives.py,
+// shared_wavefronts).  The design keeps everything but the body out of the
+// loop (one block per tile, 4 elements per thread, the 8 index arrays and x
+// in registers, indexed only by constants; 1 element a thread where the
+// replica leaves one block an SM) and takes the data-random
+// gathers off the banks' conflicts:
 //
-// The host side (tpu_amg_torch/ops/primitives.py) checks shapes and types,
-// allocates the output, passes PyTorch's current stream and checks the
-// returned cudaGetLastError().
+//   * the index gather of pair_gather and gather_fma, idx[m_idx, s, m], is
+//     a warp shuffle: a warp's 32 lanes share the tile row s, and row s of
+//     each index array is held packed, a byte an entry (only its low 3 bits
+//     are read), 4 entries a lane; entry m is byte m & 3 of lane m >> 2
+//     (SHFL.IDX, then PRMT), where every lane's source is served at once;
+//   * the x gather of lane_gather, pair_gather and gather_fma reads a
+//     replica of the tile in shared memory, 32 copies interleaved so that
+//     lane c reads copy c at word (row * 128 + m) * 32 + c: every lane in
+//     its own bank, one wavefront (the 128 KB leave one block an SM, of
+//     1,024 threads: an element each).
+//
+// Every element-step still issues its gathers (a shuffle and a load for the
+// pair), nothing is precomputed across steps.  The other ops read the tile
+// as it is, where their lanes already fall in distinct banks.  The build
+// macro PRIMITIVE_GATHERS (bit 0: the shuffle, bit 1: the replica; 3 by
+// default) selects the gathers' design, so that the probe can time the
+// others (0 is the first design: an index table and x in shared memory).
+//
+// `inner` is a template parameter (the harness's LO = 16 and HI = 272), the
+// k loop runs in blocks of 16 unrolled steps (fma's in full, so that its c_k
+// folds), and a runtime step and volatile shared-memory reads keep the
+// compiler from merging the body of one k with another's (below): the HI
+// loop issues 17x the LO loop's body, which the SASS (cuobjdump
+// --dump-sass) confirms.  The time per op is the difference of the two
+// calls over (HI - LO) tile-ops, as in the harness.
+//
+// The host side (tpu_amg_torch/ops/primitives.py) checks shapes, types and
+// alignment, allocates the output, passes PyTorch's current stream and
+// checks the returned cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#ifndef PRIMITIVE_GATHERS
+#define PRIMITIVE_GATHERS 3
+#endif
+#ifndef PRIMITIVE_REPLICA_PER_THREAD
+#define PRIMITIVE_REPLICA_PER_THREAD 1
+#endif
 
 namespace {
 
@@ -65,6 +95,9 @@ enum Op : int {
 
 constexpr int kPerThread = 4;
 constexpr int kNidx = 8;
+constexpr int kCopies = 32;  // the replica's copies of the tile: one a lane
+constexpr bool kShuffleDesign = (PRIMITIVE_GATHERS & 1) != 0;
+constexpr bool kReplicaDesign = (PRIMITIVE_GATHERS & 2) != 0;
 
 // a tile element in shared memory: float32 as it is, bfloat16 as its bits
 // (volatile loads need a plain type)
@@ -91,7 +124,26 @@ __device__ __forceinline__ __nv_bfloat16 add(__nv_bfloat16 acc, __nv_bfloat16 v)
 }
 
 template <int OP>
-constexpr bool kReadsOtherIdx = OP == kPairGather || OP == kGatherFma;
+constexpr bool kPair = OP == kPairGather || OP == kGatherFma;
+// the pair's index gather: a shuffle of packed registers, or (the first
+// design) a load from a table of the 8 index arrays in shared memory
+template <int OP>
+constexpr bool kShuffled = kPair<OP> && kShuffleDesign;
+template <int OP>
+constexpr bool kIdxTable = kPair<OP> && !kShuffleDesign;
+// x gathered at a data-random column: from the replica, or from the tile
+template <int OP>
+constexpr bool kReplica = (OP == kLaneGather || kPair<OP>) && kReplicaDesign;
+
+// tile elements a thread: 4, but 1 where the replica's 128 KB leave one
+// block an SM, so that the block's 32 warps hide the gathers' latency
+template <int OP>
+constexpr int kPer = kReplica<OP> ? PRIMITIVE_REPLICA_PER_THREAD : kPerThread;
+
+template <int OP>
+constexpr int replica_bytes() {
+  return kReplica<OP> ? kCopies * 8 * 128 * static_cast<int>(sizeof(float)) : 0;
+}
 
 constexpr int kBlockK = 16;  // steps of k unrolled in a block (LO = 16)
 
@@ -102,21 +154,47 @@ constexpr int kBlockK = 16;  // steps of k unrolled in a block (LO = 16)
 template <int OP>
 constexpr bool kFullUnroll = OP == kFma;
 
+// byte (c & 3) of a in the low byte (the upper three are a's and b's next)
+__device__ __forceinline__ unsigned byte_at(unsigned a, unsigned c) {
+  unsigned r;
+  asm("prmt.b32.f4e %0, %1, %1, %2;" : "=r"(r) : "r"(a), "r"(c));
+  return r;
+}
+
+// x[row, i & 127] from the replica, lane c's copy: byte offset
+// ((row * 128 + m) * 32 + c) * 4, with row_hi = row << 14 (its higher bits
+// are dropped) and lane4 = c * 4
+__device__ __forceinline__ float replica_at(const volatile unsigned char* xr,
+                                            unsigned row_hi, unsigned i,
+                                            unsigned lane4) {
+  const unsigned off = (row_hi & 0x1c000u) | ((i & 127u) << 7) | lane4;
+  return *reinterpret_cast<const volatile float*>(xr + off);
+}
+
+// what an element-step reads besides its own registers
+template <typename T, typename I>
+struct Gathers {
+  const volatile typename Smem<T>::type* xs;  // the tile
+  const volatile I* is;                       // the index table (first design)
+  const volatile unsigned char* xr;           // the replica
+  unsigned lane4;                             // lane * 4
+};
+
 // one step k of the body for element q, with index array m_idx = k mod 8
-// (iq its entry of q); kx = k * kstep, where kstep is 1
-// at run time and unknown to the compiler, so that (i + kx) has no period
-// in k to fold (for a known k, (i + k) & 7 repeats every 8 steps, and a
-// compiler merges the repeats); lane_sh and sub_sh are k % 127 + 1 and
-// k % 7 + 1, the roll shifts.  Shared memory is read through volatile
-// pointers: every load of the body is issued and none is merged with an
-// equal one of another step.
+// (iq its entry of q, pq the packed row s of that array: entries 4c..4c+3
+// of lane c); kx = k * kstep, where kstep is 1 at run time and unknown to
+// the compiler, so that (i + kx) has no period in k to fold (for a known
+// k, (i + k) & 7 repeats every 8 steps, and a compiler merges the
+// repeats); lane_sh and sub_sh are k % 127 + 1 and k % 7 + 1, the roll
+// shifts.  Shared memory is read through volatile pointers and the shuffle
+// source differs from step to step: every gather of the body is issued and
+// none is merged with an equal one of another step.
 template <typename T, typename I, int S, int OP>
 __device__ __forceinline__ T body(int k, int kx, int lane_sh, int sub_sh,
-                                  int q, T xq, int iq, int m_idx,
-                                  const volatile typename Smem<T>::type* xs,
-                                  const volatile I* is) {
+                                  int q, T xq, int iq, unsigned pq, int m_idx,
+                                  const Gathers<T, I>& g) {
   constexpr int N = S * 128;
-  const int e = threadIdx.x + q * (N / kPerThread);
+  const int e = threadIdx.x + q * (N / kPer<OP>);
   const int s = e / 128;
   const int l = e % 128;
   const int i = iq + kx;
@@ -128,68 +206,109 @@ __device__ __forceinline__ T body(int k, int kx, int lane_sh, int sub_sh,
   } else if constexpr (OP == kSelect) {
     return (i & 7) == 3 ? xq : xq + xq;
   } else if constexpr (OP == kRollLane) {
-    return Smem<T>::get(xs[s * 128 + ((l - lane_sh) & 127)]);
+    return Smem<T>::get(g.xs[s * 128 + ((l - lane_sh) & 127)]);
   } else if constexpr (OP == kRollSub) {
-    return Smem<T>::get(xs[((s - sub_sh) & 7) * 128 + l]);
+    return Smem<T>::get(g.xs[((s - sub_sh) & 7) * 128 + l]);
+  } else if constexpr (OP == kLaneGather && kReplica<OP>) {
+    return replica_at(g.xr, static_cast<unsigned>(s) << 14,
+                      static_cast<unsigned>(i), g.lane4);
   } else if constexpr (OP == kLaneGather || OP == kBf16Lane) {
-    return Smem<T>::get(xs[s * 128 + (i & 127)]);
+    return Smem<T>::get(g.xs[s * 128 + (i & 127)]);
   } else if constexpr (OP == kSubGather) {
-    return Smem<T>::get(xs[(i & 7) * 128 + l]);
+    return Smem<T>::get(g.xs[(i & 7) * 128 + l]);
   } else if constexpr (OP == kBf16Sub) {
-    return Smem<T>::get(xs[(i & 15) * 128 + l]);
+    return Smem<T>::get(g.xs[(i & 15) * 128 + l]);
   } else {  // kPairGather, kGatherFma
     const int m = i & 127;
-    const int row = (static_cast<int>(is[m_idx * N + s * 128 + m]) + kx) & 7;
-    const T v = Smem<T>::get(xs[row * 128 + m]);
+    int r;  // the row's index entry; its low 3 bits are read
+    if constexpr (kShuffled<OP>) {
+      const unsigned p = __shfl_sync(0xffffffffu, pq, static_cast<unsigned>(i) >> 2);
+      r = static_cast<int>(byte_at(p, static_cast<unsigned>(i)));
+    } else {
+      r = static_cast<int>(g.is[m_idx * N + s * 128 + m]);
+    }
+    T v;
+    if constexpr (kReplica<OP>) {
+      v = replica_at(g.xr, static_cast<unsigned>(r + kx) << 14,
+                     static_cast<unsigned>(i), g.lane4);
+    } else {
+      v = Smem<T>::get(g.xs[((r + kx) & 7) * 128 + m]);
+    }
     if constexpr (OP == kGatherFma) return v * xq;
     return v;
   }
 }
 
 template <typename T, typename I, int S, int OP, int INNER>
-__global__ void __launch_bounds__(S * 128 / kPerThread)
+__global__ void __launch_bounds__(S * 128 / kPer<OP>)
 probe_kernel(const T* __restrict__ x, const I* __restrict__ idx,
              T* __restrict__ out, int kstep) {
   using St = typename Smem<T>::type;
   constexpr int N = S * 128;
-  constexpr int NT = N / kPerThread;
+  constexpr int P = kPer<OP>;
+  constexpr int NT = N / P;
   static_assert(INNER % kBlockK == 0, "inner is a multiple of 16");
-  __shared__ St xs_[N];
-  __shared__ I is_[kReadsOtherIdx<OP> ? kNidx * N : 1];
-  const volatile St* xs = xs_;
-  const volatile I* is = is_;
+  static_assert(!kPair<OP> || (S == 8 && sizeof(I) == 4),
+                "the pair runs on (8, 128) float32 tiles with int32 indices");
+  __shared__ St xs_[kReplica<OP> ? 1 : N];
+  __shared__ I is_[kIdxTable<OP> ? kNidx * N : 1];
+  extern __shared__ __align__(16) unsigned char xr_[];  // the replica
+  const Gathers<T, I> g{xs_, is_, xr_, (threadIdx.x & 31u) * 4u};
   const int64_t t = blockIdx.x;
   const T* xt = x + t * N;
   const I* it = idx + t * kNidx * N;
 
-  T xv[kPerThread];
-  int iv[kNidx][kPerThread];
+  T xv[P];
+  int iv[kNidx][P];
+  unsigned pk[kNidx][P];  // packed rows (kShuffled)
 #pragma unroll
-  for (int q = 0; q < kPerThread; ++q) {
+  for (int q = 0; q < P; ++q) {
     const int e = threadIdx.x + q * NT;
     xv[q] = xt[e];
-    xs_[e] = Smem<T>::put(xv[q]);
+    if constexpr (kReplica<OP>) {
+      // element e's 32 copies, 128 contiguous bytes, stored 16 at a time in
+      // an order rotated by the lane: the 8 lanes of a quarter warp write
+      // 8 distinct groups of 4 banks
+      const float f = to_f(xv[q]);
+      const float4 v4 = make_float4(f, f, f, f);
+#pragma unroll
+      for (int j = 0; j < kCopies / 4; ++j) {
+        const int c4 = (j + static_cast<int>(threadIdx.x)) & (kCopies / 4 - 1);
+        reinterpret_cast<float4*>(xr_ + e * kCopies * 4)[c4] = v4;
+      }
+    } else {
+      xs_[e] = Smem<T>::put(xv[q]);
+    }
 #pragma unroll
     for (int m = 0; m < kNidx; ++m) {
       const I v = it[m * N + e];
       iv[m][q] = v;
-      if constexpr (kReadsOtherIdx<OP>) is_[m * N + e] = v;
+      if constexpr (kIdxTable<OP>) is_[m * N + e] = v;
+      if constexpr (kShuffled<OP>) {
+        // entries 4c..4c+3 of row s (the warp's row) of array m, a byte each
+        const int4 w = reinterpret_cast<const int4*>(
+            it + m * N + (e / 128) * 128)[threadIdx.x & 31];
+        pk[m][q] = (w.x & 0xffu) | (w.y & 0xffu) << 8 | (w.z & 0xffu) << 16 |
+                   static_cast<unsigned>(w.w) << 24;
+      } else {
+        pk[m][q] = 0;
+      }
     }
   }
   __syncthreads();
 
-  T acc[kPerThread];
+  T acc[P];
 #pragma unroll
-  for (int q = 0; q < kPerThread; ++q) acc[q] = T(to_f(xv[q]) * 0.0f);
+  for (int q = 0; q < P; ++q) acc[q] = T(to_f(xv[q]) * 0.0f);
 
   if constexpr (kFullUnroll<OP>) {
 #pragma unroll
     for (int k = 0; k < INNER; ++k) {
 #pragma unroll
-      for (int q = 0; q < kPerThread; ++q) {
+      for (int q = 0; q < P; ++q) {
         acc[q] = add(acc[q], body<T, I, S, OP>(k, k * kstep, 0, 0, q, xv[q],
-                                               iv[k % kNidx][q], k % kNidx,
-                                               xs, is));
+                                               iv[k % kNidx][q],
+                                               pk[k % kNidx][q], k % kNidx, g));
       }
     }
   } else {
@@ -201,11 +320,12 @@ probe_kernel(const T* __restrict__ x, const I* __restrict__ idx,
       for (int kk = 0; kk < kBlockK; ++kk) {
         const int k = k0 + kk;
 #pragma unroll
-        for (int q = 0; q < kPerThread; ++q) {
+        for (int q = 0; q < P; ++q) {
           acc[q] = add(acc[q], body<T, I, S, OP>(k, k * kstep, lane_k + 1,
                                                  sub_k + 1, q, xv[q],
                                                  iv[kk % kNidx][q],
-                                                 kk % kNidx, xs, is));
+                                                 pk[kk % kNidx][q],
+                                                 kk % kNidx, g));
         }
         if constexpr (OP == kRollLane) lane_k = lane_k == 126 ? 0 : lane_k + 1;
         if constexpr (OP == kRollSub) sub_k = sub_k == 6 ? 0 : sub_k + 1;
@@ -214,24 +334,31 @@ probe_kernel(const T* __restrict__ x, const I* __restrict__ idx,
   }
   T* ot = out + t * N;
 #pragma unroll
-  for (int q = 0; q < kPerThread; ++q) ot[threadIdx.x + q * NT] = acc[q];
+  for (int q = 0; q < P; ++q) ot[threadIdx.x + q * NT] = acc[q];
+}
+
+template <typename T, typename I, int S, int OP, int INNER>
+int launch_tile(int64_t tiles, const void* x, const void* idx, void* out,
+                cudaStream_t stream) {
+  auto kernel = probe_kernel<T, I, S, OP, INNER>;
+  constexpr int smem = replica_bytes<OP>();
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(tiles), S * 128 / kPer<OP>, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const I*>(idx), static_cast<T*>(out), 1);
+  return 0;
 }
 
 template <int OP, int INNER>
-void launch(int64_t tiles, const void* x, const void* idx, void* out,
-            cudaStream_t stream) {
-  const unsigned grid = static_cast<unsigned>(tiles);
+int launch(int64_t tiles, const void* x, const void* idx, void* out,
+           cudaStream_t stream) {
   if constexpr (OP == kBf16Lane || OP == kBf16Sub) {
-    probe_kernel<__nv_bfloat16, int16_t, 16, OP, INNER>
-        <<<grid, 16 * 128 / kPerThread, 0, stream>>>(
-            static_cast<const __nv_bfloat16*>(x),
-            static_cast<const int16_t*>(idx), static_cast<__nv_bfloat16*>(out),
-            1);
+    return launch_tile<__nv_bfloat16, int16_t, 16, OP, INNER>(tiles, x, idx, out, stream);
   } else {
-    probe_kernel<float, int32_t, 8, OP, INNER>
-        <<<grid, 8 * 128 / kPerThread, 0, stream>>>(
-            static_cast<const float*>(x), static_cast<const int32_t*>(idx),
-            static_cast<float*>(out), 1);
+    return launch_tile<float, int32_t, 8, OP, INNER>(tiles, x, idx, out, stream);
   }
 }
 
@@ -239,8 +366,8 @@ template <int OP>
 int launch_inner(int inner, int64_t tiles, const void* x, const void* idx,
                  void* out, cudaStream_t stream) {
   switch (inner) {
-    case 16: launch<OP, 16>(tiles, x, idx, out, stream); return 0;
-    case 272: launch<OP, 272>(tiles, x, idx, out, stream); return 0;
+    case 16: return launch<OP, 16>(tiles, x, idx, out, stream);
+    case 272: return launch<OP, 272>(tiles, x, idx, out, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

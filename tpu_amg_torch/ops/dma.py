@@ -1,9 +1,9 @@
 """Copy-engine probe on the device: KD ``dma_probe``.
 
 ``dma_probe(sources, carry, chunk_rows, touch_every=1, engine="bulk",
-depth=4, unit=16384)`` copies every byte of K float32 sources of shape
-(rows_total, 128) from device memory into shared memory and returns the
-(8, 128) float32 result
+depth=4, unit=16384, piece=None, combine="ticket")`` copies every byte
+of K float32 sources of shape (rows_total, 128) from device memory into
+shared memory and returns the (8, 128) float32 result
 
     carry + Σ over touched chunks c of sources[0][c·R : c·R + 8, :],
 
@@ -16,7 +16,7 @@ manual-DMA probes of the JAX package's ``tools/`` map onto it:
   none (``touch_every=0``);
 - D2 ``dmabench2.py::k_whole`` (:61): the whole 8 MB array on chip, R =
   512, every chunk touched: depth 1 with the unit set to a block's whole
-  share (:func:`whole_share_unit`);
+  share (:func:`whole_share_unit`), issued in pieces;
 - D3 ``dmabench2.py::k_multi`` (:88): K = 4 sources, R = 2048, chunk i of
   every source in flight together, chunk i of source 0 touched: consecutive
   ring slots hold different sources;
@@ -30,7 +30,17 @@ completing on an mbarrier per slot) or ``lsu`` (16-byte ``cp.async.cg``
 per thread, one commit group per slot).  The unit is a tuning knob that
 does not change the result; the TPU's chunks (64 KB-4 MB) do not fit an
 SM, so the sweeps keep their meaning, bandwidth against bytes in flight
-per SM, at smaller units.
+per SM, at smaller units.  ``piece`` (bytes, a multiple of 16; None: the
+unit) cuts a bulk unit into that many bytes a copy, all on the slot's
+barrier.  ``combine`` is how the blocks' partials meet: ``ticket`` (the
+kernel writes carry + partials, with no launch before it: the last
+block of each group of 12 to take the group's ticket sums the group's
+partials, and the last of those the carry and the groups' sums; one
+integer atomic a block a round, no float atomics) or ``atomic`` (the
+first design, kept to time it: the output is cloned from the carry and
+every block adds its partial with 1,024 float atomics).  The tickets
+are counters kept per device, which the kernel leaves at 0: calls on
+one device run one at a time (one stream).
 
 The plain PyTorch version beside the kernel is a strided view and a
 ``sum``.  The wrapper takes it only when its tensors lie on the CPU; for
@@ -57,7 +67,12 @@ MAX_SOURCES = 8
 HEAD_BYTES = 8 * 128 * 4  # the touched rows of a chunk: units are multiples
 MAX_RING_BYTES = 227 * 1024 - 1024  # the block's shared memory, less barriers
 
+COMBINES = ("ticket", "atomic")
+GROUP = 12  # blocks a group of the ticket combine (kGroup in dma.cu)
+MAX_GROUPS = 64
+
 dma_probe_launches = 0
+_tickets = {}  # device index -> 1 + MAX_GROUPS ticket counters at 0
 
 
 def reset_launch_counts() -> None:
@@ -72,7 +87,7 @@ def kernel_lib() -> ctypes.CDLL:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     dll.dma_probe.restype = i32
     dll.dma_probe.argtypes = [i32, i32, i32, ctypes.POINTER(vp), i64, i32, i64,
-                              i64, i32, vp, vp]
+                              i64, i32, i32, vp, vp, vp, vp, vp]
     dll.dma_error_string.restype = ctypes.c_char_p
     dll.dma_error_string.argtypes = [i32]
     return dll
@@ -87,7 +102,7 @@ def whole_share_unit(total_bytes: int, blocks: int) -> int:
 
 def _check(sources: Sequence[torch.Tensor], carry: torch.Tensor,
            chunk_rows: int, touch_every: int, engine: str, depth: int,
-           unit: int) -> None:
+           unit: int, piece, combine: str) -> None:
     if not 1 <= len(sources) <= MAX_SOURCES:
         raise ValueError(f"{len(sources)} sources; the probe takes "
                          f"1..{MAX_SOURCES}")
@@ -112,10 +127,14 @@ def _check(sources: Sequence[torch.Tensor], carry: torch.Tensor,
         raise ValueError(f"unit {unit} B at depth {depth}: units are "
                          f"multiples of {HEAD_BYTES} B, depth x unit <= "
                          f"{MAX_RING_BYTES} B")
+    if piece is not None and (piece <= 0 or piece % 16):
+        raise ValueError(f"piece {piece} B: a positive multiple of 16")
+    if combine not in COMBINES:
+        raise ValueError(f"combine {combine!r}: one of {COMBINES}")
     if (carry.shape != (8, 128) or carry.dtype != torch.float32
-            or carry.device != s0.device):
-        raise ValueError("carry must be an (8, 128) float32 tensor on the "
-                         "sources' device")
+            or carry.device != s0.device or not carry.is_contiguous()):
+        raise ValueError("carry must be a contiguous (8, 128) float32 "
+                         "tensor on the sources' device")
 
 
 def plain_dma_probe(sources: Sequence[torch.Tensor], carry: torch.Tensor,
@@ -129,33 +148,58 @@ def plain_dma_probe(sources: Sequence[torch.Tensor], carry: torch.Tensor,
     return carry + heads.sum(0)
 
 
+def _tickets_of(device: torch.device) -> torch.Tensor:
+    """The device's ticket counters, made (at 0) on their first use,
+    which must not be inside a CUDA graph's capture."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _tickets:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("call dma_probe once on the device before "
+                               "capturing it in a CUDA graph")
+        _tickets[index] = torch.zeros(1 + MAX_GROUPS, dtype=torch.int32,
+                                      device=device)
+    return _tickets[index]
+
+
 def dma_probe(sources: Sequence[torch.Tensor], carry: torch.Tensor,
               chunk_rows: int, touch_every: int = 1, engine: str = "bulk",
-              depth: int = 4, unit: int = 16384) -> torch.Tensor:
+              depth: int = 4, unit: int = 16384, piece=None,
+              combine: str = "ticket") -> torch.Tensor:
     """KD: copy every source byte into shared memory; return the carry
     plus the touched chunk heads of ``sources[0]`` (module docstring),
     with one block per SM (at most one per unit)."""
     global dma_probe_launches
-    _check(sources, carry, chunk_rows, touch_every, engine, depth, unit)
+    _check(sources, carry, chunk_rows, touch_every, engine, depth, unit,
+           piece, combine)
     s0 = sources[0]
     if s0.device.type == "cpu":
         return plain_dma_probe(sources, carry, chunk_rows, touch_every)
     if s0.device.type != "cuda":
         raise RuntimeError(f"no kernel for tensors on {s0.device}")
-    if any(s.data_ptr() % 16 for s in sources):
-        raise ValueError("the probe needs 16-byte aligned sources")
+    if any(t.data_ptr() % 16 for t in (*sources, carry)):
+        raise ValueError("the probe needs 16-byte aligned sources and carry")
     lib = kernel_lib()
     src_bytes = s0.numel() * 4
     units = len(sources) * -(-src_bytes // unit)
     sms = torch.cuda.get_device_properties(s0.device).multi_processor_count
     blocks = min(sms, units)
-    out = carry.clone()
     ptrs = (ctypes.c_void_p * len(sources))(*(s.data_ptr() for s in sources))
     with torch.cuda.device(s0.device):
+        if combine == "atomic":
+            out = carry.clone()
+            work = (None, None, None)
+        else:
+            out = torch.empty_like(carry)
+            groups = -(-blocks // GROUP)
+            partials = torch.empty(blocks + groups, 8, 128,
+                                   dtype=torch.float32, device=s0.device)
+            work = (carry.data_ptr(), partials.data_ptr(),
+                    _tickets_of(s0.device).data_ptr())
         code = lib.dma_probe(
             ENGINES.index(engine), depth, len(sources), ptrs, src_bytes, unit,
-            chunk_rows * 128 * 4, touch_every, blocks, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            chunk_rows * 128 * 4, touch_every, piece or unit, blocks, *work,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     if code != 0:
         msg = lib.dma_error_string(code).decode()

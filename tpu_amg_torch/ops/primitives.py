@@ -16,6 +16,11 @@ with nvcc for ``sm_90a`` into ``build/tpu_amg_torch/libamg_primitives.so``
 at first launch) one block runs one tile; lane ops are shared-memory
 reads across a row of 128, row ops shared-memory reads down the tile's
 rows, and ``inner`` is compiled in: the harness's LO = 16 and HI = 272.
+The data-random gathers are laid out against the shared memory's bank
+conflicts (:data:`DESIGNS`): the pair's index gather is a warp shuffle
+of packed rows, and the x gather reads a replica of the tile, one copy
+a lane; :func:`shared_wavefronts` counts what each design's gathers
+cost on given inputs.
 The cost of one op is (t(HI) − t(LO)) / (tiles · (HI − LO)), as in the
 harness; :data:`OPS` gives the instructions and shared-memory loads each
 element needs per step, from which :func:`op_bound_ns` reckons the least
@@ -51,6 +56,15 @@ INNERS = (LO, HI)
 
 ISSUE_PER_CLOCK = 128  # thread instructions an SM issues a clock (4 x 32)
 LDS_PER_CLOCK = 32  # lanes' shared-memory loads an SM serves a clock
+BANKS = 32  # shared-memory banks of 4 bytes; a wavefront is one word each
+
+# the gathers' designs: the value of the source's PRIMITIVE_GATHERS macro
+# (bit 0: the pair's index gather by warp shuffle; bit 1: the x gather of
+# lane_gather and the pair from a replica of the tile, one copy a lane)
+DESIGNS = {"tile": 0, "shuffle": 1, "replica": 2, "shuffle+replica": 3}
+DESIGN = "shuffle+replica"  # the kernel's (the library built by default)
+SHUFFLED = ("pair_gather", "gather_fma")  # ops whose index gather shuffles
+REPLICATED = ("lane_gather", "pair_gather", "gather_fma")  # x from a replica
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,10 +119,21 @@ def reset_launch_counts() -> None:
     primitive_probe_launches = 0
 
 
+def library_path(design: str = DESIGN) -> Path:
+    """The library of the gathers' ``design``, built with nvcc if stale:
+    the kernel's as ``libamg_primitives.so``, another as
+    ``libamg_primitives_g<N>.so`` (N its PRIMITIVE_GATHERS)."""
+    if design == DESIGN:
+        return build_cuda_library("libamg_primitives.so", SOURCE)
+    n = DESIGNS[design]
+    return build_cuda_library(f"libamg_primitives_g{n}.so", SOURCE,
+                              defines=[f"PRIMITIVE_GATHERS={n}"])
+
+
 @functools.cache
-def kernel_lib() -> ctypes.CDLL:
+def kernel_lib(design: str = DESIGN) -> ctypes.CDLL:
     """The probe's library, compiled with nvcc on first call."""
-    dll = ctypes.CDLL(str(build_cuda_library("libamg_primitives.so", SOURCE)))
+    dll = ctypes.CDLL(str(library_path(design)))
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     dll.primitive_probe.restype = i32
     dll.primitive_probe.argtypes = [i32, i32, i64, vp, vp, vp, vp]
@@ -186,17 +211,23 @@ def plain_primitive_probe(x: torch.Tensor, idx: torch.Tensor, op: str,
 
 
 def primitive_probe(x: torch.Tensor, idx: torch.Tensor, op: str,
-                    inner: int) -> torch.Tensor:
-    """KG: Σ over k < inner of the op's body (module docstring)."""
+                    inner: int, design: str = DESIGN) -> torch.Tensor:
+    """KG: Σ over k < inner of the op's body (module docstring); on the
+    card with the gathers of ``design`` (one of :data:`DESIGNS`)."""
     global primitive_probe_launches
     _check(x, idx, op, inner)
+    if design not in DESIGNS:
+        raise ValueError(f"design {design!r}; one of {tuple(DESIGNS)}")
     if x.device.type == "cpu":
         return plain_primitive_probe(x, idx, op, inner)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for tensors on {x.device}")
     if inner not in INNERS:
         raise ValueError(f"inner {inner}: the kernel is compiled for {INNERS}")
-    lib = kernel_lib()
+    if idx.data_ptr() % 16:
+        raise ValueError("the kernel reads idx 16 bytes at a time: it must "
+                         "be 16-byte aligned")
+    lib = kernel_lib(design)
     out = torch.empty_like(x)
     if x.shape[0] == 0:
         return out
@@ -229,20 +260,109 @@ def op_bound_ns(op: str, sms: int, clock_mhz: float,
     return elements * clocks * steps / (sms * clock_mhz * 1e6) * 1e9
 
 
+def warp_wavefronts(words: np.ndarray) -> np.ndarray:
+    """The shared-memory wavefronts of warp loads: ``words`` (..., 32)
+    holds each lane's 4-byte word address; a load takes as many
+    wavefronts as the most distinct words that fall in one bank (lanes
+    reading one word share it)."""
+    w = np.sort(np.asarray(words, np.int64).reshape(-1, 32), axis=1)
+    first = np.ones(w.shape, bool)
+    first[:, 1:] = w[:, 1:] != w[:, :-1]
+    key = np.arange(w.shape[0])[:, None] * BANKS + w % BANKS
+    per_bank = np.bincount(key[first], minlength=w.shape[0] * BANKS)
+    return per_bank.reshape(-1, BANKS).max(1).reshape(np.shape(words)[:-1])
+
+
+def shared_wavefronts(op: str, x: torch.Tensor, idx: torch.Tensor,
+                      inner: int, design: str = DESIGN):
+    """The mean shared-memory wavefronts of a warp gather of the kernel
+    on these inputs, over every gather of its ``inner`` steps, under its
+    thread map: element e = thread + q · threads (q < :func:`per_thread`)
+    of the tile, so that a warp's 32 lanes share the tile row s = e //
+    128 and hold columns l = e % 128 in order.  A warp shuffle (the pair's index
+    gather in the shuffle designs) counts as one.  None for ops without
+    a gather (add, fma, select)."""
+    _check(x, idx, op, inner)
+    if design not in DESIGNS:
+        raise ValueError(f"design {design!r}; one of {tuple(DESIGNS)}")
+    if OPS[op].loads == 0:
+        return None
+    shuffle = op in SHUFFLED and DESIGNS[design] & 1
+    replica = op in REPLICATED and DESIGNS[design] & 2
+    sub = tile_rows(op)
+    n = sub * 128
+    per = per_thread(op, design)
+    e = np.arange(n).reshape(per, n // per // 32, 32)
+    s, l = e // 128, e % 128
+    lane = e % 32
+    ix = idx.cpu().numpy().astype(np.int64)
+    tile = np.arange(ix.shape[0])[:, None, None, None]
+    total, count = 0, 0
+    for k in range(inner):
+        mi = k % NIDX
+        i = ix[:, mi][:, s, l] + k
+        m = i & 127
+        loads = []
+        if op == "roll_lane":
+            loads.append(s * 128 + ((l - (k % 127 + 1)) & 127))
+        elif op == "roll_sub":
+            loads.append(((s - (k % 7 + 1)) & 7) * 128 + l)
+        elif op == "sub_gather":
+            loads.append((i & 7) * 128 + l)
+        elif op == "bf16_sub":
+            loads.append(((i & 15) * 128 + l) // 2)  # two bfloat16 a word
+        elif op == "bf16_lane":
+            loads.append((s * 128 + m) // 2)
+        elif op == "lane_gather":
+            loads.append((s * 128 + m) * BANKS + lane if replica
+                         else s * 128 + m)
+        else:  # the pair: the index gather, then x at the row it names
+            if shuffle:
+                total, count = total + m.size // 32, count + m.size // 32
+            else:
+                loads.append(mi * n + s * 128 + m)
+            row = (ix[:, mi][tile, s, m] + k) & 7
+            loads.append((row * 128 + m) * BANKS + lane if replica
+                         else row * 128 + m)
+        for words in loads:
+            wf = warp_wavefronts(words)
+            total, count = total + int(wf.sum()), count + wf.size
+    return total / count
+
+
+def design_floor_ns(op: str, wavefronts: float, sms: int,
+                    clock_mhz: float) -> float:
+    """The least time of one marginal tile-op (as :func:`op_bound_ns`)
+    that the op's shared-memory accesses allow at ``wavefronts`` a warp
+    gather: the bound's load term times the wavefronts."""
+    info = OPS[op]
+    steps = (issued_steps(op, HI) - issued_steps(op, LO)) / (HI - LO)
+    return (tile_rows(op) * 128 * info.loads / LDS_PER_CLOCK * wavefronts
+            * steps / (sms * clock_mhz * 1e6) * 1e9)
+
+
 PER_THREAD = 4  # tile elements per thread in the kernel
+REPLICA_PER_THREAD = 1  # for the ops that read the replica (one block an SM)
+
+
+def per_thread(op: str, design: str = DESIGN) -> int:
+    """Tile elements a thread of the op's kernel in ``design``."""
+    if op in REPLICATED and DESIGNS[design] & 2:
+        return REPLICA_PER_THREAD
+    return PER_THREAD
 BLOCK_K = 16  # steps of k the kernel unrolls in one block of its loop
 FULL_UNROLL = ("fma",)  # ops whose whole k loop is unrolled
 
 
-def sass_instruction_counts() -> dict:
-    """{(op, inner): counts} of the built library's kernels, from
-    ``cuobjdump --dump-sass``: instructions, shared-memory loads (LDS),
-    FFMAs, local-memory accesses (LDL/STL: spills) and whether the code
-    has a backward branch (a loop)."""
+def sass_instruction_counts(design: str = DESIGN) -> dict:
+    """{(op, inner): counts} of the kernels of the ``design``'s library,
+    from ``cuobjdump --dump-sass``: instructions, shared-memory loads
+    (LDS), indexed warp shuffles (SHFL.IDX), FFMAs, local-memory accesses
+    (LDL/STL: spills) and whether the code has a backward branch (a
+    loop)."""
     cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run(
-        [str(cuobjdump), "--dump-sass",
-         str(build_cuda_library("libamg_primitives.so", SOURCE))],
+        [str(cuobjdump), "--dump-sass", str(library_path(design))],
         capture_output=True, text=True, check=True).stdout
     counts = {}
     names = list(OPS)
@@ -251,7 +371,8 @@ def sass_instruction_counts() -> dict:
         m = re.search(r"Function : \S*probe_kernel\S*?Li(\d+)ELi(\d+)ELi(\d+)E",
                       line)
         if m:
-            c = dict(total=0, LDS=0, FFMA=0, local=0, loop=False, labels=set())
+            c = dict(total=0, LDS=0, SHFL=0, FFMA=0, local=0, loop=False,
+                     labels=set())
             counts[(names[int(m.group(2))], int(m.group(3)))] = c
             continue
         if c is None:
@@ -264,6 +385,7 @@ def sass_instruction_counts() -> dict:
             c["total"] += 1
             for op in ("LDS", "FFMA"):
                 c[op] += bool(re.search(rf"\b{op}(\.|\s)", line))
+            c["SHFL"] += bool(re.search(r"\bSHFL\.IDX\b", line))
             c["local"] += bool(re.search(r"\b(LDL|STL)(\.|\s)", line))
             # a branch back to a label already seen, or to a lower address
             target = re.search(r"\bBRA\b\W*(\.L_x_\d+|0x[0-9a-f]+)", line)
@@ -276,24 +398,30 @@ def sass_instruction_counts() -> dict:
     return counts
 
 
-def sass_unfolded(counts: dict) -> dict:
+def sass_unfolded(counts: dict, design: str = DESIGN) -> dict:
     """{op: (ok, description)}: the HI kernel issues every step of its
     loop and spills nothing.  A looped op must keep a loop whose block
-    holds 16 steps' loads (or two instructions a step, without loads) for
-    its 4 elements; fma, unrolled in full, must hold an FFMA for every
-    step that differs from the others, and element."""
+    holds 16 steps' gathers (or two instructions a step, without
+    gathers) for its elements (:func:`per_thread`): a shared-memory load
+    each, but for the
+    pair's index gather in a shuffle design, a SHFL.IDX; fma, unrolled in
+    full, must hold an FFMA for every step that differs from the others,
+    and element."""
     out = {}
     for op, info in OPS.items():
         hi, lo = counts[(op, HI)], counts[(op, LO)]
-        steps = BLOCK_K * PER_THREAD
+        steps = BLOCK_K * per_thread(op, design)
+        shuffles = int(op in SHUFFLED and DESIGNS[design] & 1)
         if op in FULL_UNROLL:
             ok = hi["FFMA"] >= issued_steps(op, HI) * PER_THREAD
         elif info.loads:
-            ok = hi["loop"] and hi["LDS"] >= steps * info.loads
+            ok = (hi["loop"] and hi["LDS"] >= steps * (info.loads - shuffles)
+                  and hi["SHFL"] >= steps * shuffles)
         else:
             ok = hi["loop"] and hi["total"] >= steps * 2
         ok = ok and hi["local"] == 0 and lo["local"] == 0
         out[op] = (ok, f"{op}: {hi['total']} instructions, {hi['LDS']} LDS, "
+                       f"{hi['SHFL']} SHFL.IDX, "
                        f"{hi['FFMA']} FFMA, {hi['local']} LDL/STL, "
                        f"{'a loop' if hi['loop'] else 'no loop'}")
     return out

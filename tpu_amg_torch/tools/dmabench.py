@@ -7,9 +7,13 @@ every SM, in shared memory, with each copy engine (``bulk``: TMA bulk
 copies, ``lsu``: ``cp.async`` per thread), over depth {2, 4, 8, 16} ×
 unit {4, 16, 32, 64} KB pruned to the 227 KB a block can hold; a chunk
 is one unit, as the harness's chunk was one DMA.  Per case it prints
-the bytes in flight per SM, the time per call, GB/s and the bound (the
-bytes over the card's 3,350 GB/s data sheet; the harness's 32 MB stay in
-the 50 MB L2 after the first call, which that bound does not bound).
+the bytes in flight per SM, the time per call, GB/s and the bound with
+its share of the time.  Bytes past the L2 cache are bound by the card's
+3,350 GB/s data sheet; bytes that fit in it (the harness's 32 MB stay
+in the 50 MB L2 after the first call) by the best read rate measured in
+L2 in the same process (:func:`l2_read_rate`: the larger of
+``stream_sum``'s and this sweep's best at 32 MiB a call), and the
+data-sheet time is printed beside, labelled as such.
 
 Inputs are integers 0-15 drawn from a seeded ``torch.Generator`` on the
 device, so every sum is exact.  On a CUDA device the kernel runs, timed
@@ -31,9 +35,11 @@ from typing import List, Optional
 import torch
 
 from tpu_amg_torch.ops import dma
-from tpu_amg_torch.utils.timing import call_ms, hbm_bound_ms
+from tpu_amg_torch.tools import streambench
+from tpu_amg_torch.utils.timing import call_ms, hbm_bound_ms, l2_bound_ms
 
 TOTAL_MIB = 32  # the harness's TOTAL_MB (tools/dmabench.py:26)
+L2_MIB = 32  # MiB a call where the L2 read rate is measured
 KB = 1024
 
 
@@ -47,6 +53,7 @@ class Case:
     chunk_rows: Optional[int] = None  # None: one unit
     touch_every: int = 1
     src_mib: Optional[int] = None  # None: the command line's total
+    piece: Optional[int] = None  # bytes a bulk copy; None: the unit
 
     def sizes(self, total_bytes: int, blocks: int):
         """(bytes per source, unit, chunk rows) for a call."""
@@ -78,28 +85,69 @@ def make_inputs(case: Case, total_bytes: int, device, generator):
             for _ in range(case.n_src)]
 
 
+def in_l2(nbytes: int, device) -> bool:
+    """Whether ``nbytes`` fit in the card's L2 cache."""
+    return (device.type == "cuda" and nbytes <= torch.cuda.get_device_properties(
+        device).L2_cache_size)
+
+
+def bound(nbytes: int, device, l2: Optional[dict]) -> dict:
+    """The bound of a call that moves ``nbytes``: over ``l2``'s rate
+    where they fit in L2 (and ``l2`` is known), else over the data
+    sheet's HBM rate; with the data sheet's time beside."""
+    hbm = hbm_bound_ms(nbytes)
+    if l2 is not None and in_l2(nbytes, device):
+        return dict(bound_ms=l2_bound_ms(nbytes, l2["gbps"]), hbm_bound_ms=hbm,
+                    bound_rate=f"L2 {l2['gbps']:.1f} GB/s ({l2['origin']})")
+    return dict(bound_ms=hbm, hbm_bound_ms=hbm, bound_rate="HBM data sheet")
+
+
 def time_case(case: Case, total_bytes: int, device, reps: int,
-              seed: int = 0) -> dict:
-    """Time ``dma_probe`` on the case; returns the case's record."""
+              seed: int = 0, l2: Optional[dict] = None) -> dict:
+    """Time ``dma_probe`` on the case; returns the case's record, with
+    its bound over ``l2``'s rate where its bytes fit in L2."""
     g = torch.Generator(device=device).manual_seed(seed)
     srcs = make_inputs(case, total_bytes, device, g)
     carry = torch.zeros(8, 128, dtype=torch.float32, device=device)
     _, unit, rows = case.sizes(total_bytes, block_count(device))
     ms = call_ms(lambda: dma.dma_probe(srcs, carry, rows, case.touch_every,
-                                       case.engine, case.depth, unit),
+                                       case.engine, case.depth, unit,
+                                       case.piece),
                  device, reps)
     nbytes = dma.probe_bytes(srcs)
     return dict(name=case.name, case=case, total_bytes=total_bytes,
                 unit=unit, chunk_rows=rows, inflight=case.depth * unit,
                 bytes=nbytes, ms=ms, gbps=nbytes / ms / 1e6,
-                bound_ms=hbm_bound_ms(nbytes))
+                **bound(nbytes, device, l2))
+
+
+def l2_read_rate(device, reps: int, copies: Optional[List[dict]] = None
+                 ) -> dict:
+    """The best read rate measured in L2 here: the larger of
+    ``stream_sum``'s single-input float32 cases and the copy sweep's
+    cases (``copies``, records already timed at ``L2_MIB``, or timed
+    now), at ``L2_MIB`` MiB a call.  {"gbps", "origin"}."""
+    total = L2_MIB << 20
+    if copies is None:
+        copies = [time_case(c, total, device, reps) for c in sweep_cases()]
+    best = [(r["gbps"], f"dma_probe {r['name']}") for r in copies]
+    for case in streambench.CASES:
+        if case.dtype == torch.float32 and case.n_in == 1:
+            r = streambench.time_case(case, total, device, reps)
+            best.append((r["gbps"], f"stream_sum {case.name}"))
+    gbps, origin = max(best)
+    return dict(gbps=gbps, origin=f"{origin} at {L2_MIB} MiB")
 
 
 def print_record(rec: dict) -> None:
     print(f"{rec['name']:36s} inflight/SM={rec['inflight'] // KB:4d}KB "
           f"{rec['bytes'] / 2**20:7.1f}MiB {rec['ms'] * 1e3:9.1f}us "
-          f"{rec['gbps']:7.1f} GB/s  bound {rec['bound_ms'] * 1e3:7.1f}us",
-          flush=True)
+          f"{rec['gbps']:7.1f} GB/s  bound {rec['bound_ms'] * 1e3:7.2f}us "
+          f"({rec['bound_ms'] / rec['ms']:.0%} of the time; "
+          f"{rec['bound_rate']}" + (
+              f"; the HBM data sheet's {rec['hbm_bound_ms'] * 1e3:.2f}us, "
+              f"not a floor in L2)" if rec["bound_rate"].startswith("L2")
+              else ")"), flush=True)
 
 
 def parse(argv, description: str, total_mib: int):
@@ -120,24 +168,39 @@ def parse(argv, description: str, total_mib: int):
     return args, device, where
 
 
-def run_cases(cases, args, device) -> List[dict]:
+def run_cases(cases, args, device, l2: Optional[dict] = None) -> List[dict]:
     records = []
     for case in cases:
         if args.select and not any(s in case.name for s in args.select):
             continue
-        rec = time_case(case, args.total_mib << 20, device, args.reps)
-        print_record(rec)
+        rec = time_case(case, args.total_mib << 20, device, args.reps, l2=l2)
         records.append(rec)
     return records
 
 
+def print_l2(l2: dict) -> None:
+    print(f"# L2 read rate {l2['gbps']:.1f} GB/s: {l2['origin']}, the bound "
+          f"of the cases whose bytes fit in L2", flush=True)
+
+
 def run(argv=None) -> List[dict]:
     """The command line's work: prints one line per case and returns the
-    cases' records."""
+    cases' records (on the card, where the sweep's bytes fit in L2, with
+    ``l2``, the L2 read rate their bounds use)."""
     args, device, where = parse(argv, __doc__.splitlines()[0], TOTAL_MIB)
     print(f"# dma_probe on {where}; {args.total_mib} MiB per call, the "
           f"first 8 rows of every chunk touched", flush=True)
-    return run_cases(sweep_cases(), args, device)
+    records = run_cases(sweep_cases(), args, device)
+    if records and in_l2(records[0]["bytes"], device):
+        # the whole sweep at L2_MIB is the copy probe's part of the rate
+        whole = args.total_mib == L2_MIB and not args.select
+        l2 = l2_read_rate(device, args.reps, records if whole else None)
+        print_l2(l2)
+        for rec in records:
+            rec.update(bound(rec["bytes"], device, l2), l2=l2)
+    for rec in records:
+        print_record(rec)
+    return records
 
 
 def main(argv=None) -> int:

@@ -6,7 +6,7 @@ the bytes itself.  Its cases, each run here with both copy engines of
 
 - ``whole`` (D2, ``k_whole``): an 8 MB array, all of it on chip, the
   first 8 rows of every 512 summed: depth 1, each block's whole share as
-  its one unit;
+  its one unit, issued as bulk copies of ``D2_PIECE`` bytes;
 - ``multi`` (D3, ``k_multi``): 4 sources of 16 MB, chunks of 2048 rows,
   the 4 sources' copies in flight together (ring depth 4);
 - ``same`` (D4, ``k_same``): one 16 MB source, 4 chunks of 2048 rows in
@@ -15,8 +15,14 @@ the bytes itself.  Its cases, each run here with both copy engines of
 The harness's 1 MB copies do not fit an SM; each copy here is a 32 KB
 unit, and a chunk spans several.  Beside them it prints the harness's
 read baseline (``dmabench2.py:49-55``): ``torch.sum(x, 0)`` over a 16 MB
-array, a library call.  Inputs, timing and the CPU's plain version are
-as in :mod:`tpu_amg_torch.tools.dmabench`.
+array, a library call.  Inputs, timing, bounds and the CPU's plain
+version are as in :mod:`tpu_amg_torch.tools.dmabench`: D2's 8 MB and
+D4's 16 MB fit in the 50 MB L2, and their bound is their bytes over the
+L2 read rate measured first (``dmabench.l2_read_rate``); D3's 64 MB
+are bound by the HBM data sheet.  Then the probe's fixed cost
+(:func:`fixed_cost`): its time on one 4 KB unit a block, the share of a
+few-us call that no copy rate can touch, beside what it was made of in
+the first design.
 
 Usage: python -m tpu_amg_torch.tools.dmabench2 [--device cuda]
            [--reps 50] [case-substring ...]
@@ -25,15 +31,18 @@ Usage: python -m tpu_amg_torch.tools.dmabench2 [--device cuda]
 from __future__ import annotations
 
 import sys
-from typing import List
+from typing import List, Optional
 
 import torch
 
 from tpu_amg_torch.ops import dma
-from tpu_amg_torch.tools.dmabench import KB, Case, parse, run_cases
+from tpu_amg_torch.tools.dmabench import (KB, Case, block_count, in_l2,
+                                          l2_read_rate, parse, print_l2,
+                                          print_record, run_cases, time_case)
 from tpu_amg_torch.utils.timing import call_ms, hbm_bound_ms
 
 BASELINE_MIB = 16
+D2_PIECE = 16 * KB  # bytes a bulk copy of D2's share
 
 
 def cases() -> List[Case]:
@@ -41,7 +50,7 @@ def cases() -> List[Case]:
     for engine in dma.ENGINES:
         out += [
             Case(f"{engine} whole 8MB", engine, 1, None, chunk_rows=512,
-                 src_mib=8),
+                 src_mib=8, piece=D2_PIECE),
             Case(f"{engine} multi 4x16MB", engine, 4, 32 * KB, n_src=4,
                  chunk_rows=2048, src_mib=16),
             Case(f"{engine} same 16MB", engine, 4, 32 * KB, chunk_rows=2048,
@@ -61,15 +70,55 @@ def time_baseline(device, reps: int) -> dict:
                 bound_ms=hbm_bound_ms(nbytes))
 
 
-def run(argv=None):
-    """The command line's work: returns (probe records, baseline record)."""
+def fixed_cost(device, reps: int) -> dict:
+    """The probe's fixed cost: ``dma_probe`` on a source of one 4 KB
+    unit a block (depth 1, every chunk touched), timed as the cases are;
+    beside it what the first design spent there: the same call in its
+    ``atomic`` mode (a clone of the carry, then 1,024 float atomics a
+    block), the clone alone, and D2 with its share as one bulk copy."""
+    blocks = block_count(device)
+    g = torch.Generator(device=device).manual_seed(0)
+    src = torch.randint(0, 16, (blocks * 8, 128), generator=g, device=device,
+                        dtype=torch.float32)
+    carry = torch.zeros(8, 128, dtype=torch.float32, device=device)
+
+    def one(combine):
+        return call_ms(lambda: dma.dma_probe([src], carry, 8, 1, "bulk", 1,
+                                             dma.HEAD_BYTES, combine=combine),
+                       device, reps)
+
+    d2 = Case("bulk whole 8MB one copy", "bulk", 1, None, chunk_rows=512,
+              src_mib=8)
+    return dict(bytes=dma.probe_bytes([src]), ms=one("ticket"),
+                atomic_ms=one("atomic"),
+                clone_ms=call_ms(carry.clone, device, reps),
+                d2_one_copy_ms=time_case(d2, 0, device, reps)["ms"])
+
+
+def run(argv=None, l2: Optional[dict] = None):
+    """The command line's work: returns (probe records, baseline record,
+    fixed-cost record).  On the card the cases that fit in L2 are bound
+    by ``l2`` (``dmabench.l2_read_rate``), measured here unless given."""
     args, device, where = parse(argv, __doc__.splitlines()[0], BASELINE_MIB)
     print(f"# dma_probe on {where}", flush=True)
     base = time_baseline(device, args.reps)
     print(f"{base['name']:36s} {'':18s}{base['bytes'] / 2**20:7.1f}MiB "
           f"{base['ms'] * 1e3:9.1f}us {base['gbps']:7.1f} GB/s  (library "
           f"read baseline)", flush=True)
-    return run_cases(cases(), args, device), base
+    if l2 is None and in_l2(8 << 20, device):
+        l2 = l2_read_rate(device, args.reps)
+    if l2 is not None:
+        print_l2(l2)
+    records = run_cases(cases(), args, device, l2)
+    for rec in records:
+        print_record(rec)
+    fixed = fixed_cost(device, args.reps)
+    print(f"fixed cost: {fixed['ms'] * 1e3:.2f}us a call on one 4 KB unit a "
+          f"block ({fixed['bytes'] // KB} KB); the first design's atomic "
+          f"mode {fixed['atomic_ms'] * 1e3:.2f}us (the carry's clone alone "
+          f"{fixed['clone_ms'] * 1e3:.2f}us); D2 as one bulk copy a block "
+          f"{fixed['d2_one_copy_ms'] * 1e3:.2f}us", flush=True)
+    return records, base, fixed
 
 
 def main(argv=None) -> int:

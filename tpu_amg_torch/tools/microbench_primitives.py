@@ -8,7 +8,14 @@ of one op is the marginal time between inner = LO and inner = HI over
 harness.  Per case it prints both times, the ns per tile-op and per
 element, and the bound: the op's instructions and shared-memory loads
 per element over the SMs' issue and load rates, at the SM clock that
-``nvidia-smi`` reports while the cases run.  Cases are chosen by substrings of their keys (``add``,
+``nvidia-smi`` reports while the cases run.  Beside them, the
+shared-memory wavefronts a warp gather of the kernel takes on the
+timed inputs (``primitives.shared_wavefronts`` on the first
+``WAVEFRONT_TILES`` tiles, at inner HI), those of the first design
+(``tile``: an index table and x in shared memory), and the design floor
+they imply: the bound's load term times the wavefronts.  ``--design``
+runs the kernel with another design of its gathers
+(``primitives.DESIGNS``), built into a library of its own.  Cases are chosen by substrings of their keys (``add``,
 ``lane_gather``, ...), as in the harness.
 
 The harness's ``xla_gather`` part, a row gather by the library ahead of
@@ -21,7 +28,8 @@ the plain PyTorch version runs, timed with the host clock: a number of
 the CPU, not of the card.
 
 Usage: python -m tpu_amg_torch.tools.microbench_primitives [--device cuda]
-           [--tiles 4096] [--reps 20] [case-substring ...]
+           [--tiles 4096] [--reps 20] [--design shuffle+replica]
+           [case-substring ...]
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from tpu_amg_torch.ops import primitives
 from tpu_amg_torch.utils.timing import call_ms
 
 TILES = 4096  # the harness's TILES
+WAVEFRONT_TILES = 16  # tiles whose gathers' wavefronts are counted
 # tools/microbench_primitives.py:147-148: (rows, width, gathered rows)
 GATHER_SHAPES = ((2048, 128, 18752), (262144, 128, 18752), (32768, 8, 2400000))
 
@@ -81,19 +90,26 @@ class ClockSampler:
         return float(np.median(self.samples)) if self.samples else None
 
 
-def time_op(op: str, tiles: int, device, reps: int) -> dict:
+def time_op(op: str, tiles: int, device, reps: int,
+            design: str = primitives.DESIGN) -> dict:
     """Time the op at inner LO and HI on the inputs of
-    ``primitives.make_inputs(op, tiles, device)``."""
+    ``primitives.make_inputs(op, tiles, device)``, and count its gathers'
+    wavefronts on the first tiles, in ``design`` and in the first."""
     lo, hi = primitives.LO, primitives.HI
     x, idx = primitives.make_inputs(op, tiles, device)
-    t_lo = call_ms(lambda: primitives.primitive_probe(x, idx, op, lo),
+    t_lo = call_ms(lambda: primitives.primitive_probe(x, idx, op, lo, design),
                    device, reps)
-    t_hi = call_ms(lambda: primitives.primitive_probe(x, idx, op, hi),
+    t_hi = call_ms(lambda: primitives.primitive_probe(x, idx, op, hi, design),
                    device, reps)
     per_ns = (t_hi - t_lo) * 1e6 / (tiles * (hi - lo))
     elements = primitives.tile_rows(op) * 128
+    few = (x[:WAVEFRONT_TILES], idx[:WAVEFRONT_TILES])
     return dict(op=op, name=primitives.OPS[op].name, tiles=tiles, lo_ms=t_lo,
-                hi_ms=t_hi, ns_per_op=per_ns, ns_per_element=per_ns / elements)
+                hi_ms=t_hi, ns_per_op=per_ns, ns_per_element=per_ns / elements,
+                design=design,
+                wavefronts=primitives.shared_wavefronts(op, *few, hi, design),
+                tile_wavefronts=primitives.shared_wavefronts(op, *few, hi,
+                                                             "tile"))
 
 
 def time_gathers(device, reps: int) -> List[dict]:
@@ -117,6 +133,8 @@ def run(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiles", type=int, default=TILES)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--design", default=primitives.DESIGN,
+                    choices=tuple(primitives.DESIGNS))
     ap.add_argument("select", nargs="*",
                     help="run only cases whose key holds one of these")
     args = ap.parse_args(argv)
@@ -128,7 +146,8 @@ def run(argv=None):
     where = (torch.cuda.get_device_name(device) if on_card
              else "cpu (plain version, host clock)")
     print(f"# primitive_probe on {where}; {args.tiles} tiles, inner "
-          f"{primitives.LO} and {primitives.HI}", flush=True)
+          f"{primitives.LO} and {primitives.HI}; gathers: {args.design}",
+          flush=True)
 
     def want(key):
         return not args.select or any(s in key for s in args.select)
@@ -138,7 +157,8 @@ def run(argv=None):
     with sampler if on_card else contextlib.nullcontext():
         for op in primitives.OPS:
             if want(op):
-                records.append(time_op(op, args.tiles, device, args.reps))
+                records.append(time_op(op, args.tiles, device, args.reps,
+                                       args.design))
     clock = sampler.median()
     sms = (torch.cuda.get_device_properties(device).multi_processor_count
            if on_card else None)
@@ -152,10 +172,19 @@ def run(argv=None):
                  f"/clk/SM, {info.loads} loads at {primitives.LDS_PER_CLOCK}"
                  f"/clk/SM) per element, {sms} SMs, {clock:.0f} MHz"
                  if clock else "no bound off the card")
+        wf = rec["wavefronts"]
+        rec["floor_ns_per_op"] = (
+            primitives.design_floor_ns(rec["op"], wf, sms, clock)
+            if clock and wf else None)
+        gathers = ("no gathers" if wf is None else
+                   f"{wf:.2f} wavefronts a warp gather (tile design "
+                   f"{rec['tile_wavefronts']:.2f})" + (
+                       f", design floor {rec['floor_ns_per_op']:.4f} ns/op"
+                       if rec["floor_ns_per_op"] else ""))
         print(f"{rec['name']:36s} lo={rec['lo_ms']:8.3f}ms "
               f"hi={rec['hi_ms']:8.3f}ms {rec['ns_per_op']:8.4f} ns/op "
-              f"({rec['ns_per_element'] * 1e3:7.3f} ps/element; {bound})",
-              flush=True)
+              f"({rec['ns_per_element'] * 1e3:7.3f} ps/element; {bound}; "
+              f"{gathers})", flush=True)
     gathers = time_gathers(device, args.reps) if want("xla_gather") else []
     return records, gathers
 

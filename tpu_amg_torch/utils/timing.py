@@ -16,6 +16,13 @@ def hbm_bound_ms(nbytes: int) -> float:
     return nbytes / HBM_DATASHEET_GBPS / 1e6
 
 
+def l2_bound_ms(nbytes: int, gbps: float) -> float:
+    """The least time to move ``nbytes`` that stay in the L2 cache, at
+    ``gbps``, a read rate measured in L2 (the data sheet gives none), in
+    ms."""
+    return nbytes / gbps / 1e6
+
+
 def median_ms(fn, reps: int, runs: int = 5, graph: bool = False) -> float:
     """Milliseconds per call of ``fn`` on the current CUDA device: CUDA
     events around ``reps`` calls, divided by ``reps``; the median of
