@@ -51,9 +51,9 @@
 //            its partial there with 1,024 float atomics on the same
 //            1,024 addresses.)  Integer-valued inputs sum exactly in
 //            either order.
-//   piece    a bulk unit is issued as copies of at most `piece` bytes on
-//            the slot's one barrier, so that a block's whole share at
-//            depth 1 (D2) is still all on chip before it is summed.
+//
+// D2's share (64 KB a block at depth 1) is one bulk copy: cut into four of
+// 16 KB on the same barrier it ran no faster.
 //
 // The host side (tpu_amg_torch/ops/dma.py) checks sizes and alignment,
 // sets the dynamic shared memory, passes PyTorch's current stream and
@@ -85,7 +85,6 @@ struct Plan {
   int unit_atoms;   // unit / 4 KB
   int chunk_atoms;  // chunk / 4 KB
   int touch_every;  // 0: touch nothing
-  int piece;        // bytes a bulk copy, a multiple of 16
 };
 
 // where the blocks' partials meet: partials null is the atomic mode
@@ -159,18 +158,20 @@ __device__ __forceinline__ float4 sum_rows(const float* p, int n, float4 sum) {
 }
 
 // true in the last of n blocks to call it with this ticket, which it
-// sets back to 0; the blocks' stores before the call are visible to it
-// (the barrier, then one thread's fence and atomic, as a grid sync does)
+// sets back to 0: the barrier, then one thread's atomic add with release
+// and acquire semantics (no full fence), so that every store a block made
+// before the call is visible to the block that comes last
 __device__ __forceinline__ bool last_of(unsigned* ticket, unsigned n) {
   __shared__ bool last;
   __syncthreads();
   if (threadIdx.x == 0) {
-    __threadfence();
-    last = atomicAdd(ticket, 1u) == n - 1;
-    if (last) {
-      *ticket = 0;
-      __threadfence();
-    }
+    unsigned old;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(old)
+                 : "l"(ticket)
+                 : "memory");
+    last = old == n - 1;
+    if (last) *ticket = 0;
   }
   __syncthreads();
   return last;
@@ -240,14 +241,11 @@ __device__ __forceinline__ void bulk_issue(const Sources& s, const Plan& p,
                    smem_addr(bar)),
                "r"(len)
                : "memory");
-  for (int b = 0; b < len; b += p.piece) {
-    const int n = len - b < p.piece ? len - b : p.piece;
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst + b)),
-        "l"(s.ptr[src] + off + b), "r"(n), "r"(smem_addr(bar))
-        : "memory");
-  }
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(s.ptr[src] + off), "r"(len), "r"(smem_addr(bar))
+      : "memory");
 }
 
 template <int D>
@@ -353,18 +351,18 @@ const char* dma_error_string(int code) {
 }
 
 // engine 0 = bulk (TMA), 1 = lsu (cp.async); depth in {1, 2, 4, 8, 16};
-// piece: bytes a bulk copy (a multiple of 16); partials null: the atomic
+// partials null: the atomic
 // mode (out holds the carry; carry and tickets are not read); else carry
 // (8, 128), partials (blocks + groups, 8, 128) and 1 + groups tickets at 0,
 // groups = ceil(blocks / 12) <= 64
 int dma_probe(int engine, int depth, int n_src, const void* const* sources,
               int64_t src_bytes, int unit, int64_t chunk_bytes,
-              int64_t touch_every, int piece, int blocks, const void* carry,
+              int64_t touch_every, int blocks, const void* carry,
               void* partials, void* tickets, void* out, void* stream) {
   if (n_src < 1 || n_src > kMaxSources || unit <= 0 || unit % kHeadBytes ||
       src_bytes <= 0 || src_bytes % kHeadBytes || chunk_bytes <= 0 ||
       chunk_bytes % kHeadBytes || touch_every < 0 || blocks < 1 ||
-      piece <= 0 || piece % 16 || (engine != 0 && engine != 1) ||
+      (engine != 0 && engine != 1) ||
       (partials != nullptr && (carry == nullptr || tickets == nullptr ||
                                blocks > kGroup * kMaxGroups))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -381,7 +379,7 @@ int dma_probe(int engine, int depth, int n_src, const void* const* sources,
   }
   Plan p{n_src, src_bytes, static_cast<int>(units_per_src), unit,
          unit / kHeadBytes, static_cast<int>(chunk_bytes / kHeadBytes),
-         static_cast<int>(touch_every), piece};
+         static_cast<int>(touch_every)};
   Combine c{static_cast<const float*>(carry), static_cast<float*>(partials),
             static_cast<unsigned*>(tickets)};
   const int smem = depth * unit;

@@ -1,7 +1,7 @@
 """Copy-engine probe on the device: KD ``dma_probe``.
 
 ``dma_probe(sources, carry, chunk_rows, touch_every=1, engine="bulk",
-depth=4, unit=16384, piece=None, combine="ticket")`` copies every byte
+depth=4, unit=16384, combine="ticket")`` copies every byte
 of K float32 sources of shape (rows_total, 128) from device memory into
 shared memory and returns the (8, 128) float32 result
 
@@ -16,7 +16,7 @@ manual-DMA probes of the JAX package's ``tools/`` map onto it:
   none (``touch_every=0``);
 - D2 ``dmabench2.py::k_whole`` (:61): the whole 8 MB array on chip, R =
   512, every chunk touched: depth 1 with the unit set to a block's whole
-  share (:func:`whole_share_unit`), issued in pieces;
+  share (:func:`whole_share_unit`);
 - D3 ``dmabench2.py::k_multi`` (:88): K = 4 sources, R = 2048, chunk i of
   every source in flight together, chunk i of source 0 touched: consecutive
   ring slots hold different sources;
@@ -30,9 +30,7 @@ completing on an mbarrier per slot) or ``lsu`` (16-byte ``cp.async.cg``
 per thread, one commit group per slot).  The unit is a tuning knob that
 does not change the result; the TPU's chunks (64 KB-4 MB) do not fit an
 SM, so the sweeps keep their meaning, bandwidth against bytes in flight
-per SM, at smaller units.  ``piece`` (bytes, a multiple of 16; None: the
-unit) cuts a bulk unit into that many bytes a copy, all on the slot's
-barrier.  ``combine`` is how the blocks' partials meet: ``ticket`` (the
+per SM, at smaller units.  ``combine`` is how the blocks' partials meet: ``ticket`` (the
 kernel writes carry + partials, with no launch before it: the last
 block of each group of 12 to take the group's ticket sums the group's
 partials, and the last of those the carry and the groups' sums; one
@@ -87,7 +85,7 @@ def kernel_lib() -> ctypes.CDLL:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     dll.dma_probe.restype = i32
     dll.dma_probe.argtypes = [i32, i32, i32, ctypes.POINTER(vp), i64, i32, i64,
-                              i64, i32, i32, vp, vp, vp, vp, vp]
+                              i64, i32, vp, vp, vp, vp, vp]
     dll.dma_error_string.restype = ctypes.c_char_p
     dll.dma_error_string.argtypes = [i32]
     return dll
@@ -102,7 +100,7 @@ def whole_share_unit(total_bytes: int, blocks: int) -> int:
 
 def _check(sources: Sequence[torch.Tensor], carry: torch.Tensor,
            chunk_rows: int, touch_every: int, engine: str, depth: int,
-           unit: int, piece, combine: str) -> None:
+           unit: int, combine: str) -> None:
     if not 1 <= len(sources) <= MAX_SOURCES:
         raise ValueError(f"{len(sources)} sources; the probe takes "
                          f"1..{MAX_SOURCES}")
@@ -127,8 +125,6 @@ def _check(sources: Sequence[torch.Tensor], carry: torch.Tensor,
         raise ValueError(f"unit {unit} B at depth {depth}: units are "
                          f"multiples of {HEAD_BYTES} B, depth x unit <= "
                          f"{MAX_RING_BYTES} B")
-    if piece is not None and (piece <= 0 or piece % 16):
-        raise ValueError(f"piece {piece} B: a positive multiple of 16")
     if combine not in COMBINES:
         raise ValueError(f"combine {combine!r}: one of {COMBINES}")
     if (carry.shape != (8, 128) or carry.dtype != torch.float32
@@ -164,14 +160,14 @@ def _tickets_of(device: torch.device) -> torch.Tensor:
 
 def dma_probe(sources: Sequence[torch.Tensor], carry: torch.Tensor,
               chunk_rows: int, touch_every: int = 1, engine: str = "bulk",
-              depth: int = 4, unit: int = 16384, piece=None,
+              depth: int = 4, unit: int = 16384,
               combine: str = "ticket") -> torch.Tensor:
     """KD: copy every source byte into shared memory; return the carry
     plus the touched chunk heads of ``sources[0]`` (module docstring),
     with one block per SM (at most one per unit)."""
     global dma_probe_launches
     _check(sources, carry, chunk_rows, touch_every, engine, depth, unit,
-           piece, combine)
+           combine)
     s0 = sources[0]
     if s0.device.type == "cpu":
         return plain_dma_probe(sources, carry, chunk_rows, touch_every)
@@ -198,7 +194,7 @@ def dma_probe(sources: Sequence[torch.Tensor], carry: torch.Tensor,
                     _tickets_of(s0.device).data_ptr())
         code = lib.dma_probe(
             ENGINES.index(engine), depth, len(sources), ptrs, src_bytes, unit,
-            chunk_rows * 128 * 4, touch_every, piece or unit, blocks, *work,
+            chunk_rows * 128 * 4, touch_every, blocks, *work,
             out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     if code != 0:

@@ -53,7 +53,6 @@ class Case:
     chunk_rows: Optional[int] = None  # None: one unit
     touch_every: int = 1
     src_mib: Optional[int] = None  # None: the command line's total
-    piece: Optional[int] = None  # bytes a bulk copy; None: the unit
 
     def sizes(self, total_bytes: int, blocks: int):
         """(bytes per source, unit, chunk rows) for a call."""
@@ -111,8 +110,7 @@ def time_case(case: Case, total_bytes: int, device, reps: int,
     carry = torch.zeros(8, 128, dtype=torch.float32, device=device)
     _, unit, rows = case.sizes(total_bytes, block_count(device))
     ms = call_ms(lambda: dma.dma_probe(srcs, carry, rows, case.touch_every,
-                                       case.engine, case.depth, unit,
-                                       case.piece),
+                                       case.engine, case.depth, unit),
                  device, reps)
     nbytes = dma.probe_bytes(srcs)
     return dict(name=case.name, case=case, total_bytes=total_bytes,

@@ -6,7 +6,7 @@ the bytes itself.  Its cases, each run here with both copy engines of
 
 - ``whole`` (D2, ``k_whole``): an 8 MB array, all of it on chip, the
   first 8 rows of every 512 summed: depth 1, each block's whole share as
-  its one unit, issued as bulk copies of ``D2_PIECE`` bytes;
+  its one unit;
 - ``multi`` (D3, ``k_multi``): 4 sources of 16 MB, chunks of 2048 rows,
   the 4 sources' copies in flight together (ring depth 4);
 - ``same`` (D4, ``k_same``): one 16 MB source, 4 chunks of 2048 rows in
@@ -38,11 +38,10 @@ import torch
 from tpu_amg_torch.ops import dma
 from tpu_amg_torch.tools.dmabench import (KB, Case, block_count, in_l2,
                                           l2_read_rate, parse, print_l2,
-                                          print_record, run_cases, time_case)
+                                          print_record, run_cases)
 from tpu_amg_torch.utils.timing import call_ms, hbm_bound_ms
 
 BASELINE_MIB = 16
-D2_PIECE = 16 * KB  # bytes a bulk copy of D2's share
 
 
 def cases() -> List[Case]:
@@ -50,7 +49,7 @@ def cases() -> List[Case]:
     for engine in dma.ENGINES:
         out += [
             Case(f"{engine} whole 8MB", engine, 1, None, chunk_rows=512,
-                 src_mib=8, piece=D2_PIECE),
+                 src_mib=8),
             Case(f"{engine} multi 4x16MB", engine, 4, 32 * KB, n_src=4,
                  chunk_rows=2048, src_mib=16),
             Case(f"{engine} same 16MB", engine, 4, 32 * KB, chunk_rows=2048,
@@ -75,7 +74,7 @@ def fixed_cost(device, reps: int) -> dict:
     unit a block (depth 1, every chunk touched), timed as the cases are;
     beside it what the first design spent there: the same call in its
     ``atomic`` mode (a clone of the carry, then 1,024 float atomics a
-    block), the clone alone, and D2 with its share as one bulk copy."""
+    block) and the clone alone."""
     blocks = block_count(device)
     g = torch.Generator(device=device).manual_seed(0)
     src = torch.randint(0, 16, (blocks * 8, 128), generator=g, device=device,
@@ -87,12 +86,9 @@ def fixed_cost(device, reps: int) -> dict:
                                              dma.HEAD_BYTES, combine=combine),
                        device, reps)
 
-    d2 = Case("bulk whole 8MB one copy", "bulk", 1, None, chunk_rows=512,
-              src_mib=8)
     return dict(bytes=dma.probe_bytes([src]), ms=one("ticket"),
                 atomic_ms=one("atomic"),
-                clone_ms=call_ms(carry.clone, device, reps),
-                d2_one_copy_ms=time_case(d2, 0, device, reps)["ms"])
+                clone_ms=call_ms(carry.clone, device, reps))
 
 
 def run(argv=None, l2: Optional[dict] = None):
@@ -116,8 +112,7 @@ def run(argv=None, l2: Optional[dict] = None):
     print(f"fixed cost: {fixed['ms'] * 1e3:.2f}us a call on one 4 KB unit a "
           f"block ({fixed['bytes'] // KB} KB); the first design's atomic "
           f"mode {fixed['atomic_ms'] * 1e3:.2f}us (the carry's clone alone "
-          f"{fixed['clone_ms'] * 1e3:.2f}us); D2 as one bulk copy a block "
-          f"{fixed['d2_one_copy_ms'] * 1e3:.2f}us", flush=True)
+          f"{fixed['clone_ms'] * 1e3:.2f}us)", flush=True)
     return records, base, fixed
 
 
