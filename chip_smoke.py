@@ -6,9 +6,8 @@ Phases, one printed line per result; any failed check exits non-zero:
   1. device: nvidia-smi's name and power limit, torch / CUDA / nvcc / g++;
   2. builds: the six CUDA kernel libraries (nvcc: K1 + K2, K3, the
      stream probe, K1's stage ablations, the copy probe, the primitive
-     probe), the primitive probe's three other designs of its gathers
-     and the native host library (g++), from the sources in this
-     checkout, all ten compilers started together;
+     probe) and the native host library (g++), from the sources in this
+     checkout, all seven compilers started together;
   3. K1/K2 vs their plain PyTorch versions on the card: a random
      heavy-row matrix with a small cap, then every A, P and R of the SA
      path's hierarchy that K1 ran on (and all of levels 0 and 1); mv and
@@ -67,8 +66,7 @@ Phases, one printed line per result; any failed check exits non-zero:
      (D1's sweep, both engines, 32 MiB per call, and the L2 read rate:
      the larger of the sweep's and stream_sum's best at 32 MiB) and
      dmabench2 (D2-D4, with the probe's fixed cost: its time on one 4 KB
-     unit a block, beside the first design's atomic mode and the clone
-     of the carry); every case against its plain version, exactly
+     unit a block); every case against its plain version, exactly
      (integer inputs), over two calls; the sweep again at 1 GiB per
      call, past the 50 MB L2, and its best case against its plain
      version there; D2's and D4's bound (their bytes over the L2 read
@@ -78,13 +76,11 @@ Phases, one printed line per result; any failed check exits non-zero:
      tpu_amg_torch.tools.microbench_primitives at 4096 tiles (ns per op
      against the issue-rate bound at the SM clock nvidia-smi reports,
      each op's shared-memory wavefronts a warp gather and the design
-     floor they imply); every op against its plain version on the
-     inputs it timed, at inner 16 and 272; the gather ops in the other
-     designs of their gathers (the first design, `tile`, among them),
-     timed and checked the same way; the SASS of the HI kernels
-     (cuobjdump), of the kernel's design and of `tile`: every step's
-     gathers issued (LDS, and SHFL.IDX for the shuffled index gather),
-     nothing spilled to local memory.
+     floor they imply, beside the first design's wavefronts); every op
+     against its plain version on the inputs it timed, at inner 16 and
+     272; the SASS of the HI kernels (cuobjdump): every step's gathers
+     issued (LDS, and SHFL.IDX for the pair's index gather), nothing
+     spilled to local memory.
 Every count is set to 0 just before each path (4, 6, 7, 10, 11, 12) and
 read just after it, before the comparison launches.  The last two lines
 are a JSON object of per-kernel results (with each kernel's bound and
@@ -97,7 +93,6 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
-import functools
 import json
 import subprocess
 import sys
@@ -535,10 +530,8 @@ def dma_phase(reps):
         srcs = dmabench.make_inputs(case, rec["total_bytes"], dev, g)
         carry = torch.full((8, 128), 1.0, device=dev)
         args = (srcs, carry, rec["chunk_rows"], case.touch_every)
-        y = dma.dma_probe(*args, case.engine, case.depth, rec["unit"],
-                          case.piece)
-        again = dma.dma_probe(*args, case.engine, case.depth, rec["unit"],
-                              case.piece)
+        y = dma.dma_probe(*args, case.engine, case.depth, rec["unit"])
+        again = dma.dma_probe(*args, case.engine, case.depth, rec["unit"])
         p = dma.plain_dma_probe(*args)
         torch.cuda.synchronize()
         err = float(max((y - p).abs().max(), (again - p).abs().max()))
@@ -564,10 +557,7 @@ def dma_phase(reps):
             f"{b1g['gbps'] / HBM_DATASHEET_GBPS:.1%} of the data sheet)")
     say(f"dma L2 read rate {l2['gbps']:.1f} GB/s ({l2['origin']}); the "
         f"probe's fixed cost {fixed['ms'] * 1e3:.2f} us (one 4 KB unit a "
-        f"block; the first design's atomic mode "
-        f"{fixed['atomic_ms'] * 1e3:.2f} us, the carry's clone "
-        f"{fixed['clone_ms'] * 1e3:.2f} us; D2 as one bulk copy a block "
-        f"{fixed['d2_one_copy_ms'] * 1e3:.2f} us)")
+        f"block)")
     in_l2 = {}
     for name in ("bulk whole 8MB", "bulk same 16MB"):
         r = next(r for r in recs2 if r["name"] == name)
@@ -598,9 +588,8 @@ def dma_phase(reps):
 def primitives_phase(reps):
     """Phase 12: the entry point at 4096 tiles; every op against its
     plain version on the inputs the entry point timed, at inner LO and
-    HI; the gathers' wavefronts and design floor; the other designs of
-    the gathers timed and checked on the gather ops; the SASS counts of
-    the LO and HI kernels.  Returns the kernels-line entry."""
+    HI; the gathers' wavefronts and design floor; the SASS counts of the
+    LO and HI kernels.  Returns the kernels-line entry."""
     import torch
 
     from tpu_amg_torch.ops import primitives
@@ -615,35 +604,23 @@ def primitives_phase(reps):
     launches = primitives.primitive_probe_launches
     check(launches > 0, f"launches over the primitive probe: primitive_probe "
           f"{launches}")
-    # the other designs of the gathers, on the ops they change
-    gather_ops = list(primitives.REPLICATED)
-    others = {d: microbench_primitives.run(["--reps", str(reps), "--design", d,
-                                            *gather_ops])[0]
-              for d in primitives.DESIGNS if d != primitives.DESIGN}
     errs = []
-
-    def held(x, idx, op, inner, design, tiles):
-        y = primitives.primitive_probe(x, idx, op, inner, design)
-        p = primitives.plain_primitive_probe(x, idx, op, inner)
-        torch.cuda.synchronize()
-        err = float((y.float() - p.float()).abs().max())
-        scale = float(p.float().abs().max())
-        # a fused multiply-add rounds once where the plain version
-        # rounds twice; every other op is exact
-        limit = 1e-6 * scale if op in ("fma", "gather_fma") else 0.0
-        check(err <= limit, f"primitive {op} ({design}) at {tiles} tiles, "
-              f"inner {inner}: max abs err {err:.2e} (limit {limit:.1e})")
-        return err
-
     for rec in recs:
         op, tiles = rec["op"], rec["tiles"]
         # the entry point's inputs: make_inputs is seeded
         x, idx = primitives.make_inputs(op, tiles, dev)
         for inner in primitives.INNERS:
-            errs.append(held(x, idx, op, inner, primitives.DESIGN, tiles))
-            if op in gather_ops:
-                for design in others:
-                    held(x, idx, op, inner, design, tiles)
+            y = primitives.primitive_probe(x, idx, op, inner)
+            p = primitives.plain_primitive_probe(x, idx, op, inner)
+            torch.cuda.synchronize()
+            err = float((y.float() - p.float()).abs().max())
+            scale = float(p.float().abs().max())
+            # a fused multiply-add rounds once where the plain version
+            # rounds twice; every other op is exact
+            limit = 1e-6 * scale if op in ("fma", "gather_fma") else 0.0
+            errs.append(err)
+            check(err <= limit, f"primitive {op} at {tiles} tiles, inner "
+                  f"{inner}: max abs err {err:.2e} (limit {limit:.1e})")
         if op == PRIMITIVE_OP:
             main_rec = rec
             main_rec["plain_ms"] = median_ms(
@@ -651,28 +628,21 @@ def primitives_phase(reps):
                     x, idx, op, primitives.HI), 2, graph=True)
             bytes_ms = hbm_bound_ms(x.numel() * x.element_size() * 2
                                     + idx.numel() * idx.element_size())
-        del x, idx
-    for design in (primitives.DESIGN, "tile"):
-        unfolded = primitives.sass_unfolded(
-            primitives.sass_instruction_counts(design), design)
-        check(all(ok for ok, _ in unfolded.values()),
-              f"SASS of the HI kernels, {design} gathers (every step's "
-              f"gathers issued, no spills): "
-              + "; ".join(desc for _, desc in unfolded.values()))
+        del x, idx, y, p
+    unfolded = primitives.sass_unfolded(primitives.sass_instruction_counts())
+    check(all(ok for ok, _ in unfolded.values()),
+          "SASS of the HI kernels (every step's gathers issued, no spills): "
+          + "; ".join(desc for _, desc in unfolded.values()))
     by_op = {r["op"]: r for r in recs}
-    for op in gather_ops:
+    for op in primitives.REPLICATED:
         r = by_op[op]
-        times = "; ".join(
-            f"{d} {o['hi_ms'] * 1e3:.1f} us, {o['ns_per_op']:.4f} ns/op, "
-            f"{o['wavefronts']:.2f} wavefronts"
-            for d, o in ((d, next(x for x in rs if x["op"] == op))
-                         for d, rs in others.items()))
         say(f"primitive {op} at {r['tiles']} tiles, inner {primitives.HI}: "
-            f"{primitives.DESIGN} {r['hi_ms'] * 1e3:.1f} us, "
-            f"{r['ns_per_op']:.4f} ns/op against a bound of "
-            f"{r['bound_ns_per_op']:.4f} ({r['bound_ns_per_op'] / r['ns_per_op']:.1%}), "
-            f"{r['wavefronts']:.2f} wavefronts a gather, design floor "
-            f"{r['floor_ns_per_op']:.4f} ns/op; other designs: {times}")
+            f"{r['hi_ms'] * 1e3:.1f} us, {r['ns_per_op']:.4f} ns/op against "
+            f"a bound of {r['bound_ns_per_op']:.4f} "
+            f"({r['bound_ns_per_op'] / r['ns_per_op']:.1%}); "
+            f"{r['wavefronts']:.2f} wavefronts a gather (the first design "
+            f"{r['tile_wavefronts']:.2f}), design floor "
+            f"{r['floor_ns_per_op']:.4f} ns/op")
     rec = main_rec
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ops_ms = rec["tiles"] * primitives.op_bound_ns(
@@ -683,7 +653,6 @@ def primitives_phase(reps):
         f"{max(ops_ms, bytes_ms) * 1e3:.1f} us (operations "
         f"{ops_ms * 1e3:.1f}, bytes {bytes_ms * 1e3:.1f}; SM clock "
         f"{rec['clock_mhz']:.0f} MHz)")
-    tile = next(x for x in others["tile"] if x["op"] == PRIMITIVE_OP)
     pair = by_op["pair_gather"]
     return dict(name="primitive_probe", route="cuda",
                 source="tpu_amg_torch/csrc/primitives.cu",
@@ -692,11 +661,11 @@ def primitives_phase(reps):
                 plain_ms=rec["plain_ms"], bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 library_ms=None,
-                # the gathers' wavefronts (the first design's beside), and
-                # the first design's time in this run; pair_gather's
+                # gather_fma's wavefronts a gather (the first design's
+                # beside); pair_gather's time and marginal op
                 wavefronts=rec["wavefronts"],
-                tile_wavefronts=rec["tile_wavefronts"],
-                tile_ms=tile["hi_ms"], pair_gather_ms=pair["hi_ms"],
+                first_design_wavefronts=rec["tile_wavefronts"],
+                pair_gather_ms=pair["hi_ms"],
                 pair_gather_ns_per_op=pair["ns_per_op"],
                 pair_gather_bound_ns_per_op=pair["bound_ns_per_op"])
 
@@ -846,11 +815,6 @@ def main() -> int:
         "libamg_primitives.so (nvcc, sm_90a)": primitives.kernel_lib,
         "libamg_native.so (g++)": native.lib,
     }
-    # the primitive probe's other designs of its gathers, timed in phase 12
-    for design, n in primitives.DESIGNS.items():
-        if design != primitives.DESIGN:
-            builds[f"libamg_primitives_g{n}.so (nvcc, sm_90a, {design})"] = \
-                functools.partial(primitives.kernel_lib, design)
     for label in builds:
         (_build.BUILD_DIR / label.split()[0]).unlink(missing_ok=True)
 

@@ -195,13 +195,6 @@ def test_plain_equals_the_harness_d2_d4(case):
     np.testing.assert_array_equal(got, want)
 
 
-def test_rejects_bad_combine():
-    x = torch.zeros(1024, 128)
-    carry = torch.zeros(8, 128)
-    with pytest.raises(ValueError, match="combine"):
-        dma.dma_probe([x], carry, 8, combine="tree")
-
-
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -210,23 +203,20 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("combine", dma.COMBINES)
 @pytest.mark.parametrize("engine", dma.ENGINES)
 @pytest.mark.parametrize("n_src,rows,touch_every,depth,unit", [
     (1, 8, 1, 2, 4096), (1, 128, 0, 4, 16384), (1, 512, 1, 1, 65536),
     (4, 2048, 1, 4, 32768), (1, 2048, 4, 4, 32768), (3, 64, 1, 16, 8192),
 ])
-def test_kernel_matches_plain_on_card(cuda, engine, combine, n_src, rows,
+def test_kernel_matches_plain_on_card(cuda, engine, n_src, rows,
                                       touch_every, depth, unit):
     g = torch.Generator(device=cuda).manual_seed(0)
     srcs = [torch.randint(0, 16, (8192, 128), generator=g, device=cuda,
                           dtype=torch.float32) for _ in range(n_src)]
     carry = torch.full((8, 128), 3.0, device=cuda)
     before = dma.dma_probe_launches
-    got = dma.dma_probe(srcs, carry, rows, touch_every, engine, depth, unit,
-                        combine)
-    again = dma.dma_probe(srcs, carry, rows, touch_every, engine, depth, unit,
-                          combine)
+    got = dma.dma_probe(srcs, carry, rows, touch_every, engine, depth, unit)
+    again = dma.dma_probe(srcs, carry, rows, touch_every, engine, depth, unit)
     ref = dma.plain_dma_probe(srcs, carry, rows, touch_every)
     torch.cuda.synchronize()
     assert dma.dma_probe_launches == before + 2

@@ -197,9 +197,9 @@ def _counts(op, lds, shfl, ffma=0, local=0, loop=True):
 
 
 def test_sass_check_counts_shuffles_beside_loads():
-    # every op's HI block holds its 64 element-steps' gathers: the pair's
-    # index gather is a SHFL.IDX in the kernel's design, an LDS in the tile
-    # design; the check is no looser for either
+    # every op's HI block holds its element-steps' gathers: the pair's
+    # index gather as a SHFL.IDX, its x gather and every other gather as
+    # an LDS; one short of either fails, as a spill does
     good = {}
     for op, info in primitives.OPS.items():
         steps = primitives.BLOCK_K * primitives.per_thread(op)
@@ -216,13 +216,9 @@ def test_sass_check_counts_shuffles_beside_loads():
         assert not primitives.sass_unfolded(short)[op][0]
         short[(op, primitives.HI)] = _counts(op, steps - 1, steps)
         assert not primitives.sass_unfolded(short)[op][0]
-        # the tile design wants both gathers as loads, for 4 elements
-        tile_steps = primitives.BLOCK_K * primitives.per_thread(op, "tile")
-        assert tile_steps == primitives.BLOCK_K * primitives.PER_THREAD
-        assert not primitives.sass_unfolded(good, "tile")[op][0]
-        tile = dict(good)
-        tile[(op, primitives.HI)] = _counts(op, 2 * tile_steps, 0)
-        assert primitives.sass_unfolded(tile, "tile")[op][0]
+        # two loads a step without the shuffle are not the kernel's code
+        short[(op, primitives.HI)] = _counts(op, 2 * steps, 0)
+        assert not primitives.sass_unfolded(short)[op][0]
     steps = primitives.BLOCK_K * primitives.per_thread("gather_fma")
     spilled = dict(good)
     spilled[("gather_fma", primitives.LO)] = _counts("gather_fma", steps,
@@ -250,15 +246,15 @@ def test_shared_wavefronts_on_hand_built_tiles():
     # one bank a warp load in the tile layout, one wavefront from the replica
     idx = (32 * (torch.arange(128) % 4)).expand(1, 8, 8, 128).contiguous()
     assert primitives.shared_wavefronts("lane_gather", x, idx.int(), 16,
-                                        "tile") == 4
+                                        tile=True) == 4
     assert primitives.shared_wavefronts("lane_gather", x, idx.int(), 16) == 1
     # column = lane: an identity gather; a constant column: a broadcast
     ident = lane.expand(1, 8, 8, 128).contiguous().int()
     assert primitives.shared_wavefronts("lane_gather", x, ident, 16,
-                                        "tile") == 1
+                                        tile=True) == 1
     same = torch.zeros(1, 8, 8, 128, dtype=torch.int32)
     assert primitives.shared_wavefronts("pair_gather", x, same, 16,
-                                        "tile") == 1
+                                        tile=True) == 1
     # ops without gathers have none
     assert primitives.shared_wavefronts("add", x, same, 16) is None
 
@@ -268,18 +264,16 @@ def test_shared_wavefronts_on_the_harness_inputs(op):
     x, idx = primitives.make_inputs(op, 4, "cpu")
     # random columns of a row: 2.7-2.9 deep in the fullest bank on
     # average; the kernel's design takes one wavefront a gather
-    assert 2.7 <= primitives.shared_wavefronts(op, x, idx, 16, "tile") <= 2.9
+    assert 2.7 <= primitives.shared_wavefronts(op, x, idx, 16,
+                                               tile=True) <= 2.9
     assert primitives.shared_wavefronts(op, x, idx, 16) == 1.0
-    if op != "lane_gather":  # one of the pair's two gathers left as it was
-        half = primitives.shared_wavefronts(op, x, idx, 16, "shuffle")
-        assert 1.8 <= half <= 2.0
 
 
 @pytest.mark.parametrize("op", ["sub_gather", "roll_lane", "roll_sub"])
 def test_shared_wavefronts_of_distinct_banks(op):
     x, idx = primitives.make_inputs(op, 2, "cpu")
-    for design in primitives.DESIGNS:
-        assert primitives.shared_wavefronts(op, x, idx, 16, design) == 1.0
+    for tile in (False, True):
+        assert primitives.shared_wavefronts(op, x, idx, 16, tile) == 1.0
 
 
 def test_design_floor():
@@ -348,25 +342,6 @@ def test_kernel_matches_plain_on_card(cuda, op, inner):
     ref = primitives.plain_primitive_probe(x, idx, op, inner)
     torch.cuda.synchronize()
     assert primitives.primitive_probe_launches == before + 1
-    if op in _FUSED:
-        torch.testing.assert_close(got, ref, rtol=1e-6,
-                                   atol=1e-6 * float(ref.abs().max()))
-    else:
-        assert torch.equal(got, ref)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("op", list(primitives.REPLICATED))
-@pytest.mark.parametrize("design", [d for d in primitives.DESIGNS
-                                    if d != primitives.DESIGN])
-@pytest.mark.parametrize("inner", primitives.INNERS)
-def test_other_designs_match_plain_on_card(cuda, op, design, inner):
-    # the gathers' other designs, each its own library, on the ops they
-    # change
-    x, idx = primitives.make_inputs(op, 5, cuda)
-    got = primitives.primitive_probe(x, idx, op, inner, design)
-    ref = primitives.plain_primitive_probe(x, idx, op, inner)
-    torch.cuda.synchronize()
     if op in _FUSED:
         torch.testing.assert_close(got, ref, rtol=1e-6,
                                    atol=1e-6 * float(ref.abs().max()))

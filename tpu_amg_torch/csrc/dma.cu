@@ -45,12 +45,11 @@
 //            writes the output.  Each round's loads are issued together
 //            (12 rows a thread), so a round costs one trip to L2, where
 //            one block summing 132 partials would take several.  The
-//            sums run in block order and the tickets go back to 0.
-//            (`atomic` mode, the first design, kept to time it: the
-//            caller fills the output with the carry and every block adds
-//            its partial there with 1,024 float atomics on the same
-//            1,024 addresses.)  Integer-valued inputs sum exactly in
-//            either order.
+//            sums run in block order and the tickets go back to 0.  (The
+//            first design had the caller fill the output with the carry
+//            and every block add its partial there with 1,024 float
+//            atomics on the same 1,024 addresses: the clone and the
+//            contended atomics cost more than the two rounds.)
 //
 // D2's share (64 KB a block at depth 1) is one bulk copy: cut into four of
 // 16 KB on the same barrier it ran no faster.
@@ -87,7 +86,7 @@ struct Plan {
   int touch_every;  // 0: touch nothing
 };
 
-// where the blocks' partials meet: partials null is the atomic mode
+// where the blocks' partials meet
 struct Combine {
   const float* carry;  // (8, 128)
   float* partials;     // (blocks + groups, 8, 128)
@@ -180,14 +179,6 @@ __device__ __forceinline__ bool last_of(unsigned* ticket, unsigned n) {
 // out = carry + the partials (module comment)
 __device__ __forceinline__ void finish(const Combine& c, const float4& acc,
                                        float* out) {
-  if (c.partials == nullptr) {  // atomic mode: out holds the carry
-    float* o = out + 4 * threadIdx.x;
-    atomicAdd(o + 0, acc.x);
-    atomicAdd(o + 1, acc.y);
-    atomicAdd(o + 2, acc.z);
-    atomicAdd(o + 3, acc.w);
-    return;
-  }
   constexpr int kRow = 8 * 128;
   const int nb = static_cast<int>(gridDim.x);
   const int g = static_cast<int>(blockIdx.x) / kGroup;
@@ -200,7 +191,8 @@ __device__ __forceinline__ void finish(const Combine& c, const float4& acc,
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   rows[(nb + g) * kThreads + threadIdx.x] =
       sum_rows(c.partials + g * kGroup * kRow, in_group, zero);
-  // the last group's sums the carry and the groups' sums
+  // the last of the groups' last blocks sums the carry and the groups'
+  // sums
   if (!last_of(c.tickets, groups)) return;
   float4 sum = reinterpret_cast<const float4*>(c.carry)[threadIdx.x];
   for (int g0 = 0; g0 < groups; g0 += kGroup) {
@@ -351,10 +343,8 @@ const char* dma_error_string(int code) {
 }
 
 // engine 0 = bulk (TMA), 1 = lsu (cp.async); depth in {1, 2, 4, 8, 16};
-// partials null: the atomic
-// mode (out holds the carry; carry and tickets are not read); else carry
-// (8, 128), partials (blocks + groups, 8, 128) and 1 + groups tickets at 0,
-// groups = ceil(blocks / 12) <= 64
+// carry (8, 128), partials (blocks + groups, 8, 128) and 1 + groups tickets
+// at 0, groups = ceil(blocks / 12) <= 64
 int dma_probe(int engine, int depth, int n_src, const void* const* sources,
               int64_t src_bytes, int unit, int64_t chunk_bytes,
               int64_t touch_every, int blocks, const void* carry,
@@ -362,9 +352,9 @@ int dma_probe(int engine, int depth, int n_src, const void* const* sources,
   if (n_src < 1 || n_src > kMaxSources || unit <= 0 || unit % kHeadBytes ||
       src_bytes <= 0 || src_bytes % kHeadBytes || chunk_bytes <= 0 ||
       chunk_bytes % kHeadBytes || touch_every < 0 || blocks < 1 ||
-      (engine != 0 && engine != 1) ||
-      (partials != nullptr && (carry == nullptr || tickets == nullptr ||
-                               blocks > kGroup * kMaxGroups))) {
+      (engine != 0 && engine != 1) || carry == nullptr ||
+      partials == nullptr || tickets == nullptr ||
+      blocks > kGroup * kMaxGroups) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Sources s{};

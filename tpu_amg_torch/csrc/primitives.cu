@@ -25,18 +25,20 @@
 //
 // What bounds it is the SM's issue rate, 128 thread instructions a clock
 // (4 schedulers, a warp instruction each), and its shared-memory pipe, one
-// warp's access a clock (a wavefront: one word from each of the 32 banks).
-// A warp's lanes that read distinct words of one bank take a wavefront
-// each, so a gather with data-random columns costs more than one: on the
-// harness's inputs a warp's 32 random columns m of one row fall, on
-// average, 2.78 deep in the fullest bank (ops/primitives.py,
-// shared_wavefronts).  The design keeps everything but the body out of the
-// loop (one block per tile, 4 elements per thread, the 8 index arrays and x
-// in registers, indexed only by constants; 1 element a thread where the
-// replica leaves one block an SM) and takes the data-random
-// gathers off the banks' conflicts:
+// warp's access a clock (a wavefront: one word from each of the 32 banks;
+// a warp shuffle takes one too).  A warp's lanes that read distinct words
+// of one bank take a wavefront each, so a gather with data-random columns
+// costs more than one: on the harness's inputs a warp's 32 random columns
+// m of one row fall, on average, 2.78 deep in the fullest bank
+// (ops/primitives.py, shared_wavefronts), and the first design, which read
+// both of the pair's gathers from tables in shared memory, ran at that
+// floor.  The design keeps everything but the body out of the loop (one
+// block per tile, 4 elements per thread, the 8 index arrays and x in
+// registers, indexed only by constants; 1 element a thread where the
+// replica leaves one block an SM) and takes the data-random gathers off
+// the banks' conflicts:
 //
-//   * the index gather of pair_gather and gather_fma, idx[m_idx, s, m], is
+//   * the index gather of pair_gather and gather_fma, idx[k mod 8, s, m], is
 //     a warp shuffle: a warp's 32 lanes share the tile row s, and row s of
 //     each index array is held packed, a byte an entry (only its low 3 bits
 //     are read), 4 entries a lane; entry m is byte m & 3 of lane m >> 2
@@ -45,14 +47,16 @@
 //     replica of the tile in shared memory, 32 copies interleaved so that
 //     lane c reads copy c at word (row * 128 + m) * 32 + c: every lane in
 //     its own bank, one wavefront (the 128 KB leave one block an SM, of
-//     1,024 threads: an element each).
+//     1,024 threads: an element each, so that 32 warps hide the gathers'
+//     latency).
 //
 // Every element-step still issues its gathers (a shuffle and a load for the
-// pair), nothing is precomputed across steps.  The other ops read the tile
-// as it is, where their lanes already fall in distinct banks.  The build
-// macro PRIMITIVE_GATHERS (bit 0: the shuffle, bit 1: the replica; 3 by
-// default) selects the gathers' design, so that the probe can time the
-// others (0 is the first design: an index table and x in shared memory).
+// pair), nothing is precomputed across steps.  With one wavefront a gather,
+// the pair's ~11 instructions an element-step (index and address
+// arithmetic, the shuffle, the byte extract, the load, the FMA) bound it at
+// the issue rate, above the bound's 3.  The other ops read the tile as it
+// is, where their lanes already fall in distinct banks (the bfloat16 ones
+// 2 deep: two lanes of a word read different rows).
 //
 // `inner` is a template parameter (the harness's LO = 16 and HI = 272), the
 // k loop runs in blocks of 16 unrolled steps (fma's in full, so that its c_k
@@ -70,12 +74,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#ifndef PRIMITIVE_GATHERS
-#define PRIMITIVE_GATHERS 3
-#endif
-#ifndef PRIMITIVE_REPLICA_PER_THREAD
-#define PRIMITIVE_REPLICA_PER_THREAD 1
-#endif
 
 namespace {
 
@@ -96,8 +94,6 @@ enum Op : int {
 constexpr int kPerThread = 4;
 constexpr int kNidx = 8;
 constexpr int kCopies = 32;  // the replica's copies of the tile: one a lane
-constexpr bool kShuffleDesign = (PRIMITIVE_GATHERS & 1) != 0;
-constexpr bool kReplicaDesign = (PRIMITIVE_GATHERS & 2) != 0;
 
 // a tile element in shared memory: float32 as it is, bfloat16 as its bits
 // (volatile loads need a plain type)
@@ -123,22 +119,17 @@ __device__ __forceinline__ __nv_bfloat16 add(__nv_bfloat16 acc, __nv_bfloat16 v)
   return __float2bfloat16_rn(__bfloat162float(acc) + __bfloat162float(v));
 }
 
+// the pair: its index gather is a shuffle of packed registers
 template <int OP>
 constexpr bool kPair = OP == kPairGather || OP == kGatherFma;
-// the pair's index gather: a shuffle of packed registers, or (the first
-// design) a load from a table of the 8 index arrays in shared memory
+// x gathered at a data-random column, from the replica
 template <int OP>
-constexpr bool kShuffled = kPair<OP> && kShuffleDesign;
-template <int OP>
-constexpr bool kIdxTable = kPair<OP> && !kShuffleDesign;
-// x gathered at a data-random column: from the replica, or from the tile
-template <int OP>
-constexpr bool kReplica = (OP == kLaneGather || kPair<OP>) && kReplicaDesign;
+constexpr bool kReplica = OP == kLaneGather || kPair<OP>;
 
 // tile elements a thread: 4, but 1 where the replica's 128 KB leave one
 // block an SM, so that the block's 32 warps hide the gathers' latency
 template <int OP>
-constexpr int kPer = kReplica<OP> ? PRIMITIVE_REPLICA_PER_THREAD : kPerThread;
+constexpr int kPer = kReplica<OP> ? 1 : kPerThread;
 
 template <int OP>
 constexpr int replica_bytes() {
@@ -172,27 +163,26 @@ __device__ __forceinline__ float replica_at(const volatile unsigned char* xr,
 }
 
 // what an element-step reads besides its own registers
-template <typename T, typename I>
+template <typename T>
 struct Gathers {
   const volatile typename Smem<T>::type* xs;  // the tile
-  const volatile I* is;                       // the index table (first design)
   const volatile unsigned char* xr;           // the replica
   unsigned lane4;                             // lane * 4
 };
 
-// one step k of the body for element q, with index array m_idx = k mod 8
-// (iq its entry of q, pq the packed row s of that array: entries 4c..4c+3
-// of lane c); kx = k * kstep, where kstep is 1 at run time and unknown to
+// one step k of the body for element q, with index array k mod 8 (iq its
+// entry of q, pq the packed row s of that array: entries 4c..4c+3 of lane
+// c); kx = k * kstep, where kstep is 1 at run time and unknown to
 // the compiler, so that (i + kx) has no period in k to fold (for a known
 // k, (i + k) & 7 repeats every 8 steps, and a compiler merges the
 // repeats); lane_sh and sub_sh are k % 127 + 1 and k % 7 + 1, the roll
 // shifts.  Shared memory is read through volatile pointers and the shuffle
 // source differs from step to step: every gather of the body is issued and
 // none is merged with an equal one of another step.
-template <typename T, typename I, int S, int OP>
+template <typename T, int S, int OP>
 __device__ __forceinline__ T body(int k, int kx, int lane_sh, int sub_sh,
-                                  int q, T xq, int iq, unsigned pq, int m_idx,
-                                  const Gathers<T, I>& g) {
+                                  int q, T xq, int iq, unsigned pq,
+                                  const Gathers<T>& g) {
   constexpr int N = S * 128;
   const int e = threadIdx.x + q * (N / kPer<OP>);
   const int s = e / 128;
@@ -209,31 +199,21 @@ __device__ __forceinline__ T body(int k, int kx, int lane_sh, int sub_sh,
     return Smem<T>::get(g.xs[s * 128 + ((l - lane_sh) & 127)]);
   } else if constexpr (OP == kRollSub) {
     return Smem<T>::get(g.xs[((s - sub_sh) & 7) * 128 + l]);
-  } else if constexpr (OP == kLaneGather && kReplica<OP>) {
+  } else if constexpr (OP == kLaneGather) {
     return replica_at(g.xr, static_cast<unsigned>(s) << 14,
                       static_cast<unsigned>(i), g.lane4);
-  } else if constexpr (OP == kLaneGather || OP == kBf16Lane) {
+  } else if constexpr (OP == kBf16Lane) {
     return Smem<T>::get(g.xs[s * 128 + (i & 127)]);
   } else if constexpr (OP == kSubGather) {
     return Smem<T>::get(g.xs[(i & 7) * 128 + l]);
   } else if constexpr (OP == kBf16Sub) {
     return Smem<T>::get(g.xs[(i & 15) * 128 + l]);
   } else {  // kPairGather, kGatherFma
-    const int m = i & 127;
-    int r;  // the row's index entry; its low 3 bits are read
-    if constexpr (kShuffled<OP>) {
-      const unsigned p = __shfl_sync(0xffffffffu, pq, static_cast<unsigned>(i) >> 2);
-      r = static_cast<int>(byte_at(p, static_cast<unsigned>(i)));
-    } else {
-      r = static_cast<int>(g.is[m_idx * N + s * 128 + m]);
-    }
-    T v;
-    if constexpr (kReplica<OP>) {
-      v = replica_at(g.xr, static_cast<unsigned>(r + kx) << 14,
-                     static_cast<unsigned>(i), g.lane4);
-    } else {
-      v = Smem<T>::get(g.xs[((r + kx) & 7) * 128 + m]);
-    }
+    // the row's index entry idx[s, i & 127] (its low 3 bits are read)
+    const unsigned p = __shfl_sync(0xffffffffu, pq, static_cast<unsigned>(i) >> 2);
+    const int r = static_cast<int>(byte_at(p, static_cast<unsigned>(i)));
+    const T v = replica_at(g.xr, static_cast<unsigned>(r + kx) << 14,
+                           static_cast<unsigned>(i), g.lane4);
     if constexpr (OP == kGatherFma) return v * xq;
     return v;
   }
@@ -251,16 +231,15 @@ probe_kernel(const T* __restrict__ x, const I* __restrict__ idx,
   static_assert(!kPair<OP> || (S == 8 && sizeof(I) == 4),
                 "the pair runs on (8, 128) float32 tiles with int32 indices");
   __shared__ St xs_[kReplica<OP> ? 1 : N];
-  __shared__ I is_[kIdxTable<OP> ? kNidx * N : 1];
   extern __shared__ __align__(16) unsigned char xr_[];  // the replica
-  const Gathers<T, I> g{xs_, is_, xr_, (threadIdx.x & 31u) * 4u};
+  const Gathers<T> g{xs_, xr_, (threadIdx.x & 31u) * 4u};
   const int64_t t = blockIdx.x;
   const T* xt = x + t * N;
   const I* it = idx + t * kNidx * N;
 
   T xv[P];
   int iv[kNidx][P];
-  unsigned pk[kNidx][P];  // packed rows (kShuffled)
+  unsigned pk[kNidx][P];  // packed rows (the pair)
 #pragma unroll
   for (int q = 0; q < P; ++q) {
     const int e = threadIdx.x + q * NT;
@@ -283,8 +262,7 @@ probe_kernel(const T* __restrict__ x, const I* __restrict__ idx,
     for (int m = 0; m < kNidx; ++m) {
       const I v = it[m * N + e];
       iv[m][q] = v;
-      if constexpr (kIdxTable<OP>) is_[m * N + e] = v;
-      if constexpr (kShuffled<OP>) {
+      if constexpr (kPair<OP>) {
         // entries 4c..4c+3 of row s (the warp's row) of array m, a byte each
         const int4 w = reinterpret_cast<const int4*>(
             it + m * N + (e / 128) * 128)[threadIdx.x & 31];
@@ -306,9 +284,9 @@ probe_kernel(const T* __restrict__ x, const I* __restrict__ idx,
     for (int k = 0; k < INNER; ++k) {
 #pragma unroll
       for (int q = 0; q < P; ++q) {
-        acc[q] = add(acc[q], body<T, I, S, OP>(k, k * kstep, 0, 0, q, xv[q],
+        acc[q] = add(acc[q], body<T, S, OP>(k, k * kstep, 0, 0, q, xv[q],
                                                iv[k % kNidx][q],
-                                               pk[k % kNidx][q], k % kNidx, g));
+                                               pk[k % kNidx][q], g));
       }
     }
   } else {
@@ -321,11 +299,10 @@ probe_kernel(const T* __restrict__ x, const I* __restrict__ idx,
         const int k = k0 + kk;
 #pragma unroll
         for (int q = 0; q < P; ++q) {
-          acc[q] = add(acc[q], body<T, I, S, OP>(k, k * kstep, lane_k + 1,
+          acc[q] = add(acc[q], body<T, S, OP>(k, k * kstep, lane_k + 1,
                                                  sub_k + 1, q, xv[q],
                                                  iv[kk % kNidx][q],
-                                                 pk[kk % kNidx][q],
-                                                 kk % kNidx, g));
+                                                 pk[kk % kNidx][q], g));
         }
         if constexpr (OP == kRollLane) lane_k = lane_k == 126 ? 0 : lane_k + 1;
         if constexpr (OP == kRollSub) sub_k = sub_k == 6 ? 0 : sub_k + 1;

@@ -1,7 +1,7 @@
 """Copy-engine probe on the device: KD ``dma_probe``.
 
 ``dma_probe(sources, carry, chunk_rows, touch_every=1, engine="bulk",
-depth=4, unit=16384, combine="ticket")`` copies every byte
+depth=4, unit=16384)`` copies every byte
 of K float32 sources of shape (rows_total, 128) from device memory into
 shared memory and returns the (8, 128) float32 result
 
@@ -30,15 +30,13 @@ completing on an mbarrier per slot) or ``lsu`` (16-byte ``cp.async.cg``
 per thread, one commit group per slot).  The unit is a tuning knob that
 does not change the result; the TPU's chunks (64 KB-4 MB) do not fit an
 SM, so the sweeps keep their meaning, bandwidth against bytes in flight
-per SM, at smaller units.  ``combine`` is how the blocks' partials meet: ``ticket`` (the
-kernel writes carry + partials, with no launch before it: the last
-block of each group of 12 to take the group's ticket sums the group's
-partials, and the last of those the carry and the groups' sums; one
-integer atomic a block a round, no float atomics) or ``atomic`` (the
-first design, kept to time it: the output is cloned from the carry and
-every block adds its partial with 1,024 float atomics).  The tickets
-are counters kept per device, which the kernel leaves at 0: calls on
-one device run one at a time (one stream).
+per SM, at smaller units.  The kernel writes carry + the blocks'
+partials itself, with no launch before it: the last block of each
+group of 12 to take the group's ticket sums the group's partials, and
+the last of those the carry and the groups' sums (one integer atomic a
+block a round, no float atomics).  The tickets are counters kept per
+device, which the kernel leaves at 0: calls on one device run one at a
+time (one stream).
 
 The plain PyTorch version beside the kernel is a strided view and a
 ``sum``.  The wrapper takes it only when its tensors lie on the CPU; for
@@ -65,7 +63,6 @@ MAX_SOURCES = 8
 HEAD_BYTES = 8 * 128 * 4  # the touched rows of a chunk: units are multiples
 MAX_RING_BYTES = 227 * 1024 - 1024  # the block's shared memory, less barriers
 
-COMBINES = ("ticket", "atomic")
 GROUP = 12  # blocks a group of the ticket combine (kGroup in dma.cu)
 MAX_GROUPS = 64
 
@@ -100,7 +97,7 @@ def whole_share_unit(total_bytes: int, blocks: int) -> int:
 
 def _check(sources: Sequence[torch.Tensor], carry: torch.Tensor,
            chunk_rows: int, touch_every: int, engine: str, depth: int,
-           unit: int, combine: str) -> None:
+           unit: int) -> None:
     if not 1 <= len(sources) <= MAX_SOURCES:
         raise ValueError(f"{len(sources)} sources; the probe takes "
                          f"1..{MAX_SOURCES}")
@@ -125,8 +122,6 @@ def _check(sources: Sequence[torch.Tensor], carry: torch.Tensor,
         raise ValueError(f"unit {unit} B at depth {depth}: units are "
                          f"multiples of {HEAD_BYTES} B, depth x unit <= "
                          f"{MAX_RING_BYTES} B")
-    if combine not in COMBINES:
-        raise ValueError(f"combine {combine!r}: one of {COMBINES}")
     if (carry.shape != (8, 128) or carry.dtype != torch.float32
             or carry.device != s0.device or not carry.is_contiguous()):
         raise ValueError("carry must be a contiguous (8, 128) float32 "
@@ -160,14 +155,12 @@ def _tickets_of(device: torch.device) -> torch.Tensor:
 
 def dma_probe(sources: Sequence[torch.Tensor], carry: torch.Tensor,
               chunk_rows: int, touch_every: int = 1, engine: str = "bulk",
-              depth: int = 4, unit: int = 16384,
-              combine: str = "ticket") -> torch.Tensor:
+              depth: int = 4, unit: int = 16384) -> torch.Tensor:
     """KD: copy every source byte into shared memory; return the carry
     plus the touched chunk heads of ``sources[0]`` (module docstring),
     with one block per SM (at most one per unit)."""
     global dma_probe_launches
-    _check(sources, carry, chunk_rows, touch_every, engine, depth, unit,
-           combine)
+    _check(sources, carry, chunk_rows, touch_every, engine, depth, unit)
     s0 = sources[0]
     if s0.device.type == "cpu":
         return plain_dma_probe(sources, carry, chunk_rows, touch_every)
@@ -182,19 +175,13 @@ def dma_probe(sources: Sequence[torch.Tensor], carry: torch.Tensor,
     blocks = min(sms, units)
     ptrs = (ctypes.c_void_p * len(sources))(*(s.data_ptr() for s in sources))
     with torch.cuda.device(s0.device):
-        if combine == "atomic":
-            out = carry.clone()
-            work = (None, None, None)
-        else:
-            out = torch.empty_like(carry)
-            groups = -(-blocks // GROUP)
-            partials = torch.empty(blocks + groups, 8, 128,
-                                   dtype=torch.float32, device=s0.device)
-            work = (carry.data_ptr(), partials.data_ptr(),
-                    _tickets_of(s0.device).data_ptr())
+        out = torch.empty_like(carry)
+        partials = torch.empty(blocks + -(-blocks // GROUP), 8, 128,
+                               dtype=torch.float32, device=s0.device)
         code = lib.dma_probe(
             ENGINES.index(engine), depth, len(sources), ptrs, src_bytes, unit,
-            chunk_rows * 128 * 4, touch_every, blocks, *work,
+            chunk_rows * 128 * 4, touch_every, blocks, carry.data_ptr(),
+            partials.data_ptr(), _tickets_of(s0.device).data_ptr(),
             out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     if code != 0:

@@ -17,10 +17,11 @@ at first launch) one block runs one tile; lane ops are shared-memory
 reads across a row of 128, row ops shared-memory reads down the tile's
 rows, and ``inner`` is compiled in: the harness's LO = 16 and HI = 272.
 The data-random gathers are laid out against the shared memory's bank
-conflicts (:data:`DESIGNS`): the pair's index gather is a warp shuffle
-of packed rows, and the x gather reads a replica of the tile, one copy
-a lane; :func:`shared_wavefronts` counts what each design's gathers
-cost on given inputs.
+conflicts: the pair's index gather is a warp shuffle of packed rows,
+and the x gather reads a replica of the tile, one copy a lane;
+:func:`shared_wavefronts` counts what the gathers cost on given inputs,
+in this design and in the first (an index table and x in shared
+memory).
 The cost of one op is (t(HI) − t(LO)) / (tiles · (HI − LO)), as in the
 harness; :data:`OPS` gives the instructions and shared-memory loads each
 element needs per step, from which :func:`op_bound_ns` reckons the least
@@ -58,11 +59,6 @@ ISSUE_PER_CLOCK = 128  # thread instructions an SM issues a clock (4 x 32)
 LDS_PER_CLOCK = 32  # lanes' shared-memory loads an SM serves a clock
 BANKS = 32  # shared-memory banks of 4 bytes; a wavefront is one word each
 
-# the gathers' designs: the value of the source's PRIMITIVE_GATHERS macro
-# (bit 0: the pair's index gather by warp shuffle; bit 1: the x gather of
-# lane_gather and the pair from a replica of the tile, one copy a lane)
-DESIGNS = {"tile": 0, "shuffle": 1, "replica": 2, "shuffle+replica": 3}
-DESIGN = "shuffle+replica"  # the kernel's (the library built by default)
 SHUFFLED = ("pair_gather", "gather_fma")  # ops whose index gather shuffles
 REPLICATED = ("lane_gather", "pair_gather", "gather_fma")  # x from a replica
 
@@ -119,21 +115,10 @@ def reset_launch_counts() -> None:
     primitive_probe_launches = 0
 
 
-def library_path(design: str = DESIGN) -> Path:
-    """The library of the gathers' ``design``, built with nvcc if stale:
-    the kernel's as ``libamg_primitives.so``, another as
-    ``libamg_primitives_g<N>.so`` (N its PRIMITIVE_GATHERS)."""
-    if design == DESIGN:
-        return build_cuda_library("libamg_primitives.so", SOURCE)
-    n = DESIGNS[design]
-    return build_cuda_library(f"libamg_primitives_g{n}.so", SOURCE,
-                              defines=[f"PRIMITIVE_GATHERS={n}"])
-
-
 @functools.cache
-def kernel_lib(design: str = DESIGN) -> ctypes.CDLL:
+def kernel_lib() -> ctypes.CDLL:
     """The probe's library, compiled with nvcc on first call."""
-    dll = ctypes.CDLL(str(library_path(design)))
+    dll = ctypes.CDLL(str(build_cuda_library("libamg_primitives.so", SOURCE)))
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     dll.primitive_probe.restype = i32
     dll.primitive_probe.argtypes = [i32, i32, i64, vp, vp, vp, vp]
@@ -211,13 +196,10 @@ def plain_primitive_probe(x: torch.Tensor, idx: torch.Tensor, op: str,
 
 
 def primitive_probe(x: torch.Tensor, idx: torch.Tensor, op: str,
-                    inner: int, design: str = DESIGN) -> torch.Tensor:
-    """KG: Σ over k < inner of the op's body (module docstring); on the
-    card with the gathers of ``design`` (one of :data:`DESIGNS`)."""
+                    inner: int) -> torch.Tensor:
+    """KG: Σ over k < inner of the op's body (module docstring)."""
     global primitive_probe_launches
     _check(x, idx, op, inner)
-    if design not in DESIGNS:
-        raise ValueError(f"design {design!r}; one of {tuple(DESIGNS)}")
     if x.device.type == "cpu":
         return plain_primitive_probe(x, idx, op, inner)
     if x.device.type != "cuda":
@@ -227,7 +209,7 @@ def primitive_probe(x: torch.Tensor, idx: torch.Tensor, op: str,
     if idx.data_ptr() % 16:
         raise ValueError("the kernel reads idx 16 bytes at a time: it must "
                          "be 16-byte aligned")
-    lib = kernel_lib(design)
+    lib = kernel_lib()
     out = torch.empty_like(x)
     if x.shape[0] == 0:
         return out
@@ -274,29 +256,29 @@ def warp_wavefronts(words: np.ndarray) -> np.ndarray:
 
 
 def shared_wavefronts(op: str, x: torch.Tensor, idx: torch.Tensor,
-                      inner: int, design: str = DESIGN):
+                      inner: int, tile: bool = False):
     """The mean shared-memory wavefronts of a warp gather of the kernel
     on these inputs, over every gather of its ``inner`` steps, under its
     thread map: element e = thread + q · threads (q < :func:`per_thread`)
     of the tile, so that a warp's 32 lanes share the tile row s = e //
-    128 and hold columns l = e % 128 in order.  A warp shuffle (the pair's index
-    gather in the shuffle designs) counts as one.  None for ops without
-    a gather (add, fma, select)."""
+    128 and hold columns l = e % 128 in order.  A warp shuffle (the
+    pair's index gather) counts as one.  ``tile``: the first design's
+    gathers instead, both of the pair's and lane_gather's loads from
+    tables in shared memory (the index arrays, x as it is).  None for
+    ops without a gather (add, fma, select)."""
     _check(x, idx, op, inner)
-    if design not in DESIGNS:
-        raise ValueError(f"design {design!r}; one of {tuple(DESIGNS)}")
     if OPS[op].loads == 0:
         return None
-    shuffle = op in SHUFFLED and DESIGNS[design] & 1
-    replica = op in REPLICATED and DESIGNS[design] & 2
+    shuffle = op in SHUFFLED and not tile
+    replica = op in REPLICATED and not tile
     sub = tile_rows(op)
     n = sub * 128
-    per = per_thread(op, design)
+    per = PER_THREAD if tile else per_thread(op)
     e = np.arange(n).reshape(per, n // per // 32, 32)
     s, l = e // 128, e % 128
     lane = e % 32
     ix = idx.cpu().numpy().astype(np.int64)
-    tile = np.arange(ix.shape[0])[:, None, None, None]
+    tiles = np.arange(ix.shape[0])[:, None, None, None]
     total, count = 0, 0
     for k in range(inner):
         mi = k % NIDX
@@ -321,7 +303,7 @@ def shared_wavefronts(op: str, x: torch.Tensor, idx: torch.Tensor,
                 total, count = total + m.size // 32, count + m.size // 32
             else:
                 loads.append(mi * n + s * 128 + m)
-            row = (ix[:, mi][tile, s, m] + k) & 7
+            row = (ix[:, mi][tiles, s, m] + k) & 7
             loads.append((row * 128 + m) * BANKS + lane if replica
                          else row * 128 + m)
         for words in loads:
@@ -343,26 +325,25 @@ def design_floor_ns(op: str, wavefronts: float, sms: int,
 
 PER_THREAD = 4  # tile elements per thread in the kernel
 REPLICA_PER_THREAD = 1  # for the ops that read the replica (one block an SM)
-
-
-def per_thread(op: str, design: str = DESIGN) -> int:
-    """Tile elements a thread of the op's kernel in ``design``."""
-    if op in REPLICATED and DESIGNS[design] & 2:
-        return REPLICA_PER_THREAD
-    return PER_THREAD
 BLOCK_K = 16  # steps of k the kernel unrolls in one block of its loop
 FULL_UNROLL = ("fma",)  # ops whose whole k loop is unrolled
 
 
-def sass_instruction_counts(design: str = DESIGN) -> dict:
-    """{(op, inner): counts} of the kernels of the ``design``'s library,
-    from ``cuobjdump --dump-sass``: instructions, shared-memory loads
+def per_thread(op: str) -> int:
+    """Tile elements a thread of the op's kernel."""
+    return REPLICA_PER_THREAD if op in REPLICATED else PER_THREAD
+
+
+def sass_instruction_counts() -> dict:
+    """{(op, inner): counts} of the built library's kernels, from
+    ``cuobjdump --dump-sass``: instructions, shared-memory loads
     (LDS), indexed warp shuffles (SHFL.IDX), FFMAs, local-memory accesses
     (LDL/STL: spills) and whether the code has a backward branch (a
     loop)."""
     cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run(
-        [str(cuobjdump), "--dump-sass", str(library_path(design))],
+        [str(cuobjdump), "--dump-sass",
+         str(build_cuda_library("libamg_primitives.so", SOURCE))],
         capture_output=True, text=True, check=True).stdout
     counts = {}
     names = list(OPS)
@@ -398,20 +379,19 @@ def sass_instruction_counts(design: str = DESIGN) -> dict:
     return counts
 
 
-def sass_unfolded(counts: dict, design: str = DESIGN) -> dict:
+def sass_unfolded(counts: dict) -> dict:
     """{op: (ok, description)}: the HI kernel issues every step of its
     loop and spills nothing.  A looped op must keep a loop whose block
     holds 16 steps' gathers (or two instructions a step, without
     gathers) for its elements (:func:`per_thread`): a shared-memory load
-    each, but for the
-    pair's index gather in a shuffle design, a SHFL.IDX; fma, unrolled in
+    each, but a SHFL.IDX for the pair's index gather; fma, unrolled in
     full, must hold an FFMA for every step that differs from the others,
     and element."""
     out = {}
     for op, info in OPS.items():
         hi, lo = counts[(op, HI)], counts[(op, LO)]
-        steps = BLOCK_K * per_thread(op, design)
-        shuffles = int(op in SHUFFLED and DESIGNS[design] & 1)
+        steps = BLOCK_K * per_thread(op)
+        shuffles = int(op in SHUFFLED)
         if op in FULL_UNROLL:
             ok = hi["FFMA"] >= issued_steps(op, HI) * PER_THREAD
         elif info.loads:

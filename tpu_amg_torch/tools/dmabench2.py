@@ -21,8 +21,7 @@ D4's 16 MB fit in the 50 MB L2, and their bound is their bytes over the
 L2 read rate measured first (``dmabench.l2_read_rate``); D3's 64 MB
 are bound by the HBM data sheet.  Then the probe's fixed cost
 (:func:`fixed_cost`): its time on one 4 KB unit a block, the share of a
-few-us call that no copy rate can touch, beside what it was made of in
-the first design.
+few-us call that no copy rate can touch.
 
 Usage: python -m tpu_amg_torch.tools.dmabench2 [--device cuda]
            [--reps 50] [case-substring ...]
@@ -71,24 +70,17 @@ def time_baseline(device, reps: int) -> dict:
 
 def fixed_cost(device, reps: int) -> dict:
     """The probe's fixed cost: ``dma_probe`` on a source of one 4 KB
-    unit a block (depth 1, every chunk touched), timed as the cases are;
-    beside it what the first design spent there: the same call in its
-    ``atomic`` mode (a clone of the carry, then 1,024 float atomics a
-    block) and the clone alone."""
+    unit a block (depth 1, every chunk touched), timed as the cases
+    are."""
     blocks = block_count(device)
     g = torch.Generator(device=device).manual_seed(0)
     src = torch.randint(0, 16, (blocks * 8, 128), generator=g, device=device,
                         dtype=torch.float32)
     carry = torch.zeros(8, 128, dtype=torch.float32, device=device)
 
-    def one(combine):
-        return call_ms(lambda: dma.dma_probe([src], carry, 8, 1, "bulk", 1,
-                                             dma.HEAD_BYTES, combine=combine),
-                       device, reps)
-
-    return dict(bytes=dma.probe_bytes([src]), ms=one("ticket"),
-                atomic_ms=one("atomic"),
-                clone_ms=call_ms(carry.clone, device, reps))
+    ms = call_ms(lambda: dma.dma_probe([src], carry, 8, 1, "bulk", 1,
+                                       dma.HEAD_BYTES), device, reps)
+    return dict(bytes=dma.probe_bytes([src]), ms=ms)
 
 
 def run(argv=None, l2: Optional[dict] = None):
@@ -110,9 +102,7 @@ def run(argv=None, l2: Optional[dict] = None):
         print_record(rec)
     fixed = fixed_cost(device, args.reps)
     print(f"fixed cost: {fixed['ms'] * 1e3:.2f}us a call on one 4 KB unit a "
-          f"block ({fixed['bytes'] // KB} KB); the first design's atomic "
-          f"mode {fixed['atomic_ms'] * 1e3:.2f}us (the carry's clone alone "
-          f"{fixed['clone_ms'] * 1e3:.2f}us)", flush=True)
+          f"block ({fixed['bytes'] // KB} KB)", flush=True)
     return records, base, fixed
 
 

@@ -12,10 +12,8 @@ per element over the SMs' issue and load rates, at the SM clock that
 shared-memory wavefronts a warp gather of the kernel takes on the
 timed inputs (``primitives.shared_wavefronts`` on the first
 ``WAVEFRONT_TILES`` tiles, at inner HI), those of the first design
-(``tile``: an index table and x in shared memory), and the design floor
-they imply: the bound's load term times the wavefronts.  ``--design``
-runs the kernel with another design of its gathers
-(``primitives.DESIGNS``), built into a library of its own.  Cases are chosen by substrings of their keys (``add``,
+(an index table and x in shared memory), and the design floor they
+imply: the bound's load term times the wavefronts.  Cases are chosen by substrings of their keys (``add``,
 ``lane_gather``, ...), as in the harness.
 
 The harness's ``xla_gather`` part, a row gather by the library ahead of
@@ -28,8 +26,7 @@ the plain PyTorch version runs, timed with the host clock: a number of
 the CPU, not of the card.
 
 Usage: python -m tpu_amg_torch.tools.microbench_primitives [--device cuda]
-           [--tiles 4096] [--reps 20] [--design shuffle+replica]
-           [case-substring ...]
+           [--tiles 4096] [--reps 20] [case-substring ...]
 """
 
 from __future__ import annotations
@@ -90,26 +87,25 @@ class ClockSampler:
         return float(np.median(self.samples)) if self.samples else None
 
 
-def time_op(op: str, tiles: int, device, reps: int,
-            design: str = primitives.DESIGN) -> dict:
+def time_op(op: str, tiles: int, device, reps: int) -> dict:
     """Time the op at inner LO and HI on the inputs of
     ``primitives.make_inputs(op, tiles, device)``, and count its gathers'
-    wavefronts on the first tiles, in ``design`` and in the first."""
+    wavefronts on the first tiles, in the kernel's design and in the
+    first."""
     lo, hi = primitives.LO, primitives.HI
     x, idx = primitives.make_inputs(op, tiles, device)
-    t_lo = call_ms(lambda: primitives.primitive_probe(x, idx, op, lo, design),
+    t_lo = call_ms(lambda: primitives.primitive_probe(x, idx, op, lo),
                    device, reps)
-    t_hi = call_ms(lambda: primitives.primitive_probe(x, idx, op, hi, design),
+    t_hi = call_ms(lambda: primitives.primitive_probe(x, idx, op, hi),
                    device, reps)
     per_ns = (t_hi - t_lo) * 1e6 / (tiles * (hi - lo))
     elements = primitives.tile_rows(op) * 128
     few = (x[:WAVEFRONT_TILES], idx[:WAVEFRONT_TILES])
     return dict(op=op, name=primitives.OPS[op].name, tiles=tiles, lo_ms=t_lo,
                 hi_ms=t_hi, ns_per_op=per_ns, ns_per_element=per_ns / elements,
-                design=design,
-                wavefronts=primitives.shared_wavefronts(op, *few, hi, design),
+                wavefronts=primitives.shared_wavefronts(op, *few, hi),
                 tile_wavefronts=primitives.shared_wavefronts(op, *few, hi,
-                                                             "tile"))
+                                                             tile=True))
 
 
 def time_gathers(device, reps: int) -> List[dict]:
@@ -133,8 +129,6 @@ def run(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiles", type=int, default=TILES)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--design", default=primitives.DESIGN,
-                    choices=tuple(primitives.DESIGNS))
     ap.add_argument("select", nargs="*",
                     help="run only cases whose key holds one of these")
     args = ap.parse_args(argv)
@@ -146,8 +140,7 @@ def run(argv=None):
     where = (torch.cuda.get_device_name(device) if on_card
              else "cpu (plain version, host clock)")
     print(f"# primitive_probe on {where}; {args.tiles} tiles, inner "
-          f"{primitives.LO} and {primitives.HI}; gathers: {args.design}",
-          flush=True)
+          f"{primitives.LO} and {primitives.HI}", flush=True)
 
     def want(key):
         return not args.select or any(s in key for s in args.select)
@@ -157,8 +150,7 @@ def run(argv=None):
     with sampler if on_card else contextlib.nullcontext():
         for op in primitives.OPS:
             if want(op):
-                records.append(time_op(op, args.tiles, device, args.reps,
-                                       args.design))
+                records.append(time_op(op, args.tiles, device, args.reps))
     clock = sampler.median()
     sms = (torch.cuda.get_device_properties(device).multi_processor_count
            if on_card else None)
@@ -177,7 +169,7 @@ def run(argv=None):
             primitives.design_floor_ns(rec["op"], wf, sms, clock)
             if clock and wf else None)
         gathers = ("no gathers" if wf is None else
-                   f"{wf:.2f} wavefronts a warp gather (tile design "
+                   f"{wf:.2f} wavefronts a warp gather (first design "
                    f"{rec['tile_wavefronts']:.2f})" + (
                        f", design floor {rec['floor_ns_per_op']:.4f} ns/op"
                        if rec["floor_ns_per_op"] else ""))
