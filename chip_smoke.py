@@ -63,8 +63,9 @@ Phases, one printed line per result; any failed check exits non-zero:
      matrix; `full` (= K1, the row-block design), `rowgroup` (K1's first
      design), the library's SpMV and the bound side by side;
  11. copy probes: the entry points python -m tpu_amg_torch.tools.dmabench
-     (D1's sweep, both engines, 32 MiB per call, and the L2 read rate:
-     the larger of the sweep's and stream_sum's best at 32 MiB) and
+     (D1's sweep, both engines, 32 MiB per call, and the L2 read rate
+     without a call's fixed cost: the larger slope of the time from 16
+     to 32 MiB a call, of the sweep's best cases and stream_sum's) and
      dmabench2 (D2-D4, with the probe's fixed cost: its time on one 4 KB
      unit a block); every case against its plain version, exactly
      (integer inputs), over two calls; the sweep again at 1 GiB per
@@ -75,12 +76,13 @@ Phases, one printed line per result; any failed check exits non-zero:
  12. primitives: the entry point python -m
      tpu_amg_torch.tools.microbench_primitives at 4096 tiles (ns per op
      against the issue-rate bound at the SM clock nvidia-smi reports,
-     each op's shared-memory wavefronts a warp gather and the design
-     floor they imply, beside the first design's wavefronts); every op
+     the HI call against the bound of its own 272 steps, each op's
+     shared-memory wavefronts a warp gather, counted by a host model of
+     the kernel's thread map, and the design floor they imply); every op
      against its plain version on the inputs it timed, at inner 16 and
      272; the SASS of the HI kernels (cuobjdump): every step's gathers
-     issued (LDS, and SHFL.IDX for the pair's index gather), nothing
-     spilled to local memory.
+     issued inside the k loop (LDS, and SHFL.IDX for the pair's index
+     gather), nothing spilled to local memory.
 Every count is set to 0 just before each path (4, 6, 7, 10, 11, 12) and
 read just after it, before the comparison launches.  The last two lines
 are a JSON object of per-kernel results (with each kernel's bound and
@@ -640,9 +642,19 @@ def primitives_phase(reps):
             f"{r['hi_ms'] * 1e3:.1f} us, {r['ns_per_op']:.4f} ns/op against "
             f"a bound of {r['bound_ns_per_op']:.4f} "
             f"({r['bound_ns_per_op'] / r['ns_per_op']:.1%}); "
-            f"{r['wavefronts']:.2f} wavefronts a gather (the first design "
-            f"{r['tile_wavefronts']:.2f}), design floor "
+            f"{r['wavefronts']:.2f} wavefronts a gather (a host model of "
+            f"the kernel's thread map, not a counter), design floor "
             f"{r['floor_ns_per_op']:.4f} ns/op")
+    for r in recs:
+        # a marginal op over its bound is reported, never clipped; the HI
+        # call beside it, against the bound of its own 272 steps
+        if r["ns_per_op"] < r["bound_ns_per_op"]:
+            say(f"primitive {r['op']}: the marginal op {r['ns_per_op']:.4f} "
+                f"ns/op reads {r['bound_ns_per_op'] / r['ns_per_op']:.1%} of "
+                f"its bound {r['bound_ns_per_op']:.4f}; its HI call "
+                f"{r['hi_ms'] * 1e3:.1f} us is "
+                f"{r['hi_bound_ms'] / r['hi_ms']:.1%} of that call's bound "
+                f"{r['hi_bound_ms'] * 1e3:.1f} us")
     rec = main_rec
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ops_ms = rec["tiles"] * primitives.op_bound_ns(
@@ -661,10 +673,7 @@ def primitives_phase(reps):
                 plain_ms=rec["plain_ms"], bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 library_ms=None,
-                # gather_fma's wavefronts a gather (the first design's
-                # beside); pair_gather's time and marginal op
-                wavefronts=rec["wavefronts"],
-                first_design_wavefronts=rec["tile_wavefronts"],
+                # pair_gather's time and marginal op
                 pair_gather_ms=pair["hi_ms"],
                 pair_gather_ns_per_op=pair["ns_per_op"],
                 pair_gather_bound_ns_per_op=pair["bound_ns_per_op"])

@@ -160,6 +160,110 @@ def test_l2_bound_divides_by_the_rate():
         timing.l2_bound_ms(1 << 20, 4000.0) / 2)
 
 
+def test_slope_leaves_the_fixed_cost_out():
+    # 6 us of fixed cost and 4,000 GB/s: the calls' own rates are lower,
+    # the slope between them is the rate
+    def ms(n):
+        return 6e-3 + n / 4000e6
+
+    small, big = 16 << 20, 32 << 20
+    assert timing.slope_gbps(small, ms(small), big, ms(big)) == \
+        pytest.approx(4000.0)
+    assert big / ms(big) / 1e6 < 3000.0
+    # a bigger call that is not slower has no rate
+    assert timing.slope_gbps(small, 1.0, big, 1.0) is None
+    assert timing.slope_gbps(big, 1.0, small, 2.0) is None
+
+
+def test_l2_read_rate_takes_the_best_slope(monkeypatch, capsys):
+    # each case's time: a fixed cost and a rate of its own; the L2 rate is
+    # the best rate between 16 and 32 MiB, not the best whole-call rate
+    costs = {"stream_sum": (2e-3, 5000e6), "bulk": (6e-3, 7000e6),
+             "lsu": (6e-3, 6000e6)}
+
+    def record(kind, name, n):
+        fixed, rate = costs[kind]
+        ms = fixed + n / rate
+        return dict(name=name, bytes=n, ms=ms, gbps=n / ms / 1e6)
+
+    def dma_case(case, n, device, reps):
+        return dict(record(case.engine, case.name, n), case=case)
+
+    def stream_case(case, n, device, reps):
+        return record("stream_sum", case.name, n)
+
+    monkeypatch.setattr(dmabench, "time_case", dma_case)
+    monkeypatch.setattr(dmabench.streambench, "time_case", stream_case)
+    l2 = dmabench.l2_read_rate(torch.device("cpu"), 1)
+    assert l2["gbps"] == pytest.approx(7000.0)
+    assert l2["origin"].startswith("dma_probe bulk")
+    assert "the slope from 16 to 32 MiB" in l2["origin"]
+    # every engine's best copy and the single-input f32 stream cases
+    # whose grid is the same at 16 and 32 MiB: rows=64's 512 and 1,024
+    # tiles on 132 persistent blocks, but not the 8 and 16 tiles of
+    # 64x8192, split 8 ways (64 and 128 blocks)
+    assert max(l2["slopes"].values()) == l2["gbps"]
+    copies = [n.split()[1] for n in l2["slopes"] if n.startswith("dma_probe")]
+    assert copies == list(dma.ENGINES)
+    assert "stream_sum f32 1in rows=64" in l2["slopes"]
+    assert "stream_sum wide f32 1in 64x8192" not in l2["slopes"]
+    wide = next(c for c in dmabench.streambench.CASES
+                if c.name == "wide f32 1in 64x8192")
+    assert dmabench.stream_grid(wide, 16 << 20, 132) == (8, 8)
+    assert dmabench.stream_grid(wide, 32 << 20, 132) == (8, 16)
+    # though stream_sum's whole call is the faster at 32 MiB
+    big = 32 << 20
+    assert record("stream_sum", "", big)["gbps"] > l2["call_gbps"]
+    assert l2["call_gbps"] == pytest.approx(record("bulk", "", big)["gbps"])
+    dmabench.print_l2(l2)
+    line = capsys.readouterr().out
+    assert line.startswith("# L2 read rate 7000.0 GB/s: dma_probe bulk")
+    assert "lsu depth" in line and "stream_sum f32 1in rows=64" in line
+    # calls that take no longer for more bytes give no rate
+    for kind in costs:
+        costs[kind] = (6e-3, float("inf"))
+    with pytest.raises(RuntimeError, match="no L2 read rate"):
+        dmabench.l2_read_rate(torch.device("cpu"), 1)
+
+
+def test_l2_read_rate_times_the_sizes_in_turns(monkeypatch):
+    # each candidate is timed 16, 32, 16, 32, 16, 32 MiB, and each size's
+    # median counts: one slow outlier of either size moves nothing
+    calls = []
+    extra = iter([0.0, 0.0, 5e-3, 0.0, 0.0, 5e-3] * 8)
+
+    def record(name, n):
+        calls.append((name, n >> 20))
+        ms = 6e-3 + n / 7000e6 + next(extra)
+        return dict(name=name, bytes=n, ms=ms, gbps=n / ms / 1e6)
+
+    monkeypatch.setattr(dmabench, "time_case", lambda case, n, d, r: dict(
+        record(case.name, n), case=case))
+    monkeypatch.setattr(dmabench.streambench, "time_case",
+                        lambda case, n, d, r: record(case.name, n))
+    copies = [dict(name=c.name, case=c, gbps=float(i))
+              for i, c in enumerate(dmabench.sweep_cases())]
+    l2 = dmabench.l2_read_rate(torch.device("cpu"), 1, copies)
+    assert l2["gbps"] == pytest.approx(7000.0)
+    assert all(r == pytest.approx(7000.0) for r in l2["slopes"].values())
+    first = calls[0][0]
+    assert [n for name, n in calls if name == first] == [16, 32] * 3
+
+
+def test_library_groups_are_checked():
+    # the host allocates partials and tickets for the library's groups
+    class Library:
+        def __init__(self, group, most):
+            self.dma_group = lambda: group
+            self.dma_max_groups = lambda: most
+
+    dma.check_groups(Library(dma.GROUP, dma.MAX_GROUPS))
+    with pytest.raises(RuntimeError, match="groups 16 blocks"):
+        dma.check_groups(Library(16, dma.MAX_GROUPS))
+    with pytest.raises(RuntimeError, match="at most 32 groups"):
+        dma.check_groups(Library(dma.GROUP, 32))
+
+
 def test_bound_takes_the_l2_rate_only_in_l2(monkeypatch):
     l2 = dict(gbps=4000.0, origin="stream_sum f32 1in rows=2048 at 32 MiB")
     cuda = torch.device("cuda")

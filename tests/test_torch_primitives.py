@@ -159,10 +159,34 @@ def test_sass_counts(monkeypatch):
     counts = primitives.sass_instruction_counts()
     assert counts == {
         ("lane_gather", 272): dict(total=4, LDS=1, SHFL=0, FFMA=0, local=0,
-                                   loop=True),
+                                   loop=True, loop_total=3, loop_LDS=1,
+                                   loop_SHFL=0),
         ("lane_gather", 16): dict(total=3, LDS=1, SHFL=0, FFMA=0, local=1,
-                                  loop=False),
+                                  loop=False, loop_total=0, loop_LDS=0,
+                                  loop_SHFL=0),
     }
+
+
+_SASS_HEX = """
+        Function : _ZN46_GLOBAL__N__x12probe_kernelIfiLi8ELi6ELi272EEEvPKT_PKT0_PS1_i
+        /*0000*/                   LDS R2, [R3] ;
+        /*0010*/                   FADD R2, R3, R4 ;
+        /*0020*/                   LDS R5, [R3+0x200] ;
+        /*0030*/                   LDS R6, [R3+0x400] ;
+        /*0040*/              @!P0 BRA 0x10 ;
+        /*0050*/                   STG.E [R8], R2 ;
+        /*0060*/                   BRA 0x60;
+"""
+
+
+def test_sass_loop_body_by_address():
+    # a branch back to an address: the loop body runs from its target to
+    # the branch, and the load before it is the function's but not the
+    # loop's; the closing branch to itself is no loop
+    counts = primitives.parse_sass(_SASS_HEX)
+    assert counts == {("sub_gather", 272): dict(
+        total=7, LDS=3, SHFL=0, FFMA=0, local=0, loop=True, loop_total=4,
+        loop_LDS=2, loop_SHFL=0)}
 
 
 _SASS_SHFL = """
@@ -188,12 +212,16 @@ def test_sass_counts_shuffles(monkeypatch):
                         mock.Mock(return_value=mock.Mock(stdout=_SASS_SHFL)))
     counts = primitives.sass_instruction_counts()
     assert counts == {("gather_fma", 272): dict(total=6, LDS=1, SHFL=1,
-                                                FFMA=1, local=0, loop=True)}
+                                                FFMA=1, local=0, loop=True,
+                                                loop_total=6, loop_LDS=1,
+                                                loop_SHFL=1)}
 
 
-def _counts(op, lds, shfl, ffma=0, local=0, loop=True):
+def _counts(op, lds, shfl, ffma=0, local=0, loop=True, loop_lds=None):
     return dict(total=1000, LDS=lds, SHFL=shfl, FFMA=ffma, local=local,
-                loop=loop)
+                loop=loop, loop_total=500 if loop else 0,
+                loop_LDS=lds if loop_lds is None else loop_lds,
+                loop_SHFL=shfl if loop else 0)
 
 
 def test_sass_check_counts_shuffles_beside_loads():
@@ -226,6 +254,53 @@ def test_sass_check_counts_shuffles_beside_loads():
     assert not primitives.sass_unfolded(spilled)["gather_fma"][0]
 
 
+@pytest.mark.parametrize("op", ["sub_gather", "lane_gather", "roll_sub"])
+def test_sass_check_counts_gathers_inside_the_loop(op):
+    # the function holds every step's loads, but the loop one short: a
+    # gather merged with another step's or hoisted out of the loop fails
+    good = {}
+    for o, info in primitives.OPS.items():
+        steps = primitives.BLOCK_K * primitives.per_thread(o)
+        shuffled = o in primitives.SHUFFLED
+        for inner in primitives.INNERS:
+            good[(o, inner)] = _counts(o, steps * (info.loads - shuffled),
+                                       steps * shuffled, ffma=2000)
+    assert primitives.sass_unfolded(good)[op][0]
+    steps = primitives.BLOCK_K * primitives.per_thread(op)
+    short = dict(good)
+    short[(op, primitives.HI)] = _counts(op, 2 * steps, 0,
+                                         loop_lds=steps - 1)
+    ok, desc = primitives.sass_unfolded(short)[op]
+    assert not ok and f"{steps - 1} LDS, 0 SHFL.IDX" in desc
+
+
+class _Library:
+    """A stand-in for the built library's design report."""
+
+    def __init__(self, override=None):
+        self.override = override or {}
+
+    def primitive_design(self, code, out):
+        op = list(primitives.OPS)[code]
+        for j, v in enumerate(self.override.get(op, primitives.design(op))):
+            out[j] = v
+        return 0
+
+
+def test_design_check():
+    # the host's statement of each kernel, as the kernel source has it
+    assert primitives.design("gather_fma") == (1, 1, 1, 0, 16)
+    assert primitives.design("lane_gather") == (1, 0, 1, 0, 16)
+    assert primitives.design("sub_gather") == (4, 0, 0, 0, 16)
+    assert primitives.design("fma") == (4, 0, 0, 1, 16)
+    primitives.check_design(_Library())
+    # a library built otherwise is refused
+    with pytest.raises(RuntimeError, match="pair_gather"):
+        primitives.check_design(_Library({"pair_gather": (4, 1, 1, 0, 16)}))
+    with pytest.raises(RuntimeError, match="add"):
+        primitives.check_design(_Library({"add": (4, 0, 0, 0, 8)}))
+
+
 def test_warp_wavefronts():
     lanes = np.arange(32)
     # 32 distinct words in one bank: 32 wavefronts
@@ -239,22 +314,35 @@ def test_warp_wavefronts():
     np.testing.assert_array_equal(primitives.warp_wavefronts(both), [2, 1])
 
 
+def _row_gather_words(idx, inner):
+    """Words of a gather at column (idx + k) & 127 of the warp's own row
+    of an (8, 128) table in shared memory, under the thread map of 4
+    elements a thread (e = thread + 256 q): (loads, 32)."""
+    e = np.arange(1024)
+    s, l = e // 128, e % 128
+    ix = np.asarray(idx, np.int64)
+    return np.concatenate([s * 128 + ((ix[:, k % 8][:, s, l] + k) & 127)
+                           for k in range(inner)]).reshape(-1, 32)
+
+
 def test_shared_wavefronts_on_hand_built_tiles():
     x = torch.zeros(1, 8, 128)
     lane = torch.arange(128) % 32
-    # every lane at column idx + k = 32 (l mod 4) + k: 4 distinct words of
-    # one bank a warp load in the tile layout, one wavefront from the replica
+    # every lane at column idx + k = 32 (l mod 4) + k: read from a table
+    # of the tile as it is, 4 distinct words of one bank a warp load; from
+    # the kernel's replica, one wavefront
     idx = (32 * (torch.arange(128) % 4)).expand(1, 8, 8, 128).contiguous()
-    assert primitives.shared_wavefronts("lane_gather", x, idx.int(), 16,
-                                        tile=True) == 4
+    assert primitives.warp_wavefronts(
+        _row_gather_words(idx.numpy(), 16)).mean() == 4
     assert primitives.shared_wavefronts("lane_gather", x, idx.int(), 16) == 1
     # column = lane: an identity gather; a constant column: a broadcast
     ident = lane.expand(1, 8, 8, 128).contiguous().int()
-    assert primitives.shared_wavefronts("lane_gather", x, ident, 16,
-                                        tile=True) == 1
+    assert primitives.warp_wavefronts(
+        _row_gather_words(ident.numpy(), 16)).mean() == 1
     same = torch.zeros(1, 8, 8, 128, dtype=torch.int32)
-    assert primitives.shared_wavefronts("pair_gather", x, same, 16,
-                                        tile=True) == 1
+    assert primitives.warp_wavefronts(
+        _row_gather_words(same.numpy(), 16)).mean() == 1
+    assert primitives.shared_wavefronts("pair_gather", x, same, 16) == 1
     # ops without gathers have none
     assert primitives.shared_wavefronts("add", x, same, 16) is None
 
@@ -262,18 +350,18 @@ def test_shared_wavefronts_on_hand_built_tiles():
 @pytest.mark.parametrize("op", ["lane_gather", "pair_gather", "gather_fma"])
 def test_shared_wavefronts_on_the_harness_inputs(op):
     x, idx = primitives.make_inputs(op, 4, "cpu")
-    # random columns of a row: 2.7-2.9 deep in the fullest bank on
-    # average; the kernel's design takes one wavefront a gather
-    assert 2.7 <= primitives.shared_wavefronts(op, x, idx, 16,
-                                               tile=True) <= 2.9
+    # random columns of a row read from a table of the tile as it is:
+    # 2.7-2.9 deep in the fullest bank on average; the kernel's design
+    # takes one wavefront a gather
+    words = _row_gather_words(idx.numpy(), 16)
+    assert 2.7 <= primitives.warp_wavefronts(words).mean() <= 2.9
     assert primitives.shared_wavefronts(op, x, idx, 16) == 1.0
 
 
 @pytest.mark.parametrize("op", ["sub_gather", "roll_lane", "roll_sub"])
 def test_shared_wavefronts_of_distinct_banks(op):
     x, idx = primitives.make_inputs(op, 2, "cpu")
-    for tile in (False, True):
-        assert primitives.shared_wavefronts(op, x, idx, 16, tile) == 1.0
+    assert primitives.shared_wavefronts(op, x, idx, 16) == 1.0
 
 
 def test_design_floor():

@@ -342,6 +342,11 @@ const char* dma_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// the ticket groups' size and most number, which the host's allocation of
+// the partials and tickets reads (ops/dma.py: GROUP, MAX_GROUPS)
+int dma_group() { return kGroup; }
+int dma_max_groups() { return kMaxGroups; }
+
 // engine 0 = bulk (TMA), 1 = lsu (cp.async); depth in {1, 2, 4, 8, 16};
 // carry (8, 128), partials (blocks + groups, 8, 128) and 1 + groups tickets
 // at 0, groups = ceil(blocks / 12) <= 64

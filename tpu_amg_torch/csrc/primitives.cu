@@ -29,10 +29,10 @@
 // a warp shuffle takes one too).  A warp's lanes that read distinct words
 // of one bank take a wavefront each, so a gather with data-random columns
 // costs more than one: on the harness's inputs a warp's 32 random columns
-// m of one row fall, on average, 2.78 deep in the fullest bank
-// (ops/primitives.py, shared_wavefronts), and the first design, which read
-// both of the pair's gathers from tables in shared memory, ran at that
-// floor.  The design keeps everything but the body out of the loop (one
+// m of one row fall, on average, 2.78 deep in the fullest bank (a host
+// count of the first design's addresses on the probe's inputs), and the
+// first design, which read both of the pair's gathers from tables in shared
+// memory, ran close to the floor that sets (PERF.md).  The design keeps everything but the body out of the loop (one
 // block per tile, 4 elements per thread, the 8 index arrays and x in
 // registers, indexed only by constants; 1 element a thread where the
 // replica leaves one block an SM) and takes the data-random gathers off
@@ -349,12 +349,44 @@ int launch_inner(int inner, int64_t tiles, const void* x, const void* idx,
   }
 }
 
+// op's design constants, which the host's checks read (ops/primitives.py:
+// per_thread, SHUFFLED, REPLICATED, FULL_UNROLL, BLOCK_K): tile elements a
+// thread, whether the index gather is a shuffle, whether x is read from the
+// replica, whether the k loop is unrolled in full, steps of k a loop block
+template <int OP>
+int design_of(int* d) {
+  d[0] = kPer<OP>;
+  d[1] = kPair<OP>;
+  d[2] = kReplica<OP>;
+  d[3] = kFullUnroll<OP>;
+  d[4] = kBlockK;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* primitives_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// op: the index of the Op enum; design: 5 ints (design_of)
+int primitive_design(int op, int* design) {
+  switch (op) {
+    case kAdd: return design_of<kAdd>(design);
+    case kFma: return design_of<kFma>(design);
+    case kSelect: return design_of<kSelect>(design);
+    case kRollLane: return design_of<kRollLane>(design);
+    case kRollSub: return design_of<kRollSub>(design);
+    case kLaneGather: return design_of<kLaneGather>(design);
+    case kSubGather: return design_of<kSubGather>(design);
+    case kPairGather: return design_of<kPairGather>(design);
+    case kBf16Lane: return design_of<kBf16Lane>(design);
+    case kBf16Sub: return design_of<kBf16Sub>(design);
+    case kGatherFma: return design_of<kGatherFma>(design);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // op: the index of the Op enum; inner: 16 or 272

@@ -63,8 +63,8 @@ MAX_SOURCES = 8
 HEAD_BYTES = 8 * 128 * 4  # the touched rows of a chunk: units are multiples
 MAX_RING_BYTES = 227 * 1024 - 1024  # the block's shared memory, less barriers
 
-GROUP = 12  # blocks a group of the ticket combine (kGroup in dma.cu)
-MAX_GROUPS = 64
+GROUP = 12  # blocks a group of the ticket combine (the library's dma_group)
+MAX_GROUPS = 64  # (dma_max_groups)
 
 dma_probe_launches = 0
 _tickets = {}  # device index -> 1 + MAX_GROUPS ticket counters at 0
@@ -85,7 +85,20 @@ def kernel_lib() -> ctypes.CDLL:
                               i64, i32, vp, vp, vp, vp, vp]
     dll.dma_error_string.restype = ctypes.c_char_p
     dll.dma_error_string.argtypes = [i32]
+    check_groups(dll)
     return dll
+
+
+def check_groups(dll) -> None:
+    """Raise unless the library ``dll`` combines partials in groups of
+    ``GROUP`` blocks, at most ``MAX_GROUPS``, for which the host
+    allocates the partials and the tickets."""
+    dll.dma_group.restype = dll.dma_max_groups.restype = ctypes.c_int
+    built = (dll.dma_group(), dll.dma_max_groups())
+    if built != (GROUP, MAX_GROUPS):
+        raise RuntimeError(f"the library groups {built[0]} blocks, at most "
+                           f"{built[1]} groups; the host allocates for "
+                           f"{GROUP}, {MAX_GROUPS}")
 
 
 def whole_share_unit(total_bytes: int, blocks: int) -> int:

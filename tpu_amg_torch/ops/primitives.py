@@ -19,9 +19,10 @@ rows, and ``inner`` is compiled in: the harness's LO = 16 and HI = 272.
 The data-random gathers are laid out against the shared memory's bank
 conflicts: the pair's index gather is a warp shuffle of packed rows,
 and the x gather reads a replica of the tile, one copy a lane;
-:func:`shared_wavefronts` counts what the gathers cost on given inputs,
-in this design and in the first (an index table and x in shared
-memory).
+:func:`shared_wavefronts` counts, by a host model of the kernel's
+thread map, what the gathers cost on given inputs.  The library reports
+the design constants the host's checks rely on, and :func:`kernel_lib`
+refuses one whose constants differ from this module's.
 The cost of one op is (t(HI) − t(LO)) / (tiles · (HI − LO)), as in the
 harness; :data:`OPS` gives the instructions and shared-memory loads each
 element needs per step, from which :func:`op_bound_ns` reckons the least
@@ -124,7 +125,31 @@ def kernel_lib() -> ctypes.CDLL:
     dll.primitive_probe.argtypes = [i32, i32, i64, vp, vp, vp, vp]
     dll.primitives_error_string.restype = ctypes.c_char_p
     dll.primitives_error_string.argtypes = [i32]
+    dll.primitive_design.restype = i32
+    dll.primitive_design.argtypes = [i32, ctypes.POINTER(i32)]
+    check_design(dll)
     return dll
+
+
+def design(op: str) -> tuple:
+    """The host's statement of the op's kernel: (elements a thread, index
+    gather by shuffle, x from the replica, k loop unrolled in full, steps
+    of k a loop block), as ``primitive_design`` in the library gives it."""
+    return (per_thread(op), int(op in SHUFFLED), int(op in REPLICATED),
+            int(op in FULL_UNROLL), BLOCK_K)
+
+
+def check_design(dll) -> None:
+    """Raise unless every op's kernel in the library ``dll`` is built as
+    :func:`design` states it, which the SASS check and the wavefront
+    count rely on."""
+    for code, op in enumerate(OPS):
+        built = (ctypes.c_int * 5)()
+        err = dll.primitive_design(code, built)
+        if err or tuple(built) != design(op):
+            raise RuntimeError(f"the library's {op} kernel is built as "
+                               f"{tuple(built)} (error {err}), the host "
+                               f"states {design(op)}")
 
 
 def tile_rows(op: str) -> int:
@@ -256,24 +281,21 @@ def warp_wavefronts(words: np.ndarray) -> np.ndarray:
 
 
 def shared_wavefronts(op: str, x: torch.Tensor, idx: torch.Tensor,
-                      inner: int, tile: bool = False):
+                      inner: int):
     """The mean shared-memory wavefronts of a warp gather of the kernel
     on these inputs, over every gather of its ``inner`` steps, under its
     thread map: element e = thread + q · threads (q < :func:`per_thread`)
     of the tile, so that a warp's 32 lanes share the tile row s = e //
     128 and hold columns l = e % 128 in order.  A warp shuffle (the
-    pair's index gather) counts as one.  ``tile``: the first design's
-    gathers instead, both of the pair's and lane_gather's loads from
-    tables in shared memory (the index arrays, x as it is).  None for
-    ops without a gather (add, fma, select)."""
+    pair's index gather) counts as one.  A host model of the kernel's
+    addresses (:func:`warp_wavefronts`), not a hardware counter.  None
+    for ops without a gather (add, fma, select)."""
     _check(x, idx, op, inner)
     if OPS[op].loads == 0:
         return None
-    shuffle = op in SHUFFLED and not tile
-    replica = op in REPLICATED and not tile
     sub = tile_rows(op)
     n = sub * 128
-    per = PER_THREAD if tile else per_thread(op)
+    per = per_thread(op)
     e = np.arange(n).reshape(per, n // per // 32, 32)
     s, l = e // 128, e % 128
     lane = e % 32
@@ -296,16 +318,11 @@ def shared_wavefronts(op: str, x: torch.Tensor, idx: torch.Tensor,
         elif op == "bf16_lane":
             loads.append((s * 128 + m) // 2)
         elif op == "lane_gather":
-            loads.append((s * 128 + m) * BANKS + lane if replica
-                         else s * 128 + m)
-        else:  # the pair: the index gather, then x at the row it names
-            if shuffle:
-                total, count = total + m.size // 32, count + m.size // 32
-            else:
-                loads.append(mi * n + s * 128 + m)
+            loads.append((s * 128 + m) * BANKS + lane)
+        else:  # the pair: the index gather by a shuffle, then x at its row
+            total, count = total + m.size // 32, count + m.size // 32
             row = (ix[:, mi][tiles, s, m] + k) & 7
-            loads.append((row * 128 + m) * BANKS + lane if replica
-                         else row * 128 + m)
+            loads.append((row * 128 + m) * BANKS + lane)
         for words in loads:
             wf = warp_wavefronts(words)
             total, count = total + int(wf.sum()), count + wf.size
@@ -336,57 +353,86 @@ def per_thread(op: str) -> int:
 
 def sass_instruction_counts() -> dict:
     """{(op, inner): counts} of the built library's kernels, from
-    ``cuobjdump --dump-sass``: instructions, shared-memory loads
-    (LDS), indexed warp shuffles (SHFL.IDX), FFMAs, local-memory accesses
-    (LDL/STL: spills) and whether the code has a backward branch (a
-    loop)."""
+    ``cuobjdump --dump-sass`` (:func:`parse_sass`)."""
     cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run(
+    return parse_sass(subprocess.run(
         [str(cuobjdump), "--dump-sass",
          str(build_cuda_library("libamg_primitives.so", SOURCE))],
-        capture_output=True, text=True, check=True).stdout
-    counts = {}
+        capture_output=True, text=True, check=True).stdout)
+
+
+def _kinds(lines) -> dict:
+    """Instructions, shared-memory loads (LDS), indexed warp shuffles
+    (SHFL.IDX), FFMAs and local-memory accesses (LDL/STL: spills) among
+    SASS ``lines``."""
+    return dict(
+        total=len(lines),
+        LDS=sum(bool(re.search(r"\bLDS(\.|\s)", x)) for x in lines),
+        SHFL=sum(bool(re.search(r"\bSHFL\.IDX\b", x)) for x in lines),
+        FFMA=sum(bool(re.search(r"\bFFMA(\.|\s)", x)) for x in lines),
+        local=sum(bool(re.search(r"\b(LDL|STL)(\.|\s)", x)) for x in lines))
+
+
+def parse_sass(sass: str) -> dict:
+    """{(op, inner): counts} of the probe's kernels in ``sass``: the
+    function's :func:`_kinds`, whether it has a loop (a branch back to a
+    lower address) and, as ``loop_total``, ``loop_LDS`` and
+    ``loop_SHFL``, the kinds inside its largest loop's body (from the
+    branch's target to the branch; 0 without a loop)."""
     names = list(OPS)
-    c = None
+    # key -> ([(address, line)], {label: address}, labels awaiting one)
+    functions = {}
+    cur = None
     for line in sass.splitlines():
         m = re.search(r"Function : \S*probe_kernel\S*?Li(\d+)ELi(\d+)ELi(\d+)E",
                       line)
         if m:
-            c = dict(total=0, LDS=0, SHFL=0, FFMA=0, local=0, loop=False,
-                     labels=set())
-            counts[(names[int(m.group(2))], int(m.group(3)))] = c
+            cur = ([], {}, [])
+            functions[(names[int(m.group(2))], int(m.group(3)))] = cur
             continue
-        if c is None:
+        if cur is None:
             continue
+        insns, labels, pending = cur
         label = re.match(r"\s*(\.L_x_\d+):", line)
         ins = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+\S", line)
         if label:
-            c["labels"].add(label.group(1))
+            pending.append(label.group(1))
         elif ins:
-            c["total"] += 1
-            for op in ("LDS", "FFMA"):
-                c[op] += bool(re.search(rf"\b{op}(\.|\s)", line))
-            c["SHFL"] += bool(re.search(r"\bSHFL\.IDX\b", line))
-            c["local"] += bool(re.search(r"\b(LDL|STL)(\.|\s)", line))
-            # a branch back to a label already seen, or to a lower address
+            addr = int(ins.group(1), 16)
+            for name in pending:  # a label names the next instruction
+                labels[name] = addr
+            pending.clear()
+            insns.append((addr, line))
+    counts = {}
+    for key, (insns, labels, _) in functions.items():
+        c = _kinds([x for _, x in insns])
+        body = []
+        for addr, line in insns:
             target = re.search(r"\bBRA\b\W*(\.L_x_\d+|0x[0-9a-f]+)", line)
-            if target:
-                t = target.group(1)
-                c["loop"] |= (t in c["labels"] if t.startswith(".")
-                              else int(t, 16) < int(ins.group(1), 16))
-    for c in counts.values():
-        del c["labels"]
+            if not target:
+                continue
+            t = target.group(1)
+            start = labels.get(t) if t.startswith(".") else int(t, 16)
+            if start is not None and start < addr:
+                inside = [x for a, x in insns if start <= a <= addr]
+                body = max(body, inside, key=len)
+        c["loop"] = bool(body)
+        inner = _kinds(body)
+        c.update(loop_total=inner["total"], loop_LDS=inner["LDS"],
+                 loop_SHFL=inner["SHFL"])
+        counts[key] = c
     return counts
 
 
 def sass_unfolded(counts: dict) -> dict:
     """{op: (ok, description)}: the HI kernel issues every step of its
-    loop and spills nothing.  A looped op must keep a loop whose block
+    loop and spills nothing.  A looped op must keep a loop whose body
     holds 16 steps' gathers (or two instructions a step, without
     gathers) for its elements (:func:`per_thread`): a shared-memory load
-    each, but a SHFL.IDX for the pair's index gather; fma, unrolled in
-    full, must hold an FFMA for every step that differs from the others,
-    and element."""
+    each, but a SHFL.IDX for the pair's index gather, so that no gather
+    is merged with another step's or taken out of the loop; fma,
+    unrolled in full, must hold an FFMA for every step that differs from
+    the others, and element."""
     out = {}
     for op, info in OPS.items():
         hi, lo = counts[(op, HI)], counts[(op, LO)]
@@ -395,13 +441,16 @@ def sass_unfolded(counts: dict) -> dict:
         if op in FULL_UNROLL:
             ok = hi["FFMA"] >= issued_steps(op, HI) * PER_THREAD
         elif info.loads:
-            ok = (hi["loop"] and hi["LDS"] >= steps * (info.loads - shuffles)
-                  and hi["SHFL"] >= steps * shuffles)
+            ok = (hi["loop"]
+                  and hi["loop_LDS"] >= steps * (info.loads - shuffles)
+                  and hi["loop_SHFL"] >= steps * shuffles)
         else:
-            ok = hi["loop"] and hi["total"] >= steps * 2
+            ok = hi["loop"] and hi["loop_total"] >= steps * 2
         ok = ok and hi["local"] == 0 and lo["local"] == 0
         out[op] = (ok, f"{op}: {hi['total']} instructions, {hi['LDS']} LDS, "
                        f"{hi['SHFL']} SHFL.IDX, "
                        f"{hi['FFMA']} FFMA, {hi['local']} LDL/STL, "
-                       f"{'a loop' if hi['loop'] else 'no loop'}")
+                       + (f"a loop of {hi['loop_total']} instructions, "
+                          f"{hi['loop_LDS']} LDS, {hi['loop_SHFL']} SHFL.IDX"
+                          if hi["loop"] else "no loop"))
     return out

@@ -11,8 +11,9 @@ the bytes in flight per SM, the time per call, GB/s and the bound with
 its share of the time.  Bytes past the L2 cache are bound by the card's
 3,350 GB/s data sheet; bytes that fit in it (the harness's 32 MB stay
 in the 50 MB L2 after the first call) by the best read rate measured in
-L2 in the same process (:func:`l2_read_rate`: the larger of
-``stream_sum``'s and this sweep's best at 32 MiB a call), and the
+L2 in the same process, without a call's fixed cost
+(:func:`l2_read_rate`: the slope of the time between 16 and 32 MiB a
+call, the larger of ``stream_sum``'s and this sweep's best), and the
 data-sheet time is printed beside, labelled as such.
 
 Inputs are integers 0-15 drawn from a seeded ``torch.Generator`` on the
@@ -34,12 +35,14 @@ from typing import List, Optional
 
 import torch
 
-from tpu_amg_torch.ops import dma
+from tpu_amg_torch.ops import dma, stream
 from tpu_amg_torch.tools import streambench
-from tpu_amg_torch.utils.timing import call_ms, hbm_bound_ms, l2_bound_ms
+from tpu_amg_torch.utils.timing import (call_ms, hbm_bound_ms, l2_bound_ms,
+                                        slope_gbps)
 
 TOTAL_MIB = 32  # the harness's TOTAL_MB (tools/dmabench.py:26)
-L2_MIB = 32  # MiB a call where the L2 read rate is measured
+L2_MIB = (16, 32)  # MiB a call between which the L2 read rate is measured
+L2_PAIRS = 3  # timings of each size, taken in turns
 KB = 1024
 
 
@@ -119,22 +122,70 @@ def time_case(case: Case, total_bytes: int, device, reps: int,
                 **bound(nbytes, device, l2))
 
 
+def copy_grid(case: Case, total_bytes: int, blocks: int) -> int:
+    """The blocks of ``dma_probe``'s grid for the case at
+    ``total_bytes`` a source, on a card of ``blocks`` SMs."""
+    src_bytes, unit, _ = case.sizes(total_bytes, blocks)
+    return min(blocks, case.n_src * -(-src_bytes // unit))
+
+
+def stream_grid(case: streambench.Case, total_bytes: int, blocks: int):
+    """``stream_sum``'s grid (parts, blocks) for the case at
+    ``total_bytes`` a call, on a card of ``blocks`` SMs."""
+    itemsize = torch.tensor([], dtype=case.dtype).element_size()
+    return stream.launch_plan(case.tiles(total_bytes), case.rows, case.width,
+                              itemsize, case.n_in, blocks)
+
+
 def l2_read_rate(device, reps: int, copies: Optional[List[dict]] = None
                  ) -> dict:
-    """The best read rate measured in L2 here: the larger of
-    ``stream_sum``'s single-input float32 cases and the copy sweep's
-    cases (``copies``, records already timed at ``L2_MIB``, or timed
-    now), at ``L2_MIB`` MiB a call.  {"gbps", "origin"}."""
-    total = L2_MIB << 20
+    """The best read rate measured in L2 here, without a call's fixed
+    cost: the slope of the time between ``L2_MIB`` = 16 and 32 MiB a
+    call, (t(32) − t(16)) / 16 MiB, of ``stream_sum``'s single-input
+    float32 cases and of each copy engine's best case of the sweep at 32
+    MiB (``copies``, records already timed there, or timed now); the
+    largest.  Each case is timed at the two sizes in turns,
+    ``L2_PAIRS`` times, and each size's median taken, so that both see
+    the card in one state.  Only cases whose grid is the same at both
+    sizes count: the
+    16 MiB more then add bytes to every block, where a grid that grows
+    with the bytes (``stream_sum`` with fewer tiles than SMs) would put
+    more SMs' rate into the slope.  {"gbps", "origin", "call_gbps": that
+    case's whole-call rate at 32 MiB, its fixed cost included,
+    "slopes": {case: GB/s}}."""
+    small, big = (mib << 20 for mib in L2_MIB)
+    sms = block_count(device)
     if copies is None:
-        copies = [time_case(c, total, device, reps) for c in sweep_cases()]
-    best = [(r["gbps"], f"dma_probe {r['name']}") for r in copies]
+        copies = [time_case(c, big, device, reps) for c in sweep_cases()]
+    def in_turns(time_at):
+        runs = [(time_at(small), time_at(big)) for _ in range(L2_PAIRS)]
+        return [sorted((run[i] for run in runs),
+                       key=lambda r: r["ms"])[L2_PAIRS // 2] for i in (0, 1)]
+
+    pairs = []  # (name, record at 16 MiB, record at 32 MiB)
+    for engine in dma.ENGINES:
+        top = max((r for r in copies if r["case"].engine == engine),
+                  key=lambda r: r["gbps"])["case"]
+        if copy_grid(top, small, sms) == copy_grid(top, big, sms):
+            pairs.append((f"dma_probe {top.name}", *in_turns(
+                lambda n: time_case(top, n, device, reps))))
     for case in streambench.CASES:
-        if case.dtype == torch.float32 and case.n_in == 1:
-            r = streambench.time_case(case, total, device, reps)
-            best.append((r["gbps"], f"stream_sum {case.name}"))
-    gbps, origin = max(best)
-    return dict(gbps=gbps, origin=f"{origin} at {L2_MIB} MiB")
+        if (case.dtype == torch.float32 and case.n_in == 1
+                and stream_grid(case, small, sms) == stream_grid(case, big,
+                                                                 sms)):
+            pairs.append((f"stream_sum {case.name}", *in_turns(
+                lambda n: streambench.time_case(case, n, device, reps))))
+    rates = [(slope_gbps(lo["bytes"], lo["ms"], hi["bytes"], hi["ms"]), name,
+              hi) for name, lo, hi in pairs]
+    rates = [r for r in rates if r[0] is not None]
+    if not rates:
+        raise RuntimeError("no case read 32 MiB slower than 16 MiB: no L2 "
+                           "read rate")
+    gbps, name, hi = max(rates, key=lambda r: r[0])
+    return dict(gbps=gbps, call_gbps=hi["gbps"],
+                origin=f"{name}, the slope from {L2_MIB[0]} to {L2_MIB[1]} "
+                       f"MiB a call",
+                slopes={name: rate for rate, name, _ in rates})
 
 
 def print_record(rec: dict) -> None:
@@ -177,8 +228,11 @@ def run_cases(cases, args, device, l2: Optional[dict] = None) -> List[dict]:
 
 
 def print_l2(l2: dict) -> None:
-    print(f"# L2 read rate {l2['gbps']:.1f} GB/s: {l2['origin']}, the bound "
-          f"of the cases whose bytes fit in L2", flush=True)
+    print(f"# L2 read rate {l2['gbps']:.1f} GB/s: {l2['origin']} (its whole "
+          f"call at {L2_MIB[1]} MiB {l2['call_gbps']:.1f} GB/s, fixed cost "
+          f"included), the bound of the cases whose bytes fit in L2; the "
+          f"slopes: " + ", ".join(f"{name} {rate:.1f}" for name, rate
+                                  in l2["slopes"].items()), flush=True)
 
 
 def run(argv=None) -> List[dict]:
@@ -190,8 +244,8 @@ def run(argv=None) -> List[dict]:
           f"first 8 rows of every chunk touched", flush=True)
     records = run_cases(sweep_cases(), args, device)
     if records and in_l2(records[0]["bytes"], device):
-        # the whole sweep at L2_MIB is the copy probe's part of the rate
-        whole = args.total_mib == L2_MIB and not args.select
+        # the whole sweep at 32 MiB gives the copy probe's best cases
+        whole = args.total_mib == L2_MIB[1] and not args.select
         l2 = l2_read_rate(device, args.reps, records if whole else None)
         print_l2(l2)
         for rec in records:

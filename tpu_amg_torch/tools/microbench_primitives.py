@@ -8,12 +8,16 @@ of one op is the marginal time between inner = LO and inner = HI over
 harness.  Per case it prints both times, the ns per tile-op and per
 element, and the bound: the op's instructions and shared-memory loads
 per element over the SMs' issue and load rates, at the SM clock that
-``nvidia-smi`` reports while the cases run.  Beside them, the
-shared-memory wavefronts a warp gather of the kernel takes on the
-timed inputs (``primitives.shared_wavefronts`` on the first
-``WAVEFRONT_TILES`` tiles, at inner HI), those of the first design
-(an index table and x in shared memory), and the design floor they
-imply: the bound's load term times the wavefronts.  Cases are chosen by substrings of their keys (``add``,
+``nvidia-smi`` reports while the cases run.  The HI call is held against
+the bound of its own 272 steps too: the marginal op assumes the two
+calls' fixed part equal, but the HI loop hides the loads of other
+blocks' prologues, so that the marginal op can read under its bound
+where the call does not.  Beside them, the shared-memory wavefronts a
+warp gather of the kernel takes on the timed inputs
+(``primitives.shared_wavefronts``, a host model of the kernel's
+addresses, on the first ``WAVEFRONT_TILES`` tiles, at inner HI), and
+the design floor they imply: the bound's load term times the
+wavefronts.  Cases are chosen by substrings of their keys (``add``,
 ``lane_gather``, ...), as in the harness.
 
 The harness's ``xla_gather`` part, a row gather by the library ahead of
@@ -90,8 +94,7 @@ class ClockSampler:
 def time_op(op: str, tiles: int, device, reps: int) -> dict:
     """Time the op at inner LO and HI on the inputs of
     ``primitives.make_inputs(op, tiles, device)``, and count its gathers'
-    wavefronts on the first tiles, in the kernel's design and in the
-    first."""
+    wavefronts on the first tiles."""
     lo, hi = primitives.LO, primitives.HI
     x, idx = primitives.make_inputs(op, tiles, device)
     t_lo = call_ms(lambda: primitives.primitive_probe(x, idx, op, lo),
@@ -103,9 +106,7 @@ def time_op(op: str, tiles: int, device, reps: int) -> dict:
     few = (x[:WAVEFRONT_TILES], idx[:WAVEFRONT_TILES])
     return dict(op=op, name=primitives.OPS[op].name, tiles=tiles, lo_ms=t_lo,
                 hi_ms=t_hi, ns_per_op=per_ns, ns_per_element=per_ns / elements,
-                wavefronts=primitives.shared_wavefronts(op, *few, hi),
-                tile_wavefronts=primitives.shared_wavefronts(op, *few, hi,
-                                                             tile=True))
+                wavefronts=primitives.shared_wavefronts(op, *few, hi))
 
 
 def time_gathers(device, reps: int) -> List[dict]:
@@ -159,18 +160,21 @@ def run(argv=None):
         rec["clock_mhz"] = clock
         rec["bound_ns_per_op"] = (primitives.op_bound_ns(rec["op"], sms, clock)
                                   if clock else None)
+        rec["hi_bound_ms"] = (rec["tiles"] * primitives.op_bound_ns(
+            rec["op"], sms, clock, primitives.HI) / 1e6 if clock else None)
         bound = (f"bound {rec['bound_ns_per_op']:.4f} ns/op: {info.what} "
                  f"({info.issue} instructions at {primitives.ISSUE_PER_CLOCK}"
                  f"/clk/SM, {info.loads} loads at {primitives.LDS_PER_CLOCK}"
-                 f"/clk/SM) per element, {sms} SMs, {clock:.0f} MHz"
+                 f"/clk/SM) per element, {sms} SMs, {clock:.0f} MHz; the HI "
+                 f"call's {rec['hi_bound_ms'] * 1e3:.1f}us "
+                 f"({rec['hi_bound_ms'] / rec['hi_ms']:.1%} of it)"
                  if clock else "no bound off the card")
         wf = rec["wavefronts"]
         rec["floor_ns_per_op"] = (
             primitives.design_floor_ns(rec["op"], wf, sms, clock)
             if clock and wf else None)
         gathers = ("no gathers" if wf is None else
-                   f"{wf:.2f} wavefronts a warp gather (first design "
-                   f"{rec['tile_wavefronts']:.2f})" + (
+                   f"{wf:.2f} wavefronts a warp gather (host model)" + (
                        f", design floor {rec['floor_ns_per_op']:.4f} ns/op"
                        if rec["floor_ns_per_op"] else ""))
         print(f"{rec['name']:36s} lo={rec['lo_ms']:8.3f}ms "

@@ -16,6 +16,16 @@ def hbm_bound_ms(nbytes: int) -> float:
     return nbytes / HBM_DATASHEET_GBPS / 1e6
 
 
+def slope_gbps(small_bytes: int, small_ms: float, big_bytes: int,
+               big_ms: float):
+    """The rate of the bytes that the bigger of two calls adds, (big −
+    small bytes) over (big − small ms), in GB/s: a rate without the
+    calls' fixed cost; None where the bigger call is not the slower."""
+    if big_bytes <= small_bytes or big_ms <= small_ms:
+        return None
+    return (big_bytes - small_bytes) / (big_ms - small_ms) / 1e6
+
+
 def l2_bound_ms(nbytes: int, gbps: float) -> float:
     """The least time to move ``nbytes`` that stay in the L2 cache, at
     ``gbps``, a read rate measured in L2 (the data sheet gives none), in
