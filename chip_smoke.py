@@ -25,13 +25,21 @@ Phases, one printed line per result; any failed check exits non-zero:
      bound);
   4. SA path: AMGSolver.setup on unstructured_poisson_3d(side) with the
      scalar 3-D SA config, then 3 PCG solves of A x = A x_true (seeded
-     x_true) to rtol 1e-6; the kernels' launch counts over that run must
-     be > 0, and K1's and K2's are printed by (rows, cols, k); the
-     V-cycle's time
-     as the solve runs it (enqueued from Python) and the device's own
-     time for it (graph replays);
+     x_true) to rtol 1e-6, each eager (cg) and through AMGSolver.solve
+     (compile: one iteration captured in a CUDA graph and replayed),
+     which must give the same iterations, histories and, bitwise, x; one
+     stationary solve to rtol 1e-6 (at most 200 iterations), eager and
+     compiled, which must converge; the ||E||_A estimate (100 x 5, in
+     (0, 1)) and ||E 1||_A / ||1||_A, E's factor on the constant vector
+     (A 1 = 1e-8 1, the graph Laplacian's shift); the kernels' launch counts over that run (replays counted)
+     must be > 0, and K1's and K2's are printed by (rows, cols, k); the
+     V-cycle's time as the solve runs it (enqueued from Python) and the
+     device's own time for it (graph replays); then the checkpoint saved,
+     loaded, and its V-cycle bitwise equal to the original's;
   5. a small SA input solved on the card and, from the same hierarchy,
-     on the CPU through the plain versions: the two must agree;
+     on the CPU through the plain versions: the two must agree, and so
+     must their ||E||_A estimates (10 power steps to 1e-10; 100, settled
+     on the near-constant mode whose A-norm is a cancellation, to 2e-7);
   6. stream probe: its entry point (python -m
      tpu_amg_torch.tools.streambench, 32 MiB per call) with the launch
      count read over that run; then every case against its plain
@@ -43,7 +51,8 @@ Phases, one printed line per result; any failed check exits non-zero:
      configuration on as many bytes;
   7. structured path: build_structured_multigrid on poisson3d(100)
      (1,000,000 dofs) in float64 (DIA levels through K3),
-     its levels, then 3 PCG solves of A x = A x_true to rtol 1e-6; the
+     its levels, then 3 PCG solves of A x = A x_true to rtol 1e-6 and a
+     stationary one, each eager and compiled as in phase 4; the
      launch counts over that run must be > 0, K2's printed by (rows,
      cols, k); the V-cycle's times;
   8. K3 vs its plain version at that path's level-0 and level-1
@@ -83,11 +92,22 @@ Phases, one printed line per result; any failed check exits non-zero:
      272; the SASS of the HI kernels (cuobjdump): every step's gathers
      issued inside the k loop (LDS, and SHFL.IDX for the pair's index
      gather), nothing spilled to local memory.
-Every count is set to 0 just before each path (4, 6, 7, 10, 11, 12) and
-read just after it, before the comparison launches.  The last two lines
-are a JSON object of per-kernel results (with each kernel's bound and
-the library call's time) and the device line.  With no CUDA device it
-exits with code 2 and prints no result.
+ 13. the CLI: python -m tpu_amg_torch.tools.amg on the structured
+     poisson3d(100) (--structured --tol 1e-6: cg_iters <= 14), the SA
+     default aniso2d(256) and the MFEM fixture that python -m
+     tpu_amg_torch.tools.make_fem_fixture writes into a temporary
+     directory; every final line parsed and checked, K1 (and K3 on the
+     structured run) launched in each run, K1, K2 and K3 over the three;
+     then the block smoother on the fixture's hierarchy, card against
+     CPU.
+Then every row timed with its bytes in the L2 cache is bound by the L2
+read rate of phase 11, and K1's and K2's launches x (time - bound) are
+printed for both paths.  Every count is set to 0 just before each path
+(4, 6, 7, 10, 11, 12, each CLI run) and read just after it, before the
+comparison launches.  The last two lines are a JSON object of
+per-kernel results (with each kernel's bound and the library call's
+time) and the device line.  With no CUDA device it exits with code 2
+and prints no result.
 """
 
 from __future__ import annotations
@@ -98,7 +118,9 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -106,6 +128,12 @@ RTOL = 1e-6
 MAX_ITERS = 46  # twice the reference's 23 PCG iterations for this config
 STRUCTURED_SIDE = 100  # poisson3d(100): 1,000,000 dofs
 MAX_ITERS_STRUCTURED = 14  # twice the reference's 7 at poisson3d(100)
+STATIONARY_MAX = 200  # the stationary solves' cap, to rtol 1e-6
+CLI_SA_N = 256  # the CLI's SA default problem: aniso2d(256), 65,536 dofs
+# card against CPU ||E||_A: (power steps, relative tolerance); after 100
+# steps the estimate sits on the near-constant mode, whose A-norm sums
+# ~15 terms of order 1 to 1e-8, so rounding (~15 eps / 1e-8) bounds it
+E_NORM_CASES = ((10, 1e-10), (100, 2e-7))
 # the kernels sum in another order than the plain versions
 TOL = {"float64": 1e-12, "float32": 1e-5}
 STREAM_MIB = 32  # the harness's TOTAL (tools/streambench.py:25)
@@ -252,6 +280,7 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
                                 reps, graph=True)
             lib = dict(k1_lib_ms=median_ms(lambda: lib1 @ x, reps, graph=True),
                        k1_bound_ms=hbm_bound_ms(spmv.k1_bytes(mat, k)),
+                       k1_bytes=spmv.k1_bytes(mat, k), k2_bytes=None,
                        k2_lib_ms=None, k2_bound_ms=None,
                        k2_old_bound_ms=None, rowgroup_ms=None,
                        k2_by_lanes=None, k2_lanes=None)
@@ -264,6 +293,7 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
                                              graph=True)
                 new, old = k2_bytes(mat, k)
                 lib["k2_bound_ms"] = hbm_bound_ms(new)
+                lib["k2_bytes"] = new
                 lib["k2_old_bound_ms"] = hbm_bound_ms(old)
                 if dtype == torch.float64 and k in (1, 8):
                     lib["k2_by_lanes"] = k2_lanes_sweep(mat, x, k, reps)
@@ -318,6 +348,114 @@ def say_excess(kernel, key, path, by_shape, results, cases):
         f"{total:.3f} ms in all; " + "; ".join(excess))
 
 
+def bound_in_l2(results, dia_results, stream_recs, l2) -> None:
+    """Re-bound every timed row whose bytes fit in the card's L2 by the
+    L2 read rate ``l2`` (measured by the copy probes in this run, without
+    a call's fixed cost), printing each with the data sheet's HBM time it
+    replaces, which is no floor in L2."""
+    import torch
+
+    from tpu_amg_torch.tools import dmabench
+
+    dev = torch.device("cuda")
+    lines = []
+
+    def rebound(rec, nbytes_key, bound_key, label):
+        nbytes = rec.get(nbytes_key)
+        if nbytes is None or not dmabench.in_l2(nbytes, dev):
+            return
+        b = dmabench.bound(nbytes, dev, l2)
+        lines.append(f"{label} {b['bound_ms'] * 1e3:.2f} us (HBM "
+                     f"{b['hbm_bound_ms'] * 1e3:.2f})")
+        rec[bound_key] = b["bound_ms"]
+
+    for c in results:
+        tag = f"{c['case']} {c['dtype']} k={c['k']}"
+        rebound(c, "k1_bytes", "k1_bound_ms", f"K1 {tag}")
+        rebound(c, "k2_bytes", "k2_bound_ms", f"K2 {tag}")
+    for c in dia_results:
+        rebound(c, "bytes", "bound_ms",
+                f"K3 {c['case']} {c['dtype']} k={c['k']}")
+    for r in stream_recs:
+        rebound(r, "bytes", "bound_ms", f"stream_sum {r['name']}")
+    say(f"bounds in L2, over {l2['gbps']:.1f} GB/s ({l2['origin']}): "
+        + "; ".join(lines))
+
+
+def constant_mode_factor(op, pc) -> float:
+    """||E 1||_A / ||1||_A for E = I - M A: how far one V-cycle of the
+    stationary iteration damps the constant vector."""
+    import torch
+
+    one = torch.ones(op.shape[0], dtype=torch.float64, device=op.mat.device)
+
+    def a_norm(v):
+        return float(torch.sqrt(torch.dot(v, op.mv(v))))
+
+    return a_norm(one - pc.mv(op.mv(one))) / a_norm(one)
+
+
+def eager_and_compiled(solver, b, method: str, rtol: float, maxiter: int):
+    """One solve of ``b`` by the method's eager solve and one through
+    ``solver.solve`` (``AMGSolver.compile``: a CUDA graph of one
+    iteration, replayed): [(x, info, seconds)] for each, in that order."""
+    import torch
+
+    from tpu_amg_torch.solvers import cg, stationary_iteration
+
+    eager = cg if method == "cg" else stationary_iteration
+    out = []
+    for solve in (lambda: eager(solver.op, b, solver.preconditioner,
+                                 rtol=rtol, maxiter=maxiter),
+                  lambda: solver.solve(b, rtol=rtol, maxiter=maxiter,
+                                       method=method)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = solve()
+        torch.cuda.synchronize()
+        out.append((x, info, time.perf_counter() - t0))
+    return out
+
+
+def check_same_solve(label: str, pair, first: bool) -> None:
+    """The compiled solve gives the eager one's iterations, history and,
+    bitwise, x; prints the seconds of each (the first compiled solve of
+    a key includes its capture)."""
+    import torch
+
+    (xe, ie, te), (xg, ig, tg) = pair
+    same_hist = ie.history().tolist() == ig.history().tolist()
+    same_x = torch.equal(xe, xg)
+    check(ie.iters == ig.iters and same_hist and same_x,
+          f"{label}: compiled (CUDA graph) {ig.iters} / eager {ie.iters} "
+          f"iterations, histories equal: {same_hist}, x bitwise equal: "
+          f"{same_x}; eager {te:.4f} s ({te / max(ie.iters, 1) * 1e3:.3f} "
+          f"ms an iteration), compiled {tg:.4f} s "
+          f"({tg / max(ig.iters, 1) * 1e3:.3f} ms an iteration"
+          + ("; its capture included)" if first else ")"))
+
+
+def run_cli(module: str, argv) -> tuple:
+    """``python -m <module> <argv>`` in this process (so that the launch
+    counts see it), its standard output kept: (the final line, the
+    seconds)."""
+    import contextlib
+    import io
+    import runpy
+
+    out = io.StringIO()
+    saved = sys.argv
+    sys.argv = [module, *argv]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module(module, run_name="__main__")
+    finally:
+        sys.argv = saved
+    lines = out.getvalue().strip().splitlines()
+    return (lines[-1] if lines else ""), time.perf_counter() - t0
+
+
 def reset_counts() -> None:
     """Every kernel's launch count to 0."""
     from tpu_amg_torch.ops import dia, dma, primitives, spmv, spmv_stages, stream
@@ -362,6 +500,7 @@ def stream_cases(bench_records, reps):
         rec = dict(name=case.name, dtype=str(case.dtype), err=err, ms=t,
                    plain_ms=tp, gbps=bench["gbps"],
                    plain_gbps=nbytes / tp / 1e6,
+                   bytes=nbytes + bench["tiles"] * 4096,
                    bound_ms=hbm_bound_ms(nbytes + bench["tiles"] * 4096))
         records.append(rec)
         check(err == 0.0 and same,
@@ -572,7 +711,7 @@ def dma_phase(reps):
             f"is not a floor in L2")
     d2, d4 = in_l2["bulk whole 8MB"], in_l2["bulk same 16MB"]
     d3 = next(r for r in recs2 if r["name"] == "bulk multi 4x16MB")
-    return dict(name="dma_probe", route="cuda",
+    return l2, dict(name="dma_probe", route="cuda",
                 source="tpu_amg_torch/csrc/dma.cu",
                 replaces="tools/dmabench.py:39, tools/dmabench2.py:61, "
                          "tools/dmabench2.py:88, tools/dmabench2.py:130",
@@ -677,6 +816,100 @@ def primitives_phase(reps):
                 pair_gather_ms=pair["hi_ms"],
                 pair_gather_ns_per_op=pair["ns_per_op"],
                 pair_gather_bound_ns_per_op=pair["bound_ns_per_op"])
+
+
+def cli_phase():
+    """Phase 13: the CLI (python -m tpu_amg_torch.tools.amg) on the card:
+    the structured poisson3d(100), the SA default aniso2d and the MFEM
+    fixture that the port's fixture writer makes in a temporary
+    directory; each final line parsed and checked, the launch counts
+    read over each run.  Then the block smoother (the CLI's default) on
+    the fixture's hierarchy, on the card against the CPU."""
+    import collections
+
+    import torch
+
+    from tpu_amg_torch.linop import SparseOperator
+    from tpu_amg_torch.ops import dia, spmv
+    from tpu_amg_torch.solver import AMGSolver, SolverConfig
+    from tpu_amg_torch.solvers import cg
+    from tpu_amg_torch.utils.io import load_mfem_linear_system
+
+    name = "fem_square_k100"
+    with tempfile.TemporaryDirectory() as tmp:
+        fixture = Path(tmp) / name
+        subprocess.run([sys.executable, "-m",
+                        "tpu_amg_torch.tools.make_fem_fixture", "--out",
+                        str(fixture)], check=True, capture_output=True)
+        cases = [
+            # rtol 1e-6, at which the JAX package took 7 iterations, but
+            # on b = A x_true from zero; the CLI solves b = ones from a
+            # random x0, so the limit of twice 7 spans two protocols
+            ("structured poisson3d(100)", ["--problem", "poisson3d", "--n",
+                                           "100", "--structured", "--tol",
+                                           "1e-6"], MAX_ITERS_STRUCTURED),
+            (f"SA aniso2d n={CLI_SA_N}", ["--problem", "aniso2d", "--n",
+                                          str(CLI_SA_N)], None),
+            ("SA MFEM fixture", ["--data-dir", str(fixture), "--name", name,
+                                 "--coarsest-dim", "200"], None),
+        ]
+        totals = collections.Counter()
+        for label, argv, limit in cases:
+            torch.cuda.synchronize()
+            reset_counts()
+            line, secs = run_cli("tpu_amg_torch.tools.amg", argv)
+            torch.cuda.synchronize()
+            counts = dict(csr_spmv_capped=spmv.csr_spmv_launches,
+                          coo_patch=spmv.coo_patch_launches,
+                          dia_spmv=dia.dia_spmv_launches)
+            totals.update(counts)
+            fields = line.split()
+            try:
+                cg_iters, sli_iters = int(fields[0]), int(fields[1])
+                e_norm, oc = float(fields[2]), float(fields[3])
+                formed = len(fields) == 4
+            except (IndexError, ValueError):
+                cg_iters = sli_iters = 0
+                e_norm = oc = float("nan")
+                formed = False
+            structured = "--structured" in argv
+            check(formed and cg_iters > 0 and sli_iters > 0
+                  and 0.0 < e_norm < 1.0
+                  and (np.isnan(oc) if structured else oc >= 1.0)
+                  and (limit is None or cg_iters <= limit)
+                  and counts["csr_spmv_capped"] > 0
+                  and (counts["dia_spmv"] > 0 or not structured),
+                  f"CLI {label}: final line {line!r} (cg_iters "
+                  f"{cg_iters}" + ("" if limit is None else
+                                   f", limit {limit}")
+                  + f"), {secs:.1f} s; launches " + ", ".join(
+                      f"{k} {v}" for k, v in counts.items()))
+        check(min(totals.values()) > 0, "launches over the CLI runs: "
+              + ", ".join(f"{k} {v}" for k, v in totals.items()))
+        system = load_mfem_linear_system(fixture, name)
+    # the block smoother on the fixture: the card against the CPU, from
+    # one hierarchy
+    cfg = SolverConfig(smoother="block", smoothing_steps=3, coarsest_dim=100,
+                       dense_threshold=100, device="cuda")
+    s_gpu = AMGSolver.setup(system.matrix, cfg)
+    mg_cpu = AMGSolver._mg_config(
+        dataclasses.replace(cfg, device="cpu")).build(s_gpu.hierarchy)
+    rng = np.random.default_rng(11)
+    diffs = []
+    for shape in ((system.matrix.nrows,), (system.matrix.nrows, 5)):
+        v = rng.standard_normal(shape)
+        zg = s_gpu.preconditioner(torch.from_numpy(v).cuda()).cpu()
+        zc = mg_cpu(torch.from_numpy(v))
+        diffs.append(float((zg - zc).abs().max() / zc.abs().max()))
+    b = torch.from_numpy(system.rhs[:, 0])
+    _, ig = s_gpu.solve(b, rtol=RTOL)
+    _, ic = cg(SparseOperator.from_csr(system.matrix, "cpu"), b, mg_cpu,
+               rtol=RTOL)
+    check(max(diffs) <= 1e-10 and ig.converged and ig.iters == ic.iters,
+          f"block smoother on the MFEM fixture (n={system.matrix.nrows}, "
+          f"{s_gpu.hierarchy.num_levels} levels): V-cycle rel diff card "
+          f"against CPU {diffs[0]:.2e} (mv), {diffs[1]:.2e} (mm, k=5) "
+          f"(limit 1e-10); PCG card {ig.iters} / CPU {ic.iters} iterations")
 
 
 def dia_to_csr(dia):
@@ -796,12 +1029,13 @@ def main() -> int:
                                    spmv_stages, stream)
     from tpu_amg_torch.ops import dia as dia_ops
     from tpu_amg_torch.preconditioners.multigrid_builder import MultigridConfig
-    from tpu_amg_torch.solver import AMGSolver, scalar_3d_config
+    from tpu_amg_torch.solver import AMGSolver, SolverConfig, scalar_3d_config
     from tpu_amg_torch.solvers import cg
     from tpu_amg_torch.sparse.dia import DIA
     from tpu_amg_torch.structured import build_structured_multigrid
     from tpu_amg_torch.tools import streambench
     from tpu_amg_torch.utils.problems import poisson3d, unstructured_poisson_3d
+    from tpu_amg_torch.utils.testing import approx_convergence_factor
     from tpu_amg_torch.utils.timing import HBM_DATASHEET_GBPS, median_ms
 
     # ---- 1. device
@@ -871,27 +1105,46 @@ def main() -> int:
         say(f"  level {lvl}: n={m.nrows} nnz={m.nnz} "
             f"({m.nnz / m.nrows:.1f}/row)")
     a_mat = solver.op.mat
-    solve_s = []
+    solve_s, graph_s = [], []
     for i in range(3):
         # b = A x_true for a seeded x_true, the reference's own protocol
         # (tools/solve3d.py:87-90)
         x_true = np.random.default_rng(100 + i).standard_normal(a.nrows)
         b = spmv.plain_spmv(a_mat, torch.from_numpy(x_true).cuda())
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        x, info = solver.solve(b, rtol=RTOL, maxiter=200)
-        torch.cuda.synchronize()
-        solve_s.append(time.perf_counter() - t0)
+        pair = eager_and_compiled(solver, b, "cg", RTOL, 200)
+        x, info, _ = pair[1]
+        solve_s.append(pair[0][2])
+        graph_s.append(pair[1][2])
         true_rel = float(torch.linalg.vector_norm(b - spmv.plain_spmv(a_mat, x))
                          / torch.linalg.vector_norm(b))
         check(
             info.converged and info.iters <= MAX_ITERS
             and np.isfinite(true_rel) and true_rel <= 1.01 * RTOL
             and tuple(x.shape) == (a.nrows,),
-            f"solve {i}: {solve_s[-1]:.3f} s, {info.iters} iterations "
+            f"solve {i}: {graph_s[-1]:.3f} s, {info.iters} iterations "
             f"(limit {MAX_ITERS}), true relative residual {true_rel:.3e} "
             f"(limit {1.01 * RTOL:.3e})",
         )
+        check_same_solve(f"SA PCG solve {i}", pair, first=i == 0)
+    # the stationary solve, eager and compiled, and the ‖E‖_A estimate
+    pair = eager_and_compiled(solver, b, "stationary", RTOL, STATIONARY_MAX)
+    x, info, _ = pair[1]
+    true_rel = float(torch.linalg.vector_norm(b - spmv.plain_spmv(a_mat, x))
+                     / torch.linalg.vector_norm(b))
+    check(info.converged and true_rel <= 1.01 * RTOL,
+          f"SA stationary solve to rtol {RTOL:.0e} (at most "
+          f"{STATIONARY_MAX}): converged {info.converged} in {info.iters} "
+          f"iterations, true relative residual {true_rel:.3e}")
+    check_same_solve("SA stationary solve", pair, first=True)
+    sa_stationary = (pair[1][1].iters, pair[0][2], pair[1][2])
+    t0 = time.perf_counter()
+    e_norm = approx_convergence_factor(solver.op, solver.preconditioner)
+    t_e = time.perf_counter() - t0
+    check(0.0 < e_norm < 1.0,
+          f"SA ||E||_A estimate (100 power steps x 5 vectors, K1's SpMM at "
+          f"k=5 and the V-cycle on a block): {e_norm:.6f} (limit (0, 1)); "
+          f"{t_e:.2f} s; ||E 1||_A / ||1||_A "
+          f"{constant_mode_factor(solver.op, solver.preconditioner):.12f}")
     torch.cuda.synchronize()
     launches = (spmv.csr_spmv_launches, spmv.coo_patch_launches)
     k1_by_shape = dict(spmv.csr_spmv_launches_by_shape)
@@ -915,7 +1168,23 @@ def main() -> int:
                          graph=True)
     say(f"V-cycle: {t_vc:.3f} ms as the solve runs it (enqueued from "
         f"Python), {t_vc_dev:.3f} ms on the device (CUDA graph replay); "
-        f"solves " + ", ".join(f"{s:.3f}" for s in solve_s) + " s")
+        f"PCG solves eager " + ", ".join(f"{s:.4f}" for s in solve_s)
+        + " s, compiled " + ", ".join(f"{s:.4f}" for s in graph_s) + " s")
+    # the checkpoint: save, load, and the same V-cycle bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        solver.save(Path(tmp) / "sa.npz")
+        t_save = time.perf_counter() - t0
+        size = (Path(tmp) / "sa.npz").stat().st_size
+        t0 = time.perf_counter()
+        loaded = AMGSolver.load(Path(tmp) / "sa.npz", a, cfg)
+        t_load = time.perf_counter() - t0
+    same = torch.equal(loaded.apply_preconditioner(r),
+                       solver.apply_preconditioner(r))
+    check(same, f"checkpoint: save {t_save:.1f} s ({size / 1e6:.1f} MB), "
+          f"load + multigrid build {t_load:.1f} s; the loaded V-cycle is "
+          f"bitwise equal to the original on a seeded vector: {same}")
+    del loaded
 
     # ---- 3b. kernels vs plain at every sparse matrix of the main path
     k_boot = cfg.coarsening_near_null_dim - 1  # the bootstrap's block width
@@ -954,8 +1223,6 @@ def main() -> int:
           "sparse matrices of the SA path timed: " + ", ".join(
               f"{k} {v}" for k, v in sa_cases.items()))
     # K1's and K2's excess over their bounds on the SA path
-    say_excess("K1", "k1", "the SA path", k1_by_shape, results, sa_cases)
-    say_excess("K2", "k2", "the SA path", k2_by_shape, results, sa_cases)
 
     # ---- 5. small input: card vs the plain versions on the CPU
     small = unstructured_poisson_3d(16)
@@ -979,6 +1246,22 @@ def main() -> int:
         f"card {ig.iters} / CPU {ic.iters} iterations; V-cycle rel diff "
         f"{dz:.2e} (limit 1e-10); solution rel diff {dx:.2e} (limit 1e-6)",
     )
+    # ||E||_A on this hierarchy, card against CPU, from one start block
+    starts = torch.randn(small.nrows, 5, dtype=torch.float64,
+                         generator=torch.Generator().manual_seed(42))
+    for steps, tol in E_NORM_CASES:
+        eg, ec = (approx_convergence_factor(op, pc, num_iters=steps,
+                                            starts=starts)
+                  for op, pc in ((s_gpu.op, s_gpu.preconditioner),
+                                 (op_cpu, mg_cpu)))
+        de = abs(eg - ec) / ec
+        check(0.0 < eg < 1.0 and de <= tol,
+              f"small input ||E||_A after {steps} power steps: card "
+              f"{eg:.12f}, CPU {ec:.12f}, rel diff {de:.2e} (limit "
+              f"{tol:.0e})")
+    say(f"small input ||E 1||_A / ||1||_A: card "
+        f"{constant_mode_factor(s_gpu.op, s_gpu.preconditioner):.12f}, CPU "
+        f"{constant_mode_factor(op_cpu, mg_cpu):.12f}")
 
     # ---- 6. stream probe: its entry point, then each case vs plain
     reset_counts()
@@ -1011,7 +1294,8 @@ def main() -> int:
     t0 = time.perf_counter()
     smg = build_structured_multigrid(ps, (side,) * 3, device="cuda",
                                      coarsest_dim=1000, dtype=torch.float64)
-    s_op = SparseOperator.from_csr(ps, "cuda", torch.float64)
+    s_solver = AMGSolver(ps, smg, config=SolverConfig(device="cuda"))
+    s_op = s_solver.op
     torch.cuda.synchronize()
     say(f"structured setup: {time.perf_counter() - t0:.1f} s; "
         f"{len(smg.levels) + 1} levels")
@@ -1019,15 +1303,14 @@ def main() -> int:
         say(line)
     check(isinstance(s_op.mat, DIA), f"structured A is "
           f"{type(s_op.mat).__name__} (expected DIA)")
-    s_solve = []
+    s_solve, s_graph = [], []
     for i in range(3):
         x_true = np.random.default_rng(100 + i).standard_normal(ps.nrows)
         b = dia_ops.plain_dia_spmv(s_op.mat, torch.from_numpy(x_true).cuda())
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        x, info = cg(s_op, b, smg, rtol=RTOL, maxiter=200)
-        torch.cuda.synchronize()
-        s_solve.append(time.perf_counter() - t0)
+        pair = eager_and_compiled(s_solver, b, "cg", RTOL, 200)
+        x, info, _ = pair[1]
+        s_solve.append(pair[0][2])
+        s_graph.append(pair[1][2])
         true_rel = float(
             torch.linalg.vector_norm(b - dia_ops.plain_dia_spmv(s_op.mat, x))
             / torch.linalg.vector_norm(b))
@@ -1035,10 +1318,18 @@ def main() -> int:
             info.converged and info.iters <= MAX_ITERS_STRUCTURED
             and np.isfinite(true_rel) and true_rel <= 1.01 * RTOL
             and tuple(x.shape) == (ps.nrows,),
-            f"structured solve {i}: {s_solve[-1]:.3f} s, {info.iters} "
+            f"structured solve {i}: {s_graph[-1]:.3f} s, {info.iters} "
             f"iterations (limit {MAX_ITERS_STRUCTURED}), true relative "
             f"residual {true_rel:.3e} (limit {1.01 * RTOL:.3e})",
         )
+        check_same_solve(f"structured PCG solve {i}", pair, first=i == 0)
+    pair = eager_and_compiled(s_solver, b, "stationary", RTOL, STATIONARY_MAX)
+    check(pair[1][1].converged,
+          f"structured stationary solve to rtol {RTOL:.0e}: converged "
+          f"{pair[1][1].converged} in {pair[1][1].iters} iterations")
+    check_same_solve("structured stationary solve", pair, first=True)
+    s_stationary = (pair[1][1].iters, pair[0][2], pair[1][2])
+    del pair, x
     torch.cuda.synchronize()
     s_launches = dict(dia_spmv=dia_ops.dia_spmv_launches,
                       csr_spmv_capped=spmv.csr_spmv_launches,
@@ -1062,8 +1353,9 @@ def main() -> int:
     t_svc_dev = median_ms(lambda: smg.mv(rs), 20, graph=True)
     say(f"structured V-cycle: {t_svc:.3f} ms as the solve runs it "
         f"(enqueued from Python), {t_svc_dev:.3f} ms on the device (CUDA "
-        f"graph replay); solves " + ", ".join(f"{s:.3f}" for s in s_solve)
-        + " s")
+        f"graph replay); PCG solves eager "
+        + ", ".join(f"{s:.4f}" for s in s_solve) + " s, compiled "
+        + ", ".join(f"{s:.4f}" for s in s_graph) + " s")
 
     # ---- 8. K3 vs plain at the structured path's level-0 and level-1 shapes
     dia_results = []
@@ -1087,8 +1379,6 @@ def main() -> int:
                      mat.to_csr(), "cuda", torch.float32)},
                 args.reps, results, sorted({1, 8} | ran),
             )
-    say_excess("K2", "k2", "the structured path", s_k2_by_shape, results,
-               s_cases)
 
     # ---- 9. small structured input: card vs the plain versions on the CPU
     n24 = 24
@@ -1119,8 +1409,21 @@ def main() -> int:
         {"SA A0": a_mat, "SA R0": sa_mat("R", 0, h.restrictions[0]),
          "SA A1": sa_mat("A", 1, h.matrices[1])},
         args.reps)
-    dma_entry = dma_phase(args.reps)
+    l2, dma_entry = dma_phase(args.reps)
     primitives_entry = primitives_phase(args.reps)
+
+    # ---- 13. the CLI on the card
+    cli_phase()
+
+    # the rows timed in L2 (bytes that fit in the card's L2, 50 calls
+    # back to back) bound by this run's L2 read rate, without a call's
+    # fixed cost (phase 11), in place of the HBM data sheet's rate
+    bound_in_l2(results, dia_results, stream_recs, l2)
+    # K1's and K2's excess over their bounds on both paths
+    say_excess("K1", "k1", "the SA path", k1_by_shape, results, sa_cases)
+    say_excess("K2", "k2", "the SA path", k2_by_shape, results, sa_cases)
+    say_excess("K2", "k2", "the structured path", s_k2_by_shape, results,
+               s_cases)
 
     # ---- results
     # both paths run float64: their errors go in the record, the SA
@@ -1132,6 +1435,8 @@ def main() -> int:
     r0 = next(c for c in main_cases if c["case"] == "R0" and c["k"] == 1)
     s2 = next(c for c in main_cases if c["case"] == "S2" and c["k"] == 1)
     d0 = next(c for c in dia_results if c["case"] == "A0"
+              and c["dtype"] == "float64" and c["k"] == 1)
+    d1 = next(c for c in dia_results if c["case"] == "A1"
               and c["dtype"] == "float64" and c["k"] == 1)
     kernels = [
         dict(name="csr_spmv_capped", route="cuda",
@@ -1164,7 +1469,9 @@ def main() -> int:
                              if c["dtype"] == "float64"),
              ms=d0["ms"], plain_ms=d0["plain_ms"],
              bound_ms=d0["bound_ms"], bound_by="bytes",
-             library_ms=d0["lib_ms"]),
+             library_ms=d0["lib_ms"],
+             # the level-1 operator, whose bytes stay in L2
+             a1_ms=d1["ms"], a1_bound_ms=d1["bound_ms"]),
         # the best float32 case past L2, where the HBM rate is a floor
         dict(name="stream_sum", route="cuda",
              source="tpu_amg_torch/csrc/stream.cu",
@@ -1174,7 +1481,10 @@ def main() -> int:
              case=f"{big['name']} at {STREAM_BIG_MIB} MiB",
              ms=big["ms"], plain_ms=big["plain_ms"],
              bound_ms=big["bound_ms"], bound_by="bytes",
-             library_ms=big["plain_ms"]),
+             library_ms=big["plain_ms"],
+             # the best float32 case at 32 MiB, bound in L2
+             l2_case=best["name"], l2_ms=best["ms"],
+             l2_bound_ms=best["bound_ms"]),
         stages_entry, dma_entry, primitives_entry,
     ]
     say(json.dumps({"kernels": kernels}))

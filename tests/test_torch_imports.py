@@ -33,6 +33,15 @@ SLICE_3 = ["tpu_amg_torch.ops.spmv_stages", "tpu_amg_torch.ops.dma",
            "tpu_amg_torch.tools.microbench_primitives"]
 # the row-block sweep of K1
 SLICE_4 = ["tpu_amg_torch.tools.rowblocks"]
+# the CLI path: the stationary solve, the CUDA-graph step, the harness,
+# I/O, reordering, stats, the families and the CLIs
+SLICE_7 = ["tpu_amg_torch.errors", "tpu_amg_torch.solvers.stationary",
+           "tpu_amg_torch.solvers.graph", "tpu_amg_torch.utils.reorder",
+           "tpu_amg_torch.utils.stats", "tpu_amg_torch.utils.testing",
+           "tpu_amg_torch.utils.io", "tpu_amg_torch.utils.geometric",
+           "tpu_amg_torch.models", "tpu_amg_torch.models.families",
+           "tpu_amg_torch.tools.amg", "tpu_amg_torch.tools.simple_geometric",
+           "tpu_amg_torch.tools.make_fem_fixture"]
 
 
 def test_port_imports_no_jax():
@@ -45,6 +54,7 @@ def test_port_imports_no_jax():
     assert set(SLICE_2) <= set(out[2:])
     assert set(SLICE_3) <= set(out[2:])
     assert set(SLICE_4) <= set(out[2:])
+    assert set(SLICE_7) <= set(out[2:])
 
 
 def test_importing_builds_nothing():
@@ -52,7 +62,9 @@ def test_importing_builds_nothing():
     out = subprocess.run(
         [sys.executable, "-c",
          "import tpu_amg_torch.solver, tpu_amg_torch.structured, "
-         "tpu_amg_torch.tools.streambench, tpu_amg_torch.ops.spmv as s, "
+         "tpu_amg_torch.tools.streambench, tpu_amg_torch.tools.amg, "
+         "tpu_amg_torch.tools.simple_geometric, tpu_amg_torch.models, "
+         "tpu_amg_torch.solvers.graph, tpu_amg_torch.ops.spmv as s, "
          "tpu_amg_torch.ops.dia as d, tpu_amg_torch.ops.stream as t, "
          "tpu_amg_torch.ops.native as n; "
          "print(s.kernel_lib.cache_info().currsize, "

@@ -7,9 +7,13 @@ draws handed to the port (the two near-null start blocks from
 ``PRNGKey(7)``), the two solves take the same iterations and their
 residual histories agree to 1e-8 relative.  With the port's own
 ``torch.Generator`` both converge within 2 iterations of each other.
+On the reference's hierarchy, loaded by the port, the two ‖E‖_A
+estimates agree to rounding.
 The right-hand side is b = A x_true for a seeded x_true, as in the
 reference's own measurement (tools/solve3d.py).
 """
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -17,11 +21,17 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_amg.linop import aslinearoperator as jax_aslinearoperator
 from tpu_amg.solver import AMGSolver as JaxSolver
 from tpu_amg.solver import SolverConfig as JaxConfig
+from tpu_amg.utils import testing as jax_testing
+from tpu_amg.utils.checkpoint import _pack_hierarchy
 from tpu_amg.utils.problems import unstructured_poisson_3d as jax_problem
 from tests.test_torch_cycle import reference_lambda_starts
+from tpu_amg_torch.linop import SparseOperator
 from tpu_amg_torch.solver import AMGSolver, SolverConfig
+from tpu_amg_torch.utils import testing
+from tpu_amg_torch.utils.checkpoint import hierarchy_from_arrays
 from tpu_amg_torch.utils.problems import unstructured_poisson_3d
 
 SIDE = 11
@@ -86,3 +96,36 @@ def test_own_generator_converges_alike(reference):
     again = AMGSolver.setup(a, SolverConfig(device="cpu", **CONFIG))
     _, info2 = again.solve(torch.from_numpy(b), rtol=RTOL)
     np.testing.assert_array_equal(info2.history(), info.history())
+
+
+# (power steps, tolerance): after 10 steps the estimate is a mixture of
+# modes and agrees to 1e-10; by 100 it has settled on the near-constant
+# mode (A·1 = 1e-8·1: the graph Laplacian's shift), which E leaves all
+# but undamped (‖E‖_A = 1 − 2e-8 in both packages), and whose A-norm
+# sums ~15 terms of order 1 to 1e-8: rounding, about 15·eps / 1e-8 ≈
+# 2e-7 of it, is all the two packages can agree to there
+@pytest.mark.parametrize("num_iters, tol", [(10, 1e-10), (100, 2e-7)])
+def test_convergence_factor_matches_jax(reference, num_iters, tol):
+    """‖E‖_A of this config's V-cycle (Chebyshev, truncated P, dropped
+    coarse entries) in both packages, on the reference's hierarchy and
+    its power iteration's start block."""
+    cfg, ref, _, _ = reference
+    arrays = {}
+    meta = _pack_hierarchy(ref.hierarchy, arrays)
+    h = hierarchy_from_arrays(arrays, json.loads(json.dumps(meta)))
+    _, lam = _reference_draws(cfg, ref)
+    mg = AMGSolver._mg_config(SolverConfig(device="cpu", **CONFIG)).build(
+        h, lam)
+    key = jax.random.PRNGKey(42)
+    want = jax_testing.approx_convergence_factor(
+        jax_aslinearoperator(ref.hierarchy.matrices[0]), ref.preconditioner,
+        key, num_iters=num_iters)
+    starts = np.asarray(jax.random.normal(key, (h.matrices[0].nrows, 5),
+                                          jnp.float64))
+    got = testing.approx_convergence_factor(
+        SparseOperator.from_csr(h.matrices[0], "cpu"), mg,
+        num_iters=num_iters, starts=starts)
+    assert 0.0 < got < 1.0
+    assert got == pytest.approx(want, rel=tol)
+    if num_iters == 100:
+        assert want > 1.0 - 1e-6

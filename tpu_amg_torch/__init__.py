@@ -2,8 +2,8 @@
 
 The PyTorch port of the JAX package ``tpu_amg`` (which stays the
 reference), laid out module for module like it.  Setup (partitioning,
-interpolation, Galerkin products) is host numpy plus the shared C++ in
-``tpu_amg/ops/native_src``; the bootstrap and the solve run on an
+interpolation, Galerkin products) is host numpy plus the port's own C++
+in ``tpu_amg_torch/csrc/amg_native.cc``; the bootstrap and the solve run on an
 explicit device, and every sparse apply there goes through the
 hand-written CUDA kernels of :mod:`tpu_amg_torch.ops.spmv` (their plain
 PyTorch versions run on the CPU).

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from tpu_amg_torch.device import resolve_device, to_device
+from tpu_amg_torch.errors import HierarchyError
 from tpu_amg_torch.interpolation import InterpolationConfig
 from tpu_amg_torch.interpolation.sa import GalerkinCoarse, filter_matrix
 from tpu_amg_torch.linop import DiagonalOperator, SparseOperator
@@ -37,6 +38,7 @@ from tpu_amg_torch.preconditioners.smoothers import (
     l1_inverse_diag,
 )
 from tpu_amg_torch.sparse import CSR
+from tpu_amg_torch.utils.stats import format_stats_table, matrix_stats
 
 logger = logging.getLogger(__name__)
 
@@ -151,7 +153,7 @@ class Hierarchy:
         if not (p.nrows == r.ncols == fine_n) or not (
             p.ncols == r.nrows == coarse.nrows
         ):
-            raise ValueError(
+            raise HierarchyError(
                 f"level dimension mismatch: fine n={fine_n}, "
                 f"P {p.shape}, R {r.shape}, coarse n={coarse.nrows}"
             )
@@ -192,13 +194,11 @@ class Hierarchy:
         return sum(m.nnz for m in self.matrices) / self.matrices[0].nnz
 
     def __repr__(self):
-        rows = "\n".join(
-            f"  level {lvl}: n={m.nrows} nnz={m.nnz} "
-            f"nnz/row={m.nnz / max(m.nrows, 1):.1f}"
-            for lvl, m in enumerate(self.matrices)
+        table = format_stats_table(
+            [matrix_stats(m) for m in self.matrices],
         )
         return (
             f"Hierarchy(levels={self.num_levels}, "
             f"gc={self.grid_complexity():.2f}, "
-            f"oc={self.op_complexity():.2f})\n{rows}"
+            f"oc={self.op_complexity():.2f})\n{table}"
         )

@@ -3,8 +3,8 @@
 The two-pass CSR SpGEMM, the greedy-matching pop loop, the
 conflict-frozen local-move application, batched BFS neighbourhood
 expansion, the affinity distances and the strength filter are C++
-(``tpu_amg/ops/native_src/amg_native.cc``, one source shared with the
-JAX package).  It is compiled with g++ into
+(``tpu_amg_torch/csrc/amg_native.cc``, the port's own copy of the JAX
+package's native source).  It is compiled with g++ into
 ``build/tpu_amg_torch/libamg_native.so`` at first use and loaded with
 ctypes.  A failed build raises: the setup has no numpy fallback.
 """
@@ -13,12 +13,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from pathlib import Path
 
 import numpy as np
 
-from tpu_amg_torch.ops._build import REPO_ROOT, build_library
+from tpu_amg_torch.ops._build import build_library
 
-SOURCE = REPO_ROOT / "tpu_amg" / "ops" / "native_src" / "amg_native.cc"
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "amg_native.cc"
 CXX_FLAGS = [
     "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
     "-pthread",

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from tpu_amg_torch.device import resolve_device, to_device
+from tpu_amg_torch.errors import MultigridBuildError
 from tpu_amg_torch.hierarchy import Hierarchy
 from tpu_amg_torch.linop import DenseOperator, SparseOperator
 from tpu_amg_torch.partition import PartitionerConfig
@@ -121,7 +122,7 @@ class MultigridConfig:
                 or p_op.shape != (a.nrows, n_coarse)
                 or smoother.shape[0] != a.nrows
             ):
-                raise ValueError(
+                raise MultigridBuildError(
                     f"level {lvl} assembly mismatch: A n={a.nrows}, "
                     f"R {r_op.shape}, P {p_op.shape}, smoother "
                     f"{smoother.shape}, coarse n={n_coarse}"

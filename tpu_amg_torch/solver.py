@@ -2,12 +2,15 @@
 
     solver = AMGSolver.setup(csr_matrix, SolverConfig(device="cuda"))
     x, info = solver.solve(b)                      # repeatable
-    AMGSolver.load("hier.npz", a, config)          # from a checkpoint
+    solver.save("hier.npz")                        # checkpoint
+    AMGSolver.load("hier.npz", a, config)          # and resume
 
 Setup bootstraps a near-null basis on the device, builds the SA
 hierarchy on the host, and builds the device-side multigrid; ``solve``
-runs PCG preconditioned by that V-cycle.  Only ``method="sa"`` is
-ported.
+runs PCG (or stationary iteration) preconditioned by that V-cycle,
+through :meth:`AMGSolver.compile`: on a CUDA device one iteration of
+the solve is captured in a CUDA graph and replayed.  Only
+``method="sa"`` is ported.
 """
 
 from __future__ import annotations
@@ -27,7 +30,10 @@ from tpu_amg_torch.interpolation import AggregationConfig, InterpolationConfig
 from tpu_amg_torch.linop import SparseOperator
 from tpu_amg_torch.partition import PartitionerConfig
 from tpu_amg_torch.preconditioners.multigrid_builder import MultigridConfig
-from tpu_amg_torch.solvers import cg
+from tpu_amg_torch.solvers import cg, stationary_iteration
+from tpu_amg_torch.solvers.cg import cg_start, cg_step, iterate, snorm
+from tpu_amg_torch.solvers.graph import GraphStep
+from tpu_amg_torch.solvers.stationary import stationary_start, stationary_step
 from tpu_amg_torch.sparse import CSR
 
 logger = logging.getLogger(__name__)
@@ -60,6 +66,7 @@ class SolverConfig:
     dense_threshold: int = 2048  # levels at or under this are dense
     mu: Optional[int] = None  # auto: 1 for SA
     block_smoother_size: float = 128.0
+    reorder: bool = False  # RCM renumbering (utils/reorder.py) before setup
     dtype: torch.dtype = torch.float64
     device: str = "cuda"
     seed: int = 0
@@ -84,9 +91,13 @@ def scalar_3d_config(device: str = "cuda", **overrides) -> SolverConfig:
     return SolverConfig(**kw)
 
 
+SOLVE_METHODS = ("cg", "stationary")
+
+
 class AMGSolver:
     def __init__(self, a: CSR, preconditioner, hierarchy=None,
-                 config: Optional[SolverConfig] = None):
+                 config: Optional[SolverConfig] = None,
+                 perm: Optional[np.ndarray] = None):
         self.config = config or SolverConfig()
         self.device = resolve_device(self.config.device)
         self.matrix = a
@@ -94,6 +105,16 @@ class AMGSolver:
         self.preconditioner = preconditioner
         self.hierarchy = hierarchy
         self.setup_seconds = {}  # phase -> wall seconds
+        self._compiled = {}  # (rtol, maxiter, method) -> solve function
+        self._graphs = {}  # (method, n, dtype) -> GraphStep
+        # RCM permutation: the solve runs in the reordered numbering; b,
+        # x0 and x are translated
+        self.perm = self.inv_perm = None
+        if perm is not None:
+            inv = np.empty(len(perm), dtype=np.int64)
+            inv[perm] = np.arange(len(perm))
+            self.perm = torch.as_tensor(perm, device=self.device)
+            self.inv_perm = torch.as_tensor(inv, device=self.device)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -113,6 +134,11 @@ class AMGSolver:
         config = config or SolverConfig()
         device = resolve_device(config.device)
         disable_tf32()  # full-precision float32 matmuls on the solve path
+        perm = None
+        if config.reorder:
+            from tpu_amg_torch.utils.reorder import rcm_reorder
+
+            a, perm, _ = rcm_reorder(a)
         interp = InterpolationConfig(
             aggregation=AggregationConfig(
                 candidate_dimension=config.interp_near_null_dim,
@@ -156,7 +182,8 @@ class AMGSolver:
         seconds["multigrid"] = time.perf_counter() - t2
         for phase, s in seconds.items():
             logger.info("setup phase %s: %.1fs", phase, s)
-        solver = AMGSolver(a, mg, hierarchy=hierarchy, config=config)
+        solver = AMGSolver(a, mg, hierarchy=hierarchy, config=config,
+                           perm=perm)
         solver.setup_seconds = seconds
         return solver
 
@@ -164,16 +191,87 @@ class AMGSolver:
     def _as_device(self, v) -> torch.Tensor:
         return to_device(v, self.device, self.config.dtype)
 
-    def solve(self, b, x0=None, *, rtol: float = 1e-8, maxiter: int = 500):
-        """PCG preconditioned by the multigrid cycle; returns
-        (x on the device, SolveInfo)."""
+    def compile(self, *, rtol: float = 1e-8, maxiter: int = 500,
+                method: str = "cg"):
+        """The solve function ``fn(b, x0=None) -> (x, SolveInfo)`` for
+        one (rtol, maxiter, method), cached per key as in the JAX
+        package; ``method`` is "cg" (PCG) or "stationary".
+
+        On a CUDA device one iteration of the method's loop (operator
+        apply, V-cycle, dots, AXPYs and ‖r‖) is captured in a CUDA graph
+        at the first solve of each method, length and dtype (the step
+        does not depend on rtol or maxiter, so every key shares it;
+        :class:`tpu_amg_torch.solvers.graph.GraphStep`) and replayed
+        once an iteration, ‖r‖ read after each replay: the iterations,
+        history and x are the eager solve's.  A failed capture raises.
+        On the CPU the function is the eager solve."""
+        if method not in SOLVE_METHODS:
+            raise ValueError(f"unknown solve method {method!r} "
+                             f"(one of {SOLVE_METHODS})")
+        key = (rtol, maxiter, method)
+        if key in self._compiled:
+            return self._compiled[key]
+        op, pc = self.op, self.preconditioner
+        if method == "cg":
+            eager_solve, x_at, step = cg, 0, cg_step(op, pc)
+
+            def start(b, x0):
+                return cg_start(op, b, pc, x0)
+        else:
+            eager_solve, x_at, step = (stationary_iteration, 1,
+                                        stationary_step(op, pc))
+
+            def start(b, x0):
+                return stationary_start(op, b, x0)
+
+        def eager(b, x0=None):
+            return eager_solve(op, b, pc, x0, rtol=rtol, maxiter=maxiter)
+
+        def replayed(b, x0=None):
+            threshold = rtol * float(snorm(b))
+            state, res = start(b, x0)
+            gkey = (method, b.shape[0], b.dtype)
+            if gkey not in self._graphs:
+                self._graphs[gkey] = GraphStep(step, state)
+            graph = self._graphs[gkey]
+            graph.load(state)
+            state, info = iterate(graph, graph.state, float(res), threshold,
+                                  maxiter)
+            return state[x_at].clone(), info
+
+        fn = replayed if self.device.type == "cuda" else eager
+        self._compiled[key] = fn
+        return fn
+
+    def solve(self, b, x0=None, *, rtol: float = 1e-8, maxiter: int = 500,
+              method: str = "cg"):
+        """PCG (default) or stationary solve through :meth:`compile`
+        (cached per (rtol, maxiter, method)); returns (x on the device,
+        SolveInfo)."""
         b = self._as_device(b)
         x0 = None if x0 is None else self._as_device(x0)
-        return cg(self.op, b, self.preconditioner, x0, rtol=rtol,
-                  maxiter=maxiter)
+        if self.perm is not None:
+            b = b[self.perm]
+            x0 = None if x0 is None else x0[self.perm]
+        x, info = self.compile(rtol=rtol, maxiter=maxiter, method=method)(b, x0)
+        if self.perm is not None:
+            x = x[self.inv_perm]
+        return x, info
 
     def apply_preconditioner(self, r):
         return self.preconditioner.mv(self._as_device(r))
+
+    def save(self, path) -> None:
+        """Checkpoint the hierarchy (``utils/checkpoint.py``, the JAX
+        package's format)."""
+        if self.hierarchy is None:
+            raise NotImplementedError(
+                "only a single hierarchy saves: the adaptive composite's "
+                "checkpoint waits for its port (ROADMAP M16)"
+            )
+        from tpu_amg_torch.utils.checkpoint import save_hierarchy
+
+        save_hierarchy(path, self.hierarchy)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -196,7 +294,7 @@ class AMGSolver:
              *, lambda_starts: Optional[Sequence[np.ndarray]] = None,
              ) -> "AMGSolver":
         """Rebuild a solver from a single-hierarchy checkpoint written by
-        the JAX package (``tpu_amg.AMGSolver.save``)."""
+        :meth:`save` or by the JAX package (``tpu_amg.AMGSolver.save``)."""
         from tpu_amg_torch.utils.checkpoint import load_hierarchy
 
         config = config or SolverConfig()

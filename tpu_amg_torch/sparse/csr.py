@@ -17,6 +17,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from tpu_amg_torch.errors import SparseFormatError
+
 
 def _as_np(a, dtype=None):
     arr = np.asarray(a)
@@ -48,12 +50,12 @@ class CSR:
     def __post_init__(self):
         nrows, _ = self.shape
         if len(self.indptr) != nrows + 1:
-            raise ValueError(
+            raise SparseFormatError(
                 f"indptr length {len(self.indptr)} != nrows+1 ({nrows + 1})"
             )
         if self.block_size > 1 and nrows % self.block_size != 0:
             # reference core.rs:103-110 panics on indivisible block size
-            raise ValueError(
+            raise SparseFormatError(
                 f"nrows {nrows} not divisible by block_size {self.block_size}"
             )
 

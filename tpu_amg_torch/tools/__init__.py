@@ -1,1 +1,3 @@
-"""Command-line probes of the device (``python -m tpu_amg_torch.tools.<name>``)."""
+"""Command-line entry points of the port (``python -m tpu_amg_torch.tools.<name>``):
+the CLI examples (``amg``, ``simple_geometric``), the FEM fixture writer
+and the device probes."""

@@ -1,0 +1,260 @@
+"""End-to-end AMG command line: the port of the JAX package's
+``examples/amg.py``.
+
+Equivalent of the reference's main program (reference examples/amg/main.rs):
+load or generate an SPD system, bootstrap a near-null basis, build the
+hierarchy + multigrid (or the structured multigrid), solve with PCG and
+stationary iteration, estimate ‖E‖_A, and print the machine-readable
+final line
+
+    cg_iters sli_iters a_norm_of_e op_complexity
+
+(reference examples/amg/main.rs:471-474).  The arguments and the stderr
+lines are those of ``examples/amg.py``, with ``--device`` (default
+"cuda") in place of its TPU-only ``--host-below``.  Random draws come
+from a CPU ``torch.Generator`` seeded with ``--seed``: other numbers than
+the JAX package's ``jax.random`` draws from the same seed.
+
+Options whose modules are not ported yet exit with the ROADMAP item that
+ports them: ``--interpolation classical`` and ``--classical-opts``
+(M18), ``--composite`` (M16), ``--precision`` (M19), ``--viz-out``
+(M21), ``--problem elasticity3d`` (M17).
+
+Usage: python -m tpu_amg_torch.tools.amg [--device cpu] [--problem aniso2d] [--n 64] ...
+"""
+
+import argparse
+import logging
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--data-dir", type=str, default=None,
+                   help="MFEM system directory (expects <name>.{mtx,bdy,coords,rhs})")
+    p.add_argument("--name", type=str, default="system")
+    p.add_argument("--problem", type=str, default="aniso2d",
+                   choices=["poisson2d", "poisson3d", "aniso2d", "elasticity3d"])
+    p.add_argument("--n", type=int, default=64, help="grid points per dim")
+    p.add_argument("--epsilon", type=float, default=1e-3)
+    p.add_argument("--theta", type=float, default=np.pi / 6)
+    p.add_argument("--coefficient", type=str, default="constant")
+    p.add_argument("--block-size", type=int, default=1)
+    p.add_argument("--coarsening-near-null-dim", type=int, default=64)
+    p.add_argument("--interp-near-null-dim", type=int, default=4,
+                   help="SA candidate dimension")
+    p.add_argument("--smoothing-iters", type=int, default=20)
+    p.add_argument("--interpolation", type=str, default="sa",
+                   choices=["sa", "classical"])
+    p.add_argument("--classical-opts", type=str, default="",
+                   help="classical interpolation overrides (ROADMAP M18)")
+    p.add_argument("--coarsening-factor", type=float, default=8.0)
+    p.add_argument("--sa-filter", type=float, default=None,
+                   help="filtered-SA P smoothing threshold theta "
+                        "(drops |a_ij| < theta*sqrt(a_ii*a_jj) during "
+                        "prolongation smoothing; good for high contrast)")
+    p.add_argument("--sa-trunc", type=float, default=None,
+                   help="P truncation tolerance (drop |p_ij| < "
+                        "tol*rowmax after smoothing, rescale survivors; "
+                        "the 3-D fill control)")
+    p.add_argument("--aggregation-iters", type=int, default=200,
+                   help="partitioner improvement iterations")
+    p.add_argument("--max-iters", type=int, default=1000)
+    p.add_argument("--tol", type=float, default=1e-12)
+    p.add_argument("--block-smoother-size", type=float, default=128.0)
+    p.add_argument("--coarsest-dim", type=int, default=1000)
+    p.add_argument("--max-levels", type=int, default=None)
+    p.add_argument("--smoothing-steps", type=int, default=3)
+    p.add_argument("--smoother", type=str, default="block",
+                   choices=["block", "chebyshev", "l1", "l2", "jacobi"])
+    p.add_argument("--chebyshev-degree", type=int, default=3)
+    p.add_argument("--mu", type=int, default=None,
+                   help="cycle index (default: auto — 1 for SA)")
+    p.add_argument("--composite", type=int, default=None,
+                   help="adaptive composite with N components (ROADMAP M16)")
+    p.add_argument("--structured", action="store_true",
+                   help="gather-free structured-grid multigrid (tensor-"
+                        "grid problems only)")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="where the bootstrap and the solves run: cuda "
+                        "(the hand-written kernels) or cpu (their plain "
+                        "versions)")
+    p.add_argument("--viz-out", type=str, default=None,
+                   help="hierarchy viz JSON (ROADMAP M21)")
+    p.add_argument("--skip-sli", action="store_true",
+                   help="skip the stationary-iteration solve (prints -1)")
+    p.add_argument("--skip-enorm", action="store_true",
+                   help="skip the ||E||_A power estimate (prints nan)")
+    p.add_argument("--precision", type=str, default=None,
+                   choices=["bf16", "bf16_values", "f32"],
+                   help="mixed-precision preconditioner cycle (ROADMAP M19)")
+    p.add_argument("-v", "--verbose", action="store_true")
+    return p.parse_args(argv)
+
+
+def refuse_unported(args) -> None:
+    """Exit, naming the ROADMAP item, on an option whose module is not
+    ported yet: none is silently ignored."""
+    unported = [
+        (args.interpolation == "classical", "--interpolation classical",
+         "M18"),
+        (bool(args.classical_opts), "--classical-opts", "M18"),
+        (args.composite is not None, "--composite", "M16"),
+        (args.precision is not None, "--precision", "M19"),
+        (args.viz_out is not None, "--viz-out", "M21"),
+        (args.problem == "elasticity3d" and not args.data_dir,
+         "--problem elasticity3d", "M17"),
+    ]
+    for given, option, item in unported:
+        if given:
+            raise SystemExit(f"{option} is not ported yet (ROADMAP {item})")
+
+
+def load_problem(args):
+    from tpu_amg_torch.utils import problems
+    from tpu_amg_torch.utils.io import load_mfem_linear_system
+
+    if args.data_dir:
+        sys_ = load_mfem_linear_system(args.data_dir, args.name)
+        a = sys_.matrix.with_block_size(args.block_size)
+        rhs = sys_.rhs[:, 0] if sys_.rhs.size else np.ones(a.nrows)
+        return a, rhs
+    n = args.n
+    if args.problem == "poisson2d":
+        a = problems.poisson2d(n)
+    elif args.problem == "poisson3d":
+        a = problems.poisson3d(n)
+    else:
+        a = problems.anisotropic_diffusion_2d(
+            n, epsilon=args.epsilon, theta=args.theta,
+            coefficient=args.coefficient,
+        )
+    rhs = np.ones(a.nrows)
+    return a, rhs
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    refuse_unported(args)
+    logging.basicConfig(
+        level=logging.INFO if args.verbose else logging.WARNING,
+        format="%(levelname)s %(name)s: %(message)s",
+    )
+    from tpu_amg_torch.adaptivity import find_near_null
+    from tpu_amg_torch.device import disable_tf32, resolve_device
+    from tpu_amg_torch.hierarchy import HierarchyConfig, create_weights
+    from tpu_amg_torch.interpolation import (
+        AggregationConfig,
+        InterpolationConfig,
+    )
+    from tpu_amg_torch.linop import SparseOperator
+    from tpu_amg_torch.partition import PartitionerConfig
+    from tpu_amg_torch.preconditioners.multigrid_builder import MultigridConfig
+    from tpu_amg_torch.utils.testing import (
+        approx_convergence_factor,
+        test_solver,
+    )
+
+    device = resolve_device(args.device)
+    disable_tf32()
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    a, rhs = load_problem(args)
+    print(f"system: n={a.nrows} nnz={a.nnz} block_size={a.block_size}",
+          file=sys.stderr)
+    generator = torch.Generator().manual_seed(args.seed)
+    t_setup = time.time()
+
+    interp = InterpolationConfig(
+        aggregation=AggregationConfig(
+            candidate_dimension=args.interp_near_null_dim,
+            filter_theta=args.sa_filter,
+            trunc_tol=args.sa_trunc,
+            partitioner_config=PartitionerConfig(
+                coarsening_factor=args.coarsening_factor,
+                max_improvement_iters=args.aggregation_iters,
+            ),
+        ),
+    )
+    hier_cfg = HierarchyConfig(
+        coarsest_dim=args.coarsest_dim,
+        interpolation_config=interp,
+        max_levels=args.max_levels,
+        device=args.device,
+    )
+    mg_cfg = MultigridConfig(
+        mu=args.mu,
+        smoothing_steps=args.smoothing_steps,
+        smoother=args.smoother,
+        chebyshev_degree=args.chebyshev_degree,
+        smoother_partitioner=PartitionerConfig(
+            coarsening_factor=args.block_smoother_size,
+            max_improvement_iters=50,
+        ),
+        dtype=torch.float64,
+        device=args.device,
+    )
+    op = SparseOperator.from_csr(a, device, torch.float64)
+
+    if args.structured:
+        from tpu_amg_torch.structured import build_structured_multigrid
+
+        if args.data_dir:
+            raise SystemExit("--structured requires a tensor-grid problem")
+        if args.problem in ("poisson2d", "aniso2d"):
+            grid = (args.n, args.n)
+        else:
+            grid = (args.n,) * 3
+        t0 = time.time()
+        pc = build_structured_multigrid(
+            a, grid, device=device, coarsest_dim=args.coarsest_dim,
+            dtype=torch.float64,
+        )
+        sync()
+        op_complexity = float("nan")
+        print(f"structured setup: {time.time() - t0:.1f}s", file=sys.stderr)
+    else:
+        nn = find_near_null(
+            a, args.smoothing_iters, args.coarsening_near_null_dim - 1,
+            args.block_smoother_size, device, generator=generator,
+        )
+        basis, _ = np.linalg.qr(
+            np.concatenate([np.ones((a.nrows, 1)), nn], axis=1)
+        )
+        weights = create_weights(a, basis)
+        hierarchy = hier_cfg.build(a, basis, weights)
+        print(repr(hierarchy), file=sys.stderr)
+        pc = mg_cfg.build(hierarchy)
+        sync()
+        op_complexity = hierarchy.op_complexity()
+    print(f"setup: {time.time() - t_setup:.1f}s", file=sys.stderr)
+
+    t_solve = time.time()
+    x0 = torch.randn(a.nrows, generator=generator,
+                     dtype=torch.float64).to(device)
+    report = test_solver(
+        op, pc, torch.from_numpy(np.asarray(rhs, dtype=np.float64)).to(device),
+        x0, rtol=args.tol, maxiter=args.max_iters, run_sli=not args.skip_sli,
+    )
+    print(
+        f"solve: {time.time() - t_solve:.1f}s  cg_converged={report.cg_converged} "
+        f"sli_converged={report.sli_converged}",
+        file=sys.stderr,
+    )
+    a_norm_e = (float("nan") if args.skip_enorm
+                else approx_convergence_factor(op, pc, generator))
+    # machine-readable final line (reference examples/amg/main.rs:471-474)
+    print(f"{report.cg_iters} {report.sli_iters} {a_norm_e:.6f} "
+          f"{op_complexity:.6f}")
+
+
+if __name__ == "__main__":
+    main()

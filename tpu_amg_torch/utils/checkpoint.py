@@ -1,11 +1,13 @@
-"""Read hierarchy checkpoints written by the JAX package.
+"""Hierarchy checkpoint / resume, in the JAX package's format.
 
-``tpu_amg.utils.checkpoint.save_hierarchy`` (and ``AMGSolver.save``)
-writes one ``.npz``: per level ``A{l}``, ``P{l}``, ``R{l}`` as CSR
-triplets (``_data``, ``_indices``, ``_indptr``, ``_meta`` = rows, cols,
-block size), the near-null basis ``nn{l}``, its weights ``w{l}``, the
-partition ``part{l}`` (node → aggregate), and a JSON ``__meta__``.  The
-format is host numpy only, so it loads here unchanged.
+One ``.npz`` (``tpu_amg/utils/checkpoint.py``): per level ``A{l}``,
+``P{l}``, ``R{l}`` as CSR triplets (``_data``, ``_indices``,
+``_indptr``, ``_meta`` = rows, cols, block size), the near-null basis
+``nn{l}``, its weights ``w{l}``, the partition ``part{l}`` (node →
+aggregate), and a JSON ``__meta__``.  Everything is host numpy, so an
+archive written by either package loads in the other.  The adaptive
+composite's archive (``save_composite_hierarchies``) waits for its port
+(ROADMAP M16).
 """
 
 from __future__ import annotations
@@ -20,6 +22,15 @@ from tpu_amg_torch.partition.partition import Partition
 from tpu_amg_torch.sparse.csr import CSR
 
 
+def _pack_csr(prefix: str, m: CSR, out: dict):
+    out[f"{prefix}_data"] = m.data
+    out[f"{prefix}_indices"] = m.indices
+    out[f"{prefix}_indptr"] = m.indptr
+    out[f"{prefix}_meta"] = np.array(
+        [m.shape[0], m.shape[1], m.block_size], dtype=np.int64
+    )
+
+
 def _unpack_csr(prefix: str, arrays) -> CSR:
     meta = arrays[f"{prefix}_meta"]
     return CSR(
@@ -31,9 +42,27 @@ def _unpack_csr(prefix: str, arrays) -> CSR:
     )
 
 
+def _pack_hierarchy(h: Hierarchy, arrays: dict) -> dict:
+    meta = {
+        "num_levels": h.num_levels,
+        "partition_kinds": h.partition_kinds,
+        "coarsest_dim": h.config.coarsest_dim,
+        "max_levels": h.config.max_levels,
+    }
+    for lvl in range(h.num_levels):
+        _pack_csr(f"A{lvl}", h.matrices[lvl], arrays)
+        arrays[f"nn{lvl}"] = h.near_nulls[lvl]
+        arrays[f"w{lvl}"] = h.nn_weights[lvl]
+    for lvl in range(h.num_levels - 1):
+        _pack_csr(f"P{lvl}", h.interpolations[lvl], arrays)
+        _pack_csr(f"R{lvl}", h.restrictions[lvl], arrays)
+        arrays[f"part{lvl}"] = h.partitions[lvl].node_to_agg
+    return meta
+
+
 def hierarchy_from_arrays(arrays, meta: dict) -> Hierarchy:
     """Build a :class:`Hierarchy` from the arrays and metadata that
-    ``tpu_amg/utils/checkpoint.py`` packs (``_pack_hierarchy``)."""
+    ``save_hierarchy`` packs."""
     h = Hierarchy(
         config=HierarchyConfig(
             coarsest_dim=meta["coarsest_dim"], max_levels=meta["max_levels"]
@@ -52,6 +81,19 @@ def hierarchy_from_arrays(arrays, meta: dict) -> Hierarchy:
     return h
 
 
+def save_hierarchy(path, h: Hierarchy) -> None:
+    """Write ``h`` to one compressed ``.npz`` at ``path``."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    arrays: dict = {}
+    meta = _pack_hierarchy(h, arrays)
+    meta["version"] = 1
+    arrays["__meta__"] = np.frombuffer(
+        json.dumps(meta).encode(), dtype=np.uint8
+    )
+    np.savez_compressed(path, **arrays)
+
+
 def load_hierarchy(path) -> Hierarchy:
     """Read a single-hierarchy ``.npz`` checkpoint."""
     with np.load(Path(path)) as z:
@@ -59,6 +101,6 @@ def load_hierarchy(path) -> Hierarchy:
         if "components" in meta:
             raise ValueError(
                 "this is an adaptive-composite checkpoint, which this "
-                "package does not load yet"
+                "package does not load yet (ROADMAP M16)"
             )
         return hierarchy_from_arrays(z, meta)
