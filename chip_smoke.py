@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port (tpu_amg_torch) once on one GPU and check it.
 
-Usage: python3 chip_smoke.py [--side 64] [--reps 50]
+Usage: python3 chip_smoke.py [--side 48] [--reps 50]
 
 Phases, one printed line per result; any failed check exits non-zero:
   1. device: nvidia-smi's name and power limit, torch / CUDA / nvcc / g++;
@@ -9,7 +9,9 @@ Phases, one printed line per result; any failed check exits non-zero:
      probe) and the native host library (g++), from the sources in this
      checkout, all seven compilers started together;
   3. K1/K2 vs their plain PyTorch versions on the card: a random
-     heavy-row matrix with a small cap, then every A, P and R of the SA
+     heavy-row matrix with a small cap; A0 of unstructured_poisson_3d(64)
+     (262,144 rows, past the L2 at k=1) at k=1, whatever --side is: the
+     kernels line's K1 reading; then every A, P and R of the SA
      path's hierarchy that K1 ran on (and all of levels 0 and 1); mv and
      mm (k=8, every k the SA path ran on that matrix, and for A0 the
      bootstrap's k=7), float64 and float32; errors, two K2 calls bitwise
@@ -23,7 +25,8 @@ Phases, one printed line per result; any failed check exits non-zero:
      K1's first design (`rowgroup`); then
      K1's and K2's launches on the SA path by matrix, times (time -
      bound);
-  4. SA path: AMGSolver.setup on unstructured_poisson_3d(side) with the
+  4. SA path: AMGSolver.setup on unstructured_poisson_3d(side) (side 48,
+     110,592 dofs, unless --side says otherwise) with the
      scalar 3-D SA config, then 3 PCG solves of A x = A x_true (seeded
      x_true) to rtol 1e-6, each eager (cg) and through AMGSolver.solve
      (compile: one iteration captured in a CUDA graph and replayed),
@@ -57,7 +60,8 @@ Phases, one printed line per result; any failed check exits non-zero:
      cols, k); the V-cycle's times;
   8. K3 vs its plain version at that path's level-0 and level-1
      operators, k = 1, 7, 8, float64 and float32, with K1 + K2 on the
-     same matrices as a capped CSR beside it; K1/K2 vs their plain
+     same matrices as a capped CSR and the library's SpMV / SpMM from
+     CSR storage beside it; K1/K2 vs their plain
      versions at the path's CSR level (level 2, outside the DIA
      envelope: every row spills to K2), k = 1, 8 and every k the path
      ran, float64 and float32, as in phase 3; then K2's launches on the
@@ -94,17 +98,38 @@ Phases, one printed line per result; any failed check exits non-zero:
      gather), nothing spilled to local memory.
  13. the CLI: python -m tpu_amg_torch.tools.amg on the structured
      poisson3d(100) (--structured --tol 1e-6: cg_iters <= 14), the SA
-     default aniso2d(256) and the MFEM fixture that python -m
+     default aniso2d(256), the MFEM fixture that python -m
      tpu_amg_torch.tools.make_fem_fixture writes into a temporary
-     directory; every final line parsed and checked, K1 (and K3 on the
-     structured run) launched in each run, K1, K2 and K3 over the three;
-     then the block smoother on the fixture's hierarchy, card against
-     CPU.
+     directory, and the adaptive composite (--composite 2) on
+     aniso2d(128) with random coefficients, its peel tables printed;
+     every final line parsed and checked, K1 (and K3 on the structured
+     run) launched in each run, K1, K2 and K3 over the four; then the
+     block smoother on the fixture's hierarchy, card against CPU;
+ 14. the adaptive composite: AMGSolver.setup(method="adaptive") on
+     anisotropic_diffusion_2d(512, coefficient="random") (262,144 dofs,
+     MEASURED.md's record) with 2 components and the CLI's defaults
+     (adaptive_config): the setup's phases, each component's levels and
+     op complexity, K1's, K2's and K3's launches by (rows, cols, k) (K3
+     at k = 63 and 64, K1 at 64), peak device memory; the peel study of
+     the CLI (tools.amg.test_composite: 2 -> 1 components, PCG and stationary
+     to 1e-12, at most 1000 iterations, eager): PCG with 2 components
+     converges in fewer iterations than with 1 and in at most 128; 3 PCG
+     solves of A x = A x_true to rtol 1e-6 and a stationary one (at most
+     100 iterations), each eager and compiled, bitwise equal; the
+     composite V-cycle's times; the composite checkpoint, its apply
+     bitwise equal after a load; K1 + K2 and K3 against their plain
+     versions at every (matrix, k) the path launched, float64 and
+     float32, timed as phases 3 and 8 time them, with the library's SpMM
+     and the bound, and launches x (time - bound); a small composite
+     (aniso2d(32)) on the card against the same hierarchies on the CPU
+     (1e-10); rand-SVD (python -m tpu_amg_torch.tools.rand_svd_test) on
+     the card, score >= 0.99.
 Then every row timed with its bytes in the L2 cache is bound by the L2
 read rate of phase 11, and K1's and K2's launches x (time - bound) are
-printed for both paths.  Every count is set to 0 just before each path
-(4, 6, 7, 10, 11, 12, each CLI run) and read just after it, before the
-comparison launches.  The last two lines are a JSON object of
+printed for the SA and structured paths.  Every count is set to 0 just
+before each path (4, 6, 7, 10, 11, 12, each CLI run, the adaptive
+setup, its solves) and read just after it, before the comparison
+launches.  The last two lines are a JSON object of
 per-kernel results (with each kernel's bound and the library call's
 time) and the device line.  With no CUDA device it exits with code 2
 and prints no result.
@@ -141,6 +166,22 @@ STREAM_BIG_MIB = 1024  # past the card's 50 MB L2
 FEM_SIDE = 1024  # unstructured_fem_system(1024): the harnesses' 1M matrix
 PRIMITIVE_OP = "gather_fma"  # the WELL stage-B core: the kernels-line case
 COPY_BEST = "depth= 2 unit=64KB"  # a best case of the copy sweep at 1 GiB
+# the adaptive composite at MEASURED.md:211-231's size: aniso2d(512) with
+# random coefficients, 262,144 dofs, 2 components, the CLI's defaults;
+# the JAX package took 64 PCG iterations to 1e-12 there (686 with one
+# component): the limit is twice that
+# K1's kernels-line reading: A0 of unstructured_poisson_3d(64), 262,144
+# rows, whose bytes pass the card's L2 at k = 1, whatever --side is
+K1_HEADLINE_SIDE = 64
+K1_HEADLINE = "A0 side 64"
+ADAPTIVE_N = 512
+ADAPTIVE_COMPONENTS = 2
+ADAPTIVE_TOL = 1e-12
+ADAPTIVE_MAXITER = 1000
+ADAPTIVE_MAX_PCG = 128
+ADAPTIVE_SMALL_N = 32  # the card-against-CPU composite: aniso2d(32)
+ADAPTIVE_STATIONARY_MAX = 100  # ~0.993 a cycle: the solve runs to its cap
+CLI_COMPOSITE_N = 128  # the CLI's composite run: aniso2d(128), 16,384 dofs
 
 
 def say(msg: str) -> None:
@@ -438,7 +479,7 @@ def check_same_solve(label: str, pair, first: bool) -> None:
 def run_cli(module: str, argv) -> tuple:
     """``python -m <module> <argv>`` in this process (so that the launch
     counts see it), its standard output kept: (the final line, the
-    seconds)."""
+    seconds, the whole standard output)."""
     import contextlib
     import io
     import runpy
@@ -453,7 +494,8 @@ def run_cli(module: str, argv) -> tuple:
     finally:
         sys.argv = saved
     lines = out.getvalue().strip().splitlines()
-    return (lines[-1] if lines else ""), time.perf_counter() - t0
+    return ((lines[-1] if lines else ""), time.perf_counter() - t0,
+            out.getvalue())
 
 
 def reset_counts() -> None:
@@ -820,11 +862,13 @@ def primitives_phase(reps):
 
 def cli_phase():
     """Phase 13: the CLI (python -m tpu_amg_torch.tools.amg) on the card:
-    the structured poisson3d(100), the SA default aniso2d and the MFEM
+    the structured poisson3d(100), the SA default aniso2d, the MFEM
     fixture that the port's fixture writer makes in a temporary
-    directory; each final line parsed and checked, the launch counts
-    read over each run.  Then the block smoother (the CLI's default) on
-    the fixture's hierarchy, on the card against the CPU."""
+    directory, and the adaptive composite (--composite 2) on aniso2d(128)
+    with random coefficients, whose peel tables it prints; each final
+    line parsed and checked, the launch counts read over each run.  Then
+    the block smoother (the CLI's default) on the fixture's hierarchy, on
+    the card against the CPU."""
     import collections
 
     import torch
@@ -852,12 +896,15 @@ def cli_phase():
                                           str(CLI_SA_N)], None),
             ("SA MFEM fixture", ["--data-dir", str(fixture), "--name", name,
                                  "--coarsest-dim", "200"], None),
+            (f"adaptive aniso2d n={CLI_COMPOSITE_N} random",
+             ["--problem", "aniso2d", "--n", str(CLI_COMPOSITE_N),
+              "--coefficient", "random", "--composite", "2"], None),
         ]
         totals = collections.Counter()
         for label, argv, limit in cases:
             torch.cuda.synchronize()
             reset_counts()
-            line, secs = run_cli("tpu_amg_torch.tools.amg", argv)
+            line, secs, text = run_cli("tpu_amg_torch.tools.amg", argv)
             torch.cuda.synchronize()
             counts = dict(csr_spmv_capped=spmv.csr_spmv_launches,
                           coo_patch=spmv.coo_patch_launches,
@@ -873,10 +920,17 @@ def cli_phase():
                 e_norm = oc = float("nan")
                 formed = False
             structured = "--structured" in argv
+            composite = "--composite" in argv
+            if composite:
+                tables = text[text.find("Composite PCG results:"):]
+                say(tables[:tables.rfind("+") + 1])
             check(formed and cg_iters > 0 and sli_iters > 0
                   and 0.0 < e_norm < 1.0
-                  and (np.isnan(oc) if structured else oc >= 1.0)
+                  and (np.isnan(oc) if structured or composite
+                       else oc >= 1.0)
                   and (limit is None or cg_iters <= limit)
+                  and (not composite or "Composite stationary results:"
+                       in text)
                   and counts["csr_spmv_capped"] > 0
                   and (counts["dia_spmv"] > 0 or not structured),
                   f"CLI {label}: final line {line!r} (cg_iters "
@@ -959,9 +1013,9 @@ def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8)):
             tp = median_ms(lambda: dia_ops.plain_dia_spmv(mat, x), reps,
                            graph=True)
             tc = median_ms(lambda: spmv.spmv(capped, x), reps, graph=True)
-            # the library's SpMV on the same matrix from CSR storage
-            tl = (median_ms(lambda: lib @ x, reps, graph=True) if k == 1
-                  else None)
+            # the library's SpMV or SpMM on the same matrix from CSR
+            # storage
+            tl = median_ms(lambda: lib @ x, reps, graph=True)
             isz = x.element_size()
             dia_bytes = (n_diags * n + 2 * n * k) * isz
             csr_bytes = (capped.nnz * (isz + 4) + 8 * (n + 1)
@@ -974,10 +1028,9 @@ def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8)):
                 f"({dia_bytes / t / 1e6:.0f} GB/s of {dia_bytes / 1e6:.1f} "
                 f"MB), plain {tp * 1e3:.2f} us, K1+K2 as CSR {tc * 1e3:.2f} "
                 f"us ({csr_bytes / tc / 1e6:.0f} GB/s of "
-                f"{csr_bytes / 1e6:.1f} MB)"
-                + ("" if tl is None else
-                   f"; library CSR @ x {tl * 1e3:.2f} us; bound "
-                   f"{hbm_bound_ms(dia_bytes) * 1e3:.2f} us"),
+                f"{csr_bytes / 1e6:.1f} MB); library CSR @ x "
+                f"{tl * 1e3:.2f} us; bound {hbm_bound_ms(dia_bytes) * 1e3:.2f} "
+                f"us",
             )
             results.append(dict(case=name, dtype=dname, k=k, err=err, ms=t,
                                 plain_ms=tp, csr_ms=tc, bytes=dia_bytes,
@@ -1010,10 +1063,345 @@ def level_lines(mg):
     return lines
 
 
+def adaptive_config(device: str, **overrides):
+    """The adaptive composite of the CLI's defaults (python -m
+    tpu_amg_torch.tools.amg --composite 2): coarsening near-null dim 64,
+    interp dim 4, 20 smoothing iterations, the block smoother (block size
+    128, 3 steps), coarsening factor 8, 200 aggregation iterations,
+    coarsest dim 1000, seed 42, float64."""
+    from tpu_amg_torch.solver import SolverConfig
+
+    kw = dict(method="adaptive", composite_components=ADAPTIVE_COMPONENTS,
+              coarsening_near_null_dim=64, interp_near_null_dim=4,
+              smoothing_iters=20, smoother="block", block_smoother_size=128.0,
+              smoothing_steps=3, coarsening_factor=8.0, aggregation_iters=200,
+              coarsest_dim=1000, seed=42, device=device)
+    kw.update(overrides)
+    return SolverConfig(**kw)
+
+
+def shape_counts() -> dict:
+    """K1's, K2's and K3's launches by (rows, cols, k) since the last
+    reset."""
+    import collections
+
+    from tpu_amg_torch.ops import dia, spmv
+
+    return {"K1": collections.Counter(spmv.csr_spmv_launches_by_shape),
+            "K2": collections.Counter(spmv.coo_patch_launches_by_shape),
+            "K3": collections.Counter(dia.dia_spmv_launches_by_shape)}
+
+
+def say_shape_counts(label: str, counts: dict) -> None:
+    for kernel, by_shape in counts.items():
+        say(f"{label}: {kernel} {sum(by_shape.values())} launches; by "
+            f"(rows, cols, k): " + ", ".join(
+                f"{key} {v}" for key, v in sorted(by_shape.items())))
+
+
+def composite_matrices(hierarchies, pc) -> dict:
+    """name -> (host CSR, the float64 matrix on the card the composite
+    runs where it runs one, else None) for every A, P and R of every
+    component (``c1 A0`` …) and the composite's own A (``A``)."""
+    from tpu_amg_torch.linop import SparseOperator
+
+    out = {"A": (hierarchies[0].matrices[0], pc.a.mat)}
+    for c, (h, mg) in enumerate(zip(hierarchies, pc.components)):
+        for lvl in range(h.num_levels):
+            level = mg.levels[lvl] if lvl < len(mg.levels) else None
+            for letter, host in (("A", h.matrices), ("P", h.interpolations),
+                                 ("R", h.restrictions)):
+                if lvl >= len(host):
+                    continue
+                op = None if level is None else getattr(level,
+                                                        letter.lower())
+                mat = op.mat if isinstance(op, SparseOperator) else None
+                out[f"c{c + 1} {letter}{lvl}"] = (host[lvl], mat)
+    return out
+
+
+def adaptive_kernel_cases(matrices, counts, reps, results, dia_results):
+    """K1 + K2 and K3 against their plain versions at every (matrix, k)
+    the adaptive path launched them on, float64 and float32, timed as
+    phase 3 and phase 8 time them; returns the names of the CSR cases
+    and of the DIA ones."""
+    import torch
+
+    from tpu_amg_torch.ops import spmv
+    from tpu_amg_torch.sparse.dia import DIA, try_from_csr
+
+    ks_csr, ks_dia = {}, {}
+    for kernel in ("K1", "K2", "K3"):
+        for rows, cols, k in counts[kernel]:
+            # the first matrix of that shape: the components share A
+            name = next(n for n, (csr, _) in matrices.items()
+                        if csr.shape == (rows, cols))
+            (ks_dia if kernel == "K3" else ks_csr).setdefault(
+                name, set()).add(k)
+    for name, ks in sorted(ks_dia.items()):
+        csr, mat = matrices[name]
+        if not isinstance(mat, DIA):  # a level the multigrid keeps dense
+            mat = try_from_csr(csr, "cuda", torch.float64, max_diags=None)
+        dia_kernel_cases(f"adaptive {name}", mat, csr, reps, dia_results,
+                         sorted(ks))
+    for name, ks in sorted(ks_csr.items()):
+        csr, mat = matrices[name]
+        if not isinstance(mat, spmv.CappedCSR):
+            mat = spmv.CappedCSR.from_csr(csr, "cuda", torch.float64)
+        kernel_cases(
+            f"adaptive {name}",
+            {torch.float64: mat,
+             torch.float32: spmv.CappedCSR.from_csr(csr, "cuda",
+                                                    torch.float32)},
+            reps, results, sorted(ks))
+    return ({f"adaptive {n}" for n in ks_csr},
+            {f"adaptive {n}" for n in ks_dia})
+
+
+def adaptive_phase(reps, results, dia_results) -> dict:
+    """Phase 14: the adaptive composite at 262,144 dofs (aniso2d(512),
+    random coefficients, 2 components, the CLI's defaults) through
+    AMGSolver.setup(method="adaptive"): the setup's phases, each
+    component's levels, the kernels' launches by shape, peak memory; the
+    peel study (2 -> 1 components, PCG and stationary to 1e-12); 3 PCG
+    solves and a stationary one, eager and compiled, bitwise equal; the
+    composite V-cycle's times; the composite checkpoint; K1, K2 and K3
+    against their plain versions at every (matrix, k) the path launched;
+    a small composite on the card against the CPU; rand-SVD."""
+    import torch
+
+    from tpu_amg_torch.linop import SparseOperator
+    from tpu_amg_torch.ops import spmv
+    from tpu_amg_torch.preconditioners import Composite
+    from tpu_amg_torch.solver import AMGSolver
+    from tpu_amg_torch.solvers import cg
+    from tpu_amg_torch.tools import amg as amg_cli
+    from tpu_amg_torch.tools import rand_svd_test
+    from tpu_amg_torch.utils.problems import anisotropic_diffusion_2d
+    from tpu_amg_torch.utils.timing import median_ms
+
+    t0 = time.perf_counter()
+    a = anisotropic_diffusion_2d(ADAPTIVE_N, epsilon=1e-3, theta=np.pi / 6,
+                                 coefficient="random")
+    say(f"problem: anisotropic_diffusion_2d({ADAPTIVE_N}, epsilon=1e-3, "
+        f"theta=pi/6, coefficient=random): n={a.nrows} nnz={a.nnz} built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    cfg = adaptive_config("cuda")
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver = AMGSolver.setup(a, cfg)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    setup_counts = shape_counts()
+    peak_setup = torch.cuda.max_memory_allocated()
+    pc = solver.preconditioner
+    hs = solver.component_hierarchies
+    say(f"adaptive setup: {t_setup:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in solver.setup_seconds.items())
+        + f"); peak device memory {peak_setup / 1e9:.2f} GB")
+    for c, h in enumerate(hs):
+        say(f"  component {c + 1}: {h.num_levels} levels, op complexity "
+            f"{h.op_complexity():.3f}, grid complexity "
+            f"{h.grid_complexity():.3f}; rows "
+            + " / ".join(str(m.nrows) for m in h.matrices))
+    say_shape_counts("adaptive setup", setup_counts)
+    check(isinstance(pc, Composite) and len(pc.components)
+          == ADAPTIVE_COMPONENTS and isinstance(pc.a, SparseOperator)
+          and {63, 64} <= {key[2] for key in setup_counts["K3"]}
+          and 64 in {key[2] for key in setup_counts["K1"]},
+          f"adaptive setup: {len(pc.components)} components; the fine A is "
+          f"{type(pc.a.mat).__name__}; K3 ran at k = "
+          f"{sorted({key[2] for key in setup_counts['K3']})}, K1 at k = "
+          f"{sorted({key[2] for key in setup_counts['K1']})} (expected 63 "
+          f"and 64 on K3, 64 on K1)")
+
+    # the peel study, eager: 2 -> 1 components, b = ones from a seeded x0
+    torch.cuda.synchronize()
+    reset_counts()
+    rhs = torch.ones(a.nrows, dtype=torch.float64, device=dev)
+    x0 = torch.randn(a.nrows, generator=torch.Generator().manual_seed(7),
+                     dtype=torch.float64).to(dev)
+    t0 = time.perf_counter()
+    pcg_rows, sli_rows = amg_cli.test_composite(pc, rhs, x0,
+                                                ADAPTIVE_MAXITER, ADAPTIVE_TOL)
+    torch.cuda.synchronize()
+    t_peel = time.perf_counter() - t0
+    say(amg_cli.composite_tables(pcg_rows, sli_rows))
+    two, one = pcg_rows
+    check(two[1] < ADAPTIVE_MAXITER and two[5] <= ADAPTIVE_TOL
+          and two[1] < one[1] and two[1] <= ADAPTIVE_MAX_PCG,
+          f"peel study ({t_peel:.1f} s): PCG to {ADAPTIVE_TOL:.0e} with "
+          f"{two[0]} components {two[1]} iterations (final rel residual "
+          f"{two[5]:.3e}; limit {ADAPTIVE_MAX_PCG}, twice the JAX package's "
+          f"64), with {one[0]} {one[1]} (JAX 686); stationary {sli_rows[0][1]}"
+          f" and {sli_rows[1][1]} iterations (final rel residual "
+          f"{sli_rows[0][5]:.3e}, {sli_rows[1][5]:.3e})")
+
+    # 3 PCG solves and a stationary one, eager and compiled
+    a_mat = solver.op.mat
+    solve_s, graph_s = [], []
+    for i in range(3):
+        x_true = np.random.default_rng(200 + i).standard_normal(a.nrows)
+        b = solver.op.mv(torch.from_numpy(x_true).to(dev))
+        pair = eager_and_compiled(solver, b, "cg", RTOL, 500)
+        x, info, _ = pair[1]
+        solve_s.append(pair[0][2])
+        graph_s.append(pair[1][2])
+        true_rel = float(torch.linalg.vector_norm(b - solver.op.mv(x))
+                         / torch.linalg.vector_norm(b))
+        check(info.converged and true_rel <= 1.01 * RTOL
+              and tuple(x.shape) == (a.nrows,) and bool(torch.isfinite(x).all()),
+              f"adaptive solve {i}: {info.iters} iterations to rtol "
+              f"{RTOL:.0e}, true relative residual {true_rel:.3e}")
+        check_same_solve(f"adaptive PCG solve {i}", pair, first=i == 0)
+    pair = eager_and_compiled(solver, b, "stationary", RTOL,
+                              ADAPTIVE_STATIONARY_MAX)
+    say(f"adaptive stationary solve to rtol {RTOL:.0e} (at most "
+        f"{ADAPTIVE_STATIONARY_MAX}): {pair[1][1].iters} iterations, "
+        f"relative residual {pair[1][1].final_res / float(torch.linalg.vector_norm(b)):.3e}")
+    check_same_solve("adaptive stationary solve", pair, first=True)
+    del pair, x
+    torch.cuda.synchronize()
+    solve_counts = shape_counts()
+    peak = torch.cuda.max_memory_allocated()
+    say_shape_counts("adaptive peel study and solves", solve_counts)
+    check(sum(solve_counts["K1"].values()) > 0
+          and sum(solve_counts["K3"].values()) > 0,
+          "adaptive path: K1 and K3 launched in the solves; peak device "
+          f"memory with the graphs' pools {peak / 1e9:.2f} GB")
+
+    # the composite V-cycle: enqueued from Python, and the device alone
+    r = torch.from_numpy(
+        np.random.default_rng(7).standard_normal(a.nrows)).to(dev)
+    t_vc = median_ms(lambda: pc.mv(r), 20)
+    t_vc_dev = median_ms(lambda: pc.mv(r), 20, graph=True)
+    say(f"adaptive composite V-cycle ({2 * ADAPTIVE_COMPONENTS - 1} "
+        f"component V-cycles, {2 * ADAPTIVE_COMPONENTS - 2} A applies): "
+        f"{t_vc:.3f} ms as the solve runs it (enqueued from Python), "
+        f"{t_vc_dev:.3f} ms on the device (CUDA graph replay); PCG solves "
+        "eager " + ", ".join(f"{s:.4f}" for s in solve_s) + " s, compiled "
+        + ", ".join(f"{s:.4f}" for s in graph_s) + " s")
+
+    # where a component V-cycle's device time goes: each level's
+    # smoother (the block smoother: a gather, a batched matmul by the
+    # block inverses and a scatter a size bucket) and A, one apply each
+    parts = []
+    for lvl, level in enumerate(pc.components[0].levels):
+        v = torch.randn(level.a.shape[0], dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(lvl)).to(dev)
+        t_s = median_ms(lambda lv=level, v=v: lv.smoother.mv(v), 20,
+                        graph=True)
+        t_a = median_ms(lambda lv=level, v=v: lv.a.mv(v), 20, graph=True)
+        buckets = getattr(level.smoother, "buckets", ())
+        inv_mb = sum(b.inv_blocks.numel() * b.inv_blocks.element_size()
+                     for b in buckets) / 1e6
+        parts.append(f"level {lvl} (n={level.a.shape[0]}): smoother "
+                     f"{t_s * 1e3:.1f} us ({len(buckets)} size buckets, "
+                     f"{inv_mb:.1f} MB of block inverses), A {t_a * 1e3:.1f} us")
+    say(f"component 1's V-cycle by level, device time of one apply (CUDA "
+        f"graph replays; {pc.components[0].smoothing_steps} smoothing steps "
+        f"before and after, each a smoother and an A apply): "
+        + "; ".join(parts))
+
+    # the composite checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "composite.npz"
+        t0 = time.perf_counter()
+        solver.save(path)
+        t_save = time.perf_counter() - t0
+        size = path.stat().st_size
+        t0 = time.perf_counter()
+        loaded = AMGSolver.load(path, a, cfg)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    same = torch.equal(loaded.apply_preconditioner(r),
+                       solver.apply_preconditioner(r))
+    check(same and isinstance(loaded.preconditioner, Composite),
+          f"composite checkpoint: save {t_save:.1f} s ({size / 1e6:.1f} MB), "
+          f"load + {ADAPTIVE_COMPONENTS} multigrid builds {t_load:.1f} s; "
+          f"the loaded composite's apply is bitwise equal to the "
+          f"original's on a seeded vector: {same}")
+    del loaded
+
+    # the kernels at every (matrix, k) the path launched
+    counts = {k: setup_counts[k] + solve_counts[k] for k in setup_counts}
+    matrices = composite_matrices(hs, pc)
+    csr_cases, dia_cases = adaptive_kernel_cases(matrices, counts, reps,
+                                                 results, dia_results)
+    k64 = max((c for c in results if c["case"] in csr_cases
+               and c["dtype"] == "float64" and c["k"] == 64),
+              key=lambda c: c["k1_bytes"])
+    d64 = next(c for c in dia_results if c["case"] in dia_cases
+               and c["dtype"] == "float64" and c["k"] == 64)
+    say(f"K3 at k=64 on the fine A: {d64['ms'] * 1e3:.2f} us against a bound "
+        f"of {d64['bound_ms'] * 1e3:.2f} us ({d64['bound_ms'] / d64['ms']:.1%}"
+        f" of it); the library's SpMM {d64['lib_ms'] * 1e3:.2f} us")
+
+    # a small composite on the card against the same hierarchies on the
+    # CPU (the plain versions)
+    small = anisotropic_diffusion_2d(ADAPTIVE_SMALL_N, coefficient="random")
+    scfg = adaptive_config("cuda", coarsest_dim=100, dense_threshold=200)
+    s_gpu = AMGSolver.setup(small, scfg)
+    twin = Composite.from_hierarchies(
+        small, s_gpu.component_hierarchies,
+        AMGSolver._mg_config(dataclasses.replace(scfg, device="cpu")))
+    rng = np.random.default_rng(11)
+    diffs = []
+    for shape in ((small.nrows,), (small.nrows, 5)):
+        v = rng.standard_normal(shape)
+        zg = s_gpu.preconditioner(torch.from_numpy(v).to(dev)).cpu()
+        zc = twin(torch.from_numpy(v))
+        diffs.append(float((zg - zc).abs().max() / zc.abs().max()))
+    b_np = rng.standard_normal(small.nrows)
+    _, ig = s_gpu.solve(b_np, rtol=RTOL)
+    _, ic = cg(twin.a, torch.from_numpy(b_np), twin, rtol=RTOL)
+    check(max(diffs) <= 1e-10 and ig.converged and ig.iters == ic.iters,
+          f"small composite aniso2d({ADAPTIVE_SMALL_N}) random, "
+          f"{len(s_gpu.component_hierarchies)} components: apply rel diff "
+          f"card against CPU {diffs[0]:.2e} (mv), {diffs[1]:.2e} (mm, k=5) "
+          f"(limit 1e-10); PCG card {ig.iters} / CPU {ic.iters} iterations")
+
+    # rand-SVD on the card
+    svd = rand_svd_test.run("cuda")
+    check(svd["score"] >= 0.99,
+          f"rand-SVD (200 x 150, k=50) on the card: U alignment "
+          f"{svd['align_u']:.6f}, V {svd['align_v']:.6f}, sigma ratio "
+          f"{svd['sigma_ratio']:.6f}, combined score {svd['score']:.6f} "
+          f"(limit 0.99)")
+    return dict(counts=counts, k64=k64, d64=d64, csr_cases=csr_cases,
+                dia_cases=dia_cases)
+
+
+def say_adaptive_excess(adaptive, results, dia_results) -> None:
+    """K1's, K2's and K3's launches x (time - bound) on the adaptive path,
+    float64, once the rows in L2 carry their L2 bound."""
+    counts = adaptive["counts"]
+    for kernel, key in (("K1", "k1"), ("K2", "k2")):
+        say_excess(kernel, key, "the adaptive path", counts[kernel], results,
+                   adaptive["csr_cases"])
+    excess, total = [], 0.0
+    for shape, n in sorted(counts["K3"].items()):
+        c = next(c for c in dia_results if c["case"] in adaptive["dia_cases"]
+                 and c["dtype"] == "float64" and c["k"] == shape[2])
+        ms = n * (c["ms"] - c["bound_ms"])
+        total += ms
+        excess.append(f"k={shape[2]} {shape}: {n} x ({c['ms'] * 1e3:.2f} - "
+                      f"{c['bound_ms'] * 1e3:.2f} us) = {ms:.3f} ms")
+    say(f"K3 on the adaptive path, launches x (time - bound), float64: "
+        f"{total:.3f} ms in all; " + "; ".join(excess))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--side", type=int, default=64,
-                    help="mesh side: side**3 dofs (64: 262,144; 101: 1.03M)")
+    # 48 keeps the whole run inside 900 s on the card beside phase 14's
+    # 262,144-dof adaptive composite (PERF.md); 64 was the default before
+    # phase 14
+    ap.add_argument("--side", type=int, default=48,
+                    help="the SA path's mesh side: side**3 dofs (48: "
+                         "110,592; 64: 262,144; 101: 1.03M)")
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
 
@@ -1082,6 +1470,21 @@ def main() -> int:
          for dt in (torch.float64, torch.float32)},
         args.reps, results,
     )
+
+    # ---- 3c. K1's kernels-line reading on the 262,144-row A0, read from
+    # HBM (the matrix the SA path's A0 is at side 64), apart from --side
+    t0 = time.perf_counter()
+    head = unstructured_poisson_3d(K1_HEADLINE_SIDE)
+    say(f"K1's headline matrix: unstructured_poisson_3d({K1_HEADLINE_SIDE})"
+        f": n={head.nrows} nnz={head.nnz} built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kernel_cases(
+        K1_HEADLINE,
+        {dt: spmv.CappedCSR.from_csr(head, "cuda", dt)
+         for dt in (torch.float64, torch.float32)},
+        args.reps, results, ks=(1,),
+    )
+    del head
 
     # ---- 4. main path
     t0 = time.perf_counter()
@@ -1415,6 +1818,9 @@ def main() -> int:
     # ---- 13. the CLI on the card
     cli_phase()
 
+    # ---- 14. the adaptive composite at 262,144 dofs
+    adaptive = adaptive_phase(args.reps, results, dia_results)
+
     # the rows timed in L2 (bytes that fit in the card's L2, 50 calls
     # back to back) bound by this run's L2 read rate, without a call's
     # fixed cost (phase 11), in place of the HBM data sheet's rate
@@ -1424,20 +1830,25 @@ def main() -> int:
     say_excess("K2", "k2", "the SA path", k2_by_shape, results, sa_cases)
     say_excess("K2", "k2", "the structured path", s_k2_by_shape, results,
                s_cases)
+    say_adaptive_excess(adaptive, results, dia_results)
 
     # ---- results
     # both paths run float64: their errors go in the record, the SA
     # path's level-0 times beside them
     main_cases = [c for c in results
-                  if (c["case"] in sa_cases or c["case"].startswith("S"))
+                  if (c["case"] in sa_cases or c["case"].startswith("S")
+                      or c["case"] == K1_HEADLINE)
                   and c["dtype"] == "float64"]
-    a0 = next(c for c in main_cases if c["case"] == "A0" and c["k"] == 1)
+    a0 = next(c for c in main_cases if c["case"] == K1_HEADLINE)
     r0 = next(c for c in main_cases if c["case"] == "R0" and c["k"] == 1)
     s2 = next(c for c in main_cases if c["case"] == "S2" and c["k"] == 1)
     d0 = next(c for c in dia_results if c["case"] == "A0"
               and c["dtype"] == "float64" and c["k"] == 1)
     d1 = next(c for c in dia_results if c["case"] == "A1"
               and c["dtype"] == "float64" and c["k"] == 1)
+    adaptive_cases = [c for c in results if c["case"] in adaptive["csr_cases"]
+                      and c["dtype"] == "float64"]
+    k64, d64 = adaptive["k64"], adaptive["d64"]
     kernels = [
         dict(name="csr_spmv_capped", route="cuda",
              source="tpu_amg_torch/csrc/spmv.cu",
@@ -1446,7 +1857,17 @@ def main() -> int:
              max_abs_err=max(c["err1"] for c in main_cases),
              ms=a0["k1_ms"], plain_ms=a0["k1_plain_ms"],
              bound_ms=a0["k1_bound_ms"], bound_by="bytes",
-             library_ms=a0["k1_lib_ms"]),
+             library_ms=a0["k1_lib_ms"],
+             # the matrix of ms, plain_ms, bound_ms and library_ms (k = 1)
+             case=K1_HEADLINE, rows=a0["shape"][0],
+             # the adaptive path (phase 14): its launches, and its largest
+             # matrix at k = 64 (the enrichment's block of candidates)
+             launches_adaptive=sum(adaptive["counts"]["K1"].values()),
+             max_abs_err_adaptive=max(c["err1"] for c in adaptive_cases),
+             k64_case=k64["case"], k64_ms=k64["k1_ms"],
+             k64_plain_ms=k64["k1_plain_ms"],
+             k64_bound_ms=k64["k1_bound_ms"],
+             k64_library_ms=k64["k1_lib_ms"]),
         dict(name="coo_patch", route="cuda",
              source="tpu_amg_torch/csrc/spmv.cu",
              replaces="tpu_amg/ops/well_pallas.py:457",
@@ -1455,11 +1876,15 @@ def main() -> int:
              ms=r0["k2_ms"], plain_ms=r0["k2_plain_ms"],
              bound_ms=r0["k2_bound_ms"], bound_by="bytes",
              library_ms=r0["k2_lib_ms"],
+             # the SA path's R0 at --side (k = 1)
+             case=f"R0 side {args.side}", rows=r0["shape"][0],
              # the structured path's level 2 (f64, k = 1) beside R0's tail
              launches_structured=s_launches["coo_patch"],
              level2_ms=s2["k2_ms"], level2_plain_ms=s2["k2_plain_ms"],
              level2_bound_ms=s2["k2_bound_ms"],
-             level2_library_ms=s2["k2_lib_ms"]),
+             level2_library_ms=s2["k2_lib_ms"],
+             launches_adaptive=sum(adaptive["counts"]["K2"].values()),
+             max_abs_err_adaptive=max(c["err2"] for c in adaptive_cases)),
         # the structured path runs float64 at A0 and A1
         dict(name="dia_spmv", route="cuda",
              source="tpu_amg_torch/csrc/dia.cu",
@@ -1471,7 +1896,11 @@ def main() -> int:
              bound_ms=d0["bound_ms"], bound_by="bytes",
              library_ms=d0["lib_ms"],
              # the level-1 operator, whose bytes stay in L2
-             a1_ms=d1["ms"], a1_bound_ms=d1["bound_ms"]),
+             a1_ms=d1["ms"], a1_bound_ms=d1["bound_ms"],
+             # the adaptive path's fine A (9 diagonals) at k = 64
+             launches_adaptive=sum(adaptive["counts"]["K3"].values()),
+             k64_ms=d64["ms"], k64_plain_ms=d64["plain_ms"],
+             k64_bound_ms=d64["bound_ms"], k64_library_ms=d64["lib_ms"]),
         # the best float32 case past L2, where the HBM rate is a floor
         dict(name="stream_sum", route="cuda",
              source="tpu_amg_torch/csrc/stream.cu",

@@ -1,7 +1,7 @@
 """The solve facade against the JAX package: the stationary solve,
 `solve(method=...)`, `compile`, RCM reordering, checkpoint save and load
-in both directions, `repr(hierarchy)`, the typed errors, and the port's
-build sources.
+in both directions, `repr(hierarchy)`, the typed errors, the port's
+build sources, and `method="adaptive"` (setup, solve, save and load).
 
 Both packages start from one hierarchy, built by tpu_amg and handed to
 the port through a checkpoint file; the Chebyshev power iterations start
@@ -15,6 +15,7 @@ import inspect
 import pkgutil
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ import torch
 
 import tpu_amg.errors as jax_errors
 from tests.test_reorder import scrambled_poisson
+from tests.test_torch_adaptivity import reference_draws
 from tests.test_torch_cycle import reference_lambda_starts
 from tpu_amg.hierarchy import HierarchyConfig as JaxHierarchyConfig
 from tpu_amg.interpolation import AggregationConfig as JaxAggregationConfig
@@ -31,9 +33,12 @@ from tpu_amg.partition import PartitionerConfig as JaxPartitionerConfig
 from tpu_amg.preconditioners.multigrid_builder import (
     MultigridConfig as JaxMultigridConfig,
 )
+from tpu_amg.solver import AMGSolver as JaxSolver
+from tpu_amg.solver import SolverConfig as JaxSolverConfig
 from tpu_amg.solvers import stationary_iteration as jax_stationary
 from tpu_amg.utils import checkpoint as jax_checkpoint
 from tpu_amg.utils import reorder as jax_reorder
+from tpu_amg.utils.problems import anisotropic_diffusion_2d as jax_aniso
 from tpu_amg.utils.problems import poisson2d as jax_poisson2d
 from tpu_amg_torch import errors
 from tpu_amg_torch.hierarchy import HierarchyConfig, create_weights
@@ -45,7 +50,8 @@ from tpu_amg_torch.solver import AMGSolver, SolverConfig
 from tpu_amg_torch.solvers import cg, stationary_iteration
 from tpu_amg_torch.sparse.csr import CSR
 from tpu_amg_torch.utils import checkpoint, reorder, stats
-from tpu_amg_torch.utils.problems import poisson2d
+from tpu_amg_torch.preconditioners import Composite
+from tpu_amg_torch.utils.problems import anisotropic_diffusion_2d, poisson2d
 
 RTOL = 1e-10
 ROOT = Path(__file__).resolve().parents[1]
@@ -209,8 +215,8 @@ def test_save_round_trip(from_jax, tmp_path):
         h.matrices[0].nrows))
     assert torch.equal(again.apply_preconditioner(r),
                        solver.apply_preconditioner(r))
-    solver.hierarchy = None  # as an adaptive composite's solver would be
-    with pytest.raises(NotImplementedError, match="M16"):
+    solver.hierarchy = None  # neither a hierarchy nor a composite's
+    with pytest.raises(ValueError, match="neither"):
         solver.save(tmp_path / "none.npz")
 
 
@@ -339,3 +345,98 @@ def test_sources_lie_in_the_port():
         assert source.is_file(), name
         assert port in source.parents, (name, source)
         assert (ROOT / "tpu_amg") not in source.parents, (name, source)
+
+
+# ---- method="adaptive": the composite through the facade
+
+ADAPTIVE = dict(
+    method="adaptive", composite_components=2, coarsening_near_null_dim=4,
+    interp_near_null_dim=2, coarsening_factor=4.0, aggregation_iters=10,
+    smoothing_iters=10, coarsest_dim=30, dense_threshold=50,
+)
+ANISO_SIDE = 16
+
+
+@pytest.fixture(scope="module")
+def adaptive_solvers():
+    """(the JAX solver, the port's from the JAX package's draws, b)."""
+    cfg = JaxSolverConfig(**ADAPTIVE)
+    ref = JaxSolver.setup(jax_aniso(ANISO_SIDE), cfg)
+    hs = ref.component_hierarchies
+    starts, blocks = reference_draws(jax.random.PRNGKey(cfg.seed),
+                                     hs[0].matrices[0].nrows, 4, len(hs) - 1)
+    mg_cfg = JaxSolver._mg_config(cfg)
+    lam = [reference_lambda_starts(mg_cfg, h) for h in hs]
+    got = AMGSolver.setup(
+        anisotropic_diffusion_2d(ANISO_SIDE),
+        SolverConfig(device="cpu", **ADAPTIVE), near_null_starts=starts,
+        enrichment_starts=blocks, lambda_starts=lam)
+    b = np.random.default_rng(8).standard_normal(ANISO_SIDE ** 2)
+    return ref, got, b
+
+
+def test_adaptive_setup_and_solve_match_jax(adaptive_solvers):
+    ref, got, b = adaptive_solvers
+    assert isinstance(got.preconditioner, Composite)
+    assert got.hierarchy is None and ref.hierarchy is None
+    assert len(got.component_hierarchies) == 2
+    assert got.op is got.preconditioner.a  # A once on the device
+    for hg, hr in zip(got.component_hierarchies, ref.component_hierarchies):
+        assert [m.shape for m in hg.matrices] == [m.shape for m in hr.matrices]
+        for pg, pr in zip(hg.partitions, hr.partitions):
+            np.testing.assert_array_equal(pg.node_to_agg, pr.node_to_agg)
+    _, ref_info = ref.solve(jnp.asarray(b), rtol=1e-8)
+    x, info = got.solve(b, rtol=1e-8)
+    assert info.converged and bool(ref_info.converged)
+    assert info.iters == int(ref_info.iters)
+    np.testing.assert_allclose(info.history(), ref_info.history(), rtol=1e-8)
+    assert {"near_null", "hierarchy_1", "multigrid_1", "enrichment_2",
+            "hierarchy_2", "multigrid_2"} == set(got.setup_seconds)
+
+
+def test_adaptive_save_load_round_trip(adaptive_solvers, tmp_path):
+    _, got, b = adaptive_solvers
+    path = tmp_path / "composite.npz"
+    got.save(path)
+    cfg = SolverConfig(device="cpu", **ADAPTIVE)
+    again = AMGSolver.load(path, got.matrix, cfg)
+    assert isinstance(again.preconditioner, Composite)
+    assert len(again.preconditioner.components) == 2
+    for h, w in zip(again.component_hierarchies, got.component_hierarchies):
+        _assert_same_hierarchy(h, w)
+    # the Chebyshev starts drawn anew from the same seed: the same bits
+    for k in (None, 3):
+        r = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (len(b),) if k is None else (len(b), k)))
+        fresh = AMGSolver.load(path, got.matrix, cfg)
+        assert torch.equal(again.apply_preconditioner(r),
+                           fresh.apply_preconditioner(r))
+    x, info = again.solve(b, rtol=1e-8)
+    assert info.converged
+    with pytest.raises(ValueError, match="load_composite_hierarchies"):
+        checkpoint.load_hierarchy(path)
+
+
+def test_adaptive_load_keeps_the_apply_bitwise(adaptive_solvers, tmp_path):
+    """A composite saved and loaded with the same Chebyshev starts
+    applies bit for bit as the one that was set up."""
+    ref, got, b = adaptive_solvers
+    path = tmp_path / "composite.npz"
+    got.save(path)
+    lam = [reference_lambda_starts(JaxSolver._mg_config(ref.config), h)
+           for h in ref.component_hierarchies]
+    again = AMGSolver.load(path, got.matrix,
+                           SolverConfig(device="cpu", **ADAPTIVE),
+                           lambda_starts=lam)
+    r = torch.from_numpy(b)
+    assert torch.equal(again.apply_preconditioner(r),
+                       got.apply_preconditioner(r))
+
+
+@pytest.mark.parametrize("method,error,match", [
+    ("classical", NotImplementedError, "M18"),
+    ("smoothed", ValueError, "unknown method"),
+])
+def test_unported_methods_raise(method, error, match):
+    with pytest.raises(error, match=match):
+        SolverConfig(method=method, device="cpu")

@@ -1,5 +1,6 @@
 """The compiled solve (``AMGSolver.compile``): one iteration captured in
-a CUDA graph and replayed, against the eager solve.
+a CUDA graph and replayed, against the eager solve; with an SA V-cycle
+and with the adaptive composite.
 
 On the card the compiled PCG and stationary solves give the eager
 solves' iterations and histories and, bit for bit, their x; a replay
@@ -16,9 +17,14 @@ import pytest
 import torch
 
 from tpu_amg_torch.ops import dia, spmv
-from tpu_amg_torch.solver import AMGSolver, scalar_3d_config
+from tpu_amg_torch.linop import SparseOperator
+from tpu_amg_torch.preconditioners import Composite
+from tpu_amg_torch.solver import AMGSolver, SolverConfig, scalar_3d_config
 from tpu_amg_torch.solvers import cg, graph, stationary_iteration
-from tpu_amg_torch.utils.problems import unstructured_poisson_3d
+from tpu_amg_torch.utils.problems import (
+    anisotropic_diffusion_2d,
+    unstructured_poisson_3d,
+)
 
 EAGER = {"cg": cg, "stationary": stationary_iteration}
 
@@ -132,3 +138,76 @@ def test_replays_are_counted_on_card(card_solver, method):
     assert step["csr_spmv_launches"] > 0
     assert graph.counts_between(eager, first) == _times(step,
                                                         graph.WARMUP_STEPS)
+
+
+# ---- the adaptive composite: the card against the CPU, compiled against
+# eager
+
+ADAPTIVE = dict(method="adaptive", composite_components=2,
+                coarsening_near_null_dim=8, smoothing_iters=10,
+                coarsest_dim=40, dense_threshold=50, smoother="block",
+                smoothing_steps=3)
+
+
+def _composite_solver(device):
+    a = anisotropic_diffusion_2d(24, coefficient="random")
+    b = a.to_scipy() @ np.random.default_rng(5).standard_normal(a.nrows)
+    return AMGSolver.setup(a, SolverConfig(device=device, **ADAPTIVE)), b
+
+
+def _cpu_twin(solver):
+    """The same hierarchies built into a composite on the CPU (the
+    kernels' plain versions)."""
+    cfg = SolverConfig(device="cpu", **ADAPTIVE)
+    return Composite.from_hierarchies(solver.matrix,
+                                      solver.component_hierarchies,
+                                      AMGSolver._mg_config(cfg))
+
+
+@pytest.mark.parametrize("method", list(EAGER))
+def test_composite_compile_on_cpu_is_the_eager_solve(method):
+    solver, b = _composite_solver("cpu")
+    x, info = solver.solve(b, rtol=1e-8, maxiter=200, method=method)
+    x_e, info_e = EAGER[method](solver.op, torch.from_numpy(b),
+                                  solver.preconditioner, rtol=1e-8,
+                                  maxiter=200)
+    assert info.converged and info.iters == info_e.iters
+    assert torch.equal(x, x_e)
+
+
+@pytest.fixture(scope="module")
+def card_composite():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _composite_solver("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [None, 5])
+def test_composite_on_card_matches_plain(card_composite, k):
+    solver, b = card_composite
+    twin = _cpu_twin(solver)
+    x = np.random.default_rng(3).standard_normal(
+        (len(b),) if k is None else (len(b), k))
+    _reset()
+    got = solver.preconditioner(torch.from_numpy(x).cuda()).cpu()
+    assert spmv.csr_spmv_launches + dia.dia_spmv_launches > 0
+    want = twin(torch.from_numpy(x))
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", list(EAGER))
+def test_composite_graph_solve_is_the_eager_solve(card_composite, method):
+    solver, b_np = card_composite
+    b = torch.from_numpy(b_np).cuda()
+    fn = solver.compile(rtol=1e-8, maxiter=300, method=method)
+    for _ in range(2):  # the second solve replays the cached graph
+        x_e, info_e = EAGER[method](solver.op, b, solver.preconditioner,
+                                      rtol=1e-8, maxiter=300)
+        x, info = fn(b)
+        assert info.iters == info_e.iters > 0
+        assert info.history().tolist() == info_e.history().tolist()
+        assert torch.equal(x, x_e)
+    if method == "cg":
+        assert info.converged

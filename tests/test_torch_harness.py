@@ -1,5 +1,6 @@
 """The test harness, the problem generators, the geometric multigrid, the
-model families and the two CLIs, against the JAX package.
+model families, the two CLIs (the adaptive composite's peel study
+included) and the rand-SVD test, against the JAX package.
 
 The harness runs on a hierarchy built by tpu_amg and loaded by the port
 from the checkpoint arrays; random draws are the reference's own
@@ -37,7 +38,7 @@ from tpu_amg_torch import models
 from tpu_amg_torch.linop import DenseOperator, SparseOperator
 from tpu_amg_torch.preconditioners.multigrid_builder import MultigridConfig
 from tpu_amg_torch.tools import amg as amg_cli
-from tpu_amg_torch.tools import simple_geometric
+from tpu_amg_torch.tools import rand_svd_test, simple_geometric
 from tpu_amg_torch.utils import problems, testing
 from tpu_amg_torch.utils.checkpoint import hierarchy_from_arrays
 
@@ -246,7 +247,6 @@ def test_amg_cli_matches_jax(case, capsys):
 @pytest.mark.parametrize("option,item", [
     (["--interpolation", "classical"], "M18"),
     (["--classical-opts", "tau=0.5"], "M18"),
-    (["--composite", "2"], "M16"),
     (["--precision", "bf16"], "M19"),
     (["--viz-out", "viz.json"], "M21"),
     (["--problem", "elasticity3d"], "M17"),
@@ -254,3 +254,47 @@ def test_amg_cli_matches_jax(case, capsys):
 def test_amg_cli_refuses_unported_options(option, item):
     with pytest.raises(SystemExit, match=item):
         amg_cli.main(["--device", "cpu", *option])
+
+
+COMPOSITE_ARGS = ["--n", "12", "--coarsest-dim", "30",
+                  "--coarsening-near-null-dim", "4", "--smoothing-iters", "10",
+                  "--composite", "2"]
+
+
+def _table(text, title):
+    """The rows of one peel table: (components, iterations, v-cycles,
+    final rel residual)."""
+    lines = text[text.index(title):].splitlines()[4:]
+    rows = []
+    for line in lines:
+        if not line.startswith("|"):
+            break
+        cells = [c.strip() for c in line.strip("|").split("|")]
+        rows.append((int(cells[0]), int(cells[1]), int(cells[2]),
+                     float(cells[5])))
+    return rows
+
+
+def test_amg_cli_composite_peel(capsys):
+    """--composite 2: the peel study's two tables (2, then 1 component),
+    then the final line; PCG converges, and with both components in
+    no more iterations than with the first alone."""
+    amg_cli.main(["--device", "cpu", *COMPOSITE_ARGS])
+    out = capsys.readouterr()
+    pcg = _table(out.out, "Composite PCG results:")
+    sli = _table(out.out, "Composite stationary results:")
+    assert [r[0] for r in pcg] == [r[0] for r in sli] == [2, 1]
+    for count, iters, vcycles, _ in pcg + sli:
+        assert vcycles == iters * (2 * count - 1)
+    assert pcg[0][3] <= 1e-12 and pcg[1][3] <= 1e-12  # converged
+    assert 0 < pcg[0][1] <= pcg[1][1]
+    cg_iters, sli_iters, a_norm, oc = _final_line(out.out)
+    assert cg_iters == pcg[0][1] and 0 < sli_iters < 1000
+    assert 0.0 < a_norm < 1.0 and np.isnan(oc)
+    assert "setup: " in out.err
+
+
+def test_rand_svd_test_scores():
+    r = rand_svd_test.run("cpu")
+    assert r["score"] >= 0.99
+    assert min(r["align_u"], r["align_v"]) > 0.99

@@ -42,6 +42,12 @@ SLICE_7 = ["tpu_amg_torch.errors", "tpu_amg_torch.solvers.stationary",
            "tpu_amg_torch.models", "tpu_amg_torch.models.families",
            "tpu_amg_torch.tools.amg", "tpu_amg_torch.tools.simple_geometric",
            "tpu_amg_torch.tools.make_fem_fixture"]
+# the adaptive composite, rand-SVD and the multilevel partitioner
+SLICE_8 = ["tpu_amg_torch.preconditioners.composite",
+           "tpu_amg_torch.partition.multilevel",
+           "tpu_amg_torch.decompositions",
+           "tpu_amg_torch.decompositions.rand_svd",
+           "tpu_amg_torch.tools.rand_svd_test"]
 
 
 def test_port_imports_no_jax():
@@ -55,6 +61,7 @@ def test_port_imports_no_jax():
     assert set(SLICE_3) <= set(out[2:])
     assert set(SLICE_4) <= set(out[2:])
     assert set(SLICE_7) <= set(out[2:])
+    assert set(SLICE_8) <= set(out[2:])
 
 
 def test_importing_builds_nothing():

@@ -1,9 +1,11 @@
-"""MFEM and MatrixMarket I/O against the JAX package.
+"""MFEM and MatrixMarket I/O, and the adaptive composite's checkpoint
+archive, against the JAX package.
 
 The fixture is written into ``tmp_path`` by the JAX package's own tool
 (``tools/make_fem_fixture.py --out``), which edits nothing else; the
 port's counterpart (``python -m tpu_amg_torch.tools.make_fem_fixture``)
-writes the same bytes.  Both loaders read it into the same arrays.
+writes the same bytes.  Both loaders read it into the same arrays.  A
+composite archive written by either package loads in the other.
 """
 
 import subprocess
@@ -13,10 +15,16 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import jax
+
+from tests.test_torch_adaptivity import ANISO, _adaptive_kwargs
+from tpu_amg.adaptivity import AdaptiveConfig as JaxAdaptiveConfig
 from tpu_amg.sparse.csr import CSR as JaxCSR
+from tpu_amg.utils import checkpoint as jax_checkpoint
 from tpu_amg.utils import io as jax_io
+from tpu_amg.utils.problems import anisotropic_diffusion_2d as jax_aniso
 from tpu_amg_torch.sparse.csr import CSR
-from tpu_amg_torch.utils import io
+from tpu_amg_torch.utils import checkpoint, io
 
 ROOT = Path(__file__).resolve().parents[1]
 NAME = "fem_square_k100"
@@ -124,3 +132,56 @@ def test_bad_inputs_raise(tmp_path):
     (tmp_path / "x.vtk").write_text("# vtk\nt\nBINARY\n")
     with pytest.raises(ValueError, match="ASCII"):
         io.load_vtk_triangle_mesh(tmp_path / "x.vtk")
+
+
+# ---- the adaptive composite's archive, in both directions
+
+
+def _assert_hierarchies_equal(got, want, atol=1e-15):
+    assert len(got) == len(want) >= 2
+    for h, w in zip(got, want):
+        assert h.num_levels == w.num_levels
+        assert h.partition_kinds == w.partition_kinds
+        assert h.config.coarsest_dim == w.config.coarsest_dim
+        for lists in ("matrices", "interpolations", "restrictions"):
+            for m, r in zip(getattr(h, lists), getattr(w, lists)):
+                assert m.shape == r.shape and m.block_size == r.block_size
+                np.testing.assert_array_equal(m.indptr, r.indptr)
+                np.testing.assert_array_equal(m.indices, r.indices)
+                np.testing.assert_allclose(m.data, r.data, rtol=0, atol=atol)
+        for lists in ("near_nulls", "nn_weights"):
+            for m, r in zip(getattr(h, lists), getattr(w, lists)):
+                np.testing.assert_allclose(m, r, rtol=0, atol=atol)
+        for p, q in zip(h.partitions, w.partitions):
+            np.testing.assert_array_equal(p.node_to_agg, q.node_to_agg)
+
+
+@pytest.fixture(scope="module")
+def jax_components():
+    _, hs = JaxAdaptiveConfig(**_adaptive_kwargs(True, 2)).build(
+        jax_aniso(12, **ANISO), jax.random.PRNGKey(1),
+        return_hierarchies=True)
+    return hs
+
+
+def test_jax_composite_archive_loads_in_port(jax_components, tmp_path):
+    path = tmp_path / "jax.npz"
+    jax_checkpoint.save_composite_hierarchies(path, jax_components)
+    _assert_hierarchies_equal(checkpoint.load_composite_hierarchies(path),
+                              jax_components)
+    with pytest.raises(ValueError, match="load_composite_hierarchies"):
+        checkpoint.load_hierarchy(path)
+
+
+def test_port_composite_archive_loads_in_jax(jax_components, tmp_path):
+    path = tmp_path / "jax.npz"
+    jax_checkpoint.save_composite_hierarchies(path, jax_components)
+    mine = checkpoint.load_composite_hierarchies(path)
+    again = tmp_path / "port.npz"
+    checkpoint.save_composite_hierarchies(again, mine)
+    _assert_hierarchies_equal(
+        jax_checkpoint.load_composite_hierarchies(again), jax_components)
+    single = tmp_path / "single.npz"
+    checkpoint.save_hierarchy(single, mine[0])
+    with pytest.raises(ValueError, match="load_hierarchy"):
+        checkpoint.load_composite_hierarchies(single)

@@ -18,7 +18,8 @@ diagonals, ``data[d, i] = A[i, i + offsets[d]]``
 The plain PyTorch version beside it is the JAX package's form: one
 multiply-accumulate per diagonal over shifted slices.  The wrapper takes
 it only when its tensors lie on the CPU; for a CUDA tensor it launches
-the kernel or raises.  Launches are counted in ``dia_spmv_launches``.
+the kernel or raises.  Launches are counted in ``dia_spmv_launches``,
+and by (rows, cols, k) in ``dia_spmv_launches_by_shape``.
 
 The kernel is compiled with nvcc for ``sm_90a`` into
 ``build/tpu_amg_torch/libamg_dia.so`` at first launch and loaded with
@@ -27,6 +28,7 @@ ctypes; sums accumulate in the value type (float64 or float32).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from pathlib import Path
@@ -39,11 +41,13 @@ from tpu_amg_torch.ops.spmv import check_x
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "dia.cu"
 
 dia_spmv_launches = 0
+dia_spmv_launches_by_shape = collections.Counter()
 
 
 def reset_launch_counts() -> None:
     global dia_spmv_launches
     dia_spmv_launches = 0
+    dia_spmv_launches_by_shape.clear()
 
 
 @functools.cache
@@ -101,4 +105,5 @@ def dia_spmv(mat, x: torch.Tensor) -> torch.Tensor:
         msg = lib.dia_error_string(code).decode()
         raise RuntimeError(f"dia_spmv launch failed: CUDA error {code} ({msg})")
     dia_spmv_launches += 1
+    dia_spmv_launches_by_shape[(*mat.shape, k)] += 1
     return y

@@ -1,14 +1,16 @@
 """Graph partitioning for aggregation-based coarsening.
 
 Host-side setup algorithms (reference src/partitioners/*): the Partition
-node↔aggregate map, the affinity strength-of-connection graph, and the
-modularity-maximizing greedy partitioner.
+node↔aggregate map, the affinity strength-of-connection graph, the
+modularity-maximizing greedy partitioner and its multilevel (staged)
+form.
 """
 
 from tpu_amg_torch.partition.modularity import (
     ModularityPartitioner,
     PartitionerConfig,
 )
+from tpu_amg_torch.partition.multilevel import MultilevelPartitionerConfig
 from tpu_amg_torch.partition.partition import Partition, PartitionStats
 from tpu_amg_torch.partition.strength import Graph, strength_graph
 
@@ -19,4 +21,5 @@ __all__ = [
     "Graph",
     "ModularityPartitioner",
     "PartitionerConfig",
+    "MultilevelPartitionerConfig",
 ]

@@ -2,7 +2,8 @@
 
 Reference ``Partition`` (partitioners/mod.rs:24-216): stores
 ``node_to_agg`` and per-aggregate node sets, with singleton construction,
-bijection validation, and summary stats.  Here the canonical storage is a single ``node_to_agg`` numpy array
+composition for multilevel flattening, bijection validation, and summary
+stats.  Here the canonical storage is a single ``node_to_agg`` numpy array
 (aggregate node lists are derived on demand) — simpler and faster for the
 array-style algorithms downstream.
 """
@@ -55,6 +56,17 @@ class Partition:
         """Every node its own aggregate (reference mod.rs:60)."""
         return Partition(np.arange(n))
 
+    @staticmethod
+    def from_agg_lists(agg_lists: List[np.ndarray], n: int) -> "Partition":
+        """The partition whose aggregate i holds the nodes ``agg_lists[i]``;
+        the lists must cover all ``n`` nodes."""
+        node_to_agg = -np.ones(n, dtype=np.int64)
+        for agg_id, nodes in enumerate(agg_lists):
+            node_to_agg[np.asarray(nodes, dtype=np.int64)] = agg_id
+        if (node_to_agg < 0).any():
+            raise ValueError("agg lists do not cover all nodes")
+        return Partition(node_to_agg)
+
     def agg_sizes(self) -> np.ndarray:
         return np.bincount(self.node_to_agg, minlength=self.num_aggs)
 
@@ -64,15 +76,27 @@ class Partition:
         sizes = self.agg_sizes()
         return np.split(order, np.cumsum(sizes)[:-1])
 
+    def compose(self, coarser: "Partition") -> "Partition":
+        """Flatten two levels of partitioning (reference mod.rs:128-142):
+        self maps nodes→aggs, ``coarser`` maps those aggs→super-aggs."""
+        if coarser.num_nodes != self.num_aggs:
+            raise ValueError(
+                f"compose mismatch: {self.num_aggs} aggs vs "
+                f"{coarser.num_nodes} coarser nodes"
+            )
+        return Partition(coarser.node_to_agg[self.node_to_agg])
+
     def validate(self) -> None:
         """Bijection sanity check (reference mod.rs:144-158)."""
+        from tpu_amg_torch.errors import PartitionError
+
         if self.num_nodes == 0:
             return
         sizes = self.agg_sizes()
         if (sizes == 0).any():
-            raise ValueError("empty aggregate after renumbering (bug)")
+            raise PartitionError("empty aggregate after renumbering (bug)")
         if sizes.sum() != self.num_nodes:
-            raise ValueError("partition does not cover all nodes")
+            raise PartitionError("partition does not cover all nodes")
 
     def expand_blocks(self, block_size: int) -> "Partition":
         """Lift a partition of block-nodes to a partition of scalar dofs

@@ -6,11 +6,13 @@
     AMGSolver.load("hier.npz", a, config)          # and resume
 
 Setup bootstraps a near-null basis on the device, builds the SA
-hierarchy on the host, and builds the device-side multigrid; ``solve``
-runs PCG (or stationary iteration) preconditioned by that V-cycle,
-through :meth:`AMGSolver.compile`: on a CUDA device one iteration of
-the solve is captured in a CUDA graph and replayed.  Only
-``method="sa"`` is ported.
+hierarchy on the host, and builds the device-side multigrid
+(``method="sa"``), or builds the adaptive composite of several such
+multigrids (``method="adaptive"``, :class:`AdaptiveConfig`); ``solve``
+runs PCG (or stationary iteration) preconditioned by that V-cycle or
+composite, through :meth:`AMGSolver.compile`: on a CUDA device one
+iteration of the solve is captured in a CUDA graph and replayed.
+``method="classical"`` is not ported yet (ROADMAP M18).
 """
 
 from __future__ import annotations
@@ -23,12 +25,13 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tpu_amg_torch.adaptivity import find_near_null
+from tpu_amg_torch.adaptivity import AdaptiveConfig, find_near_null
 from tpu_amg_torch.device import disable_tf32, resolve_device, to_device
 from tpu_amg_torch.hierarchy import HierarchyConfig, create_weights
 from tpu_amg_torch.interpolation import AggregationConfig, InterpolationConfig
 from tpu_amg_torch.linop import SparseOperator
 from tpu_amg_torch.partition import PartitionerConfig
+from tpu_amg_torch.preconditioners.composite import Composite
 from tpu_amg_torch.preconditioners.multigrid_builder import MultigridConfig
 from tpu_amg_torch.solvers import cg, stationary_iteration
 from tpu_amg_torch.solvers.cg import cg_start, cg_step, iterate, snorm
@@ -39,6 +42,9 @@ from tpu_amg_torch.sparse import CSR
 logger = logging.getLogger(__name__)
 
 
+SETUP_METHODS = ("sa", "adaptive")
+
+
 @dataclasses.dataclass
 class SolverConfig:
     """One knob set covering the reference CLI's surface
@@ -46,7 +52,7 @@ class SolverConfig:
     raises when PyTorch sees no card, and nothing falls back to the CPU.
     """
 
-    method: str = "sa"
+    method: str = "sa"  # "sa" | "adaptive" ("classical": ROADMAP M18)
     # NOTE: the effective aggregation size is coarsening_factor *
     # interp_near_null_dim / block_size (reference mod.rs:135-137).
     # Keep it >= ~25 for 3-D scalar problems — too-small aggregates with
@@ -66,14 +72,19 @@ class SolverConfig:
     dense_threshold: int = 2048  # levels at or under this are dense
     mu: Optional[int] = None  # auto: 1 for SA
     block_smoother_size: float = 128.0
+    composite_components: int = 3  # for method="adaptive"
     reorder: bool = False  # RCM renumbering (utils/reorder.py) before setup
     dtype: torch.dtype = torch.float64
     device: str = "cuda"
     seed: int = 0
 
     def __post_init__(self):
-        if self.method != "sa":
-            raise NotImplementedError(f"method {self.method!r} (only 'sa')")
+        if self.method == "classical":
+            raise NotImplementedError(
+                "method 'classical' is not ported yet (ROADMAP M18)")
+        if self.method not in SETUP_METHODS:
+            raise ValueError(f"unknown method {self.method!r} "
+                             f"(one of {SETUP_METHODS})")
         resolve_device(self.device)
 
 
@@ -97,13 +108,19 @@ SOLVE_METHODS = ("cg", "stationary")
 class AMGSolver:
     def __init__(self, a: CSR, preconditioner, hierarchy=None,
                  config: Optional[SolverConfig] = None,
-                 perm: Optional[np.ndarray] = None):
+                 perm: Optional[np.ndarray] = None,
+                 op: Optional[SparseOperator] = None):
+        """``op`` is A on the device when the caller holds it already (a
+        composite's operator), else it is built from ``a``."""
         self.config = config or SolverConfig()
         self.device = resolve_device(self.config.device)
         self.matrix = a
-        self.op = SparseOperator.from_csr(a, self.device, self.config.dtype)
+        self.op = (op if op is not None
+                   else SparseOperator.from_csr(a, self.device,
+                                                self.config.dtype))
         self.preconditioner = preconditioner
         self.hierarchy = hierarchy
+        self.component_hierarchies = None  # the adaptive composite's
         self.setup_seconds = {}  # phase -> wall seconds
         self._compiled = {}  # (rtol, maxiter, method) -> solve function
         self._graphs = {}  # (method, n, dtype) -> GraphStep
@@ -123,14 +140,19 @@ class AMGSolver:
         config: Optional[SolverConfig] = None,
         *,
         near_null_starts: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-        lambda_starts: Optional[Sequence[np.ndarray]] = None,
+        enrichment_starts: Optional[Sequence[np.ndarray]] = None,
+        lambda_starts: Optional[Sequence] = None,
     ) -> "AMGSolver":
-        """Bootstrap + hierarchy + multigrid.
+        """Bootstrap + hierarchy + multigrid (``method="sa"``), or the
+        adaptive composite (``method="adaptive"``).
 
-        Random draws (the two near-null start blocks) come from a CPU
+        Random draws (the two near-null start blocks, and for the
+        adaptive composite one enrichment block a round) come from a CPU
         ``torch.Generator`` seeded with ``config.seed``, or from
-        ``near_null_starts``; ``lambda_starts`` are passed to
-        :meth:`MultigridConfig.build`."""
+        ``near_null_starts`` / ``enrichment_starts``
+        (:meth:`AdaptiveConfig.build`).  ``lambda_starts`` are passed to
+        :meth:`MultigridConfig.build`: per level for SA, and for the
+        adaptive composite a list of those per component."""
         config = config or SolverConfig()
         device = resolve_device(config.device)
         disable_tf32()  # full-precision float32 matmuls on the solve path
@@ -157,7 +179,24 @@ class AMGSolver:
             coarse_drop_tol=config.coarse_drop_tol,
             device=config.device,
         )
+        mg_cfg = AMGSolver._mg_config(config)
+        generator = torch.Generator().manual_seed(config.seed)
         seconds = {}
+        if config.method == "adaptive":
+            pc, hierarchies = AdaptiveConfig(
+                hierarchy_config=hier_cfg,
+                multigrid_config=mg_cfg,
+                max_components=config.composite_components,
+                test_iters=config.smoothing_iters,
+                coarsening_near_null_dim=config.coarsening_near_null_dim,
+            ).build(a, generator, near_null_starts=near_null_starts,
+                    enrichment_starts=enrichment_starts,
+                    lambda_starts=lambda_starts, return_hierarchies=True,
+                    seconds=seconds)
+            solver = AMGSolver(a, pc, config=config, perm=perm, op=pc.a)
+            solver.component_hierarchies = hierarchies
+            solver.setup_seconds = seconds
+            return solver
         t0 = time.perf_counter()
         nn = find_near_null(
             a,
@@ -165,7 +204,7 @@ class AMGSolver:
             config.coarsening_near_null_dim - 1,
             config.block_smoother_size,
             device,
-            generator=torch.Generator().manual_seed(config.seed),
+            generator=generator,
             starts=near_null_starts,
         )
         basis, _ = np.linalg.qr(
@@ -176,7 +215,7 @@ class AMGSolver:
         hierarchy = hier_cfg.build(a, basis, create_weights(a, basis))
         t2 = time.perf_counter()
         seconds["hierarchy"] = t2 - t1
-        mg = AMGSolver._mg_config(config).build(hierarchy, lambda_starts)
+        mg = mg_cfg.build(hierarchy, lambda_starts)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         seconds["multigrid"] = time.perf_counter() - t2
@@ -262,16 +301,20 @@ class AMGSolver:
         return self.preconditioner.mv(self._as_device(r))
 
     def save(self, path) -> None:
-        """Checkpoint the hierarchy (``utils/checkpoint.py``, the JAX
-        package's format)."""
-        if self.hierarchy is None:
-            raise NotImplementedError(
-                "only a single hierarchy saves: the adaptive composite's "
-                "checkpoint waits for its port (ROADMAP M16)"
-            )
-        from tpu_amg_torch.utils.checkpoint import save_hierarchy
+        """Checkpoint the setup artifact (``utils/checkpoint.py``, the JAX
+        package's format): the hierarchy (SA) or the per-component
+        hierarchies (adaptive composite)."""
+        from tpu_amg_torch.utils import checkpoint
 
-        save_hierarchy(path, self.hierarchy)
+        if self.hierarchy is not None:
+            checkpoint.save_hierarchy(path, self.hierarchy)
+            return
+        if not self.component_hierarchies:
+            raise ValueError(
+                "solver has neither a hierarchy nor component hierarchies"
+            )
+        checkpoint.save_composite_hierarchies(path,
+                                              self.component_hierarchies)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -291,14 +334,26 @@ class AMGSolver:
 
     @staticmethod
     def load(path, a: CSR, config: Optional[SolverConfig] = None,
-             *, lambda_starts: Optional[Sequence[np.ndarray]] = None,
+             *, lambda_starts: Optional[Sequence] = None,
              ) -> "AMGSolver":
-        """Rebuild a solver from a single-hierarchy checkpoint written by
-        :meth:`save` or by the JAX package (``tpu_amg.AMGSolver.save``)."""
-        from tpu_amg_torch.utils.checkpoint import load_hierarchy
+        """Rebuild a solver from a checkpoint written by :meth:`save` or
+        by the JAX package (``tpu_amg.AMGSolver.save``): a single
+        hierarchy or an adaptive composite's (the format
+        self-identifies).  ``lambda_starts`` as in :meth:`setup`."""
+        from tpu_amg_torch.utils import checkpoint
 
         config = config or SolverConfig()
         disable_tf32()
-        hierarchy = load_hierarchy(path)
-        mg = AMGSolver._mg_config(config).build(hierarchy, lambda_starts)
+        mg_cfg = AMGSolver._mg_config(config)
+        with np.load(path) as z:
+            composite = "components" in checkpoint.read_meta(z)
+        if composite:
+            hierarchies = checkpoint.load_composite_hierarchies(path)
+            pc = Composite.from_hierarchies(a, hierarchies, mg_cfg,
+                                            lambda_starts)
+            solver = AMGSolver(a, pc, config=config, op=pc.a)
+            solver.component_hierarchies = hierarchies
+            return solver
+        hierarchy = checkpoint.load_hierarchy(path)
+        mg = mg_cfg.build(hierarchy, lambda_starts)
         return AMGSolver(a, mg, hierarchy=hierarchy, config=config)

@@ -36,7 +36,8 @@ WARMUP_STEPS = 1
 # each Counter by (rows, cols, k)
 COUNTS = ((spmv, "csr_spmv_launches"), (spmv, "coo_patch_launches"),
           (dia, "dia_spmv_launches"), (spmv, "csr_spmv_launches_by_shape"),
-          (spmv, "coo_patch_launches_by_shape"))
+          (spmv, "coo_patch_launches_by_shape"),
+          (dia, "dia_spmv_launches_by_shape"))
 
 
 def launch_counts() -> dict:

@@ -3,9 +3,11 @@
 
 Equivalent of the reference's main program (reference examples/amg/main.rs):
 load or generate an SPD system, bootstrap a near-null basis, build the
-hierarchy + multigrid (or the structured multigrid), solve with PCG and
-stationary iteration, estimate ‖E‖_A, and print the machine-readable
-final line
+hierarchy + multigrid (or the structured multigrid, or with
+``--composite N`` the adaptive composite of N multigrids, whose
+component-peel study prints a PCG and a stationary table), solve with
+PCG and stationary iteration, estimate ‖E‖_A, and print the
+machine-readable final line
 
     cg_iters sli_iters a_norm_of_e op_complexity
 
@@ -17,13 +19,14 @@ the JAX package's ``jax.random`` draws from the same seed.
 
 Options whose modules are not ported yet exit with the ROADMAP item that
 ports them: ``--interpolation classical`` and ``--classical-opts``
-(M18), ``--composite`` (M16), ``--precision`` (M19), ``--viz-out``
+(M18), ``--precision`` (M19), ``--viz-out``
 (M21), ``--problem elasticity3d`` (M17).
 
 Usage: python -m tpu_amg_torch.tools.amg [--device cpu] [--problem aniso2d] [--n 64] ...
 """
 
 import argparse
+import dataclasses
 import logging
 import sys
 import time
@@ -75,7 +78,7 @@ def parse_args(argv=None):
     p.add_argument("--mu", type=int, default=None,
                    help="cycle index (default: auto — 1 for SA)")
     p.add_argument("--composite", type=int, default=None,
-                   help="adaptive composite with N components (ROADMAP M16)")
+                   help="adaptive composite with N components")
     p.add_argument("--structured", action="store_true",
                    help="gather-free structured-grid multigrid (tensor-"
                         "grid problems only)")
@@ -104,7 +107,6 @@ def refuse_unported(args) -> None:
         (args.interpolation == "classical", "--interpolation classical",
          "M18"),
         (bool(args.classical_opts), "--classical-opts", "M18"),
-        (args.composite is not None, "--composite", "M16"),
         (args.precision is not None, "--precision", "M19"),
         (args.viz_out is not None, "--viz-out", "M21"),
         (args.problem == "elasticity3d" and not args.data_dir,
@@ -138,6 +140,72 @@ def load_problem(args):
     return a, rhs
 
 
+def test_composite(composite, rhs, x0, max_iters, tol):
+    """Peel composite components one by one, re-solving each time
+    (reference test_composite, examples/amg/main.rs:589-675): a PCG and
+    a stationary row per component count, from all components down to
+    one, each (components, iterations, v-cycles, reduction/iter,
+    reduction/v-cycle, final rel residual).  Every solve is eager
+    (``utils.testing.test_solver``) on the composite's own operator.
+    :func:`composite_tables` formats the rows as the JAX package's
+    ``test_composite`` returns them."""
+    from tpu_amg_torch.utils.testing import test_solver
+
+    def row(count, iters, rel_res):
+        vcycles_per_iter = 2 * count - 1
+        total = iters * vcycles_per_iter
+        red_it = rel_res ** (1.0 / iters) if iters else 0.0
+        red_vc = rel_res ** (1.0 / total) if total else 0.0
+        return (count, iters, total, red_it, red_vc, rel_res)
+
+    b_norm = float(torch.linalg.vector_norm(rhs))
+    pcg_rows, sli_rows = [], []
+    while len(composite.components) > 0:
+        count = len(composite.components)
+        report = test_solver(
+            composite.a, composite, rhs, x0, rtol=tol, maxiter=max_iters
+        )
+        pcg_rows.append(
+            row(count, report.cg_iters, report.cg_history[-1] / b_norm)
+        )
+        sli_rows.append(
+            row(count, report.sli_iters, report.sli_history[-1] / b_norm)
+        )
+        composite = dataclasses.replace(
+            composite, components=composite.components[:-1]
+        )
+    return pcg_rows, sli_rows
+
+
+def composite_tables(pcg_rows, sli_rows) -> str:
+    """The PCG and stationary results tables of the peel study
+    (reference build_composite_table, examples/amg/main.rs:677-702)."""
+
+    def table(rows):
+        sep = (
+            "+------------+------------+------------+----------------------+"
+            "----------------------+----------------------+"
+        )
+        lines = [
+            sep,
+            "| components | iterations | v-cycles   | reduction/iter       |"
+            " reduction/v-cycle    | final rel residual   |",
+            sep,
+        ]
+        for r in rows:
+            lines.append(
+                f"| {r[0]:>10} | {r[1]:>10} | {r[2]:>10} | {r[3]:>20.3f} |"
+                f" {r[4]:>20.3f} | {r[5]:>20.3e} |"
+            )
+        lines.append(sep)
+        return "\n".join(lines)
+
+    return (
+        f"Composite PCG results:\n{table(pcg_rows)}\n"
+        f"Composite stationary results:\n{table(sli_rows)}"
+    )
+
+
 def main(argv=None):
     args = parse_args(argv)
     refuse_unported(args)
@@ -145,7 +213,7 @@ def main(argv=None):
         level=logging.INFO if args.verbose else logging.WARNING,
         format="%(levelname)s %(name)s: %(message)s",
     )
-    from tpu_amg_torch.adaptivity import find_near_null
+    from tpu_amg_torch.adaptivity import AdaptiveConfig, find_near_null
     from tpu_amg_torch.device import disable_tf32, resolve_device
     from tpu_amg_torch.hierarchy import HierarchyConfig, create_weights
     from tpu_amg_torch.interpolation import (
@@ -202,7 +270,7 @@ def main(argv=None):
         dtype=torch.float64,
         device=args.device,
     )
-    op = SparseOperator.from_csr(a, device, torch.float64)
+    rhs_t = torch.from_numpy(np.asarray(rhs, dtype=np.float64)).to(device)
 
     if args.structured:
         from tpu_amg_torch.structured import build_structured_multigrid
@@ -221,6 +289,22 @@ def main(argv=None):
         sync()
         op_complexity = float("nan")
         print(f"structured setup: {time.time() - t0:.1f}s", file=sys.stderr)
+    elif args.composite:
+        cfg = AdaptiveConfig(
+            hierarchy_config=hier_cfg,
+            multigrid_config=mg_cfg,
+            max_components=args.composite,
+            test_iters=args.smoothing_iters,
+            coarsening_near_null_dim=args.coarsening_near_null_dim,
+        )
+        pc = cfg.build(a, generator)
+        # component-peel study + results tables
+        # (reference examples/amg/main.rs:589-675)
+        x0 = torch.randn(a.nrows, generator=generator,
+                         dtype=torch.float64).to(device)
+        print(composite_tables(
+            *test_composite(pc, rhs_t, x0, args.max_iters, args.tol)))
+        op_complexity = float("nan")  # per-component hierarchies
     else:
         nn = find_near_null(
             a, args.smoothing_iters, args.coarsening_near_null_dim - 1,
@@ -235,14 +319,17 @@ def main(argv=None):
         pc = mg_cfg.build(hierarchy)
         sync()
         op_complexity = hierarchy.op_complexity()
+    # the composite holds A on the device already
+    op = (pc.a if args.composite
+          else SparseOperator.from_csr(a, device, torch.float64))
     print(f"setup: {time.time() - t_setup:.1f}s", file=sys.stderr)
 
     t_solve = time.time()
     x0 = torch.randn(a.nrows, generator=generator,
                      dtype=torch.float64).to(device)
     report = test_solver(
-        op, pc, torch.from_numpy(np.asarray(rhs, dtype=np.float64)).to(device),
-        x0, rtol=args.tol, maxiter=args.max_iters, run_sli=not args.skip_sli,
+        op, pc, rhs_t, x0, rtol=args.tol, maxiter=args.max_iters,
+        run_sli=not args.skip_sli,
     )
     print(
         f"solve: {time.time() - t_solve:.1f}s  cg_converged={report.cg_converged} "
