@@ -4,7 +4,8 @@ Usage: python3 chip_smoke.py [--side 48] [--reps 50]
 
 Phases, one printed line per result; any failed check exits non-zero:
   1. device: nvidia-smi's name and power limit, torch / CUDA / nvcc / g++;
-  2. builds: the six CUDA kernel libraries (nvcc: K1 + K2, K3, the
+  2. builds: the six CUDA kernel libraries (nvcc: K1 + K2, K3 (both
+     designs), the
      stream probe, K1's stage ablations, the copy probe, the primitive
      probe) and the native host library (g++), from the sources in this
      checkout, all seven compilers started together;
@@ -59,9 +60,16 @@ Phases, one printed line per result; any failed check exits non-zero:
      launch counts over that run must be > 0, K2's printed by (rows,
      cols, k); the V-cycle's times;
   8. K3 vs its plain version at that path's level-0 and level-1
-     operators, k = 1, 7, 8, float64 and float32, with K1 + K2 on the
-     same matrices as a capped CSR and the library's SpMV / SpMM from
-     CSR storage beside it; K1/K2 vs their plain
+     operators, k = 1, 7, 8, float64 and float32, bitwise against its
+     first design (K3 runs it below k = 8 and the band-tile design from
+     k = 8 up; each callable uncounted) and against a second call, with
+     the first design's time, below k = 8 the band-tile design's,
+     K1 + K2 on the same matrices as a capped CSR and the library's
+     SpMV / SpMM from CSR storage beside it; K3's diagonal sweep (python
+     -m tpu_amg_torch.tools.diasweep's: k = 64, float64, 262,144 rows,
+     offsets {0}, {-1, 0, 1}, the adaptive A's 9 and -4..4, both designs,
+     bitwise equal; the time per added diagonal against a diagonal's
+     data at the HBM rate); K1/K2 vs their plain
      versions at the path's CSR level (level 2, outside the DIA
      envelope: every row spills to K2), k = 1, 8 and every k the path
      ran, float64 and float32, as in phase 3; then K2's launches on the
@@ -119,8 +127,10 @@ Phases, one printed line per result; any failed check exits non-zero:
      composite V-cycle's times; the composite checkpoint, its apply
      bitwise equal after a load; K1 + K2 and K3 against their plain
      versions at every (matrix, k) the path launched, float64 and
-     float32, timed as phases 3 and 8 time them, with the library's SpMM
-     and the bound, and launches x (time - bound); a small composite
+     float32, timed and checked as phases 3 and 8 do (K3 bitwise against
+     its first design), with the library's SpMM and the bound, K3 at k =
+     63 and 64 beside half its bound, and launches x (time - bound); a
+     small composite
      (aniso2d(32)) on the card against the same hierarchies on the CPU
      (1e-10); rand-SVD (python -m tpu_amg_torch.tools.rand_svd_test) on
      the card, score >= 0.99.
@@ -981,8 +991,11 @@ def dia_to_csr(dia):
 
 def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8)):
     """K3 against its plain version on one DIA matrix, float64 and
-    float32; device times of K3, the plain version and K1 + K2 on the
-    same matrix as a capped CSR (CUDA graph replays)."""
+    float32, and bitwise against its first design and against a second
+    call; device times of K3, its first design, the plain version and K1
+    + K2 on the same matrix as a capped CSR (CUDA graph replays); below
+    k = TILED_MIN_K, where K3 runs its first design, also the band-tile
+    design (uncounted, not routed)."""
     import torch
 
     from tpu_amg_torch.ops import dia as dia_ops
@@ -1003,13 +1016,24 @@ def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8)):
             shape = (n,) if k == 1 else (n, k)
             x = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
             y = dia_ops.dia_spmv(mat, x)
+            again = dia_ops.dia_spmv(mat, x)
+            first = dia_ops.launch_first_design(mat, x)
+            tiles = dia_ops.launch_band_tiles(mat, x)
             p = dia_ops.plain_dia_spmv(mat, x)
             yc = spmv.spmv(capped, x)
             torch.cuda.synchronize()
+            same = (torch.equal(y, first) and torch.equal(y, again)
+                    and torch.equal(tiles, first))
             scale = max(float(p.abs().max()), 1e-300)
             err = float((y - p).abs().max())
             rel_csr = float((yc - p).abs().max()) / scale
+            plan = dia_ops.plan_for(mat, x)
             t = median_ms(lambda: dia_ops.dia_spmv(mat, x), reps, graph=True)
+            tf = median_ms(lambda: dia_ops.launch_first_design(mat, x), reps,
+                           graph=True)
+            tiled = k >= dia_ops.TILED_MIN_K
+            tt = t if tiled else median_ms(
+                lambda: dia_ops.launch_band_tiles(mat, x), reps, graph=True)
             tp = median_ms(lambda: dia_ops.plain_dia_spmv(mat, x), reps,
                            graph=True)
             tc = median_ms(lambda: spmv.spmv(capped, x), reps, graph=True)
@@ -1020,22 +1044,31 @@ def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8)):
             dia_bytes = (n_diags * n + 2 * n * k) * isz
             csr_bytes = (capped.nnz * (isz + 4) + 8 * (n + 1)
                          + 2 * n * k * isz)
+            design = (f"band tiles T={plan.tile}, {len(plan.bands)} bands"
+                      if tiled else "first design")
             check(
-                err / scale <= TOL[dname] and rel_csr <= TOL[dname],
+                err / scale <= TOL[dname] and rel_csr <= TOL[dname] and same,
                 f"K3 {name} {dname} k={k}: n {n}, {n_diags} diagonals, "
                 f"nnz {dia64.nnz}: max rel err {err / scale:.3e} (K1+K2 "
-                f"{rel_csr:.3e}; limit {TOL[dname]:.0e}); K3 {t * 1e3:.2f} us "
+                f"{rel_csr:.3e}; limit {TOL[dname]:.0e}); bitwise equal to "
+                f"the first design, to a second call and the band tiles to "
+                f"the first design: {same}; K3 ({design}) {t * 1e3:.2f} us "
                 f"({dia_bytes / t / 1e6:.0f} GB/s of {dia_bytes / 1e6:.1f} "
-                f"MB), plain {tp * 1e3:.2f} us, K1+K2 as CSR {tc * 1e3:.2f} "
+                f"MB), first design {tf * 1e3:.2f} us"
+                + ("" if tiled else f", band tiles (not routed; T="
+                   f"{plan.tile}, {len(plan.bands)} bands) {tt * 1e3:.2f} us")
+                + f", plain {tp * 1e3:.2f} us, K1+K2 as CSR {tc * 1e3:.2f} "
                 f"us ({csr_bytes / tc / 1e6:.0f} GB/s of "
                 f"{csr_bytes / 1e6:.1f} MB); library CSR @ x "
                 f"{tl * 1e3:.2f} us; bound {hbm_bound_ms(dia_bytes) * 1e3:.2f} "
                 f"us",
             )
             results.append(dict(case=name, dtype=dname, k=k, err=err, ms=t,
-                                plain_ms=tp, csr_ms=tc, bytes=dia_bytes,
+                                first_ms=tf, tiled_ms=tt, plain_ms=tp,
+                                csr_ms=tc, bytes=dia_bytes,
                                 csr_bytes=csr_bytes, lib_ms=tl,
-                                bound_ms=hbm_bound_ms(dia_bytes)))
+                                bound_ms=hbm_bound_ms(dia_bytes), n=n,
+                                diagonals=n_diags, bands=len(plan.bands)))
 
 
 def level_lines(mg):
@@ -1334,11 +1367,19 @@ def adaptive_phase(reps, results, dia_results) -> dict:
     k64 = max((c for c in results if c["case"] in csr_cases
                and c["dtype"] == "float64" and c["k"] == 64),
               key=lambda c: c["k1_bytes"])
-    d64 = next(c for c in dia_results if c["case"] in dia_cases
-               and c["dtype"] == "float64" and c["k"] == 64)
-    say(f"K3 at k=64 on the fine A: {d64['ms'] * 1e3:.2f} us against a bound "
-        f"of {d64['bound_ms'] * 1e3:.2f} us ({d64['bound_ms'] / d64['ms']:.1%}"
-        f" of it); the library's SpMM {d64['lib_ms'] * 1e3:.2f} us")
+    fine = {(c["dtype"], c["k"]): c for c in dia_results
+            if c["case"] in dia_cases}
+    for (dname, k), c in sorted(fine.items()):
+        if k == 1:
+            continue
+        say(f"K3 at k={k} {dname} on the fine A ({c['bands']} bands): "
+            f"{c['ms'] * 1e3:.2f} us against a bound of "
+            f"{c['bound_ms'] * 1e3:.2f} us ({c['bound_ms'] / c['ms']:.1%} of "
+            f"it; half of it {2e3 * c['bound_ms']:.2f} us); the first design "
+            f"{c['first_ms'] * 1e3:.2f} us, K1+K2 as CSR "
+            f"{c['csr_ms'] * 1e3:.2f} us, the library's SpMM "
+            f"{c['lib_ms'] * 1e3:.2f} us")
+    d64 = fine[("float64", 64)]
 
     # a small composite on the card against the same hierarchies on the
     # CPU (the plain versions)
@@ -1421,7 +1462,7 @@ def main() -> int:
     from tpu_amg_torch.solvers import cg
     from tpu_amg_torch.sparse.dia import DIA
     from tpu_amg_torch.structured import build_structured_multigrid
-    from tpu_amg_torch.tools import streambench
+    from tpu_amg_torch.tools import diasweep, streambench
     from tpu_amg_torch.utils.problems import poisson3d, unstructured_poisson_3d
     from tpu_amg_torch.utils.testing import approx_convergence_factor
     from tpu_amg_torch.utils.timing import HBM_DATASHEET_GBPS, median_ms
@@ -1767,6 +1808,12 @@ def main() -> int:
         check(isinstance(mat, DIA), f"structured level {lvl} is DIA")
         dia_kernel_cases(name, mat, ps if lvl == 0 else dia_to_csr(mat),
                          args.reps, dia_results)
+    # K3's diagonal sweep at k = 64, float64, 262,144 rows: both designs
+    sweep = diasweep.sweep(args.reps)
+    say(diasweep.say_sweep(sweep))
+    check(all(r["same"] for r in sweep.values()),
+          "K3's diagonal sweep: the band tiles bitwise equal to the first "
+          "design on every offset set")
     check(len(csr_levels) > 0, f"the structured path has "
           f"{len(csr_levels)} CSR levels (expected level 2)")
     s_cases = set()
@@ -1897,10 +1944,14 @@ def main() -> int:
              library_ms=d0["lib_ms"],
              # the level-1 operator, whose bytes stay in L2
              a1_ms=d1["ms"], a1_bound_ms=d1["bound_ms"],
-             # the adaptive path's fine A (9 diagonals) at k = 64
+             # the adaptive path's fine A (9 diagonals) at k = 64: the
+             # band-tile design beside its first design
              launches_adaptive=sum(adaptive["counts"]["K3"].values()),
-             k64_ms=d64["ms"], k64_plain_ms=d64["plain_ms"],
-             k64_bound_ms=d64["bound_ms"], k64_library_ms=d64["lib_ms"]),
+             k64_case=d64["case"], k64_rows=d64["n"],
+             k64_diagonals=d64["diagonals"], k64_bands=d64["bands"],
+             k64_ms=d64["ms"], k64_first_design_ms=d64["first_ms"],
+             k64_plain_ms=d64["plain_ms"], k64_bound_ms=d64["bound_ms"],
+             k64_library_ms=d64["lib_ms"], k64_csr_ms=d64["csr_ms"]),
         # the best float32 case past L2, where the HBM rate is a floor
         dict(name="stream_sum", route="cuda",
              source="tpu_amg_torch/csrc/stream.cu",
@@ -1911,9 +1962,10 @@ def main() -> int:
              ms=big["ms"], plain_ms=big["plain_ms"],
              bound_ms=big["bound_ms"], bound_by="bytes",
              library_ms=big["plain_ms"],
-             # the best float32 case at 32 MiB, bound in L2
+             # the best float32 case at 32 MiB, bound in L2, beside
+             # torch.sum over the same view
              l2_case=best["name"], l2_ms=best["ms"],
-             l2_bound_ms=best["bound_ms"]),
+             l2_plain_ms=best["plain_ms"], l2_bound_ms=best["bound_ms"]),
         stages_entry, dma_entry, primitives_entry,
     ]
     say(json.dumps({"kernels": kernels}))

@@ -10,10 +10,22 @@ interpret mode (``dia_spmv_pallas(..., interpret=True)``).  Tolerances:
 held against the JAX package's ``_pick_format``.  The CUDA cases run
 the kernel itself and skip without a card.
 
+K3's band-tile design (k > 1) is held on the CPU through its plan:
+``dia_plan`` walked in numpy (every output written once, every in-range
+product read inside its band's staged window, the diagonals in offset
+order, the windows inside the budget, the grid two blocks an SM where n
+allows), and the kernel's per-tile sum restated in numpy from that plan
+against the plain version.  On the card the band-tile kernel is held
+against the plain version, bitwise against the first design and
+bitwise across two calls.
+
 JAX is imported inside the tests that use it, so that on a machine with
 a card and no JAX the CUDA cases run with
 ``python -m pytest --noconftest tests/test_torch_dia.py``.
 """
+
+import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -25,6 +37,7 @@ from tpu_amg_torch.ops.spmv import CappedCSR
 from tpu_amg_torch.sparse.csr import CSR
 from tpu_amg_torch.sparse.dia import DIA, dia_from_arrays, try_from_csr
 from tpu_amg_torch.utils.problems import (
+    anisotropic_diffusion_2d,
     poisson1d,
     poisson2d,
     poisson3d,
@@ -69,6 +82,13 @@ def _x(n, k, dtype, seed=0):
     return rng.standard_normal((n,) if k == 1 else (n, k)).astype(NP[dtype])
 
 
+def anisotropic16(_side=None) -> CSR:
+    """The 9-diagonal stencil of the adaptive path's fine A, at 16²:
+    anisotropic_diffusion_2d(16, coefficient="random")."""
+    return anisotropic_diffusion_2d(16, coefficient="random")
+
+
+@functools.cache
 def _galerkin_level(side: int) -> CSR:
     """Level 1 of the structured multigrid on poisson3d(side): the
     smoothed-aggregation Galerkin product, 33 diagonals in 3-D."""
@@ -147,8 +167,9 @@ class TestDIA:
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("k", [1, 7, 64])
-@pytest.mark.parametrize("gen", [poisson1d, poisson2d, poisson3d])
+@pytest.mark.parametrize("k", [1, 7, 64, 63])
+@pytest.mark.parametrize("gen", [poisson1d, poisson2d, poisson3d,
+                                 anisotropic16])
 def test_matches_jax_dia(gen, k, dtype):
     import jax.numpy as jnp
 
@@ -291,6 +312,226 @@ def test_plain_version_does_not_count_launches():
     assert dia_ops.dia_spmv_launches == before
 
 
+# ---- K3's band-tile plan, walked on the CPU
+
+SMS = 132  # an H100's SMs
+
+
+def _offsets_case(name: str):
+    """(offsets, n) of a plan case."""
+    if name == "adaptive A":  # aniso2d(512): the adaptive path's fine A
+        return (-513, -512, -511, -1, 0, 1, 511, 512, 513), 512 ** 2
+    if name == "poisson3d(100)":
+        return (-10000, -100, -1, 0, 1, 100, 10000), 100 ** 3
+    if name == "galerkin_33":
+        level = _galerkin_level(16)
+        return try_from_csr(level, "cpu", max_diags=None).offsets, level.nrows
+    if name == "160 consecutive":
+        return tuple(range(-80, 80)), 3000
+    if name == "n < T":
+        return (-2, -1, 0, 1, 2), 5
+    assert name == "n = 1"
+    return (0,), 1
+
+
+def _thread_map(plan, rows: int) -> np.ndarray:
+    """How often the kernel's thread map writes each (row, column) of a
+    block of ``rows`` rows."""
+    hits = np.zeros((rows, plan.k), dtype=np.int64)
+    t = np.arange(plan.threads)
+    lane, slot = t % plan.lanes, t // plan.lanes
+    slots = plan.threads // plan.lanes
+    for j in range(plan.rows_per_thread):
+        row = slot + j * slots
+        for g in range(plan.groups):
+            for e in range(plan.vector):
+                col = (lane + g * plan.lanes) * plan.vector + e
+                ok = (row < rows) & (col < plan.k)
+                np.add.at(hits, (row[ok], col[ok]), 1)
+    return hits
+
+
+def _window(plan, band: int, i0, rows):
+    """Rows [r0, r1) of a band's X window, as the kernel stages it, for
+    a block's rows [i0, i0 + rows) (ints, or numpy arrays of blocks)."""
+    d0, d1 = plan.bands[band]
+    return (np.maximum(i0 + plan.offsets[d0], 0),
+            np.minimum(i0 + rows + plan.offsets[d1 - 1], plan.n))
+
+
+def _walk(plan) -> None:
+    """Every check of the plan that needs no card."""
+    n, k, tile = plan.n, plan.k, plan.tile
+    vec = 16 // plan.itemsize
+    assert plan.threads in dia_ops.BLOCK_THREADS
+    assert plan.rows_per_thread in dia_ops.ROWS_PER_THREAD
+    assert plan.lanes <= dia_ops.MAX_LANES and plan.groups <= 2
+    assert plan.threads // plan.lanes * plan.rows_per_thread == tile
+    assert plan.blocks == -(-n // tile)
+    for rows in {min(tile, n), n - (plan.blocks - 1) * tile}:
+        assert (_thread_map(plan, rows) == 1).all()  # each output once
+    # the diagonals in offset order, each in one band
+    assert [d for d0, d1 in plan.bands for d in range(d0, d1)] == list(
+        range(len(plan.offsets)))
+    i0 = np.arange(plan.blocks, dtype=np.int64) * tile
+    rows = np.minimum(tile, n - i0)
+    for b, (d0, d1) in enumerate(plan.bands):
+        r0, r1 = _window(plan, b, i0, rows)
+        width = np.maximum(r1 - r0, 0)
+        assert (width * k + vec - 1 <= plan.xs_cap).all()  # with its phase
+        assert (d1 - d0) * tile <= plan.ds_cap
+        for d in range(d0, d1):
+            lo = np.maximum(i0 + plan.offsets[d], 0)
+            hi = np.minimum(i0 + rows + plan.offsets[d], n)
+            some = lo < hi  # the block reads X rows [lo, hi) on diagonal d
+            assert (r0[some] <= lo[some]).all() and (hi[some] <= r1[some]).all()
+    # two buffers of 16-byte aligned places, each within its budget
+    assert plan.xs_cap % vec == 0 and plan.ds_cap % vec == 0
+    assert plan.xs_cap * plan.itemsize <= dia_ops.X_BUDGET
+    assert plan.ds_cap * plan.itemsize <= dia_ops.DATA_BUDGET
+    assert plan.smem_bytes == (2 if len(plan.bands) > 1 else 1) * (
+        plan.xs_cap + plan.ds_cap) * plan.itemsize
+    tile_min = min(dia_ops.BLOCK_THREADS) // plan.lanes  # a warp, a row a slot
+    if n >= 2 * SMS * tile_min:
+        assert plan.blocks >= 2 * SMS
+
+
+PLAN_CASES = ["adaptive A", "poisson3d(100)", "galerkin_33",
+              "160 consecutive", "n < T", "n = 1"]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k", [1, 2, 7, 8, 33, 63, 64])
+@pytest.mark.parametrize("name", PLAN_CASES)
+def test_plan_walk(name, k, dtype, aligned):
+    offsets, n = _offsets_case(name)
+    plan = dia_ops.dia_plan(offsets, n, k, dtype, SMS, aligned)
+    _walk(plan)
+    vec = 16 // plan.itemsize
+    assert plan.vector == (vec if aligned and k % vec == 0 else 1)
+
+
+def test_plan_bands_and_grid():
+    """The band counts the kernel's design rests on: the adaptive A's 3
+    bands at T = 32 (k = 64, f64: a warp a row), poisson3d(100)'s 5;
+    160 consecutive offsets cut by the window budget; the tile shrinks
+    on a coarse level to keep two blocks an SM."""
+    plan = dia_ops.dia_plan(*_offsets_case("adaptive A"), 64, torch.float64,
+                            SMS)
+    assert (plan.tile, plan.lanes, plan.vector, plan.threads) == (32, 32, 2, 256)
+    assert plan.bands == ((0, 3), (3, 6), (6, 9)) and plan.blocks == 8192
+    plan = dia_ops.dia_plan(*_offsets_case("poisson3d(100)"), 64,
+                            torch.float64, SMS)
+    assert len(plan.bands) == 5
+    plan = dia_ops.dia_plan(tuple(range(-80, 80)), 3000, 64, torch.float64,
+                            SMS)
+    assert len(plan.bands) > 1 and plan.tile < 32
+    coarse = dia_ops.dia_plan(*_offsets_case("adaptive A")[:1], 5968, 64,
+                              torch.float64, SMS)
+    assert coarse.tile == 16 and coarse.blocks >= 2 * SMS
+
+
+def test_plan_rejects():
+    with pytest.raises(ValueError, match="strictly increasing"):
+        dia_ops.dia_plan((0, -1), 10, 8, torch.float64, SMS)
+    with pytest.raises(ValueError, match="up to 160"):
+        dia_ops.dia_plan(tuple(range(161)), 1000, 8, torch.float64, SMS)
+    with pytest.raises(ValueError, match="strictly increasing"):
+        dia_from_arrays(np.ones((2, 4)), (1, 0), (4, 4), 8, "cpu")
+
+
+def _tile_sum(plan, data: np.ndarray, x: np.ndarray, phase: int = 0):
+    """The band-tile kernel's sum restated in numpy from ``plan``: for
+    each block and band the X window and data rows staged into a buffer
+    (NaN elsewhere, so a read outside what was staged shows), X's base
+    at ``phase`` elements past 16 bytes; every output one accumulator,
+    the diagonals in offset order."""
+    n, k, tile = plan.n, plan.k, plan.tile
+    vec = 16 // plan.itemsize
+    x = x.reshape(n, k)
+    y = np.full((n, k), np.nan, dtype=x.dtype)
+    cols = np.arange(k)
+    for blk in range(plan.blocks):
+        i0 = blk * tile
+        rows = min(tile, n - i0)
+        acc = np.zeros((rows, k), dtype=x.dtype)
+        for b, (d0, d1) in enumerate(plan.bands):
+            r0, r1 = (int(v) for v in _window(plan, b, i0, rows))
+            buf = np.full(plan.xs_cap + plan.ds_cap, np.nan, dtype=x.dtype)
+            pad = (phase + r0 * k) % vec
+            if r0 < r1:
+                buf[pad:pad + (r1 - r0) * k] = x[r0:r1].ravel()
+            for dd in range(d1 - d0):
+                at = plan.xs_cap + dd * tile
+                buf[at:at + rows] = data[d0 + dd, i0:i0 + rows]
+            for d in range(d0, d1):
+                row = np.arange(rows)
+                src = i0 + row + plan.offsets[d]
+                ok = (src >= 0) & (src < n)
+                a = buf[plan.xs_cap + (d - d0) * tile + row[ok]]
+                xr = buf[pad + (src[ok, None] - r0) * k + cols]
+                acc[row[ok]] = acc[row[ok]] + a[:, None] * xr
+        y[i0:i0 + rows] = acc
+    return y
+
+
+TILE_SUM_CASES = ["aniso16", "poisson3d", "galerkin_33", "160 consecutive"]
+
+
+@pytest.mark.parametrize("phase", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k", [2, 7, 33, 63, 64])
+@pytest.mark.parametrize("name", TILE_SUM_CASES)
+def test_tile_sum_matches_plain(name, k, dtype, phase):
+    rng = np.random.default_rng(5)
+    if name == "160 consecutive":
+        n = 300
+        dia = dia_from_arrays(rng.standard_normal((160, n)),
+                              tuple(range(-80, 80)), (n, n), 160 * n, "cpu",
+                              dtype)
+    else:
+        csr = {"aniso16": anisotropic16, "poisson3d": lambda: poisson3d(7),
+               "galerkin_33": lambda: _galerkin_level(16)}[name]()
+        dia = try_from_csr(csr, "cpu", dtype, max_diags=None)
+    n = dia.shape[0]
+    # small tiles, so that the matrices take many blocks and bands
+    plan = dia_ops.dia_plan(dia.offsets, n, k, dtype, 4 * SMS, phase == 0)
+    x = _x(n, k, dtype, seed=k)
+    got = _tile_sum(plan, dia.data.numpy(), x, phase)
+    ref = dia_ops.plain_dia_spmv(dia, torch.from_numpy(x))
+    assert np.isfinite(got).all()
+    _close(got, ref.numpy(), TOL[dtype])
+
+
+def test_sweep_sets_and_arithmetic():
+    """tools.diasweep: its offset sets' bands at k = 64, float64, 262,144
+    rows (one band but the adaptive A's 3), the bytes it bounds by and
+    its µs per added diagonal."""
+    from tpu_amg_torch.tools import diasweep
+
+    n = diasweep.FINE_N ** 2
+    bands = {name: len(dia_ops.dia_plan(offs, n, diasweep.SWEEP_K,
+                                        torch.float64, SMS).bands)
+             for name, offs in diasweep.SWEEP_SETS.items()}
+    assert bands == {"{0}": 1, "{-1, 0, 1}": 1, "9-point": 3, "-4..4": 1}
+    assert diasweep.dia_bytes(n, 9, 64, 8) == (9 * n + 2 * n * 64) * 8
+    assert abs(diasweep.data_us_per_diagonal(n) - 0.626) < 1e-3
+    times = {"{0}": 0.1, "{-1, 0, 1}": 0.104, "9-point": 0.132,
+             "-4..4": 0.116}
+    slopes = diasweep.per_diagonal_us(times)
+    assert slopes == pytest.approx({"{-1, 0, 1}": 2.0, "9-point": 4.0,
+                                    "-4..4": 2.0})
+
+
+def test_sweep_tool_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("runs the whole sweep on a card")
+    from tpu_amg_torch.tools import diasweep
+
+    assert diasweep.main(["--reps", "1"]) == 2
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -298,14 +539,25 @@ def cuda():
     return torch.device("cuda")
 
 
+CARD_KS = [1, 2, 7, 8, 33, 63, 64]
+CARD_MATRICES = ["poisson1d", "poisson3d", "galerkin_33", "aniso"]
+
+
+def _card_csr(name: str) -> CSR:
+    return {"poisson1d": lambda: poisson1d(1000),
+            "poisson3d": lambda: poisson3d(20),
+            "galerkin_33": lambda: _galerkin_level(20),
+            # the adaptive path's 9-diagonal stencil, 4,096 rows
+            "aniso": lambda: anisotropic_diffusion_2d(
+                64, coefficient="random")}[name]()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("k", [1, 7, 8, 64])
-@pytest.mark.parametrize("name", ["poisson1d", "poisson3d", "galerkin_33"])
+@pytest.mark.parametrize("k", CARD_KS)
+@pytest.mark.parametrize("name", CARD_MATRICES)
 def test_kernel_matches_plain_on_card(cuda, name, k, dtype):
-    csr = {"poisson1d": lambda: poisson1d(1000),
-           "poisson3d": lambda: poisson3d(20),
-           "galerkin_33": lambda: _galerkin_level(20)}[name]()
+    csr = _card_csr(name)
     dia = try_from_csr(csr, cuda, dtype, max_diags=None)
     x = torch.from_numpy(_x(csr.nrows, k, dtype)).to(cuda)
     before = dia_ops.dia_spmv_launches
@@ -314,3 +566,68 @@ def test_kernel_matches_plain_on_card(cuda, name, k, dtype):
     torch.cuda.synchronize()
     assert dia_ops.dia_spmv_launches == before + 1
     assert float((y - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["contiguous", "8-byte aligned"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k", CARD_KS)
+@pytest.mark.parametrize("name", CARD_MATRICES)
+def test_kernel_bitwise_first_design_on_card(cuda, name, k, dtype, view):
+    """K3 (the band-tile design at k > 1) gives the first design's bits,
+    and the same bits on a second call; also on an X that starts one
+    element past a 16-byte boundary (a row slice of a flat buffer)."""
+    csr = _card_csr(name)
+    dia = try_from_csr(csr, cuda, dtype, max_diags=None)
+    xh = torch.from_numpy(_x(csr.nrows, k, dtype))
+    if view == "8-byte aligned":
+        flat = torch.zeros(xh.numel() + 1, dtype=dtype, device=cuda)
+        flat[1:] = xh.reshape(-1).to(cuda)
+        x = flat[1:].view(xh.shape)
+        assert x.data_ptr() % 16 != 0
+    else:
+        x = xh.to(cuda)
+    y = dia(x)
+    again = dia(x)
+    first = dia_ops.launch_first_design(dia, x)
+    tiles = dia_ops.launch_band_tiles(dia, x)
+    ref = dia_ops.plain_dia_spmv(dia, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y, first) and torch.equal(y, again)
+    assert torch.equal(tiles, first)
+    assert float((y - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_band_tiles_in_a_graph_on_card(cuda):
+    """K3 at k = 64 captured in a CUDA graph and replayed on new X: the
+    plan rides in the launch, and the replay gives the eager bits."""
+    csr = _card_csr("aniso")
+    dia = try_from_csr(csr, cuda, torch.float64)
+    x = torch.from_numpy(_x(csr.nrows, 64, torch.float64)).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dia(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = dia(x)
+    x.copy_(torch.from_numpy(_x(csr.nrows, 64, torch.float64, seed=9)))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, dia_ops.launch_first_design(dia, x))
+
+
+@pytest.mark.cuda
+def test_refused_launch_raises(cuda, monkeypatch):
+    """A launch the card refuses (more shared memory than a block may
+    have) raises; nothing falls back."""
+    csr = _card_csr("aniso")
+    dia = try_from_csr(csr, cuda, torch.float64)
+    x = torch.from_numpy(_x(csr.nrows, 64, torch.float64)).to(cuda)
+    plan = dia_ops.plan_for(dia, x)
+    monkeypatch.setattr(dia_ops, "plan_for", lambda mat, xx: dataclasses.replace(
+        plan, smem_bytes=1 << 20))
+    with pytest.raises(RuntimeError, match="dia_spmv failed"):
+        dia(x)

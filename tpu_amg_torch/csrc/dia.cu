@@ -7,39 +7,70 @@
 //                XLA slice-FMA apply of tpu_amg/sparse/dia.py that the JAX
 //                package runs on its solve path.
 //
-// It keeps the contract (y = A x, and Y = A X for a row-major (n, k) X;
-// square A, any n, up to a few hundred diagonals) and drops the TPU
-// layout: the tile multiple of n, the VMEM cap on x, the 128-lane
-// aligned slabs and static rotates existed only for Mosaic.  There is
-// no padded copy of x either: a read i + off_d outside [0, n) is skipped,
-// since its data entry is a structural zero.
+// It keeps the contract (y = A x, and Y = A X for a row-major (n, k) X
+// with 1 <= k <= 64; square A, any n) and drops the TPU layout: the tile
+// multiple of n, the VMEM cap on x, the 128-lane aligned slabs and
+// static rotates existed only for Mosaic.  There is no padded copy of x
+// either: a read i + off_d outside [0, n) is skipped, since its data
+// entry is a structural zero.  Every output is one accumulator in the
+// value type, summed over the diagonals in offset order (the JAX
+// package's order) with one fused multiply-add each.
 //
 // Bound by bytes: per diagonal a value and an x element for 2 flops, no
-// index stream (the 4-byte column index of CSR is what DIA saves).  This
-// first version is simple: one thread per (row, column) pair; a thread
-// walks the diagonals in offset order (the JAX package's summation order)
-// and accumulates in the value type.  Reads of data[d, i] and of
-// X[i + off_d, c] are coalesced across a warp; the neighbouring
-// diagonals' x reads hit in L1/L2.  The offsets live in a device array
-// owned by the matrix and are passed by pointer, so two operators with
-// different offsets can share a stream and a CUDA graph.
+// index stream (the 4-byte column index of CSR is what DIA saves).  Two
+// designs, one library:
 //
-// The host side (tpu_amg_torch/ops/dia.py) allocates the output, passes
-// PyTorch's current stream and checks the returned cudaGetLastError().
+// * The first design (`first_kernel`): one thread per (row, column),
+//   walking the diagonals.  The wrapper (tpu_amg_torch/ops/dia.py) routes
+//   k < 8 here: a warp reads consecutive rows of each diagonal, so x's
+//   rows are shared through L1 by the neighbouring offsets.  It is the
+//   tiled design's reference (`dia_spmv_first_*` at any k): both give
+//   the same bits.  At large k each thread re-reads X[i + off_d] for
+//   every diagonal, mostly through L2 (the +-n offsets' rows are read by
+//   blocks on other SMs), and pays an int64 division and a bounds branch
+//   per element.
+// * The band-tile design (`tiled_kernel`), for k >= 8: a block owns T
+//   consecutive rows and all k columns.  The host's plan
+//   (ops/dia.py `dia_plan`, passed by value) groups the sorted offsets
+//   into bands, runs whose gaps are at most T rows; for each band the
+//   block stages the band's X window, rows [i0 + lo, i0 + T + hi) clipped
+//   to [0, n), which is contiguous in a row-major X, and the band's
+//   data[d, i0:i0 + T] in shared memory with cp.async, double-buffered
+//   (band b + 1 loads while band b computes).  Each X row then crosses L2
+//   about (T + span) / T times a band instead of once a diagonal.  Lanes
+//   own columns of a row (a 16-byte vector each where X is 16-byte
+//   aligned and k a multiple of the vector, else one element, coalesced),
+//   a thread up to 4 rows; indices inside a tile are 32-bit and no
+//   division is left in the sum.  The plan shrinks T (down to 32 / lanes
+//   rows) until the grid has two blocks an SM where n allows.
+//
+// The host side allocates the output, passes PyTorch's current stream and
+// checks the returned cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;           // the first design's block
+constexpr int kMaxDiags = 160;          // the tiled design's table (ops/dia.py MAX_DIAGS)
+constexpr int kMaxRowsPerThread = 4;    // ops/dia.py ROWS_PER_THREAD
+constexpr int kMaxThreads = 256;        // ops/dia.py BLOCK_THREADS
+
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+
+// ---- the first design: one thread per (row, column)
 
 template <typename T>
-__global__ void dia_kernel(int64_t n, int n_diags, int k,
-                           const int64_t* __restrict__ offsets,
-                           const T* __restrict__ data,
-                           const T* __restrict__ x,
-                           T* __restrict__ y) {
+__global__ void first_kernel(int64_t n, int n_diags, int k,
+                             const int64_t* __restrict__ offsets,
+                             const T* __restrict__ data,
+                             const T* __restrict__ x, T* __restrict__ y) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (tid >= n * k) return;
   const int64_t i = k == 1 ? tid : tid / k;
@@ -48,23 +79,264 @@ __global__ void dia_kernel(int64_t n, int n_diags, int k,
   for (int d = 0; d < n_diags; ++d) {
     const int64_t j = i + __ldg(&offsets[d]);
     if (j >= 0 && j < n) {
-      acc += data[static_cast<int64_t>(d) * n + i] * x[j * k + c];
+      acc = fma_rn(data[static_cast<int64_t>(d) * n + i], x[j * k + c], acc);
     }
   }
   y[tid] = acc;
 }
 
 template <typename T>
-int dia_spmv(int64_t n, int n_diags, int k, const void* offsets,
-             const void* data, const void* x, void* y, void* stream) {
+int first_design(int64_t n, int n_diags, int k, const void* offsets,
+                 const void* data, const void* x, void* y, void* stream) {
   if (n > 0) {
     const int64_t threads = n * k;
     const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-    dia_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    first_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         n, n_diags, k, static_cast<const int64_t*>(offsets),
         static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the band-tile design
+
+// The host's plan (ops/dia.py `_PlanStruct`, field for field).  Band b
+// holds the diagonals [band_start[b], band_start[b + 1]).  A buffer is
+// xs_cap elements of X window (16-byte aligned, with room for the
+// window's phase against 16 bytes) then ds_cap elements of data rows.
+struct Plan {
+  int n_bands;
+  int tile;             // T: rows a block
+  int lanes_log2;       // lanes a row: 1 << lanes_log2
+  int rows_per_thread;  // 1, 2 or 4
+  int xs_cap;
+  int ds_cap;
+  int offsets[kMaxDiags];
+  int band_start[kMaxDiags + 1];
+};
+
+// A lane's 16-byte piece of an X row: its multiply-adds into V
+// accumulators, and the V sums stored to Y.
+template <typename T> struct Vec;
+template <> struct Vec<double> {
+  using type = double2;
+  static __device__ __forceinline__ void fma(double a, const double2& v, double* acc) {
+    acc[0] = fma_rn(a, v.x, acc[0]);
+    acc[1] = fma_rn(a, v.y, acc[1]);
+  }
+  static __device__ __forceinline__ double2 pack(const double* acc) {
+    return make_double2(acc[0], acc[1]);
+  }
+};
+template <> struct Vec<float> {
+  using type = float4;
+  static __device__ __forceinline__ void fma(float a, const float4& v, float* acc) {
+    acc[0] = fma_rn(a, v.x, acc[0]);
+    acc[1] = fma_rn(a, v.y, acc[1]);
+    acc[2] = fma_rn(a, v.z, acc[2]);
+    acc[3] = fma_rn(a, v.w, acc[3]);
+  }
+  static __device__ __forceinline__ float4 pack(const float* acc) {
+    return make_float4(acc[0], acc[1], acc[2], acc[3]);
+  }
+};
+
+template <typename T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements in 16 bytes
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ void copy1(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "n"(static_cast<int>(sizeof(T)))
+               : "memory");
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait_groups() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The rows [r0, r1) of band b's X window for the block's rows
+// [i0, i0 + rows), clipped to [0, n).
+__device__ __forceinline__ void band_window(const Plan& p, int b, int n, int i0,
+                                            int rows, int& r0, int& r1) {
+  const int64_t lo = static_cast<int64_t>(i0) + p.offsets[p.band_start[b]];
+  const int64_t hi = static_cast<int64_t>(i0) + rows + p.offsets[p.band_start[b + 1] - 1];
+  r0 = static_cast<int>(lo < 0 ? 0 : lo);
+  r1 = static_cast<int>(hi > n ? n : hi);
+}
+
+// The window's first element's place in a buffer: its address's phase
+// against 16 bytes, so that the 16-byte pieces land aligned.
+template <typename T>
+__device__ __forceinline__ int window_pad(const T* x, int r0, int k) {
+  const T* src = x + static_cast<int64_t>(r0) * k;
+  return static_cast<int>((reinterpret_cast<uintptr_t>(src) & 15) / sizeof(T));
+}
+
+// Issue the copies of band b's X window and data rows into `buf`.
+template <typename T>
+__device__ __forceinline__ void stage(const Plan& p, int b, int n, int k, int i0,
+                                      int rows, const T* __restrict__ data,
+                                      const T* __restrict__ x, T* buf) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int r0, r1;
+  band_window(p, b, n, i0, rows, r0, r1);
+  if (r0 < r1) {
+    const T* src = x + static_cast<int64_t>(r0) * k;
+    const int pad = window_pad(x, r0, k);
+    const int len = (r1 - r0) * k;
+    const int head = min(len, (kVec<T> - pad) % kVec<T>);
+    const int body = (len - head) / kVec<T>;
+    T* dst = buf + pad;  // dst[e] = src[e], e in [0, len)
+    for (int q = tid; q < body; q += nt) {
+      copy16(dst + head + q * kVec<T>, src + head + q * kVec<T>);
+    }
+    if (tid < head) copy1(dst + tid, src + tid);
+    for (int e = head + body * kVec<T> + tid; e < len; e += nt) copy1(dst + e, src + e);
+  }
+  const int d0 = p.band_start[b];
+  const int nd = p.band_start[b + 1] - d0;
+  T* ds = buf + p.xs_cap;
+  for (int e = tid; e < nd * rows; e += nt) {
+    const int dd = e / rows, r = e - dd * rows;
+    copy1(ds + dd * p.tile + r, data + static_cast<int64_t>(d0 + dd) * n + i0 + r);
+  }
+}
+
+// V: elements a lane reads at once (kVec<T>, or 1); G: column groups a
+// lane (a lane's columns are (lane + g * lanes) * V + [0, V)).
+template <typename T, int V, int G>
+__global__ void __launch_bounds__(kMaxThreads)
+tiled_kernel(const __grid_constant__ Plan p, int n, int k,
+             const T* __restrict__ data, const T* __restrict__ x,
+             T* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  const int buf_elems = p.xs_cap + p.ds_cap;
+  const int tid = threadIdx.x;
+  const int lanes = 1 << p.lanes_log2;
+  const int lane = tid & (lanes - 1);
+  const int slot = tid >> p.lanes_log2;
+  const int slots = blockDim.x >> p.lanes_log2;
+  const int i0 = blockIdx.x * p.tile;
+  const int rows = min(p.tile, n - i0);
+
+  T acc[kMaxRowsPerThread][G * V];
+#pragma unroll
+  for (int j = 0; j < kMaxRowsPerThread; ++j) {
+#pragma unroll
+    for (int e = 0; e < G * V; ++e) acc[j][e] = T(0);
+  }
+
+  if (p.n_bands > 0) {
+    stage(p, 0, n, k, i0, rows, data, x, smem);
+    commit();
+  }
+  for (int b = 0; b < p.n_bands; ++b) {
+    const T* buf = smem + (b & 1) * buf_elems;
+    if (b + 1 < p.n_bands) {
+      stage(p, b + 1, n, k, i0, rows, data, x, smem + ((b + 1) & 1) * buf_elems);
+      commit();
+      wait_groups<1>();
+    } else {
+      wait_groups<0>();
+    }
+    __syncthreads();
+    int r0, r1;
+    band_window(p, b, n, i0, rows, r0, r1);
+    const T* xs = buf + window_pad(x, r0, k);  // X row r0 of the window
+    const int d0 = p.band_start[b], d1 = p.band_start[b + 1];
+    for (int d = d0; d < d1; ++d) {
+      const int off = p.offsets[d];
+      const T* dcol = buf + p.xs_cap + (d - d0) * p.tile;
+#pragma unroll
+      for (int j = 0; j < kMaxRowsPerThread; ++j) {
+        const int row = slot + j * slots;
+        const int src = i0 + row + off;  // the X row; in [r0, r1) if in [0, n)
+        if (j < p.rows_per_thread && row < rows && src >= 0 && src < n) {
+          const T a = dcol[row];
+          const T* xr = xs + (src - r0) * k;
+          if constexpr (V == 1) {
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              const int c = lane + (g << p.lanes_log2);
+              if (c < k) acc[j][g] = fma_rn(a, xr[c], acc[j][g]);
+            }
+          } else {
+            const int c = lane * V;
+            if (c < k) {
+              Vec<T>::fma(a, *reinterpret_cast<const typename Vec<T>::type*>(xr + c),
+                          acc[j]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // before band b + 2 is staged into this buffer
+  }
+
+#pragma unroll
+  for (int j = 0; j < kMaxRowsPerThread; ++j) {
+    const int row = slot + j * slots;
+    if (j < p.rows_per_thread && row < rows) {
+      T* yr = y + static_cast<int64_t>(i0 + row) * k;
+      if constexpr (V == 1) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const int c = lane + (g << p.lanes_log2);
+          if (c < k) yr[c] = acc[j][g];
+        }
+      } else {
+        const int c = lane * V;
+        if (c < k) *reinterpret_cast<typename Vec<T>::type*>(yr + c) = Vec<T>::pack(acc[j]);
+      }
+    }
+  }
+}
+
+template <typename T>
+int tiled(int n, int k, int vector, int threads, int blocks, int smem_bytes,
+          const void* plan, const void* data, const void* x, void* y,
+          void* stream) {
+  if (n > 0) {
+    const Plan& p = *static_cast<const Plan*>(plan);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto* d = static_cast<const T*>(data);
+    const auto* xx = static_cast<const T*>(x);
+    auto* yy = static_cast<T*>(y);
+    if (vector == 1) {
+      tiled_kernel<T, 1, 2><<<blocks, threads, smem_bytes, s>>>(p, n, k, d, xx, yy);
+    } else if (vector == kVec<T>) {
+      tiled_kernel<T, kVec<T>, 1><<<blocks, threads, smem_bytes, s>>>(p, n, k, d, xx, yy);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+cudaError_t allow_smem(int bytes) {
+  cudaError_t e = cudaFuncSetAttribute(tiled_kernel<T, 1, 2>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(tiled_kernel<T, kVec<T>, 1>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace
@@ -75,14 +347,47 @@ const char* dia_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int dia_spmv_f64(int64_t n, int n_diags, int k, const void* offsets,
-                 const void* data, const void* x, void* y, void* stream) {
-  return dia_spmv<double>(n, n_diags, k, offsets, data, x, y, stream);
+// The plan's layout and limits, checked by the host when it loads the
+// library: sizeof(Plan), kMaxDiags, kMaxRowsPerThread, kMaxThreads.
+int dia_plan_bytes() { return static_cast<int>(sizeof(Plan)); }
+int dia_max_diags() { return kMaxDiags; }
+int dia_max_rows_per_thread() { return kMaxRowsPerThread; }
+int dia_max_threads() { return kMaxThreads; }
+
+// Let the tiled kernels take as much dynamic shared memory as a block of
+// the current device may (above 48 KB a kernel must opt in); once.
+int dia_allow_smem() {
+  int device = 0, bytes = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e == cudaSuccess) e = allow_smem<double>(bytes);
+  if (e == cudaSuccess) e = allow_smem<float>(bytes);
+  return static_cast<int>(e);
 }
 
-int dia_spmv_f32(int64_t n, int n_diags, int k, const void* offsets,
-                 const void* data, const void* x, void* y, void* stream) {
-  return dia_spmv<float>(n, n_diags, k, offsets, data, x, y, stream);
+int dia_spmv_first_f64(int64_t n, int n_diags, int k, const void* offsets,
+                       const void* data, const void* x, void* y, void* stream) {
+  return first_design<double>(n, n_diags, k, offsets, data, x, y, stream);
+}
+
+int dia_spmv_first_f32(int64_t n, int n_diags, int k, const void* offsets,
+                       const void* data, const void* x, void* y, void* stream) {
+  return first_design<float>(n, n_diags, k, offsets, data, x, y, stream);
+}
+
+int dia_spmv_tiled_f64(int n, int k, int vector, int threads, int blocks,
+                       int smem_bytes, const void* plan, const void* data,
+                       const void* x, void* y, void* stream) {
+  return tiled<double>(n, k, vector, threads, blocks, smem_bytes, plan, data, x, y,
+                       stream);
+}
+
+int dia_spmv_tiled_f32(int n, int k, int vector, int threads, int blocks,
+                       int smem_bytes, const void* plan, const void* data,
+                       const void* x, void* y, void* stream) {
+  return tiled<float>(n, k, vector, threads, blocks, smem_bytes, plan, data, x, y,
+                      stream);
 }
 
 }  // extern "C"

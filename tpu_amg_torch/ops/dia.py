@@ -10,10 +10,25 @@ diagonals, ``data[d, i] = A[i, i + offsets[d]]``
   and ``dia_spmv_pallas``), and with it the XLA slice-FMA apply of
   ``tpu_amg/sparse/dia.py`` (``DIA.mv``/``mm``), which is what the JAX
   package runs on its solve path.
-- It is bound by bytes: values + x + y, with no index stream.  This
-  first version is deliberately simple (CUDA C++ in
-  ``tpu_amg_torch/csrc/dia.cu``: one thread per (row, column), the
-  diagonals walked in offset order, out-of-range reads skipped).
+- It is bound by bytes: values + x + y, with no index stream.  CUDA C++
+  in ``tpu_amg_torch/csrc/dia.cu``, two designs in one library, routed
+  by k alone:
+  - k < ``TILED_MIN_K`` = 8: the first design, one thread per (row,
+    column), the diagonals walked in offset order, out-of-range reads
+    skipped (at k = 2-7 it is the faster of the two on the structured
+    levels and the adaptive A: PERF.md, ``tools.diasweep``);
+  - k >= 8: the band-tile design.  :func:`dia_plan`, a pure function of
+    the offsets and shapes, cuts the rows into tiles of T and the sorted
+    offsets into bands; a block stages each band's X window (rows
+    [i0 + lo, i0 + T + hi) clipped to [0, n)) and data rows in shared
+    memory once, double-buffered, and every lane sums its outputs from
+    there.  The plan passes to the kernel by value, so a CUDA graph
+    captures it with the launch and the matrix holds nothing more.
+  Both sum each output in one accumulator, diagonal by diagonal in offset
+  order with one fused multiply-add each, and skip the same reads: they
+  give the same bits.  Either stays callable at any k, uncounted
+  (:func:`launch_first_design`, :func:`launch_band_tiles`): the first
+  design is the tiled design's reference on the card.
 
 The plain PyTorch version beside it is the JAX package's form: one
 multiply-accumulate per diagonal over shifted slices.  The wrapper takes
@@ -21,7 +36,7 @@ it only when its tensors lie on the CPU; for a CUDA tensor it launches
 the kernel or raises.  Launches are counted in ``dia_spmv_launches``,
 and by (rows, cols, k) in ``dia_spmv_launches_by_shape``.
 
-The kernel is compiled with nvcc for ``sm_90a`` into
+The kernels are compiled with nvcc for ``sm_90a`` into
 ``build/tpu_amg_torch/libamg_dia.so`` at first launch and loaded with
 ctypes; sums accumulate in the value type (float64 or float32).
 """
@@ -30,8 +45,10 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 import functools
 from pathlib import Path
+from typing import Tuple
 
 import torch
 
@@ -39,6 +56,21 @@ from tpu_amg_torch.ops._build import build_cuda_library
 from tpu_amg_torch.ops.spmv import check_x
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "dia.cu"
+
+# The band-tile design's limits, compiled into the library (csrc/dia.cu
+# kMaxDiags, kMaxRowsPerThread, kMaxThreads) and checked when it loads.
+MAX_DIAGS = 160  # the structured builder's DIA envelope (structured.py)
+BLOCK_THREADS = (256, 128, 64, 32)
+ROWS_PER_THREAD = (4, 2, 1)
+MAX_LANES = 32  # lanes a row: a warp at most
+TILE_CAP = 128  # rows a block at most
+MIN_BLOCKS_PER_SM = 2  # the grid the plan aims for, where n allows
+# the wrapper runs the band tiles from this k up, the first design below
+TILED_MIN_K = 8
+# shared memory of one buffer (the kernel keeps two): a band's X window,
+# and its data rows
+X_BUDGET = 40 * 1024
+DATA_BUDGET = 8 * 1024
 
 dia_spmv_launches = 0
 dia_spmv_launches_by_shape = collections.Counter()
@@ -50,21 +82,194 @@ def reset_launch_counts() -> None:
     dia_spmv_launches_by_shape.clear()
 
 
+class _PlanStruct(ctypes.Structure):
+    """``Plan`` of csrc/dia.cu, field for field."""
+
+    _fields_ = [("n_bands", ctypes.c_int), ("tile", ctypes.c_int),
+                ("lanes_log2", ctypes.c_int), ("rows_per_thread", ctypes.c_int),
+                ("xs_cap", ctypes.c_int), ("ds_cap", ctypes.c_int),
+                ("offsets", ctypes.c_int * MAX_DIAGS),
+                ("band_start", ctypes.c_int * (MAX_DIAGS + 1))]
+
+
+def _check_design(dll: ctypes.CDLL) -> None:
+    """Raise unless the library's plan layout and limits are this
+    module's."""
+    built = {}
+    for name in ("dia_plan_bytes", "dia_max_diags", "dia_max_rows_per_thread",
+                 "dia_max_threads"):
+        fn = getattr(dll, name)
+        fn.restype = ctypes.c_int
+        built[name] = fn()
+    want = {"dia_plan_bytes": ctypes.sizeof(_PlanStruct),
+            "dia_max_diags": MAX_DIAGS,
+            "dia_max_rows_per_thread": max(ROWS_PER_THREAD),
+            "dia_max_threads": max(BLOCK_THREADS)}
+    if built != want:
+        raise RuntimeError(f"{dll._name} is built for {built}, the host "
+                           f"plans for {want}")
+
+
 @functools.cache
 def kernel_lib() -> ctypes.CDLL:
-    """The K3 library, compiled with nvcc on first call."""
+    """The K3 library, compiled with nvcc on first call; the tiled
+    kernels are let take the card's largest dynamic shared memory."""
     dll = ctypes.CDLL(str(build_cuda_library("libamg_dia.so", SOURCE)))
+    _check_design(dll)
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for suffix in ("f64", "f32"):
-        fn = getattr(dll, f"dia_spmv_{suffix}")
+        fn = getattr(dll, f"dia_spmv_first_{suffix}")
         fn.restype = i32
         fn.argtypes = [i64, i32, i32, vp, vp, vp, vp, vp]
+        fn = getattr(dll, f"dia_spmv_tiled_{suffix}")
+        fn.restype = i32
+        fn.argtypes = [i32, i32, i32, i32, i32, i32, vp, vp, vp, vp, vp]
     dll.dia_error_string.restype = ctypes.c_char_p
     dll.dia_error_string.argtypes = [i32]
+    dll.dia_allow_smem.restype = i32
+    _raise_on(dll, dll.dia_allow_smem(), "dia_allow_smem")
     return dll
 
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+
+
+@dataclasses.dataclass(frozen=True)
+class DiaPlan:
+    """The band-tile kernel's launch for one (offsets, n, k, dtype).
+
+    Block b owns rows [b·tile, (b + 1)·tile) ∩ [0, n) and all k columns.
+    Its ``threads`` are ``threads / lanes`` row slots of ``lanes`` lanes:
+    slot s holds rows s + j·(threads / lanes), j < ``rows_per_thread``;
+    lane l holds columns (l + g·lanes)·vector + [0, vector), g <
+    ``groups``, those under k.  ``bands`` are the diagonals [d0, d1) of
+    each band, in offset order; for a block's rows [i0, i0 + rows) a
+    band's X window is rows [i0 + lo, i0 + rows + hi) ∩ [0, n), lo and
+    hi its first and last offsets.  A buffer holds ``xs_cap`` elements
+    of window and ``ds_cap`` of data rows; ``smem_bytes`` is one buffer
+    for one band, else two."""
+
+    n: int
+    k: int
+    itemsize: int
+    offsets: Tuple[int, ...]
+    vector: int
+    lanes: int
+    groups: int
+    threads: int
+    rows_per_thread: int
+    tile: int
+    blocks: int
+    bands: Tuple[Tuple[int, int], ...]
+    xs_cap: int
+    ds_cap: int
+    smem_bytes: int
+
+
+def _tile_ladder(lanes: int):
+    """(tile, threads, rows_per_thread) for every tile up to TILE_CAP at
+    ``lanes`` lanes a row, largest first, each with the most threads."""
+    shapes = {}
+    for threads in BLOCK_THREADS:
+        for rpt in ROWS_PER_THREAD:
+            tile = threads // lanes * rpt
+            if tile <= TILE_CAP:
+                shapes.setdefault(tile, (threads, rpt))
+    return [(t, *shapes[t]) for t in sorted(shapes, reverse=True)]
+
+
+@functools.lru_cache(maxsize=None)
+def dia_plan(offsets: Tuple[int, ...], n: int, k: int, dtype: torch.dtype,
+             sm_count: int, aligned: bool = True) -> DiaPlan:
+    """The band-tile kernel's plan: a pure function of the sorted
+    ``offsets``, n, k, the value type, the card's SM count and whether
+    X's base address is 16-byte aligned.
+
+    - Lanes read 16 bytes of a row at once where X is aligned and k a
+      multiple of that vector, else one element; a row takes the fewest
+      lanes (a power of two, at most a warp) that cover it in at most two
+      passes.
+    - The tile T is the largest of the ladder (threads 256 down to 32, 4,
+      2 or 1 rows a thread, T ≤ 128) that gives ``MIN_BLOCKS_PER_SM``
+      blocks an SM, else the smallest, 32 / lanes rows: every n from
+      2·SMs·T_min rows up gets two blocks an SM without a column split.
+    - Bands: the offsets in order, a run broken where the gap to the
+      next offset exceeds T (staging the gap's rows then costs more than
+      a band's own window) or where the band's window or data rows would
+      pass their budget (``X_BUDGET``, ``DATA_BUDGET`` bytes a buffer)."""
+    offsets = tuple(int(o) for o in offsets)
+    if any(b <= a for a, b in zip(offsets, offsets[1:])):
+        raise ValueError(f"offsets {offsets} are not strictly increasing")
+    if len(offsets) > MAX_DIAGS:
+        raise ValueError(f"{len(offsets)} diagonals; the band-tile kernel "
+                         f"takes up to {MAX_DIAGS}")
+    if not 1 <= k <= 64 or not 1 <= n < 2**30:
+        raise ValueError(f"n = {n}, k = {k}: the band-tile kernel takes "
+                         f"1 <= n < 2**30 (32-bit rows) and 1 <= k <= 64")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // itemsize
+    vector = vec if aligned and k % vec == 0 else 1
+    pieces = -(-k // vector)
+    lanes = min(MAX_LANES, 1 << (pieces - 1).bit_length())
+    groups = -(-pieces // lanes)
+    ladder = _tile_ladder(lanes)
+    tile, threads, rpt = ladder[-1]
+    for cand in ladder:
+        if -(-n // cand[0]) >= MIN_BLOCKS_PER_SM * sm_count:
+            tile, threads, rpt = cand
+            break
+
+    def rounded(elems: int) -> int:  # places stay 16-byte aligned
+        return -(-elems // vec) * vec
+
+    def x_elems(span: int) -> int:  # a window's elements, with its phase
+        return rounded(min(tile + span, n) * k + vec)
+
+    def fits(span: int, n_diags: int) -> bool:
+        return (x_elems(span) * itemsize <= X_BUDGET
+                and n_diags * tile * itemsize <= DATA_BUDGET)
+
+    bands, start = [], 0
+    for d in range(1, len(offsets)):
+        if not (offsets[d] - offsets[d - 1] <= tile
+                and fits(offsets[d] - offsets[start], d - start + 1)):
+            bands.append((start, d))
+            start = d
+    if offsets:
+        bands.append((start, len(offsets)))
+    xs_cap = max((x_elems(offsets[d1 - 1] - offsets[d0]) for d0, d1 in bands),
+                 default=0)
+    ds_cap = rounded(max(((d1 - d0) * tile for d0, d1 in bands), default=0))
+    buffers = 2 if len(bands) > 1 else 1
+    return DiaPlan(n=n, k=k, itemsize=itemsize, offsets=offsets,
+                   vector=vector, lanes=lanes, groups=groups, threads=threads,
+                   rows_per_thread=rpt, tile=tile, blocks=-(-n // tile),
+                   bands=tuple(bands), xs_cap=xs_cap, ds_cap=ds_cap,
+                   smem_bytes=buffers * (xs_cap + ds_cap) * itemsize)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_struct(plan: DiaPlan) -> _PlanStruct:
+    s = _PlanStruct(n_bands=len(plan.bands), tile=plan.tile,
+                    lanes_log2=plan.lanes.bit_length() - 1,
+                    rows_per_thread=plan.rows_per_thread,
+                    xs_cap=plan.xs_cap, ds_cap=plan.ds_cap)
+    s.offsets[:len(plan.offsets)] = plan.offsets
+    starts = [d0 for d0, _ in plan.bands] + [len(plan.offsets)]
+    s.band_start[:len(starts)] = starts
+    return s
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_for(mat, x: torch.Tensor) -> DiaPlan:
+    """The band-tile plan of ``mat`` for this X on its card."""
+    k = 1 if x.dim() == 1 else x.shape[1]
+    return dia_plan(mat.offsets, mat.shape[0], k, x.dtype,
+                    _sms(x.device.index), x.data_ptr() % 16 == 0)
 
 
 def plain_dia_spmv(mat, x: torch.Tensor) -> torch.Tensor:
@@ -81,29 +286,74 @@ def plain_dia_spmv(mat, x: torch.Tensor) -> torch.Tensor:
     return acc.reshape(x.shape)
 
 
-def dia_spmv(mat, x: torch.Tensor) -> torch.Tensor:
-    """K3: y = A x (or Y = A X) for a DIA matrix."""
-    global dia_spmv_launches
+def _raise_on(lib, code: int, what: str) -> None:
+    if code != 0:
+        msg = lib.dia_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def _on_card(mat, x: torch.Tensor) -> int:
+    """Validate x for a launch on the card; returns k."""
     k = check_x(mat, x)
-    if x.device.type == "cpu":
-        return plain_dia_spmv(mat, x)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for tensors on {x.device}")
     if x.dtype not in _SUFFIX:
         raise TypeError(f"no kernel for {x.dtype}")
+    return k
+
+
+def _first(lib, mat, x, y, k) -> int:
+    return getattr(lib, f"dia_spmv_first_{_SUFFIX[x.dtype]}")(
+        mat.shape[0], len(mat.offsets), k, mat.offsets_dev.data_ptr(),
+        mat.data.data_ptr(), x.data_ptr(), y.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+
+
+def _tiled(lib, mat, x, y, k) -> int:
+    plan = plan_for(mat, x)
+    return getattr(lib, f"dia_spmv_tiled_{_SUFFIX[x.dtype]}")(
+        plan.n, k, plan.vector, plan.threads, plan.blocks, plan.smem_bytes,
+        ctypes.addressof(_plan_struct(plan)), mat.data.data_ptr(),
+        x.data_ptr(), y.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+
+def _launch(design, mat, x: torch.Tensor, k: int, what: str):
+    """(Y, whether a kernel ran): ``design`` on the card, nothing for a
+    matrix of no rows."""
     lib = kernel_lib()
     y = torch.empty_like(x)
     if mat.shape[0] == 0:
-        return y
+        return y, False
     with torch.cuda.device(x.device):
-        code = getattr(lib, f"dia_spmv_{_SUFFIX[x.dtype]}")(
-            mat.shape[0], len(mat.offsets), k, mat.offsets_dev.data_ptr(),
-            mat.data.data_ptr(), x.data_ptr(), y.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if code != 0:
-        msg = lib.dia_error_string(code).decode()
-        raise RuntimeError(f"dia_spmv launch failed: CUDA error {code} ({msg})")
-    dia_spmv_launches += 1
-    dia_spmv_launches_by_shape[(*mat.shape, k)] += 1
+        _raise_on(lib, design(lib, mat, x, y, k), what)
+    return y, True
+
+
+def launch_first_design(mat, x: torch.Tensor) -> torch.Tensor:
+    """K3's first design at any k, uncounted: the tiled design's
+    reference on the card (the same bits)."""
+    return _launch(_first, mat, x, _on_card(mat, x),
+                   "dia_spmv (first design)")[0]
+
+
+def launch_band_tiles(mat, x: torch.Tensor) -> torch.Tensor:
+    """K3's band-tile design at any k, uncounted: the wrapper routes only
+    k >= ``TILED_MIN_K`` to it."""
+    return _launch(_tiled, mat, x, _on_card(mat, x),
+                   "dia_spmv (band tiles)")[0]
+
+
+def dia_spmv(mat, x: torch.Tensor) -> torch.Tensor:
+    """K3: y = A x (or Y = A X) for a DIA matrix: the first design below
+    k = ``TILED_MIN_K``, the band-tile design from it up."""
+    global dia_spmv_launches
+    if x.device.type == "cpu":
+        check_x(mat, x)
+        return plain_dia_spmv(mat, x)
+    k = _on_card(mat, x)
+    design = _first if k < TILED_MIN_K else _tiled
+    y, launched = _launch(design, mat, x, k, "dia_spmv")
+    if launched:
+        dia_spmv_launches += 1
+        dia_spmv_launches_by_shape[(*mat.shape, k)] += 1
     return y

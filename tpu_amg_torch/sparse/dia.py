@@ -7,7 +7,12 @@ vector per diagonal drops the column-index stream entirely:
     y = Σ_d  data_d ⊙ shift(x, offset_d)
 
 The apply is K3 (:mod:`tpu_amg_torch.ops.dia`), a hand-written CUDA
-kernel; its plain PyTorch version runs on the CPU.  Port of
+kernel; its plain PyTorch version runs on the CPU.  Below k = 8 K3
+reads ``offsets_dev``; from k = 8 up its band plan
+(``ops.dia.dia_plan``, a pure function of the offsets and shapes)
+passes to the kernel by value, so the matrix carries nothing else to
+the device and a CUDA graph captured with it holds no stale table.
+Port of
 ``tpu_amg/sparse/dia.py``; :func:`try_from_csr` returns None when the
 matrix is not square or has too many distinct diagonals.
 """
@@ -30,9 +35,9 @@ class DIA:
     """Diagonal-format square sparse matrix on one device.
 
     ``data[d, i] = A[i, i + offsets[d]]`` (0 where out of range or not
-    stored), shape (n_diags, n).  ``offsets`` is kept twice: as a sorted
-    Python tuple and as an int64 tensor on the data's device, which the
-    kernel reads."""
+    stored), shape (n_diags, n).  ``offsets`` is kept twice: as a
+    strictly increasing Python tuple and as an int64 tensor on the data's
+    device, which the kernel's first design reads."""
 
     data: torch.Tensor
     offsets: Tuple[int, ...]
@@ -92,9 +97,12 @@ def dia_from_arrays(data, offsets: Sequence[int], shape: Tuple[int, int],
                     nnz: int, device, dtype=torch.float64,
                     block_size: int = 1) -> DIA:
     """A :class:`DIA` on ``device`` from host arrays: ``data`` (n_diags,
-    n) and sorted ``offsets`` (for example the fields of the JAX
-    package's ``DIA``, as numpy arrays)."""
+    n) and strictly increasing ``offsets`` (for example the fields of the
+    JAX package's ``DIA``, as numpy arrays): K3 sums and stages the
+    diagonals in that order."""
     offsets = tuple(int(o) for o in offsets)
+    if any(b <= a for a, b in zip(offsets, offsets[1:])):
+        raise ValueError(f"offsets {offsets} are not strictly increasing")
     data = to_device(data, device, dtype).contiguous()
     if data.shape != (len(offsets), shape[0]) or shape[0] != shape[1]:
         raise ValueError(f"data {tuple(data.shape)}, {len(offsets)} offsets, "
