@@ -133,15 +133,40 @@ Phases, one printed line per result; any failed check exits non-zero:
      small composite
      (aniso2d(32)) on the card against the same hierarchies on the CPU
      (1e-10); rand-SVD (python -m tpu_amg_torch.tools.rand_svd_test) on
-     the card, score >= 0.99.
+     the card, score >= 0.99;
+ 15. mixed-precision cycles (tpu_amg_torch.precision), on the matrices
+     and hierarchies of phases 3-5, 7 and 14 (no new setup): K1 + K2 at
+     (bf16, f64), (bf16, f32) and (f32, f64) on phase 3's 262,144-row
+     A0 and the SA path's A0, P0, R0, A1 (k = 1, 8), K3 on the
+     structured A0 and A1 and the adaptive fine A (k = 1, 8, 64), each
+     against its plain version at T's tolerance, two calls bitwise
+     equal, the band tiles bitwise equal to the first design from k = 8,
+     timed beside the (T, T) kernel on the widened values, the library's
+     call on them and the bound of the bytes with V-sized values; the
+     SA and structured paths cast to None, "f32", "bf16_values" and
+     "bf16", each with 3 PCG solves to rtol 1e-6 eager and compiled
+     (bitwise equal), iterations <= the uncast cycle's + 3, true
+     residual <= 1e-5 ||b||, bf16 launches in the bf16 modes, the
+     V-cycle's times and its dense and smoother shares; the adaptive
+     composite in "bf16_values" and "f32" (one eager PCG each, the
+     composite V-cycle, the block smoothers' share; "f32" within the
+     uncast count + 3, "bf16_values" reported as it ends, with a finite
+     iterate: neither package's cycle converges within that bound on
+     this problem, tests/test_torch_precision.py), and phase 14's small
+     composite cast to both, card against CPU (1e-10); the small SA input
+     card against CPU in "bf16_values" (1e-10) and "bf16" (5e-2); the
+     CLI's --structured poisson3d(100) --tol 1e-6 --precision
+     bf16_values (cg <= 14, K3 at (bf16, f64)); every mixed kernel
+     launched; its own wall time.
 Then every row timed with its bytes in the L2 cache is bound by the L2
 read rate of phase 11, and K1's and K2's launches x (time - bound) are
 printed for the SA and structured paths.  Every count is set to 0 just
 before each path (4, 6, 7, 10, 11, 12, each CLI run, the adaptive
-setup, its solves) and read just after it, before the comparison
-launches.  The last two lines are a JSON object of
+setup, its solves, each mode of phase 15) and read just after it,
+before the comparison launches.  The last two lines are a JSON object of
 per-kernel results (with each kernel's bound and the library call's
-time) and the device line.  With no CUDA device it exits with code 2
+time; phase 15 adds one entry a mixed kernel and pair) and the device
+line.  With no CUDA device it exits with code 2
 and prints no result.
 """
 
@@ -1413,7 +1438,7 @@ def adaptive_phase(reps, results, dia_results) -> dict:
           f"{svd['sigma_ratio']:.6f}, combined score {svd['score']:.6f} "
           f"(limit 0.99)")
     return dict(counts=counts, k64=k64, d64=d64, csr_cases=csr_cases,
-                dia_cases=dia_cases)
+                dia_cases=dia_cases, solver=solver, small=(s_gpu, twin))
 
 
 def say_adaptive_excess(adaptive, results, dia_results) -> None:
@@ -1433,6 +1458,520 @@ def say_adaptive_excess(adaptive, results, dia_results) -> None:
                       f"{c['bound_ms'] * 1e3:.2f} us) = {ms:.3f} ms")
     say(f"K3 on the adaptive path, launches x (time - bound), float64: "
         f"{total:.3f} ms in all; " + "; ".join(excess))
+
+
+# (value, vector) dtype names of the mixed pairs phase 15 runs
+PRECISION_PAIRS = (("bfloat16", "float64"), ("bfloat16", "float32"),
+                   ("float32", "float64"))
+PRECISION_MODES = (None, "f32", "bf16_values", "bf16")
+ADAPTIVE_MODES = ("bf16_values", "f32")
+PRECISION_TRUE_RES = 1e-5  # true residual / ||b|| of a cast cycle's solve
+# the adaptive composite's cast solves stop here.  In "bf16_values"
+# neither package's composite converges within the uncast count + 3 on
+# this problem: at 1,024 dofs the bf16 rounding of A is indefinite, the
+# JAX package's own cycle stalls and the port's needs 69 iterations
+# against f64's 19 (tests/test_torch_precision.py); at 262,144 dofs the
+# port's stalls
+ADAPTIVE_CAST_MAXITER = 100
+# card against CPU on the small SA input: "bf16_values" sums in f64 on
+# both; "bf16" rounds the island's f32 sums to bf16 in another order
+SMALL_TOL = {"bf16_values": 1e-10, "bf16": 5e-2}
+
+
+def pair_name(v: str, t: str) -> str:
+    short = {"float64": "f64", "float32": "f32", "bfloat16": "bf16"}
+    return short[v] + short[t]
+
+
+def pair_bound(nbytes, l2) -> float:
+    """The bound of ``nbytes`` on this card: over the L2 read rate of
+    phase 11 where they fit in L2, else over the HBM data sheet."""
+    import torch
+
+    from tpu_amg_torch.tools import dmabench
+
+    return dmabench.bound(nbytes, torch.device("cuda"), l2)["bound_ms"]
+
+
+def mixed_csr_cases(name, csr, reps, l2, out, ks=(1, 8)):
+    """K1 and K2 at each mixed pair on one matrix: against their plain
+    versions (the values widened first) at T's tolerance, two calls
+    bitwise equal; device times beside the same matrix's (T, T) kernels
+    (its values widened), the library's call on the widened values and
+    the bound of the bytes with V-sized values."""
+    import torch
+
+    from tpu_amg_torch.ops import spmv
+    from tpu_amg_torch.precision import cast_operator
+    from tpu_amg_torch.utils.timing import median_ms
+
+    for vname, tname in PRECISION_PAIRS:
+        v, t = getattr(torch, vname), getattr(torch, tname)
+        mat = spmv.CappedCSR.from_csr(csr, "cuda", v)
+        wide = cast_operator(mat, t)  # the same values, widened
+        lib1 = torch_csr(wide.indptr, wide.indices, wide.data, wide.shape)
+        lib2 = tail_csr(wide) if wide.n_tail else None
+        vsz, tsz = mat.data.element_size(), wide.data.element_size()
+        for k in ks:
+            g = torch.Generator(device="cuda").manual_seed(k)
+            shape = (mat.shape[1],) if k == 1 else (mat.shape[1], k)
+            x = torch.randn(shape, generator=g, device="cuda", dtype=t)
+            y1, y1b = spmv.csr_spmv_capped(mat, x), spmv.csr_spmv_capped(mat, x)
+            p1 = spmv.plain_csr_spmv_capped(mat, x)
+            y2, y2b, p2 = (torch.zeros_like(y1) for _ in range(3))
+            spmv.coo_patch(mat, x, y2)
+            spmv.coo_patch(mat, x, y2b)
+            spmv.plain_coo_patch(mat, x, p2)
+            torch.cuda.synchronize()
+            same = torch.equal(y1, y1b) and torch.equal(y2, y2b)
+            p = p1 + p2
+            scale = max(float(p.abs().max()), 1e-300)
+            rel = float((y1 + y2 - p).abs().max()) / scale
+            rec = dict(case=name, pair=pair_name(vname, tname), k=k,
+                       shape=tuple(mat.shape), err1=float((y1 - p1).abs().max()),
+                       err2=float((y2 - p2).abs().max()), n_tail=mat.n_tail)
+            rec["k1_ms"] = median_ms(lambda: spmv.csr_spmv_capped(mat, x),
+                                     reps, graph=True)
+            rec["k1_plain_ms"] = median_ms(
+                lambda: spmv.plain_csr_spmv_capped(mat, x), reps, graph=True)
+            rec["k1_tt_ms"] = median_ms(lambda: spmv.csr_spmv_capped(wide, x),
+                                        reps, graph=True)
+            rec["k1_lib_ms"] = median_ms(lambda: lib1 @ x, reps, graph=True)
+            rec["k1_bound_ms"] = pair_bound(spmv.k1_bytes(mat, k, t), l2)
+            text = (f"K1 {rec['k1_ms'] * 1e3:.2f} us ((T, T) "
+                    f"{rec['k1_tt_ms'] * 1e3:.2f}, plain "
+                    f"{rec['k1_plain_ms'] * 1e3:.2f}, library on the widened "
+                    f"values {rec['k1_lib_ms'] * 1e3:.2f}, bound "
+                    f"{rec['k1_bound_ms'] * 1e3:.2f})")
+            for key in ("k2_ms", "k2_plain_ms", "k2_tt_ms", "k2_lib_ms",
+                        "k2_bound_ms"):
+                rec[key] = None
+            if mat.n_tail:
+                yz = torch.zeros_like(y1)
+                rec["k2_ms"] = median_ms(lambda: spmv.coo_patch(mat, x, yz),
+                                         reps, graph=True)
+                rec["k2_plain_ms"] = median_ms(
+                    lambda: spmv.plain_coo_patch(mat, x, yz), reps, graph=True)
+                rec["k2_tt_ms"] = median_ms(
+                    lambda: spmv.coo_patch(wide, x, yz), reps, graph=True)
+                rec["k2_lib_ms"] = median_ms(lambda: lib2 @ x, reps,
+                                             graph=True)
+                cols = int(torch.unique(mat.tail_cols).numel())
+                rows = mat.n_tail_rows
+                rec["k2_bound_ms"] = pair_bound(
+                    mat.n_tail * (4 + vsz) + 4 * (2 * rows + 1)
+                    + (cols + 2 * rows) * k * tsz, l2)
+                text += (f"; K2 {rec['k2_ms'] * 1e3:.2f} us ((T, T) "
+                         f"{rec['k2_tt_ms'] * 1e3:.2f}, plain "
+                         f"{rec['k2_plain_ms'] * 1e3:.2f}, library "
+                         f"{rec['k2_lib_ms'] * 1e3:.2f}, bound "
+                         f"{rec['k2_bound_ms'] * 1e3:.2f})")
+            check(rel <= TOL[tname] and same,
+                  f"mixed K1+K2 {name} ({vname}, {tname}) k={k}: shape "
+                  f"{mat.shape} nnz {mat.nnz} tail {mat.n_tail}: max rel err "
+                  f"{rel:.3e} (limit {TOL[tname]:.0e}), two calls bitwise "
+                  f"equal: {same}; " + text)
+            out.append(rec)
+
+
+def mixed_dia_cases(name, dia64, reps, l2, out, ks=(1, 8, 64)):
+    """K3 at each mixed pair on one DIA matrix: against its plain version
+    at T's tolerance, two calls bitwise equal, and from k = 8 the band
+    tiles bitwise equal to the first design; device times beside the
+    (T, T) kernel on the widened diagonals, the library's call on the
+    same CSR (widened values) and the bound with V-sized diagonals."""
+    import torch
+
+    from tpu_amg_torch.ops import dia as dia_ops
+    from tpu_amg_torch.utils.timing import median_ms
+
+    n, n_diags = dia64.shape[0], len(dia64.offsets)
+    # the CSR of the stored nonzeros: where each entry lies in data
+    offsets = np.asarray(dia64.offsets, dtype=np.int64)
+    rows = np.tile(np.arange(n, dtype=np.int64), n_diags)
+    cols = rows + np.repeat(offsets, n)
+    keep = np.flatnonzero((cols >= 0) & (cols < n)
+                          & (dia64.data.cpu().numpy().ravel() != 0))
+    keep = keep[np.lexsort((cols[keep], rows[keep]))]
+    indptr = torch.from_numpy(np.r_[0, np.cumsum(np.bincount(
+        rows[keep], minlength=n))]).cuda()
+    indices = torch.from_numpy(cols[keep]).cuda()
+    where = torch.from_numpy(keep).cuda()
+    for vname, tname in PRECISION_PAIRS:
+        v, t = getattr(torch, vname), getattr(torch, tname)
+        mat = dia64.astype(v)
+        wide = mat.astype(t)
+        lib = torch_csr(indptr, indices, wide.data.reshape(-1)[where],
+                        (n, n))
+        for k in ks:
+            g = torch.Generator(device="cuda").manual_seed(k)
+            x = torch.randn((n,) if k == 1 else (n, k), generator=g,
+                            device="cuda", dtype=t)
+            y, again = dia_ops.dia_spmv(mat, x), dia_ops.dia_spmv(mat, x)
+            first = dia_ops.launch_first_design(mat, x)
+            tiles = dia_ops.launch_band_tiles(mat, x)
+            p = dia_ops.plain_dia_spmv(mat, x)
+            torch.cuda.synchronize()
+            same = torch.equal(y, again) and (
+                k < dia_ops.TILED_MIN_K or torch.equal(tiles, first))
+            scale = max(float(p.abs().max()), 1e-300)
+            err = float((y - p).abs().max())
+            rec = dict(case=name, pair=pair_name(vname, tname), k=k, n=n,
+                       err=err, diagonals=n_diags)
+            rec["ms"] = median_ms(lambda: dia_ops.dia_spmv(mat, x), reps,
+                                  graph=True)
+            rec["plain_ms"] = median_ms(lambda: dia_ops.plain_dia_spmv(mat, x),
+                                        reps, graph=True)
+            rec["tt_ms"] = median_ms(lambda: dia_ops.dia_spmv(wide, x), reps,
+                                     graph=True)
+            rec["lib_ms"] = median_ms(lambda: lib @ x, reps, graph=True)
+            rec["bound_ms"] = pair_bound(
+                n_diags * n * mat.data.element_size()
+                + 2 * n * k * x.element_size(), l2)
+            check(err / scale <= TOL[tname] and same,
+                  f"mixed K3 {name} ({vname}, {tname}) k={k}: n {n}, "
+                  f"{n_diags} diagonals, nnz {len(keep)}: max rel err "
+                  f"{err / scale:.3e} (limit {TOL[tname]:.0e}); two calls "
+                  f"bitwise equal, and from k = {dia_ops.TILED_MIN_K} the "
+                  f"band tiles to the first design: {same}; K3 "
+                  f"{rec['ms'] * 1e3:.2f} us ((T, T) {rec['tt_ms'] * 1e3:.2f}"
+                  f", plain {rec['plain_ms'] * 1e3:.2f}, library on the "
+                  f"widened values {rec['lib_ms'] * 1e3:.2f}, bound "
+                  f"{rec['bound_ms'] * 1e3:.2f})")
+            out.append(rec)
+
+
+def dtype_counts() -> dict:
+    """K1's, K2's and K3's launches by (value, vector) dtype names since
+    the last reset."""
+    from tpu_amg_torch.ops import dia, spmv
+
+    def named(counter):
+        return {pair_name(str(v)[6:], str(t)[6:]): n
+                for (v, t), n in counter.items()}
+
+    return {"K1": named(spmv.csr_spmv_launches_by_dtype),
+            "K2": named(spmv.coo_patch_launches_by_dtype),
+            "K3": named(dia.dia_spmv_launches_by_dtype)}
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for kernel, by_pair in counts.items():
+        for pair, n in by_pair.items():
+            total.setdefault(kernel, {}).setdefault(pair, 0)
+            total[kernel][pair] += n
+
+
+def cycle_shares(pc, vdtype, t_cycle_ms) -> str:
+    """The share of a V-cycle's device time (``t_cycle_ms``) that its
+    dense levels and coarse solve take, and its smoothers', from one
+    apply of each part (CUDA graph replays) times its count in a cycle:
+    a level applies A 2 s + 1 times and its smoother 2 s times (s the
+    smoothing steps), the coarsest level its coarse solve once."""
+    import torch
+
+    from tpu_amg_torch.linop import DenseOperator
+    from tpu_amg_torch.utils.timing import median_ms
+
+    mg = getattr(pc, "inner", pc)
+    steps = mg.smoothing_steps
+    gen = torch.Generator().manual_seed(5)
+
+    def vec(n):
+        return torch.randn(n, generator=gen).to("cuda", vdtype)
+
+    v = vec(mg.coarse_solver.shape[0])
+    t_coarse = median_ms(lambda: mg.coarse_solver.mv(v), 20, graph=True)
+    t_dense, t_smooth = t_coarse, 0.0
+    for level in mg.levels:
+        v = vec(level.a.shape[0])
+        t_s = median_ms(lambda lv=level, v=v: lv.smoother.mv(v), 20,
+                        graph=True)
+        t_smooth += 2 * steps * t_s
+        if isinstance(level.a, DenseOperator):
+            t_a = median_ms(lambda lv=level, v=v: lv.a.mv(v), 20, graph=True)
+            t_dense += (2 * steps + 1) * t_a + 2 * steps * t_s
+    return (f"dense levels and coarse solve {t_dense * 1e3:.1f} us "
+            f"({t_dense / t_cycle_ms:.1%} of the cycle; the coarse solve "
+            f"alone {t_coarse * 1e3:.1f} us, {t_coarse / t_cycle_ms:.1%}), "
+            f"every level's smoother (the dense levels' too) "
+            f"{t_smooth * 1e3:.1f} us ({t_smooth / t_cycle_ms:.1%})")
+
+
+def precision_path(label, solver, max_iters, totals) -> dict:
+    """One path's modes: each cycle cast by cast_preconditioner, 3 PCG
+    solves of A x = A x_true to rtol 1e-6 eager and compiled (the same
+    iterations and, bitwise, x), iterations <= the uncast cycle's + 3,
+    true residual <= PRECISION_TRUE_RES ||b||, launches by (V, T) (bf16
+    values launched in the bf16 modes), the V-cycle enqueued and on the
+    device, and its dense and smoother shares."""
+    import torch
+
+    from tpu_amg_torch.precision import cast_preconditioner
+    from tpu_amg_torch.solver import AMGSolver
+    from tpu_amg_torch.utils.timing import median_ms
+
+    op = solver.op
+    n = op.shape[0]
+    rhs = []
+    for i in range(3):
+        x_true = np.random.default_rng(300 + i).standard_normal(n)
+        rhs.append(op.mv(torch.from_numpy(x_true).cuda()))
+    base, out = None, {}
+    for mode in PRECISION_MODES:
+        pc = cast_preconditioner(solver.preconditioner, mode)
+        cast = AMGSolver(solver.matrix, pc, hierarchy=solver.hierarchy,
+                         config=solver.config, op=op)
+        torch.cuda.synchronize()
+        reset_counts()
+        iters = []
+        for i, b in enumerate(rhs):
+            pair = eager_and_compiled(cast, b, "cg", RTOL, 200)
+            x, info, _ = pair[1]
+            true_rel = float(torch.linalg.vector_norm(b - op.mv(x))
+                             / torch.linalg.vector_norm(b))
+            limit = max_iters if base is None else base[i] + 3
+            check(info.converged and info.iters <= limit
+                  and true_rel <= PRECISION_TRUE_RES,
+                  f"{label} cycle_precision={mode} solve {i}: {info.iters} "
+                  f"iterations (limit {limit}), true relative residual "
+                  f"{true_rel:.3e} (limit {PRECISION_TRUE_RES:.0e})")
+            check_same_solve(f"{label} {mode} PCG solve {i}", pair,
+                             first=i == 0)
+            iters.append(info.iters)
+        torch.cuda.synchronize()
+        counts = dtype_counts()
+        add_counts(totals, counts)
+        bf16 = sum(n for by_pair in counts.values()
+                   for pair, n in by_pair.items() if pair.startswith("bf16"))
+        check(mode not in ("bf16_values", "bf16") or bf16 > 0,
+              f"{label} {mode}: launches by (values, vectors): "
+              + "; ".join(f"{k} " + ", ".join(f"{p} {c}" for p, c in
+                                              sorted(v.items()))
+                          for k, v in counts.items() if v))
+        base = base or iters
+        vdt = torch.bfloat16 if mode == "bf16" else torch.float64
+        r = torch.from_numpy(np.random.default_rng(7).standard_normal(n)).cuda()
+        t_vc = median_ms(lambda: pc.mv(r), 20)
+        t_dev = median_ms(lambda: pc.mv(r), 20, graph=True)
+        say(f"{label} {mode} V-cycle: {t_vc:.3f} ms enqueued, {t_dev:.3f} "
+            f"ms on the device; PCG iterations {iters}; "
+            + cycle_shares(pc, vdt, t_dev))
+        out[str(mode)] = dict(iters=iters, vcycle_ms=t_vc, vcycle_dev_ms=t_dev)
+    return out
+
+
+def adaptive_precision(solver, small, totals) -> dict:
+    """The adaptive composite in "bf16_values" and "f32" beside its
+    uncast cycle: one eager PCG solve of A x = A x_true to 1e-6 each (at
+    most ADAPTIVE_CAST_MAXITER iterations), ms an iteration, the
+    composite V-cycle on the device and its block smoothers' share.
+    "f32" must converge within the uncast solve's iterations + 3.
+    "bf16_values" does not on this problem, in either package
+    (ADAPTIVE_CAST_MAXITER): its solve must end with a finite iterate
+    and is reported as it ends.  Then ``small`` (phase 14's small
+    composite on the card and its CPU twin) cast to both modes: the
+    cycle card against CPU at 1e-10, mv and mm."""
+    import torch
+
+    from tpu_amg_torch.precision import cast_preconditioner
+    from tpu_amg_torch.solvers import cg
+    from tpu_amg_torch.utils.timing import median_ms
+
+    op, n = solver.op, solver.op.shape[0]
+    b = op.mv(torch.from_numpy(
+        np.random.default_rng(200).standard_normal(n)).cuda())
+    r = torch.from_numpy(np.random.default_rng(7).standard_normal(n)).cuda()
+    base, out = None, {}
+    for mode in (None,) + ADAPTIVE_MODES:
+        pc = cast_preconditioner(solver.preconditioner, mode)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        x, info = cg(op, b, pc, rtol=RTOL,
+                     maxiter=500 if mode is None else ADAPTIVE_CAST_MAXITER)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        add_counts(totals, dtype_counts())
+        true_rel = float(torch.linalg.vector_norm(b - op.mv(x))
+                         / torch.linalg.vector_norm(b))
+        limit = 500 if base is None else base + 3
+        t_dev = median_ms(lambda: pc.mv(r), 10, graph=True)
+        # the block smoothers: 2 s applies a level a component V-cycle,
+        # each component as often as the sweep runs it
+        t_s = 0.0
+        for comp in pc.sweep():
+            for level in comp.levels:
+                v = torch.randn(level.a.shape[0], dtype=torch.float64,
+                                generator=torch.Generator().manual_seed(3))
+                v = v.cuda()
+                t_s += 2 * comp.smoothing_steps * median_ms(
+                    lambda lv=level, v=v: lv.smoother.mv(v), 10, graph=True)
+        inv_mb = sum(bk.inv_blocks.numel() * bk.inv_blocks.element_size()
+                     for comp in pc.components for level in comp.levels
+                     for bk in getattr(level.smoother, "buckets", ())) / 1e6
+        ok = (bool(torch.isfinite(x).all()) if mode == "bf16_values"
+              else info.converged and info.iters <= limit
+              and true_rel <= PRECISION_TRUE_RES)
+        held = ("a finite iterate; the limit is not held here"
+                if mode == "bf16_values" else f"limit {limit}")
+        check(ok, f"adaptive cycle_precision={mode}: eager PCG {info.iters} "
+              f"iterations ({held}), converged {info.converged}, "
+              f"true relative residual "
+              f"{true_rel:.3e}, {t / max(info.iters, 1) * 1e3:.2f} ms an "
+              f"iteration; composite V-cycle {t_dev:.3f} ms on the device, "
+              f"block smoothers {t_s:.3f} ms of it ({t_s / t_dev:.1%}; "
+              f"{inv_mb:.1f} MB of block inverses)")
+        base = base if base is not None else info.iters
+        out[str(mode)] = dict(iters=info.iters, converged=info.converged,
+                              true_rel=true_rel, ms_per_iter=t / info.iters,
+                              vcycle_dev_ms=t_dev, smoother_ms=t_s)
+
+    s_gpu, twin = small
+    rng = np.random.default_rng(12)
+    for mode in ADAPTIVE_MODES:
+        pg = cast_preconditioner(s_gpu.preconditioner, mode)
+        pc = cast_preconditioner(twin, mode)
+        diffs = []
+        for shape in ((twin.shape[0],), (twin.shape[0], 5)):
+            v = torch.from_numpy(rng.standard_normal(shape))
+            zg, zc = pg(v.cuda()).cpu(), pc(v)
+            diffs.append(float((zg - zc).abs().max() / zc.abs().max()))
+        check(max(diffs) <= 1e-10,
+              f"small composite cycle_precision={mode}: apply rel diff "
+              f"card against CPU {diffs[0]:.2e} (mv), {diffs[1]:.2e} (mm, "
+              f"k=5) (limit 1e-10)")
+    return out
+
+
+def precision_phase(reps, l2, paths) -> dict:
+    """Phase 15: mixed-precision cycles (tpu_amg_torch.precision).  The
+    kernels at (bf16, f64), (bf16, f32) and (f32, f64) on the main
+    paths' matrices; then the SA (phase 4), structured (phase 7) and
+    adaptive (phase 14) hierarchies cast in each mode and solved; the
+    small SA input card against CPU; the CLI's --precision bf16_values.
+    Returns the kernels' records and the launches by (values, vectors)
+    over the paths' runs."""
+    import torch
+
+    from tpu_amg_torch.ops import dia as dia_ops
+    from tpu_amg_torch.precision import cast_preconditioner
+    from tpu_amg_torch.solvers import cg
+
+    t_phase = time.perf_counter()
+    csr_recs, dia_recs = [], []
+    h = paths["sa"].hierarchy
+    for name, csr in ((K1_HEADLINE, paths["head"]), ("A0", h.matrices[0]),
+                      ("P0", h.interpolations[0]),
+                      ("R0", h.restrictions[0]), ("A1", h.matrices[1])):
+        mixed_csr_cases(name, csr, reps, l2, csr_recs)
+    smg = paths["structured"].preconditioner
+    for name, dia in (("S A0", smg.levels[0].a.mat),
+                      ("S A1", smg.levels[1].a.mat),
+                      ("adaptive A", paths["adaptive"].op.mat)):
+        mixed_dia_cases(name, dia, reps, l2, dia_recs)
+    t_kernels = time.perf_counter() - t_phase
+
+    totals = {}
+    sa = precision_path("SA", paths["sa"], MAX_ITERS, totals)
+    st = precision_path("structured", paths["structured"],
+                        MAX_ITERS_STRUCTURED, totals)
+    ad = adaptive_precision(paths["adaptive"], paths["adaptive_small"],
+                            totals)
+
+    # the small SA input: the card against the CPU on one hierarchy
+    s_gpu, mg_cpu, op_cpu = paths["small"]
+    b_np = np.random.default_rng(3).standard_normal(s_gpu.op.shape[0])
+    for mode, tol in SMALL_TOL.items():
+        pg = cast_preconditioner(s_gpu.preconditioner, mode)
+        pcpu = cast_preconditioner(mg_cpu, mode)
+        zg = pg.mv(torch.from_numpy(b_np).cuda()).cpu()
+        zc = pcpu.mv(torch.from_numpy(b_np))
+        dz = float((zg - zc).norm() / zc.norm())
+        _, ig = cg(s_gpu.op, torch.from_numpy(b_np).cuda(), pg, rtol=RTOL)
+        _, ic = cg(op_cpu, torch.from_numpy(b_np), pcpu, rtol=RTOL)
+        check(dz <= tol and ig.converged and abs(ig.iters - ic.iters)
+              <= (0 if mode == "bf16_values" else 2),
+              f"small SA input {mode}: V-cycle card against CPU rel diff "
+              f"{dz:.2e} (limit {tol:.0e}); PCG card {ig.iters} / CPU "
+              f"{ic.iters} iterations")
+
+    # the CLI with --precision
+    torch.cuda.synchronize()
+    reset_counts()
+    argv = ["--structured", "--problem", "poisson3d", "--n",
+            str(STRUCTURED_SIDE), "--tol", "1e-6", "--precision",
+            "bf16_values"]
+    line, secs, _ = run_cli("tpu_amg_torch.tools.amg", argv)
+    torch.cuda.synchronize()
+    counts = dtype_counts()
+    add_counts(totals, counts)
+    cg_iters = int(line.split()[0])
+    check(cg_iters <= MAX_ITERS_STRUCTURED
+          and counts["K3"].get("bf16f64", 0) > 0,
+          f"CLI {' '.join(argv)}: final line {line!r} ({secs:.1f} s), "
+          f"cg_iters {cg_iters} (limit {MAX_ITERS_STRUCTURED}); K3 at "
+          f"(bf16, f64) {counts['K3'].get('bf16f64', 0)} launches")
+
+    missing = [f"{k} {pair_name(v, t)}" for k in ("K1", "K2", "K3")
+               for v, t in PRECISION_PAIRS
+               if totals.get(k, {}).get(pair_name(v, t), 0) == 0]
+    check(not missing,
+          "phase 15 launches by (values, vectors) over its paths: "
+          + "; ".join(f"{k} " + ", ".join(f"{p} {c}" for p, c in
+                                          sorted(v.items()))
+                      for k, v in totals.items())
+          + (f"; never launched: {missing}" if missing else ""))
+    say(f"phase 15: {time.perf_counter() - t_phase:.1f} s "
+        f"(kernel cases {t_kernels:.1f} s)")
+    return dict(csr=csr_recs, dia=dia_recs, totals=totals, sa=sa,
+                structured=st, adaptive=ad)
+
+
+def precision_entries(precision) -> list:
+    """The kernels line's entries of phase 15: one a kernel and mixed
+    pair, read on the paths' largest matrix at k = 1 (K1 on the
+    262,144-row A0, K2 on the SA path's R0 tail, K3 on the structured
+    1,000,000-row A0); launches over phase 15's mode runs; library: the
+    (T, T) call on the widened values (no library call takes a mixed
+    pair)."""
+    entries = []
+    for v, t in PRECISION_PAIRS:
+        pair = pair_name(v, t)
+        csr = [c for c in precision["csr"] if c["pair"] == pair]
+        dia = [c for c in precision["dia"] if c["pair"] == pair]
+        k1 = next(c for c in csr if c["case"] == K1_HEADLINE and c["k"] == 1)
+        k2 = next(c for c in csr if c["case"] == "R0" and c["k"] == 1)
+        k3 = next(c for c in dia if c["case"] == "S A0" and c["k"] == 1)
+        common = dict(route="cuda", bound_by="bytes", values=v, vectors=t,
+                      library="the (T, T) call on the widened values")
+        entries += [
+            dict(name=f"csr_spmv_capped_{pair}",
+                 source="tpu_amg_torch/csrc/spmv.cu",
+                 replaces="tpu_amg/ops/well_pallas.py:77",
+                 launches=precision["totals"].get("K1", {}).get(pair, 0),
+                 max_abs_err=max(c["err1"] for c in csr),
+                 ms=k1["k1_ms"], plain_ms=k1["k1_plain_ms"],
+                 bound_ms=k1["k1_bound_ms"], library_ms=k1["k1_lib_ms"],
+                 tt_ms=k1["k1_tt_ms"], case=K1_HEADLINE, **common),
+            dict(name=f"coo_patch_{pair}",
+                 source="tpu_amg_torch/csrc/spmv.cu",
+                 replaces="tpu_amg/ops/well_pallas.py:457",
+                 launches=precision["totals"].get("K2", {}).get(pair, 0),
+                 max_abs_err=max(c["err2"] for c in csr),
+                 ms=k2["k2_ms"], plain_ms=k2["k2_plain_ms"],
+                 bound_ms=k2["k2_bound_ms"], library_ms=k2["k2_lib_ms"],
+                 tt_ms=k2["k2_tt_ms"], case="R0", **common),
+            dict(name=f"dia_spmv_{pair}",
+                 source="tpu_amg_torch/csrc/dia.cu",
+                 replaces="tpu_amg/ops/dia_pallas.py:34",
+                 launches=precision["totals"].get("K3", {}).get(pair, 0),
+                 max_abs_err=max(c["err"] for c in dia),
+                 ms=k3["ms"], plain_ms=k3["plain_ms"],
+                 bound_ms=k3["bound_ms"], library_ms=k3["lib_ms"],
+                 tt_ms=k3["tt_ms"], case="structured A0", **common),
+        ]
+    return entries
 
 
 def main() -> int:
@@ -1525,7 +2064,6 @@ def main() -> int:
          for dt in (torch.float64, torch.float32)},
         args.reps, results, ks=(1,),
     )
-    del head
 
     # ---- 4. main path
     t0 = time.perf_counter()
@@ -1868,6 +2406,12 @@ def main() -> int:
     # ---- 14. the adaptive composite at 262,144 dofs
     adaptive = adaptive_phase(args.reps, results, dia_results)
 
+    # ---- 15. mixed-precision cycles on the hierarchies of 4, 5, 7, 14
+    precision = precision_phase(args.reps, l2, dict(
+        head=head, sa=solver, small=(s_gpu, mg_cpu, op_cpu),
+        structured=s_solver, adaptive=adaptive["solver"],
+        adaptive_small=adaptive["small"]))
+
     # the rows timed in L2 (bytes that fit in the card's L2, 50 calls
     # back to back) bound by this run's L2 read rate, without a call's
     # fixed cost (phase 11), in place of the HBM data sheet's rate
@@ -1967,6 +2511,7 @@ def main() -> int:
              l2_case=best["name"], l2_ms=best["ms"],
              l2_plain_ms=best["plain_ms"], l2_bound_ms=best["bound_ms"]),
         stages_entry, dma_entry, primitives_entry,
+        *precision_entries(precision),
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -247,13 +247,36 @@ def test_amg_cli_matches_jax(case, capsys):
 @pytest.mark.parametrize("option,item", [
     (["--interpolation", "classical"], "M18"),
     (["--classical-opts", "tau=0.5"], "M18"),
-    (["--precision", "bf16"], "M19"),
     (["--viz-out", "viz.json"], "M21"),
     (["--problem", "elasticity3d"], "M17"),
 ])
 def test_amg_cli_refuses_unported_options(option, item):
     with pytest.raises(SystemExit, match=item):
         amg_cli.main(["--device", "cpu", *option])
+
+
+PRECISION_PATHS = {
+    "structured": ["--structured", "--problem", "poisson3d", "--n", "16"],
+    "sa": ["--n", "16", "--coarsest-dim", "40", "--coarsening-near-null-dim",
+           "16", "--smoothing-iters", "10"],
+}
+
+
+@pytest.mark.parametrize("mode", ["bf16_values", "f32"])
+@pytest.mark.parametrize("path", list(PRECISION_PATHS))
+def test_amg_cli_precision(path, mode, capsys):
+    """--precision casts the built cycle (the outer PCG stays f64): the
+    final line parses and PCG converges, within 3 iterations of the f64
+    cycle's count on the same arguments."""
+    args = ["--device", "cpu", "--tol", "1e-10", "--max-iters", "200",
+            *PRECISION_PATHS[path]]
+    amg_cli.main([*args, "--precision", mode, "--skip-enorm"])
+    out = capsys.readouterr()
+    cg_iters, sli_iters, _, _ = _final_line(out.out)
+    assert "cg_converged=True" in out.err
+    amg_cli.main([*args, "--skip-enorm"])
+    f64_iters = _final_line(capsys.readouterr().out)[0]
+    assert 0 < cg_iters <= f64_iters + 3 and 0 < sli_iters <= 200
 
 
 COMPOSITE_ARGS = ["--n", "12", "--coarsest-dim", "30",

@@ -48,6 +48,8 @@ SLICE_8 = ["tpu_amg_torch.preconditioners.composite",
            "tpu_amg_torch.decompositions",
            "tpu_amg_torch.decompositions.rand_svd",
            "tpu_amg_torch.tools.rand_svd_test"]
+# the mixed-precision cycle
+SLICE_10 = ["tpu_amg_torch.precision"]
 
 
 def test_port_imports_no_jax():
@@ -62,6 +64,7 @@ def test_port_imports_no_jax():
     assert set(SLICE_4) <= set(out[2:])
     assert set(SLICE_7) <= set(out[2:])
     assert set(SLICE_8) <= set(out[2:])
+    assert set(SLICE_10) <= set(out[2:])
 
 
 def test_importing_builds_nothing():

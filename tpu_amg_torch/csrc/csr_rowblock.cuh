@@ -31,9 +31,12 @@
 //      X[c, 0..k-1] reads of a team are contiguous; each lane sums its
 //      row's entries in order (several rows share a warp when k <= 16);
 //   4. writes y, consecutive rows by consecutive teams.
-// Sums are in the value type, in an order fixed by the table: the same
-// result on every run, no atomics.  Offsets are 32-bit (the host checks
-// that nnz, m·k and n·k fit).
+// Values stream in their stored type V and are widened exactly to T, the
+// type of X and Y, before the product (widen.cuh): (V, T) is (f64, f64),
+// (f32, f32), (f32, f64), (bf16, f32) or (bf16, f64).  Products and sums
+// are in T, in an order fixed by the table: the same result on every run,
+// no atomics.  A (T, T) instantiation is the kernel as it was before V.
+// Offsets are 32-bit (the host checks that nnz, m·k and n·k fit).
 //
 // The ablation modes take one stage out of the k = 1 kernel (see
 // ops/spmv_stages.py): kFull is K1 itself, so `full` is bitwise K1 by
@@ -43,6 +46,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "widen.cuh"
 
 // S, the row block's entries: the host's table (ops/spmv.py
 // BLOCK_ENTRIES) must be cut for the same S.  Only the row-block probe
@@ -69,20 +74,22 @@ enum Mode : int {
   kDataOnly = 5,
 };
 
-// The SpMM's row block in shared memory: values [S], columns [S], row
-// pointers [kRows + 1]; S = 4 NT entries and kRows = 2 NT rows at most.
-template <typename T, int NT>
+// The SpMM's row block in shared memory: values [S] as stored (V),
+// columns [S], row pointers [kRows + 1]; S = 4 NT entries and kRows = 2 NT
+// rows at most.  The columns start 16-byte aligned for every V: S V's are
+// a multiple of 16 bytes.
+template <typename V, int NT>
 struct Smem {
   static constexpr int kS = 4 * NT;
   static constexpr int kRows = 2 * NT;
   static constexpr int kBytes =
-      kS * static_cast<int>(sizeof(T) + sizeof(int)) +
+      kS * static_cast<int>(sizeof(V) + sizeof(int)) +
       (kRows + 1) * static_cast<int>(sizeof(int64_t));
-  T* sv;
+  V* sv;
   int* sc;
   int64_t* off;
   __device__ explicit Smem(unsigned char* smem) {
-    sv = reinterpret_cast<T*>(smem);
+    sv = reinterpret_cast<V*>(smem);
     sc = reinterpret_cast<int*>(sv + kS);
     off = reinterpret_cast<int64_t*>(sc + kS);
   }
@@ -93,6 +100,15 @@ struct Smem {
 __device__ __forceinline__ void copy16(void* dst, const void* src, int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// 8 bytes, of which `bytes` are read and the rest zero-filled: a 4-entry
+// chunk of 2-byte values.
+__device__ __forceinline__ void copy8(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
                "l"(src), "r"(bytes)
                : "memory");
 }
@@ -128,28 +144,34 @@ __device__ __forceinline__ Bounds block_bounds(const int* block_rows,
 
 // Start the SpMM's copies of a row block into shared memory: this
 // thread's chunk (entries j0..j0+3; those at or past e1 are not read) of
-// the columns and values, and the row pointers.
-template <typename T, int NT>
-__device__ __forceinline__ void stage(const Bounds& b, const Smem<T, NT>& s,
+// the columns and values, and the row pointers.  A chunk of 8- or 4-byte
+// values is 2 or 1 copies of 16 bytes; of 2-byte values, one of 8 bytes
+// (8-byte aligned: j0 is a multiple of 4 and the values 16-byte aligned).
+template <typename V, int NT>
+__device__ __forceinline__ void stage(const Bounds& b, const Smem<V, NT>& s,
                                       const int64_t* indptr,
-                                      const int32_t* indices, const T* vals) {
-  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // values a copy
+                                      const int32_t* indices, const V* vals) {
+  constexpr int kVal = static_cast<int>(sizeof(V));
   const int ch = threadIdx.x;
   if (ch < b.chunks) {
     const int j0 = b.a0 + 4 * ch;
     const int valid = min(4, b.e1 - j0);  // >= 1 for a chunk of the block
     copy16(s.sc + 4 * ch, indices + j0, 4 * valid);
+    if constexpr (kVal == 2) {
+      copy8(s.sv + 4 * ch, vals + j0, valid * kVal);
+    } else {
+      constexpr int kPer = 16 / kVal;  // values a copy
 #pragma unroll
-    for (int h = 0; h < 4 / kPer; ++h) {
-      const int n = min(kPer, valid - h * kPer);
-      if (n > 0) {
-        copy16(s.sv + 4 * ch + h * kPer, vals + j0 + h * kPer,
-               n * static_cast<int>(sizeof(T)));
+      for (int h = 0; h < 4 / kPer; ++h) {
+        const int n = min(kPer, valid - h * kPer);
+        if (n > 0) {
+          copy16(s.sv + 4 * ch + h * kPer, vals + j0 + h * kPer, n * kVal);
+        }
       }
     }
   }
 #pragma unroll
-  for (int t = 0; t < (Smem<T, NT>::kRows + NT) / NT; ++t) {
+  for (int t = 0; t < (Smem<V, NT>::kRows + NT) / NT; ++t) {
     const int i = threadIdx.x + t * NT;
     if (i <= b.rows) copy8(s.off + i, indptr + b.r0 + i);
   }
@@ -168,19 +190,19 @@ __device__ __forceinline__ int lanes_per_row(int rows) {
 // This thread's 4 entries of a row block, at positions pos[t] = t' + t NT
 // from a0 (t' the thread): each warp load is 32 consecutive entries, 128
 // or 256 contiguous bytes, and so is each warp gather's set of columns (a
-// few rows', so few sectors).  Values and columns; those outside [e0, e1)
-// zero and not read.
-template <typename T, int NT, bool kColumns>
+// few rows', so few sectors).  Values (widened to T) and columns; those
+// outside [e0, e1) zero and not read.
+template <typename V, typename T, int NT, bool kColumns>
 __device__ __forceinline__ void load_entries(
     const Bounds& b, const int32_t* __restrict__ indices,
-    const T* __restrict__ vals, T (&v)[4], int (&c)[4], bool (&in)[4],
+    const V* __restrict__ vals, T (&v)[4], int (&c)[4], bool (&in)[4],
     int (&pos)[4]) {
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     pos[t] = static_cast<int>(threadIdx.x) + t * NT;
     const int j = b.a0 + pos[t];
     in[t] = j >= b.e0 && j < b.e1;
-    v[t] = in[t] ? __ldg(vals + j) : T(0);
+    v[t] = in[t] ? widen<T>(__ldg(vals + j)) : T(0);
     c[t] = kColumns && in[t] ? __ldg(indices + j) : 0;
   }
 }
@@ -191,12 +213,12 @@ __device__ __forceinline__ void load_entries(
 // to shared memory; then rows are reduced from there.  Reducing modes
 // write y (n,); kNoRed / kNoGatherNoRed write the per-entry terms P
 // (capped nnz,) with no shared memory, row pointers or reduce.
-template <typename T, int M, int NT>
+template <typename V, typename T, int M, int NT>
 __global__ void __launch_bounds__(NT, 2048 / NT)
 spmv_kernel(const int* __restrict__ block_rows,
             const int* __restrict__ block_ptr,
             const int64_t* __restrict__ indptr,
-            const int32_t* __restrict__ indices, const T* __restrict__ vals,
+            const int32_t* __restrict__ indices, const V* __restrict__ vals,
             const T* __restrict__ x, T zero, T* __restrict__ y) {
   constexpr bool kReduce = M != kNoRed && M != kNoGatherNoRed;
   constexpr bool kColumns = M != kDataOnly;
@@ -206,7 +228,7 @@ spmv_kernel(const int* __restrict__ block_rows,
   T v[4], term[4];
   int c[4], pos[4];
   bool in[4];
-  load_entries<T, NT, kColumns>(b, indices, vals, v, c, in, pos);
+  load_entries<V, T, NT, kColumns>(b, indices, vals, v, c, in, pos);
   if constexpr (kReduce) {
     for (int i = threadIdx.x; i <= b.rows; i += NT) {
       off[i] = __ldg(indptr + b.r0 + i);
@@ -261,9 +283,9 @@ spmv_kernel(const int* __restrict__ block_rows,
 // k > 1, one row block in shared memory: Y = A X for a row-major X (m, k),
 // Y (n, k).  `team` lanes a row (the power of two at or above k, at most
 // 32); lane l sums columns l, l + team, ... of its row.
-template <typename T, int NT>
+template <typename V, typename T, int NT>
 __device__ __forceinline__ void spmm_block(const Bounds& b,
-                                           const Smem<T, NT>& s, int k,
+                                           const Smem<V, NT>& s, int k,
                                            int team, const T* __restrict__ x,
                                            T* __restrict__ y) {
   __syncthreads();  // every pair and row pointer is in
@@ -277,43 +299,43 @@ __device__ __forceinline__ void spmm_block(const Bounds& b,
       T acc = T(0);
 #pragma unroll 4
       for (int j = start; j < end; ++j) {
-        acc += s.sv[j] * __ldg(x + s.sc[j] * k + col);
+        acc += widen<T>(s.sv[j]) * __ldg(x + s.sc[j] * k + col);
       }
       yr[col] = acc;
     }
   }
 }
 
-template <typename T, int NT>
+template <typename V, typename T, int NT>
 __global__ void __launch_bounds__(NT)
 spmm_kernel(int k, int team, const int* __restrict__ block_rows,
             const int* __restrict__ block_ptr,
             const int64_t* __restrict__ indptr,
-            const int32_t* __restrict__ indices, const T* __restrict__ vals,
+            const int32_t* __restrict__ indices, const V* __restrict__ vals,
             const T* __restrict__ x, T* __restrict__ y) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem<T, NT> sm(smem);
+  const Smem<V, NT> sm(smem);
   const Bounds b = block_bounds(block_rows, block_ptr, blockIdx.x);
-  stage<T, NT>(b, sm, indptr, indices, vals);
+  stage<V, NT>(b, sm, indptr, indices, vals);
   copies_done();
-  spmm_block<T, NT>(b, sm, k, team, x, y);
+  spmm_block<V, T, NT>(b, sm, k, team, x, y);
 }
 
 // A thread block of kThreads a row block: k = 1 is y = A x in mode M,
-// k > 1 the SpMM (M = kFull).
-template <typename T, int M>
+// k > 1 the SpMM (M = kFull); values of type V, X and Y of type T.
+template <typename V, typename T, int M>
 int launch(int n_blocks, int k, const int* block_rows, const int* block_ptr,
-           const int64_t* indptr, const int32_t* indices, const T* vals,
+           const int64_t* indptr, const int32_t* indices, const V* vals,
            const T* x, T zero, T* y, cudaStream_t s) {
   if (n_blocks <= 0) return 0;
   if (k == 1) {
-    spmv_kernel<T, M, kThreads><<<n_blocks, kThreads, 0, s>>>(
+    spmv_kernel<V, T, M, kThreads><<<n_blocks, kThreads, 0, s>>>(
         block_rows, block_ptr, indptr, indices, vals, x, zero, y);
   } else {
     int team = 1;
     while (team < k && team < 32) team *= 2;
-    spmm_kernel<T, kThreads><<<n_blocks, kThreads,
-                               Smem<T, kThreads>::kBytes, s>>>(
+    spmm_kernel<V, T, kThreads><<<n_blocks, kThreads,
+                                  Smem<V, kThreads>::kBytes, s>>>(
         k, team, block_rows, block_ptr, indptr, indices, vals, x, y);
   }
   return 0;

@@ -13,7 +13,7 @@
 // static rotates existed only for Mosaic.  There is no padded copy of x
 // either: a read i + off_d outside [0, n) is skipped, since its data
 // entry is a structural zero.  Every output is one accumulator in the
-// value type, summed over the diagonals in offset order (the JAX
+// type of X, summed over the diagonals in offset order (the JAX
 // package's order) with one fused multiply-add each.
 //
 // Bound by bytes: per diagonal a value and an x element for 2 flops, no
@@ -44,11 +44,26 @@
 //   division is left in the sum.  The plan shrinks T (down to 32 / lanes
 //   rows) until the grid has two blocks an SM where n allows.
 //
+// Values stream in their stored type V (the data rows) and X and Y are of
+// type T, V no wider than T: (f64, f64), (f32, f32), (f32, f64), (bf16,
+// f32), (bf16, f64).  Each value is widened exactly to T before its fma
+// (widen.cuh), so the sums are T's and both designs still give the same
+// bits; a (T, T) instantiation is the kernel as it was before V.  The
+// band tiles stage the X window in T and the data rows in V: 2-byte data
+// rows go in 4-byte copies (cp.async copies 4, 8 or 16 bytes), each row
+// placed at its address's phase against 4 bytes in a slot of an even
+// number of elements (`data_stride`).  The reference's Pallas kernel
+// writes Y in the data's dtype (dia_pallas.py:92); the port follows the
+// XLA apply the JAX package runs on the CPU (sparse/dia.py:89,
+// `result_type`): Y is T.
+//
 // The host side allocates the output, passes PyTorch's current stream and
 // checks the returned cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "widen.cuh"
 
 namespace {
 
@@ -66,10 +81,10 @@ __device__ __forceinline__ float fma_rn(float a, float b, float c) {
 
 // ---- the first design: one thread per (row, column)
 
-template <typename T>
+template <typename V, typename T>
 __global__ void first_kernel(int64_t n, int n_diags, int k,
                              const int64_t* __restrict__ offsets,
-                             const T* __restrict__ data,
+                             const V* __restrict__ data,
                              const T* __restrict__ x, T* __restrict__ y) {
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (tid >= n * k) return;
@@ -79,21 +94,22 @@ __global__ void first_kernel(int64_t n, int n_diags, int k,
   for (int d = 0; d < n_diags; ++d) {
     const int64_t j = i + __ldg(&offsets[d]);
     if (j >= 0 && j < n) {
-      acc = fma_rn(data[static_cast<int64_t>(d) * n + i], x[j * k + c], acc);
+      acc = fma_rn(widen<T>(data[static_cast<int64_t>(d) * n + i]), x[j * k + c],
+                   acc);
     }
   }
   y[tid] = acc;
 }
 
-template <typename T>
+template <typename V, typename T>
 int first_design(int64_t n, int n_diags, int k, const void* offsets,
                  const void* data, const void* x, void* y, void* stream) {
   if (n > 0) {
     const int64_t threads = n * k;
     const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-    first_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    first_kernel<V, T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         n, n_diags, k, static_cast<const int64_t*>(offsets),
-        static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y));
+        static_cast<const V*>(data), static_cast<const T*>(x), static_cast<T*>(y));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -102,8 +118,9 @@ int first_design(int64_t n, int n_diags, int k, const void* offsets,
 
 // The host's plan (ops/dia.py `_PlanStruct`, field for field).  Band b
 // holds the diagonals [band_start[b], band_start[b + 1]).  A buffer is
-// xs_cap elements of X window (16-byte aligned, with room for the
-// window's phase against 16 bytes) then ds_cap elements of data rows.
+// xs_cap elements of X window (T; 16-byte aligned, with room for the
+// window's phase against 16 bytes) then ds_cap elements of data rows (V),
+// a row of the band every data_stride<V>(tile) elements.
 struct Plan {
   int n_bands;
   int tile;             // T: rows a block
@@ -144,6 +161,14 @@ template <> struct Vec<float> {
 template <typename T>
 constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements in 16 bytes
 
+// A data row's slot in a buffer, in elements (ops/dia.py `data_stride`):
+// the tile, or for 2-byte values an even number with room for the row's
+// phase against 4 bytes.
+template <typename V>
+__device__ __forceinline__ int data_stride(int tile) {
+  return sizeof(V) == 2 ? (tile + 3) & ~1 : tile;
+}
+
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -158,6 +183,13 @@ template <typename T>
 __device__ __forceinline__ void copy1(T* dst, const T* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "n"(static_cast<int>(sizeof(T)))
+               : "memory");
+}
+
+// 4 bytes, of which `bytes` are read and the rest zero-filled.
+__device__ __forceinline__ void copy4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
                : "memory");
 }
 
@@ -189,9 +221,9 @@ __device__ __forceinline__ int window_pad(const T* x, int r0, int k) {
 }
 
 // Issue the copies of band b's X window and data rows into `buf`.
-template <typename T>
+template <typename V, typename T>
 __device__ __forceinline__ void stage(const Plan& p, int b, int n, int k, int i0,
-                                      int rows, const T* __restrict__ data,
+                                      int rows, const V* __restrict__ data,
                                       const T* __restrict__ x, T* buf) {
   const int tid = threadIdx.x, nt = blockDim.x;
   int r0, r1;
@@ -211,23 +243,43 @@ __device__ __forceinline__ void stage(const Plan& p, int b, int n, int k, int i0
   }
   const int d0 = p.band_start[b];
   const int nd = p.band_start[b + 1] - d0;
-  T* ds = buf + p.xs_cap;
-  for (int e = tid; e < nd * rows; e += nt) {
-    const int dd = e / rows, r = e - dd * rows;
-    copy1(ds + dd * p.tile + r, data + static_cast<int64_t>(d0 + dd) * n + i0 + r);
+  V* ds = reinterpret_cast<V*>(buf + p.xs_cap);
+  if constexpr (sizeof(V) == 2) {
+    // unit u of a row whose first element lies at phase ph against 4
+    // bytes: elements 2u - ph and 2u - ph + 1 of the row (the first is
+    // the element before the row when u = 0 and ph = 1, the second is not
+    // read past the row's end) into places 2u and 2u + 1 of its slot
+    const int stride = data_stride<V>(p.tile);
+    const int units = (rows + 2) / 2;
+    for (int e = tid; e < nd * units; e += nt) {
+      const int dd = e / units, u = e - dd * units;
+      const int64_t at = static_cast<int64_t>(d0 + dd) * n + i0;
+      const int first = 2 * u - static_cast<int>(at & 1);
+      if (first < rows) {
+        copy4(ds + dd * stride + 2 * u, data + at + first, first + 1 < rows ? 4 : 2);
+      }
+    }
+  } else {
+    for (int e = tid; e < nd * rows; e += nt) {
+      const int dd = e / rows, r = e - dd * rows;
+      copy1(ds + dd * p.tile + r, data + static_cast<int64_t>(d0 + dd) * n + i0 + r);
+    }
   }
 }
 
-// V: elements a lane reads at once (kVec<T>, or 1); G: column groups a
-// lane (a lane's columns are (lane + g * lanes) * V + [0, V)).
-template <typename T, int V, int G>
+// D: the data's (value) type; V: elements of X a lane reads at once
+// (kVec<T>, or 1); G: column groups a lane (a lane's columns are (lane + g
+// * lanes) * V + [0, V)).
+template <typename D, typename T, int V, int G>
 __global__ void __launch_bounds__(kMaxThreads)
 tiled_kernel(const __grid_constant__ Plan p, int n, int k,
-             const T* __restrict__ data, const T* __restrict__ x,
+             const D* __restrict__ data, const T* __restrict__ x,
              T* __restrict__ y) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const smem = reinterpret_cast<T*>(smem_raw);
-  const int buf_elems = p.xs_cap + p.ds_cap;
+  // a buffer's bytes: a multiple of 16 (xs_cap and ds_cap are whole
+  // 16-byte pieces of their types)
+  const int buf_bytes = p.xs_cap * static_cast<int>(sizeof(T)) +
+                        p.ds_cap * static_cast<int>(sizeof(D));
   const int tid = threadIdx.x;
   const int lanes = 1 << p.lanes_log2;
   const int lane = tid & (lanes - 1);
@@ -244,13 +296,15 @@ tiled_kernel(const __grid_constant__ Plan p, int n, int k,
   }
 
   if (p.n_bands > 0) {
-    stage(p, 0, n, k, i0, rows, data, x, smem);
+    stage(p, 0, n, k, i0, rows, data, x, reinterpret_cast<T*>(smem_raw));
     commit();
   }
+  const int dstride = data_stride<D>(p.tile);
   for (int b = 0; b < p.n_bands; ++b) {
-    const T* buf = smem + (b & 1) * buf_elems;
+    const T* buf = reinterpret_cast<const T*>(smem_raw + (b & 1) * buf_bytes);
     if (b + 1 < p.n_bands) {
-      stage(p, b + 1, n, k, i0, rows, data, x, smem + ((b + 1) & 1) * buf_elems);
+      stage(p, b + 1, n, k, i0, rows, data, x,
+            reinterpret_cast<T*>(smem_raw + ((b + 1) & 1) * buf_bytes));
       commit();
       wait_groups<1>();
     } else {
@@ -263,13 +317,16 @@ tiled_kernel(const __grid_constant__ Plan p, int n, int k,
     const int d0 = p.band_start[b], d1 = p.band_start[b + 1];
     for (int d = d0; d < d1; ++d) {
       const int off = p.offsets[d];
-      const T* dcol = buf + p.xs_cap + (d - d0) * p.tile;
+      // the data row's slot; a 2-byte row sits at its phase in it
+      const D* dcol = reinterpret_cast<const D*>(buf + p.xs_cap) + (d - d0) * dstride +
+                      (sizeof(D) == 2 ? static_cast<int>((static_cast<int64_t>(d) * n + i0) & 1)
+                                      : 0);
 #pragma unroll
       for (int j = 0; j < kMaxRowsPerThread; ++j) {
         const int row = slot + j * slots;
         const int src = i0 + row + off;  // the X row; in [r0, r1) if in [0, n)
         if (j < p.rows_per_thread && row < rows && src >= 0 && src < n) {
-          const T a = dcol[row];
+          const T a = widen<T>(dcol[row]);
           const T* xr = xs + (src - r0) * k;
           if constexpr (V == 1) {
 #pragma unroll
@@ -309,20 +366,21 @@ tiled_kernel(const __grid_constant__ Plan p, int n, int k,
   }
 }
 
-template <typename T>
+template <typename D, typename T>
 int tiled(int n, int k, int vector, int threads, int blocks, int smem_bytes,
           const void* plan, const void* data, const void* x, void* y,
           void* stream) {
   if (n > 0) {
     const Plan& p = *static_cast<const Plan*>(plan);
     const auto s = static_cast<cudaStream_t>(stream);
-    const auto* d = static_cast<const T*>(data);
+    const auto* d = static_cast<const D*>(data);
     const auto* xx = static_cast<const T*>(x);
     auto* yy = static_cast<T*>(y);
     if (vector == 1) {
-      tiled_kernel<T, 1, 2><<<blocks, threads, smem_bytes, s>>>(p, n, k, d, xx, yy);
+      tiled_kernel<D, T, 1, 2><<<blocks, threads, smem_bytes, s>>>(p, n, k, d, xx, yy);
     } else if (vector == kVec<T>) {
-      tiled_kernel<T, kVec<T>, 1><<<blocks, threads, smem_bytes, s>>>(p, n, k, d, xx, yy);
+      tiled_kernel<D, T, kVec<T>, 1><<<blocks, threads, smem_bytes, s>>>(p, n, k, d, xx,
+                                                                        yy);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -330,12 +388,12 @@ int tiled(int n, int k, int vector, int threads, int blocks, int smem_bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename D, typename T>
 cudaError_t allow_smem(int bytes) {
-  cudaError_t e = cudaFuncSetAttribute(tiled_kernel<T, 1, 2>,
+  cudaError_t e = cudaFuncSetAttribute(tiled_kernel<D, T, 1, 2>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(tiled_kernel<T, kVec<T>, 1>,
+  return cudaFuncSetAttribute(tiled_kernel<D, T, kVec<T>, 1>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
@@ -361,33 +419,34 @@ int dia_allow_smem() {
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (e == cudaSuccess) e = allow_smem<double>(bytes);
-  if (e == cudaSuccess) e = allow_smem<float>(bytes);
+  if (e == cudaSuccess) e = allow_smem<double, double>(bytes);
+  if (e == cudaSuccess) e = allow_smem<float, float>(bytes);
+  if (e == cudaSuccess) e = allow_smem<float, double>(bytes);
+  if (e == cudaSuccess) e = allow_smem<__nv_bfloat16, float>(bytes);
+  if (e == cudaSuccess) e = allow_smem<__nv_bfloat16, double>(bytes);
   return static_cast<int>(e);
 }
 
-int dia_spmv_first_f64(int64_t n, int n_diags, int k, const void* offsets,
-                       const void* data, const void* x, void* y, void* stream) {
-  return first_design<double>(n, n_diags, k, offsets, data, x, y, stream);
-}
+// Entry points: `_f64`, `_f32` (values of X's type) and `_{V}{T}` for
+// values of a narrower type V.
+#define DIA_ENTRIES(SUFFIX, V, T)                                              \
+  int dia_spmv_first_##SUFFIX(int64_t n, int n_diags, int k, const void* offsets, \
+                              const void* data, const void* x, void* y,        \
+                              void* stream) {                                  \
+    return first_design<V, T>(n, n_diags, k, offsets, data, x, y, stream);    \
+  }                                                                            \
+  int dia_spmv_tiled_##SUFFIX(int n, int k, int vector, int threads, int blocks, \
+                              int smem_bytes, const void* plan, const void* data, \
+                              const void* x, void* y, void* stream) {          \
+    return tiled<V, T>(n, k, vector, threads, blocks, smem_bytes, plan, data, x, \
+                       y, stream);                                             \
+  }
 
-int dia_spmv_first_f32(int64_t n, int n_diags, int k, const void* offsets,
-                       const void* data, const void* x, void* y, void* stream) {
-  return first_design<float>(n, n_diags, k, offsets, data, x, y, stream);
-}
-
-int dia_spmv_tiled_f64(int n, int k, int vector, int threads, int blocks,
-                       int smem_bytes, const void* plan, const void* data,
-                       const void* x, void* y, void* stream) {
-  return tiled<double>(n, k, vector, threads, blocks, smem_bytes, plan, data, x, y,
-                       stream);
-}
-
-int dia_spmv_tiled_f32(int n, int k, int vector, int threads, int blocks,
-                       int smem_bytes, const void* plan, const void* data,
-                       const void* x, void* y, void* stream) {
-  return tiled<float>(n, k, vector, threads, blocks, smem_bytes, plan, data, x, y,
-                      stream);
-}
+DIA_ENTRIES(f64, double, double)
+DIA_ENTRIES(f32, float, float)
+DIA_ENTRIES(f32f64, float, double)
+DIA_ENTRIES(bf16f32, __nv_bfloat16, float)
+DIA_ENTRIES(bf16f64, __nv_bfloat16, double)
+#undef DIA_ENTRIES
 
 }  // extern "C"

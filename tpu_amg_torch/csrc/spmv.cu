@@ -56,7 +56,18 @@
 // groups are summed by a shuffle tree, the warps of a long row in shared
 // memory, in a fixed order; one lane adds the row's sum into Y with a
 // plain load-add-store.  One writer a row: no atomics, and the same Y on
-// every call.  Sums accumulate in the value type.
+// every call.
+//
+// Both stream their values in the stored type V and multiply and sum in
+// T, the type of X and Y, V widened exactly first (widen.cuh): entry
+// points `{kernel}_f64` and `_f32` for V = T, `_f32f64`, `_bf16f32` and
+// `_bf16f64` for a narrower V.  The TPU's K1 reads a bf16 value stream
+// under f32 vectors the same way (well_pallas.py:112, `cdt =
+// x_ref.dtype`).  A bf16 stream moves 2 bytes an entry for the value
+// where f64 moves 8, beside the 4-byte column.  In a cycle whose vectors
+// are bf16 the host runs the (bf16, f32) kernels on X widened to f32 and
+// rounds Y to bf16 once, after K2 has added the tail
+// (tpu_amg_torch/precision.py).
 //
 // The host side (tpu_amg_torch/ops/spmv.py) builds the row-block table and
 // the tail row table, allocates every output, passes PyTorch's current
@@ -77,11 +88,11 @@ constexpr int kLongTailRow = kPatchUnroll * 32;
 // (W > 1: the whole block, L = 32).  Every lane of a warp calls it, so the
 // shuffles see the whole warp; a lane whose team owns no row passes
 // owns = false and e0 = e1.
-template <typename T, int L, int W>
+template <typename V, typename T, int L, int W>
 __device__ __forceinline__ void patch_row(bool owns, int row, int e0, int e1,
                                           int k, int G,
                                           const int32_t* __restrict__ cols,
-                                          const T* __restrict__ vals,
+                                          const V* __restrict__ vals,
                                           const T* __restrict__ x,
                                           T* __restrict__ y) {
   const int tid = threadIdx.x % (L * W);  // in the team
@@ -95,7 +106,7 @@ __device__ __forceinline__ void patch_row(bool owns, int row, int e0, int e1,
 #pragma unroll
     for (int u = 0; u < kPatchUnroll; ++u) {
       const int ju = j + u * groups;
-      v[u] = ju < e1 ? __ldg(vals + ju) : T(0);
+      v[u] = ju < e1 ? widen<T>(__ldg(vals + ju)) : T(0);
       c[u] = ju < e1 ? __ldg(cols + ju) : 0;
     }
 #pragma unroll
@@ -143,17 +154,17 @@ __device__ __forceinline__ void patch_row(bool owns, int row, int e0, int e1,
 // Blocks [0, n_long): one long tail row each, listed in `long_rows`;
 // then blocks of teams of L lanes, team q of block b owning table row
 // (b - n_long) kPatchThreads / L + q unless that row is long.
-template <typename T, int L>
+template <typename V, typename T, int L>
 __global__ void __launch_bounds__(kPatchThreads)
 coo_patch_kernel(int n_rows, int n_long, int k, int G,
                  const int32_t* __restrict__ row_ids,
                  const int32_t* __restrict__ ptr,
                  const int32_t* __restrict__ long_rows,
-                 const int32_t* __restrict__ cols, const T* __restrict__ vals,
+                 const int32_t* __restrict__ cols, const V* __restrict__ vals,
                  const T* __restrict__ x, T* __restrict__ y) {
   if (static_cast<int>(blockIdx.x) < n_long) {
     const int i = __ldg(long_rows + blockIdx.x);
-    patch_row<T, 32, kPatchThreads / 32>(true, __ldg(row_ids + i),
+    patch_row<V, T, 32, kPatchThreads / 32>(true, __ldg(row_ids + i),
                                          __ldg(ptr + i), __ldg(ptr + i + 1),
                                          k, G, cols, vals, x, y);
     return;
@@ -168,37 +179,37 @@ coo_patch_kernel(int n_rows, int n_long, int k, int G,
   }
   // a long row's block takes it
   const bool owns = i < n_rows && e1 - e0 <= kLongTailRow;
-  patch_row<T, L, 1>(owns, row, e0, owns ? e1 : e0, k, G, cols, vals, x, y);
+  patch_row<V, T, L, 1>(owns, row, e0, owns ? e1 : e0, k, G, cols, vals, x, y);
 }
 
-template <typename T, int L>
+template <typename V, typename T, int L>
 void launch_patch(unsigned blocks, cudaStream_t stream, int n_rows,
                   int n_long, int k, int G, const void* row_ids,
                   const void* ptr, const void* long_rows, const void* cols,
                   const void* vals, const void* x, void* y) {
-  coo_patch_kernel<T, L><<<blocks, kPatchThreads, 0, stream>>>(
+  coo_patch_kernel<V, T, L><<<blocks, kPatchThreads, 0, stream>>>(
       n_rows, n_long, k, G, static_cast<const int32_t*>(row_ids),
       static_cast<const int32_t*>(ptr), static_cast<const int32_t*>(long_rows),
-      static_cast<const int32_t*>(cols), static_cast<const T*>(vals),
+      static_cast<const int32_t*>(cols), static_cast<const V*>(vals),
       static_cast<const T*>(x), static_cast<T*>(y));
 }
 
-template <typename T>
+template <typename V, typename T>
 int csr_spmv_capped(int n_blocks, int k, const void* block_rows,
                     const void* block_ptr, const void* indptr,
                     const void* indices, const void* vals, const void* x,
                     void* y, void* stream) {
-  const int code = rowblock::launch<T, rowblock::kFull>(
+  const int code = rowblock::launch<V, T, rowblock::kFull>(
       n_blocks, k, static_cast<const int*>(block_rows),
       static_cast<const int*>(block_ptr), static_cast<const int64_t*>(indptr),
-      static_cast<const int32_t*>(indices), static_cast<const T*>(vals),
+      static_cast<const int32_t*>(indices), static_cast<const V*>(vals),
       static_cast<const T*>(x), T(0), static_cast<T*>(y),
       static_cast<cudaStream_t>(stream));
   if (code != 0) return code;
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename V, typename T>
 int coo_patch(int n_rows, int n_long, int k, int lanes, const void* row_ids,
               const void* ptr, const void* long_rows, const void* cols,
               const void* vals, const void* x, void* y, void* stream) {
@@ -216,7 +227,7 @@ int coo_patch(int n_rows, int n_long, int k, int lanes, const void* row_ids,
     switch (lanes) {
 #define K2_LANES(L)                                                         \
   case L:                                                                   \
-    launch_patch<T, L>(blocks, st, n_rows, n_long, k, G, row_ids, ptr,      \
+    launch_patch<V, T, L>(blocks, st, n_rows, n_long, k, G, row_ids, ptr,      \
                        long_rows, cols, vals, x, y);                        \
     break;
       K2_LANES(8) K2_LANES(16) K2_LANES(32)
@@ -240,36 +251,29 @@ int row_block_entries() { return rowblock::kEntries; }
 // K2's long-row length: the host lists the rows past it (tail_long).
 int long_tail_row() { return kLongTailRow; }
 
-int csr_spmv_capped_f64(int n_blocks, int k, const void* block_rows,
-                        const void* block_ptr, const void* indptr,
-                        const void* indices, const void* vals, const void* x,
-                        void* y, void* stream) {
-  return csr_spmv_capped<double>(n_blocks, k, block_rows, block_ptr, indptr,
-                                 indices, vals, x, y, stream);
-}
+// Entry points: `_f64`, `_f32` (V = T) and `_{V}{T}` for a narrower V.
+#define SPMV_ENTRIES(SUFFIX, V, T)                                          \
+  int csr_spmv_capped_##SUFFIX(int n_blocks, int k, const void* block_rows, \
+                               const void* block_ptr, const void* indptr,  \
+                               const void* indices, const void* vals,      \
+                               const void* x, void* y, void* stream) {     \
+    return csr_spmv_capped<V, T>(n_blocks, k, block_rows, block_ptr,       \
+                                 indptr, indices, vals, x, y, stream);     \
+  }                                                                         \
+  int coo_patch_##SUFFIX(int n_rows, int n_long, int k, int lanes,          \
+                         const void* row_ids, const void* ptr,              \
+                         const void* long_rows, const void* cols,           \
+                         const void* vals, const void* x, void* y,          \
+                         void* stream) {                                    \
+    return coo_patch<V, T>(n_rows, n_long, k, lanes, row_ids, ptr,          \
+                           long_rows, cols, vals, x, y, stream);            \
+  }
 
-int csr_spmv_capped_f32(int n_blocks, int k, const void* block_rows,
-                        const void* block_ptr, const void* indptr,
-                        const void* indices, const void* vals, const void* x,
-                        void* y, void* stream) {
-  return csr_spmv_capped<float>(n_blocks, k, block_rows, block_ptr, indptr,
-                                indices, vals, x, y, stream);
-}
-
-int coo_patch_f64(int n_rows, int n_long, int k, int lanes,
-                  const void* row_ids, const void* ptr, const void* long_rows,
-                  const void* cols, const void* vals, const void* x, void* y,
-                  void* stream) {
-  return coo_patch<double>(n_rows, n_long, k, lanes, row_ids, ptr, long_rows,
-                           cols, vals, x, y, stream);
-}
-
-int coo_patch_f32(int n_rows, int n_long, int k, int lanes,
-                  const void* row_ids, const void* ptr, const void* long_rows,
-                  const void* cols, const void* vals, const void* x, void* y,
-                  void* stream) {
-  return coo_patch<float>(n_rows, n_long, k, lanes, row_ids, ptr, long_rows,
-                          cols, vals, x, y, stream);
-}
+SPMV_ENTRIES(f64, double, double)
+SPMV_ENTRIES(f32, float, float)
+SPMV_ENTRIES(f32f64, float, double)
+SPMV_ENTRIES(bf16f32, __nv_bfloat16, float)
+SPMV_ENTRIES(bf16f64, __nv_bfloat16, double)
+#undef SPMV_ENTRIES
 
 }  // extern "C"

@@ -114,7 +114,7 @@ int csr_spmv_stages(int64_t n_rows, int n_blocks, int group, int mode,
   int code = 0;
 #define STAGES_CASE(m)                                                  \
   case m:                                                               \
-    code = launch<T, m>(n_blocks, 1, br, bp, ip, ix, v, xx, zero, yy, s); \
+    code = launch<T, T, m>(n_blocks, 1, br, bp, ip, ix, v, xx, zero, yy, s); \
     break;
   switch (mode) {
     STAGES_CASE(kFull)

@@ -14,6 +14,13 @@ JAX package's ``_pick_format`` rule 1): a DIA matrix through K3
 distinct diagonals and fills them densely enough; otherwise a capped CSR
 through K1 + K2 (:mod:`tpu_amg_torch.ops.spmv`).  Small levels are dense
 and apply with ``torch.matmul``.
+
+An operator's arrays may be narrower than the vectors it is applied to
+(a cycle cast by :mod:`tpu_amg_torch.precision`).  Every apply then
+computes and returns in ``torch.promote_types`` of the two, as the JAX
+formats do (``jnp.result_type``): the sparse kernels widen their values
+per entry, ``torch.matmul`` a dense matrix per apply (:func:`matmul`),
+and a scalar's dtype takes part as a JAX array's does (:func:`scale`).
 """
 
 from __future__ import annotations
@@ -62,8 +69,33 @@ class LinearOperator:
 
 
 def _apply(mat, x: torch.Tensor) -> torch.Tensor:
-    x = x.contiguous()
+    """y = mat x through K3 (DIA) or K1 + K2 (capped CSR), in the
+    promotion of the values' and x's dtypes: x is widened where the
+    values are wider.  Where both are bf16 the apply is the f32 island
+    (:mod:`tpu_amg_torch.precision`): x widened to f32, the (bf16, f32)
+    kernels, y rounded to bf16 once."""
+    out = torch.promote_types(mat.dtype, x.dtype)
+    if out == torch.bfloat16:
+        return _apply(mat, x.to(torch.float32)).to(out)
+    x = x.to(out).contiguous()
     return mat.mm(x) if isinstance(mat, DIA) else spmv(mat, x)
+
+
+def matmul(mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``mat @ x`` in the promotion of their dtypes, the narrower widened
+    for this apply only (``torch.matmul`` takes one dtype; XLA converts
+    ``jnp.dot(bf16, f64)`` the same way).  No wide copy is kept."""
+    dt = torch.promote_types(mat.dtype, x.dtype)
+    return mat.to(dt) @ x.to(dt)
+
+
+def scale(s, x: torch.Tensor) -> torch.Tensor:
+    """``s * x`` for a Python-float or 0-d tensor ``s``, in the dtype a
+    JAX array scalar gives: a 0-d tensor's dtype takes part in the
+    promotion (torch's own rule would keep x's)."""
+    if isinstance(s, torch.Tensor):
+        x = x.to(torch.promote_types(s.dtype, x.dtype))
+    return s * x
 
 
 @dataclasses.dataclass
@@ -139,16 +171,16 @@ class DenseOperator(LinearOperator):
         return tuple(self.mat.shape)
 
     def mv(self, x):
-        return self.mat @ x
+        return matmul(self.mat, x)
 
     def mm(self, xs):
-        return self.mat @ xs
+        return matmul(self.mat, xs)
 
     def rmv(self, x):
-        return self.mat.T @ x
+        return matmul(self.mat.T, x)
 
     def rmm(self, xs):
-        return self.mat.T @ xs
+        return matmul(self.mat.T, xs)
 
 
 @dataclasses.dataclass
@@ -170,7 +202,10 @@ class DiagonalOperator(LinearOperator):
 
 @dataclasses.dataclass
 class ScaledIdentity(LinearOperator):
-    scale: float
+    """scale · I; ``scale`` a float, or a 0-d tensor after a precision
+    cast (the JAX package keeps an array)."""
+
+    scale: Union[float, torch.Tensor]
     n: int
 
     @property
@@ -178,10 +213,10 @@ class ScaledIdentity(LinearOperator):
         return (self.n, self.n)
 
     def mv(self, x):
-        return self.scale * x
+        return scale(self.scale, x)
 
     def mm(self, xs):
-        return self.scale * xs
+        return scale(self.scale, xs)
 
 
 def aslinearoperator(x, device, dtype=torch.float64) -> LinearOperator:

@@ -30,15 +30,29 @@ diagonals, ``data[d, i] = A[i, i + offsets[d]]``
   (:func:`launch_first_design`, :func:`launch_band_tiles`): the first
   design is the tiled design's reference on the card.
 
+The diagonals (``data``) are of a type V no wider than T, the type of
+X and Y: the pairs of :data:`tpu_amg_torch.ops.spmv.PAIRS`, (f64, f64),
+(f32, f32), (f32, f64), (bf16, f32) and (bf16, f64); any other pair
+raises.  Both designs widen each value exactly to T and sum in T; the
+band tiles stage data rows in V and the X window in T
+(:func:`dia_plan` sizes each by its own itemsize).  Y is T.  That
+follows the XLA apply the JAX package runs on the CPU
+(``tpu_amg/sparse/dia.py:89``, ``jnp.result_type`` of the two), which
+the tests hold the port against; the reference's Pallas kernel instead
+writes Y in the data's dtype (``tpu_amg/ops/dia_pallas.py:92``), so on
+a TPU a bf16 DIA rounds Y to bf16.
+
 The plain PyTorch version beside it is the JAX package's form: one
-multiply-accumulate per diagonal over shifted slices.  The wrapper takes
-it only when its tensors lie on the CPU; for a CUDA tensor it launches
-the kernel or raises.  Launches are counted in ``dia_spmv_launches``,
-and by (rows, cols, k) in ``dia_spmv_launches_by_shape``.
+multiply-accumulate per diagonal over shifted slices, the values
+widened to T first.  The wrapper takes it only when its tensors lie on
+the CPU; for a CUDA tensor it launches the kernel or raises.  Launches
+are counted in ``dia_spmv_launches``, by (rows, cols, k) in
+``dia_spmv_launches_by_shape`` and by (V, T) in
+``dia_spmv_launches_by_dtype``.
 
 The kernels are compiled with nvcc for ``sm_90a`` into
 ``build/tpu_amg_torch/libamg_dia.so`` at first launch and loaded with
-ctypes; sums accumulate in the value type (float64 or float32).
+ctypes.
 """
 
 from __future__ import annotations
@@ -53,7 +67,7 @@ from typing import Tuple
 import torch
 
 from tpu_amg_torch.ops._build import build_cuda_library
-from tpu_amg_torch.ops.spmv import check_x
+from tpu_amg_torch.ops.spmv import PAIRS, check_x, pair_suffix
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "dia.cu"
 
@@ -74,12 +88,14 @@ DATA_BUDGET = 8 * 1024
 
 dia_spmv_launches = 0
 dia_spmv_launches_by_shape = collections.Counter()
+dia_spmv_launches_by_dtype = collections.Counter()  # (V, T) -> launches
 
 
 def reset_launch_counts() -> None:
     global dia_spmv_launches
     dia_spmv_launches = 0
     dia_spmv_launches_by_shape.clear()
+    dia_spmv_launches_by_dtype.clear()
 
 
 class _PlanStruct(ctypes.Structure):
@@ -117,7 +133,7 @@ def kernel_lib() -> ctypes.CDLL:
     dll = ctypes.CDLL(str(build_cuda_library("libamg_dia.so", SOURCE)))
     _check_design(dll)
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for suffix in ("f64", "f32"):
+    for suffix in PAIRS.values():
         fn = getattr(dll, f"dia_spmv_first_{suffix}")
         fn.restype = i32
         fn.argtypes = [i64, i32, i32, vp, vp, vp, vp, vp]
@@ -131,12 +147,10 @@ def kernel_lib() -> ctypes.CDLL:
     return dll
 
 
-_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
-
-
 @dataclasses.dataclass(frozen=True)
 class DiaPlan:
-    """The band-tile kernel's launch for one (offsets, n, k, dtype).
+    """The band-tile kernel's launch for one (offsets, n, k, dtype,
+    value dtype).
 
     Block b owns rows [b·tile, (b + 1)·tile) ∩ [0, n) and all k columns.
     Its ``threads`` are ``threads / lanes`` row slots of ``lanes`` lanes:
@@ -146,12 +160,15 @@ class DiaPlan:
     each band, in offset order; for a block's rows [i0, i0 + rows) a
     band's X window is rows [i0 + lo, i0 + rows + hi) ∩ [0, n), lo and
     hi its first and last offsets.  A buffer holds ``xs_cap`` elements
-    of window and ``ds_cap`` of data rows; ``smem_bytes`` is one buffer
-    for one band, else two."""
+    of window (``itemsize`` bytes each, X's) and ``ds_cap`` of data rows
+    (``value_itemsize`` bytes each), a band's row every ``data_stride``
+    elements; ``smem_bytes`` is one buffer for one band, else two."""
 
     n: int
     k: int
     itemsize: int
+    value_itemsize: int
+    data_stride: int
     offsets: Tuple[int, ...]
     vector: int
     lanes: int
@@ -178,12 +195,22 @@ def _tile_ladder(lanes: int):
     return [(t, *shapes[t]) for t in sorted(shapes, reverse=True)]
 
 
+def data_stride(tile: int, value_itemsize: int) -> int:
+    """A data row's slot in a band-tile buffer, in elements (csrc/dia.cu
+    ``data_stride``): the tile, or for 2-byte values an even number with
+    room for the row's phase against 4 bytes (the kernel stages 2-byte
+    rows in 4-byte copies)."""
+    return (tile + 3) & ~1 if value_itemsize == 2 else tile
+
+
 @functools.lru_cache(maxsize=None)
 def dia_plan(offsets: Tuple[int, ...], n: int, k: int, dtype: torch.dtype,
-             sm_count: int, aligned: bool = True) -> DiaPlan:
+             sm_count: int, aligned: bool = True,
+             value_dtype: torch.dtype = None) -> DiaPlan:
     """The band-tile kernel's plan: a pure function of the sorted
-    ``offsets``, n, k, the value type, the card's SM count and whether
-    X's base address is 16-byte aligned.
+    ``offsets``, n, k, X's type ``dtype``, the card's SM count, whether
+    X's base address is 16-byte aligned, and the data's type
+    ``value_dtype`` (``dtype`` when None).
 
     - Lanes read 16 bytes of a row at once where X is aligned and k a
       multiple of that vector, else one element; a row takes the fewest
@@ -196,7 +223,8 @@ def dia_plan(offsets: Tuple[int, ...], n: int, k: int, dtype: torch.dtype,
     - Bands: the offsets in order, a run broken where the gap to the
       next offset exceeds T (staging the gap's rows then costs more than
       a band's own window) or where the band's window or data rows would
-      pass their budget (``X_BUDGET``, ``DATA_BUDGET`` bytes a buffer)."""
+      pass their budget (``X_BUDGET``, ``DATA_BUDGET`` bytes a buffer),
+      the window by X's itemsize, the data rows by the values'."""
     offsets = tuple(int(o) for o in offsets)
     if any(b <= a for a, b in zip(offsets, offsets[1:])):
         raise ValueError(f"offsets {offsets} are not strictly increasing")
@@ -207,6 +235,7 @@ def dia_plan(offsets: Tuple[int, ...], n: int, k: int, dtype: torch.dtype,
         raise ValueError(f"n = {n}, k = {k}: the band-tile kernel takes "
                          f"1 <= n < 2**30 (32-bit rows) and 1 <= k <= 64")
     itemsize = torch.empty((), dtype=dtype).element_size()
+    v_isz = torch.empty((), dtype=value_dtype or dtype).element_size()
     vec = 16 // itemsize
     vector = vec if aligned and k % vec == 0 else 1
     pieces = -(-k // vector)
@@ -219,15 +248,18 @@ def dia_plan(offsets: Tuple[int, ...], n: int, k: int, dtype: torch.dtype,
             tile, threads, rpt = cand
             break
 
-    def rounded(elems: int) -> int:  # places stay 16-byte aligned
-        return -(-elems // vec) * vec
+    stride = data_stride(tile, v_isz)
+
+    def rounded(elems: int, isz: int = itemsize) -> int:  # 16-byte places
+        per = 16 // isz
+        return -(-elems // per) * per
 
     def x_elems(span: int) -> int:  # a window's elements, with its phase
         return rounded(min(tile + span, n) * k + vec)
 
     def fits(span: int, n_diags: int) -> bool:
         return (x_elems(span) * itemsize <= X_BUDGET
-                and n_diags * tile * itemsize <= DATA_BUDGET)
+                and n_diags * stride * v_isz <= DATA_BUDGET)
 
     bands, start = [], 0
     for d in range(1, len(offsets)):
@@ -239,13 +271,16 @@ def dia_plan(offsets: Tuple[int, ...], n: int, k: int, dtype: torch.dtype,
         bands.append((start, len(offsets)))
     xs_cap = max((x_elems(offsets[d1 - 1] - offsets[d0]) for d0, d1 in bands),
                  default=0)
-    ds_cap = rounded(max(((d1 - d0) * tile for d0, d1 in bands), default=0))
+    ds_cap = rounded(max(((d1 - d0) * stride for d0, d1 in bands),
+                         default=0), v_isz)
     buffers = 2 if len(bands) > 1 else 1
-    return DiaPlan(n=n, k=k, itemsize=itemsize, offsets=offsets,
+    return DiaPlan(n=n, k=k, itemsize=itemsize, value_itemsize=v_isz,
+                   data_stride=stride, offsets=offsets,
                    vector=vector, lanes=lanes, groups=groups, threads=threads,
                    rows_per_thread=rpt, tile=tile, blocks=-(-n // tile),
                    bands=tuple(bands), xs_cap=xs_cap, ds_cap=ds_cap,
-                   smem_bytes=buffers * (xs_cap + ds_cap) * itemsize)
+                   smem_bytes=buffers * (xs_cap * itemsize
+                                         + ds_cap * v_isz))
 
 
 @functools.lru_cache(maxsize=None)
@@ -269,20 +304,23 @@ def plan_for(mat, x: torch.Tensor) -> DiaPlan:
     """The band-tile plan of ``mat`` for this X on its card."""
     k = 1 if x.dim() == 1 else x.shape[1]
     return dia_plan(mat.offsets, mat.shape[0], k, x.dtype,
-                    _sms(x.device.index), x.data_ptr() % 16 == 0)
+                    _sms(x.device.index), x.data_ptr() % 16 == 0,
+                    None if mat.dtype == x.dtype else mat.dtype)
 
 
 def plain_dia_spmv(mat, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K3 (same contract, any device): the JAX
     ``DIA.mv``/``mm`` sum, diagonal by diagonal in offset order, each
-    over the rows whose shifted column lies inside the matrix."""
+    over the rows whose shifted column lies inside the matrix, the
+    values widened to x's dtype first."""
     n = mat.shape[0]
     x2 = x.reshape(n, -1)
+    data = mat.data.to(x.dtype)
     acc = torch.zeros_like(x2)
     for d, off in enumerate(mat.offsets):
         lo, hi = max(0, -off), min(n, n - off)
         if lo < hi:
-            acc[lo:hi] += mat.data[d, lo:hi, None] * x2[lo + off:hi + off]
+            acc[lo:hi] += data[d, lo:hi, None] * x2[lo + off:hi + off]
     return acc.reshape(x.shape)
 
 
@@ -297,13 +335,13 @@ def _on_card(mat, x: torch.Tensor) -> int:
     k = check_x(mat, x)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for tensors on {x.device}")
-    if x.dtype not in _SUFFIX:
-        raise TypeError(f"no kernel for {x.dtype}")
+    if mat.data.data_ptr() % 4:
+        raise ValueError("the diagonals must be 4-byte aligned")
     return k
 
 
 def _first(lib, mat, x, y, k) -> int:
-    return getattr(lib, f"dia_spmv_first_{_SUFFIX[x.dtype]}")(
+    return getattr(lib, f"dia_spmv_first_{pair_suffix(mat.dtype, x.dtype)}")(
         mat.shape[0], len(mat.offsets), k, mat.offsets_dev.data_ptr(),
         mat.data.data_ptr(), x.data_ptr(), y.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
@@ -311,7 +349,7 @@ def _first(lib, mat, x, y, k) -> int:
 
 def _tiled(lib, mat, x, y, k) -> int:
     plan = plan_for(mat, x)
-    return getattr(lib, f"dia_spmv_tiled_{_SUFFIX[x.dtype]}")(
+    return getattr(lib, f"dia_spmv_tiled_{pair_suffix(mat.dtype, x.dtype)}")(
         plan.n, k, plan.vector, plan.threads, plan.blocks, plan.smem_bytes,
         ctypes.addressof(_plan_struct(plan)), mat.data.data_ptr(),
         x.data_ptr(), y.data_ptr(), torch.cuda.current_stream().cuda_stream)
@@ -356,4 +394,5 @@ def dia_spmv(mat, x: torch.Tensor) -> torch.Tensor:
     if launched:
         dia_spmv_launches += 1
         dia_spmv_launches_by_shape[(*mat.shape, k)] += 1
+        dia_spmv_launches_by_dtype[(mat.dtype, x.dtype)] += 1
     return y

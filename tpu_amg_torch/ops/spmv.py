@@ -30,17 +30,28 @@ rectangular.
   path.  :func:`split_capped` makes the split once, when an operator is
   built.
 
+Values (``data``, ``tail_vals``) are of a type V no wider than T, the
+type of X and Y: the pairs (V, T) of ``PAIRS``, (f64, f64), (f32, f32),
+(f32, f64), (bf16, f32) and (bf16, f64).  The kernels widen each value
+exactly to T and multiply and sum in T, as the TPU's K1 reads a bf16
+value stream under f32 vectors (``well_pallas.py:112``).  Any other
+pair raises: the operators (:mod:`tpu_amg_torch.linop`) bring x to a
+pair first (x widened to V where V is wider; x widened to f32 and y
+rounded once where both are bf16, :mod:`tpu_amg_torch.precision`).
+
 Each kernel has a plain PyTorch version beside it (gather ``x[cols] *
-vals``, then ``index_add_`` over rows).  A wrapper takes the plain
-version only when its tensors lie on the CPU; for a CUDA tensor it
-launches the kernel or raises.  Each wrapper counts its launches in a
-module integer (``csr_spmv_launches``, ``coo_patch_launches``), and by
-(rows, cols, k) in ``csr_spmv_launches_by_shape`` and
-``coo_patch_launches_by_shape``.
+vals`` with the values widened to T, then ``index_add_`` over rows).  A
+wrapper takes the plain version only when its tensors lie on the CPU;
+for a CUDA tensor it launches the kernel or raises.  Each wrapper counts
+its launches in a module integer (``csr_spmv_launches``,
+``coo_patch_launches``), by (rows, cols, k) in
+``csr_spmv_launches_by_shape`` and ``coo_patch_launches_by_shape``, and
+by (V, T) in ``csr_spmv_launches_by_dtype`` and
+``coo_patch_launches_by_dtype``.
 
 The kernels are compiled with nvcc for ``sm_90a`` into
 ``build/tpu_amg_torch/libamg_kernels.so`` at first launch and loaded
-with ctypes; sums accumulate in the value type (float64 or float32).
+with ctypes.
 """
 
 from __future__ import annotations
@@ -79,14 +90,36 @@ csr_spmv_launches = 0
 coo_patch_launches = 0
 csr_spmv_launches_by_shape = collections.Counter()
 coo_patch_launches_by_shape = collections.Counter()
+csr_spmv_launches_by_dtype = collections.Counter()  # (V, T) -> launches
+coo_patch_launches_by_dtype = collections.Counter()
+
+# (value type V, vector type T) -> the entry points' suffix
+PAIRS = {
+    (torch.float64, torch.float64): "f64",
+    (torch.float32, torch.float32): "f32",
+    (torch.float32, torch.float64): "f32f64",
+    (torch.bfloat16, torch.float32): "bf16f32",
+    (torch.bfloat16, torch.float64): "bf16f64",
+}
 
 
 def reset_launch_counts() -> None:
     global csr_spmv_launches, coo_patch_launches
     csr_spmv_launches = 0
     coo_patch_launches = 0
-    csr_spmv_launches_by_shape.clear()
-    coo_patch_launches_by_shape.clear()
+    for counts in (csr_spmv_launches_by_shape, coo_patch_launches_by_shape,
+                   csr_spmv_launches_by_dtype, coo_patch_launches_by_dtype):
+        counts.clear()
+
+
+def pair_suffix(value_dtype: torch.dtype, dtype: torch.dtype) -> str:
+    """The entry points' suffix for values of ``value_dtype`` under
+    vectors of ``dtype``; raises for a pair no kernel takes."""
+    try:
+        return PAIRS[(value_dtype, dtype)]
+    except KeyError:
+        raise TypeError(f"no kernel for {value_dtype} values under {dtype} "
+                        f"vectors (pairs: {sorted(PAIRS.values())})") from None
 
 
 def check_block_entries(dll: ctypes.CDLL, entries: int = BLOCK_ENTRIES):
@@ -117,7 +150,7 @@ def bind_kernel_lib(path: Path, entries: int = BLOCK_ENTRIES) -> ctypes.CDLL:
     check_block_entries(dll, entries)
     check_long_tail_row(dll)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    for suffix in ("f64", "f32"):
+    for suffix in PAIRS.values():
         fn = getattr(dll, f"csr_spmv_capped_{suffix}")
         fn.restype = i32
         fn.argtypes = [i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
@@ -133,9 +166,6 @@ def bind_kernel_lib(path: Path, entries: int = BLOCK_ENTRIES) -> ctypes.CDLL:
 def kernel_lib() -> ctypes.CDLL:
     """The kernel library, compiled with nvcc on first call."""
     return bind_kernel_lib(build_cuda_library("libamg_kernels.so", SOURCE))
-
-
-_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 
 def split_capped(indptr, indices, data, cap: int):
@@ -234,9 +264,11 @@ def block_table(cap_indptr: np.ndarray, device,
 class CappedCSR:
     """A CSR matrix on one device, split for K1 (capped rows) + K2 (tail).
 
-    ``indptr`` int64, ``indices``/``tail_cols`` int32, values in the
-    working dtype.  K1's row-block table, built for blocks of
-    ``BLOCK_ENTRIES``: ``block_rows`` (int32, n_blocks + 1, from
+    ``indptr`` int64, ``indices``/``tail_cols`` int32, values
+    (``data``, ``tail_vals``) in the working dtype, or narrower after a
+    precision cast (:func:`tpu_amg_torch.precision.cast_operator`).
+    K1's row-block table, built for blocks of ``BLOCK_ENTRIES``:
+    ``block_rows`` (int32, n_blocks + 1, from
     :func:`row_blocks`) and ``block_ptr``, the first entry of each block
     (``indptr[block_rows]``, int32), so that a block's bounds are two
     loads of the table.  K2's tail row table (:func:`tail_row_table`):
@@ -339,21 +371,23 @@ class CappedCSR:
         )
 
 
-def k1_bytes(mat: CappedCSR, k: int = 1) -> int:
+def k1_bytes(mat: CappedCSR, k: int = 1, dtype: torch.dtype = None) -> int:
     """The bytes K1 must move at k columns, each once: capped values and
-    indices, int64 row pointers, X (m, k) and Y (n, k)."""
+    indices, int64 row pointers, X (m, k) and Y (n, k) of ``dtype``
+    (the values' dtype when None)."""
     isz = mat.data.element_size()
+    xsz = isz if dtype is None else torch.empty((), dtype=dtype).element_size()
     n, m = mat.shape
-    return mat.data.numel() * (isz + 4) + 8 * (n + 1) + (m + n) * k * isz
+    return mat.data.numel() * (isz + 4) + 8 * (n + 1) + (m + n) * k * xsz
 
 
 def check_x(mat, x: torch.Tensor) -> int:
     """Validate x for a device matrix ``mat`` (``CappedCSR`` or ``DIA``:
-    ``device``, ``dtype`` and ``shape``); returns k (1 for a vector)."""
+    ``device``, ``dtype`` and ``shape``; the values' and x's dtypes a
+    pair of ``PAIRS``); returns k (1 for a vector)."""
     if x.device != mat.device:
         raise ValueError(f"x on {x.device}, matrix on {mat.device}")
-    if x.dtype != mat.dtype:
-        raise TypeError(f"x is {x.dtype}, matrix is {mat.dtype}")
+    pair_suffix(mat.dtype, x.dtype)
     if x.dim() not in (1, 2) or x.shape[0] != mat.shape[1]:
         raise ValueError(f"x of shape {tuple(x.shape)} for A {mat.shape}")
     if not x.is_contiguous():
@@ -370,13 +404,12 @@ def _raise_on(code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
 
 
-def _kernel(name: str, x: torch.Tensor):
-    """The C entry point ``name`` for x's dtype; raises off the card."""
+def _kernel(name: str, mat: CappedCSR, x: torch.Tensor):
+    """The C entry point ``name`` for the values' and x's dtypes; raises
+    off the card."""
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for tensors on {x.device}")
-    if x.dtype not in _SUFFIX:
-        raise TypeError(f"no kernel for {x.dtype}")
-    return getattr(kernel_lib(), f"{name}_{_SUFFIX[x.dtype]}")
+    return getattr(kernel_lib(), f"{name}_{pair_suffix(mat.dtype, x.dtype)}")
 
 
 def check_row_block_kernel(mat: CappedCSR, k: int = 1) -> None:
@@ -390,20 +423,22 @@ def check_row_block_kernel(mat: CappedCSR, k: int = 1) -> None:
 
 
 def plain_csr_spmv_capped(mat: CappedCSR, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K1 (same contract, any device)."""
+    """Plain PyTorch version of K1 (same contract, any device): the
+    values widened to x's dtype first."""
     x2 = x.reshape(mat.shape[1], -1)
     y = torch.zeros(mat.shape[0], x2.shape[1], dtype=x.dtype, device=x.device)
-    y.index_add_(0, mat.rows(), mat.data[:, None] * x2[mat.indices.long()])
+    y.index_add_(0, mat.rows(),
+                 mat.data.to(x.dtype)[:, None] * x2[mat.indices.long()])
     return y.reshape((mat.shape[0],) + tuple(x.shape[1:]))
 
 
 def plain_coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor) -> None:
-    """Plain PyTorch version of K2: y += tail · x, in place."""
+    """Plain PyTorch version of K2: y += tail · x, in place, the values
+    widened to x's dtype first."""
     x2 = x.reshape(mat.shape[1], -1)
     y2 = y.view(mat.shape[0], -1)
-    y2.index_add_(
-        0, mat.tail_rows(), mat.tail_vals[:, None] * x2[mat.tail_cols.long()]
-    )
+    y2.index_add_(0, mat.tail_rows(), mat.tail_vals.to(x.dtype)[:, None]
+                  * x2[mat.tail_cols.long()])
 
 
 def launch_csr_spmv_capped(fn, mat: CappedCSR, x: torch.Tensor,
@@ -432,10 +467,11 @@ def csr_spmv_capped(mat: CappedCSR, x: torch.Tensor) -> torch.Tensor:
     k = check_x(mat, x)
     if x.device.type == "cpu":
         return plain_csr_spmv_capped(mat, x)
-    y = launch_csr_spmv_capped(_kernel("csr_spmv_capped", x), mat, x, k)
+    y = launch_csr_spmv_capped(_kernel("csr_spmv_capped", mat, x), mat, x, k)
     if mat.shape[0]:
         csr_spmv_launches += 1
         csr_spmv_launches_by_shape[(*mat.shape, k)] += 1
+        csr_spmv_launches_by_dtype[(mat.dtype, x.dtype)] += 1
     return y
 
 
@@ -445,7 +481,7 @@ def launch_coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor,
     of ``lanes`` lanes a tail row: 8, 16 or 32, and no fewer than the
     group width (the power of two at or above k, at most 32).  Counts
     nothing."""
-    fn = _kernel("coo_patch", x)
+    fn = _kernel("coo_patch", mat, x)
     if max(mat.shape) * k > _INT32_MAX:
         raise ValueError(f"A {mat.shape} at k = {k} passes 32-bit offsets")
     with torch.cuda.device(x.device):
@@ -478,6 +514,7 @@ def coo_patch(mat: CappedCSR, x: torch.Tensor, y: torch.Tensor) -> None:
                      k2_lanes(mat.n_tail_rows, k, sm_count(x.device.index)))
     coo_patch_launches += 1
     coo_patch_launches_by_shape[(*mat.shape, k)] += 1
+    coo_patch_launches_by_dtype[(mat.dtype, x.dtype)] += 1
 
 
 def spmv(mat: CappedCSR, x: torch.Tensor) -> torch.Tensor:

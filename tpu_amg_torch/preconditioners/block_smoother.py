@@ -60,12 +60,17 @@ class BlockSmoother(LinearOperator):
         for b in self.buckets:
             mask = b.mask.reshape(b.mask.shape + tail)
             rhs = x[b.idx] * mask  # (n_b, s_b[, k])
+            # one dtype for bmm: the inverses widened for this apply when
+            # a precision cast left them narrower than the vectors
+            dt = torch.promote_types(b.inv_blocks.dtype, rhs.dtype)
+            inv, rhs = b.inv_blocks.to(dt), rhs.to(dt)
             if x.dim() == 1:
-                sol = torch.bmm(b.inv_blocks, rhs[..., None])[..., 0]
+                sol = torch.bmm(inv, rhs[..., None])[..., 0]
             else:
-                sol = torch.bmm(b.inv_blocks, rhs)
+                sol = torch.bmm(inv, rhs)
             out.index_add_(0, b.idx.reshape(-1),
-                           (sol * mask).reshape((-1,) + tuple(x.shape[1:])))
+                           (sol * mask).to(x.dtype).reshape(
+                               (-1,) + tuple(x.shape[1:])))
         return out
 
     def mv(self, x):

@@ -14,7 +14,7 @@ convention), with λ_max estimated by power iteration at build time.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -60,8 +60,11 @@ class ChebyshevSmoother(LinearOperator):
 
     a: LinearOperator
     d_inv: torch.Tensor
-    lam_max: float
-    lam_min: float
+    # floats as built; 0-d tensors after a precision cast, whose dtype
+    # the scalar chain of _apply then runs in (the JAX package keeps
+    # arrays, cast with the rest)
+    lam_max: Union[float, torch.Tensor]
+    lam_min: Union[float, torch.Tensor]
     degree: int = 3
 
     @property

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from tpu_amg_torch.device import to_device
-from tpu_amg_torch.linop import LinearOperator
+from tpu_amg_torch.linop import LinearOperator, matmul
 from tpu_amg_torch.sparse.csr import CSR
 
 DENSE_COARSE_CAP = 20_000
@@ -50,10 +50,10 @@ class DenseCholeskySolver(LinearOperator):
         )
 
     def mv(self, x):
-        return self.inv @ x
+        return matmul(self.inv, x)
 
     def mm(self, xs):
-        return self.inv @ xs
+        return matmul(self.inv, xs)
 
 
 @dataclasses.dataclass
@@ -82,10 +82,10 @@ class DensePinvSolver(LinearOperator):
         )
 
     def mv(self, x):
-        return self.pinv @ x
+        return matmul(self.pinv, x)
 
     def mm(self, xs):
-        return self.pinv @ xs
+        return matmul(self.pinv, xs)
 
 
 def build_coarse_solver(kind: str, a, device,

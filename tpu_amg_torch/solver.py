@@ -12,6 +12,9 @@ multigrids (``method="adaptive"``, :class:`AdaptiveConfig`); ``solve``
 runs PCG (or stationary iteration) preconditioned by that V-cycle or
 composite, through :meth:`AMGSolver.compile`: on a CUDA device one
 iteration of the solve is captured in a CUDA graph and replayed.
+``cycle_precision`` evaluates the V-cycle or composite in a narrower
+dtype (:mod:`tpu_amg_torch.precision`), after setup and after load; the
+outer Krylov loop and ``AMGSolver.op`` keep ``dtype``.
 ``method="classical"`` is not ported yet (ROADMAP M18).
 """
 
@@ -31,6 +34,7 @@ from tpu_amg_torch.hierarchy import HierarchyConfig, create_weights
 from tpu_amg_torch.interpolation import AggregationConfig, InterpolationConfig
 from tpu_amg_torch.linop import SparseOperator
 from tpu_amg_torch.partition import PartitionerConfig
+from tpu_amg_torch.precision import cast_preconditioner
 from tpu_amg_torch.preconditioners.composite import Composite
 from tpu_amg_torch.preconditioners.multigrid_builder import MultigridConfig
 from tpu_amg_torch.solvers import cg, stationary_iteration
@@ -75,6 +79,10 @@ class SolverConfig:
     composite_components: int = 3  # for method="adaptive"
     reorder: bool = False  # RCM renumbering (utils/reorder.py) before setup
     dtype: torch.dtype = torch.float64
+    # the cycle's precision (precision.py MODES): None keeps ``dtype``;
+    # "f64"/"f32" cast its arrays; "bf16_values" stores them in bf16
+    # (vectors stay ``dtype``); "bf16" runs the cycle's vectors in bf16
+    cycle_precision: Optional[str] = None
     device: str = "cuda"
     seed: int = 0
 
@@ -193,7 +201,10 @@ class AMGSolver:
                     enrichment_starts=enrichment_starts,
                     lambda_starts=lambda_starts, return_hierarchies=True,
                     seconds=seconds)
-            solver = AMGSolver(a, pc, config=config, perm=perm, op=pc.a)
+            # op: the composite's A, before the cast
+            solver = AMGSolver(
+                a, cast_preconditioner(pc, config.cycle_precision),
+                config=config, perm=perm, op=pc.a)
             solver.component_hierarchies = hierarchies
             solver.setup_seconds = seconds
             return solver
@@ -215,7 +226,8 @@ class AMGSolver:
         hierarchy = hier_cfg.build(a, basis, create_weights(a, basis))
         t2 = time.perf_counter()
         seconds["hierarchy"] = t2 - t1
-        mg = mg_cfg.build(hierarchy, lambda_starts)
+        mg = cast_preconditioner(mg_cfg.build(hierarchy, lambda_starts),
+                                 config.cycle_precision)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         seconds["multigrid"] = time.perf_counter() - t2
@@ -351,9 +363,12 @@ class AMGSolver:
             hierarchies = checkpoint.load_composite_hierarchies(path)
             pc = Composite.from_hierarchies(a, hierarchies, mg_cfg,
                                             lambda_starts)
-            solver = AMGSolver(a, pc, config=config, op=pc.a)
+            solver = AMGSolver(
+                a, cast_preconditioner(pc, config.cycle_precision),
+                config=config, op=pc.a)
             solver.component_hierarchies = hierarchies
             return solver
         hierarchy = checkpoint.load_hierarchy(path)
-        mg = mg_cfg.build(hierarchy, lambda_starts)
+        mg = cast_preconditioner(mg_cfg.build(hierarchy, lambda_starts),
+                                 config.cycle_precision)
         return AMGSolver(a, mg, hierarchy=hierarchy, config=config)

@@ -17,10 +17,12 @@ lines are those of ``examples/amg.py``, with ``--device`` (default
 from a CPU ``torch.Generator`` seeded with ``--seed``: other numbers than
 the JAX package's ``jax.random`` draws from the same seed.
 
+``--precision`` casts the built preconditioner on every path
+(:func:`tpu_amg_torch.precision.cast_preconditioner`, after the peel
+study of ``--composite``); the outer PCG and the operator stay float64.
 Options whose modules are not ported yet exit with the ROADMAP item that
 ports them: ``--interpolation classical`` and ``--classical-opts``
-(M18), ``--precision`` (M19), ``--viz-out``
-(M21), ``--problem elasticity3d`` (M17).
+(M18), ``--viz-out`` (M21), ``--problem elasticity3d`` (M17).
 
 Usage: python -m tpu_amg_torch.tools.amg [--device cpu] [--problem aniso2d] [--n 64] ...
 """
@@ -95,7 +97,8 @@ def parse_args(argv=None):
                    help="skip the ||E||_A power estimate (prints nan)")
     p.add_argument("--precision", type=str, default=None,
                    choices=["bf16", "bf16_values", "f32"],
-                   help="mixed-precision preconditioner cycle (ROADMAP M19)")
+                   help="mixed-precision preconditioner cycle "
+                        "(precision.py); outer PCG stays f64")
     p.add_argument("-v", "--verbose", action="store_true")
     return p.parse_args(argv)
 
@@ -107,7 +110,6 @@ def refuse_unported(args) -> None:
         (args.interpolation == "classical", "--interpolation classical",
          "M18"),
         (bool(args.classical_opts), "--classical-opts", "M18"),
-        (args.precision is not None, "--precision", "M19"),
         (args.viz_out is not None, "--viz-out", "M21"),
         (args.problem == "elasticity3d" and not args.data_dir,
          "--problem elasticity3d", "M17"),
@@ -322,6 +324,10 @@ def main(argv=None):
     # the composite holds A on the device already
     op = (pc.a if args.composite
           else SparseOperator.from_csr(a, device, torch.float64))
+    if args.precision:
+        from tpu_amg_torch.precision import cast_preconditioner
+
+        pc = cast_preconditioner(pc, args.precision)
     print(f"setup: {time.time() - t_setup:.1f}s", file=sys.stderr)
 
     t_solve = time.time()
