@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port (tpu_amg_torch) once on one GPU and check it.
 
-Usage: python3 chip_smoke.py [--side 48] [--reps 50]
+Usage: python3 chip_smoke.py [--side 48] [--elasticity-side 40] [--reps 50]
 
 Phases, one printed line per result; any failed check exits non-zero:
   1. device: nvidia-smi's name and power limit, torch / CUDA / nvcc / g++;
@@ -109,15 +109,19 @@ Phases, one printed line per result; any failed check exits non-zero:
      default aniso2d(256), the MFEM fixture that python -m
      tpu_amg_torch.tools.make_fem_fixture writes into a temporary
      directory, and the adaptive composite (--composite 2) on
-     aniso2d(128) with random coefficients, its peel tables printed;
-     every final line parsed and checked, K1 (and K3 on the structured
-     run) launched in each run, K1, K2 and K3 over the four; then the
+     aniso2d(128) with random coefficients, its peel tables printed, and
+     the structured elasticity (--problem elasticity3d --n 20, block
+     size 3, 24,000 dofs); every final line parsed and checked, K1 (and
+     K3 on the structured run) launched in each run, K1, K2 and K3 over
+     the five; python -m tpu_amg_torch.tools.profile_setup --side 128
+     --top 15 (cProfile over a float32 setup with the float32 bootstrap:
+     its top entries by own time, its phases, K1 at (f32, f32)); then the
      block smoother on the fixture's hierarchy, card against CPU;
  14. the adaptive composite: AMGSolver.setup(method="adaptive") on
      anisotropic_diffusion_2d(512, coefficient="random") (262,144 dofs,
      MEASURED.md's record) with 2 components and the CLI's defaults
-     (adaptive_config): the setup's phases, each component's levels and
-     op complexity, K1's, K2's and K3's launches by (rows, cols, k) (K3
+     (tools.bootstrap_study.adaptive_config): the setup's phases, each
+     component's levels and op complexity, K1's, K2's and K3's launches by (rows, cols, k) (K3
      at k = 63 and 64, K1 at 64), peak device memory; the peel study of
      the CLI (tools.amg.test_composite: 2 -> 1 components, PCG and stationary
      to 1e-12, at most 1000 iterations, eager): PCG with 2 components
@@ -157,7 +161,37 @@ Phases, one printed line per result; any failed check exits non-zero:
      card against CPU in "bf16_values" (1e-10) and "bf16" (5e-2); the
      CLI's --structured poisson3d(100) --tol 1e-6 --precision
      bf16_values (cg <= 14, K3 at (bf16, f64)); every mixed kernel
-     launched; its own wall time.
+     launched; its own wall time;
+ 16. block-3 elasticity: unstructured_elasticity_3d(--elasticity-side)
+     (40: 192,000 dofs) with elasticity_3d_config (setup3d's elasticity
+     config), float64: AMGSolver.setup in a worker process (below), its
+     phases, peak device memory and launches (K1 at the bootstrap's
+     k = 11), the checkpoint it saved loaded here (the tools.setup3d /
+     tools.solve3d workflow), each level's format, rows, entries and
+     block size (3, then 6), 2 PCG solves of A x = A x_true to rtol 1e-6
+     eager and compiled (bitwise equal, at most 66 iterations, twice the
+     JAX package's 33 at 499,125 dofs; true residual <= 1.01 rtol), the
+     V-cycle's times, and K1 + K2 against their plain versions at every
+     (matrix, k) the path launched them on (float64; the rows of the
+     block-6 coarse A run past K1's cap into K2), timed beside the
+     library's SpMV / SpMM and the bound;
+ 17. the float32 bootstrap (find_near_null in float32, SolverConfig
+     bootstrap_dtype): setups of the SA (phase 4's problem), elasticity
+     (phase 16's) and adaptive (phase 14's) problems from the float64
+     setups' own draws (solver.setup_draws): near_null seconds and each
+     level's rows both ways, the (f32, f32) launches (K1, K1 + K2, K3 at
+     k = 7, 11, 63), PCG to 1e-6 within twice the JAX package's count
+     (SA, elasticity) and on SA within the float64 count + 2 (on
+     elasticity the float32 bootstrap costs 0-5 iterations: printed, see
+     BOOTSTRAP_EXTRA), the adaptive composite's PCG to 1e-12 within 1.1 x
+     the float64 count, ||E||_A; the three kernels at those shapes in
+     float32 against their plain versions (phases 3, 16, 14).
+The setups of phases 16 and 17 (the float64 elasticity one and the
+three float32-bootstrap ones) run in two worker processes started after
+phase 2, beside phases 3-15: host setup is single-threaded and takes
+minutes, and the whole run must stay well inside its time limit.  Each
+worker sets its counts to 0 before its setup, reads them after it and
+returns them; the workers are stopped when the script ends.
 Then every row timed with its bytes in the L2 cache is bound by the L2
 read rate of phase 11, and K1's and K2's launches x (time - bound) are
 printed for the SA and structured paths.  Every count is set to 0 just
@@ -173,6 +207,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import dataclasses
 import json
@@ -217,6 +252,27 @@ ADAPTIVE_MAX_PCG = 128
 ADAPTIVE_SMALL_N = 32  # the card-against-CPU composite: aniso2d(32)
 ADAPTIVE_STATIONARY_MAX = 100  # ~0.993 a cycle: the solve runs to its cap
 CLI_COMPOSITE_N = 128  # the CLI's composite run: aniso2d(128), 16,384 dofs
+# phase 16: unstructured_elasticity_3d(40), 192,000 dofs: its setup took
+# 268 s on the H100's host (PERF.md), past the ~200 s a larger side would
+# need to stay under; the JAX package took 33 PCG iterations to 1e-6 at
+# 499,125 dofs (MEASURED.md:44-57): the limit is twice that
+ELASTICITY_SIDE = 40
+MAX_ITERS_ELASTICITY = 66
+JAX_ITERS = {"SA": 23, "elasticity": 33}  # the JAX package's PCG counts
+# phase 17: the float32 bootstrap's PCG counts against the float64 one's
+# SA: at most the float64 count + 2.  Not held on elasticity: there the
+# float32 bootstrap costs 0 to 5 iterations over float64 from the same
+# draws (python -m tpu_amg_torch.tools.bootstrap_study, 3 draws x 3
+# right-hand sides at side 40, PERF.md) and ||E||_A is higher in every
+# draw, while its loop matches the JAX package's float32 loop
+# (tests/test_torch_elasticity.py): float32 arithmetic, not the port.
+# Elasticity is held to twice the JAX package's count, printed beside
+BOOTSTRAP_EXTRA = {"SA": 2, "elasticity": None}
+ADAPTIVE_F32_RATIO = 1.1  # the adaptive composite: at most 1.1 x
+SETUP_WORKERS = 2  # processes running phases 16-17's setups
+JOB_WAIT = 900  # seconds phase 16 or 17 waits for a setup, at most
+CLI_ELASTICITY_N = 20  # the CLI's elasticity3d run: 24,000 dofs
+PROFILE_SIDE = 128  # tools.profile_setup's run: 16,384 dofs
 
 
 def say(msg: str) -> None:
@@ -526,6 +582,9 @@ def run_cli(module: str, argv) -> tuple:
     try:
         with contextlib.redirect_stdout(out):
             runpy.run_module(module, run_name="__main__")
+    except SystemExit as exc:  # sys.exit(main()) of a tool that returned 0
+        if exc.code not in (0, None):
+            raise
     finally:
         sys.argv = saved
     lines = out.getvalue().strip().splitlines()
@@ -934,6 +993,9 @@ def cli_phase():
             (f"adaptive aniso2d n={CLI_COMPOSITE_N} random",
              ["--problem", "aniso2d", "--n", str(CLI_COMPOSITE_N),
               "--coefficient", "random", "--composite", "2"], None),
+            (f"SA elasticity3d n={CLI_ELASTICITY_N} (block size 3)",
+             ["--problem", "elasticity3d", "--n", str(CLI_ELASTICITY_N)],
+             None),
         ]
         totals = collections.Counter()
         for label, argv, limit in cases:
@@ -975,6 +1037,24 @@ def cli_phase():
                       f"{k} {v}" for k, v in counts.items()))
         check(min(totals.values()) > 0, "launches over the CLI runs: "
               + ", ".join(f"{k} {v}" for k, v in totals.items()))
+        # the setup profiler: cProfile over AMGSolver.setup (float32, the
+        # float32 bootstrap) on unstructured_fem_system(128)
+        torch.cuda.synchronize()
+        reset_counts()
+        line, secs, text = run_cli("tpu_amg_torch.tools.profile_setup",
+                                   ["--side", str(PROFILE_SIDE), "--top",
+                                    "15"])
+        torch.cuda.synchronize()
+        by_dtype = dict(spmv.csr_spmv_launches_by_dtype)
+        f32 = by_dtype.get((torch.float32, torch.float32), 0)
+        own = text[text.rfind("Ordered by: internal time"):].splitlines()
+        say("profile_setup's top entries by own time:\n"
+            + "\n".join(own[:20]))
+        check(line.startswith("# setup phases: near_null ")
+              and "Ordered by: cumulative time" in text and f32 > 0,
+              f"python -m tpu_amg_torch.tools.profile_setup --side "
+              f"{PROFILE_SIDE} --top 15: exit 0 in {secs:.1f} s; {line!r}; "
+              f"K1 at (f32, f32) {f32} launches")
         system = load_mfem_linear_system(fixture, name)
     # the block smoother on the fixture: the card against the CPU, from
     # one hierarchy
@@ -1121,23 +1201,6 @@ def level_lines(mg):
     return lines
 
 
-def adaptive_config(device: str, **overrides):
-    """The adaptive composite of the CLI's defaults (python -m
-    tpu_amg_torch.tools.amg --composite 2): coarsening near-null dim 64,
-    interp dim 4, 20 smoothing iterations, the block smoother (block size
-    128, 3 steps), coarsening factor 8, 200 aggregation iterations,
-    coarsest dim 1000, seed 42, float64."""
-    from tpu_amg_torch.solver import SolverConfig
-
-    kw = dict(method="adaptive", composite_components=ADAPTIVE_COMPONENTS,
-              coarsening_near_null_dim=64, interp_near_null_dim=4,
-              smoothing_iters=20, smoother="block", block_smoother_size=128.0,
-              smoothing_steps=3, coarsening_factor=8.0, aggregation_iters=200,
-              coarsest_dim=1000, seed=42, device=device)
-    kw.update(overrides)
-    return SolverConfig(**kw)
-
-
 def shape_counts() -> dict:
     """K1's, K2's and K3's launches by (rows, cols, k) since the last
     reset."""
@@ -1235,6 +1298,7 @@ def adaptive_phase(reps, results, dia_results) -> dict:
     from tpu_amg_torch.solvers import cg
     from tpu_amg_torch.tools import amg as amg_cli
     from tpu_amg_torch.tools import rand_svd_test
+    from tpu_amg_torch.tools.bootstrap_study import adaptive_config
     from tpu_amg_torch.utils.problems import anisotropic_diffusion_2d
     from tpu_amg_torch.utils.timing import median_ms
 
@@ -1438,7 +1502,8 @@ def adaptive_phase(reps, results, dia_results) -> dict:
           f"{svd['sigma_ratio']:.6f}, combined score {svd['score']:.6f} "
           f"(limit 0.99)")
     return dict(counts=counts, k64=k64, d64=d64, csr_cases=csr_cases,
-                dia_cases=dia_cases, solver=solver, small=(s_gpu, twin))
+                dia_cases=dia_cases, solver=solver, small=(s_gpu, twin),
+                peel_iters=two[1])
 
 
 def say_adaptive_excess(adaptive, results, dia_results) -> None:
@@ -1458,6 +1523,299 @@ def say_adaptive_excess(adaptive, results, dia_results) -> None:
                       f"{c['bound_ms'] * 1e3:.2f} us) = {ms:.3f} ms")
     say(f"K3 on the adaptive path, launches x (time - bound), float64: "
         f"{total:.3f} ms in all; " + "; ".join(excess))
+
+
+# ---- phases 16-17: block-3 elasticity and the float32 bootstrap
+
+def start_setup_jobs(elasticity_side: int, sa_side: int, ckpt: str,
+                     adaptive_side: int = ADAPTIVE_N):
+    """The four setups phases 16 and 17 read, on two worker processes
+    beside the main one (host setup is single-threaded; the card is
+    shared), as tools.bootstrap_study runs them: the float64 elasticity
+    setup (its checkpoint for phase 16) first, then the float32-bootstrap
+    setups of the SA, elasticity and adaptive problems, each with its
+    solves.  Returns (pool, {name: AsyncResult})."""
+    from tpu_amg_torch.tools import bootstrap_study
+
+    jobs = {
+        "elasticity f64": dict(kind="elasticity", side=elasticity_side,
+                               bootstrap="float64", ckpt=ckpt),
+        "SA f32": dict(kind="sa", side=sa_side, bootstrap="float32",
+                       rhs_seeds=(100,)),
+        "elasticity f32": dict(kind="elasticity", side=elasticity_side,
+                               bootstrap="float32", rhs_seeds=(100,)),
+        "adaptive f32": dict(kind="adaptive", side=adaptive_side,
+                             bootstrap="float32"),
+    }
+    return bootstrap_study.start_jobs(jobs, SETUP_WORKERS)
+
+
+def setup_line(label: str, res: dict) -> str:
+    return (f"{label}: setup {res['setup_s']:.1f} s ("
+            + ", ".join(f"{k} {v:.1f} s" for k, v in res["seconds"].items())
+            + f"; a worker process, bootstrap {res['bootstrap']}); peak "
+            f"device memory {res['peak_gb']:.2f} GB; rows "
+            + "; ".join(" / ".join(map(str, r)) for r in res["rows"]))
+
+
+def say_launch_tables(label: str, tables: dict) -> None:
+    for kernel, t in tables.items():
+        say(f"{label}: {kernel} {sum(t['by_shape'].values())} launches; by "
+            f"(values, vectors) {t['by_dtype']}; by (rows, cols, k): "
+            + ", ".join(f"{key} {v}" for key, v in sorted(t["by_shape"].items())))
+
+
+def elasticity_phase(setup: dict, ckpt: str, reps: int, results) -> dict:
+    """Phase 16: block-3 elasticity at unstructured_elasticity_3d(side)
+    (192,000 dofs at side 40) with elasticity_3d_config, float64: the
+    setup of a worker process (its phases, launches and checkpoint), the
+    checkpoint loaded here, each level's format, rows, entries and block
+    size, 2 PCG solves of A x = A x_true to rtol 1e-6, eager and
+    compiled (bitwise equal, at most 66 iterations: twice the JAX
+    package's 33 at 499,125 dofs), the V-cycle's times, and K1 + K2
+    against their plain versions at every (matrix, k) the path launched
+    them on, float64, and at the float32 bootstrap's k = 11 on A0."""
+    import torch
+
+    from tpu_amg_torch.ops import spmv
+    from tpu_amg_torch.solver import AMGSolver, elasticity_3d_config
+    from tpu_amg_torch.tools.solve3d import level_table
+    from tpu_amg_torch.utils.problems import unstructured_elasticity_3d
+    from tpu_amg_torch.utils.timing import median_ms
+
+    side = setup["side"]
+    t0 = time.perf_counter()
+    a = unstructured_elasticity_3d(side)
+    say(f"problem: unstructured_elasticity_3d({side}): n={a.nrows} "
+        f"nnz={a.nnz} block={a.block_size} built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    say(setup_line("elasticity", setup)
+        + f"; checkpoint saved in {setup['save_s']:.1f} s")
+    say_launch_tables("elasticity setup", setup["counts"])
+    cfg = elasticity_3d_config("cuda")
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    solver = AMGSolver.load(ckpt, a, cfg)
+    torch.cuda.synchronize()
+    h = solver.hierarchy
+    say(f"elasticity checkpoint loaded, multigrid built: "
+        f"{time.perf_counter() - t0:.1f} s; {h.num_levels} levels, op "
+        f"complexity {h.op_complexity():.3f}, grid complexity "
+        f"{h.grid_complexity():.3f}")
+    for line in level_table(solver.preconditioner, h):
+        say("  " + line)
+    setup_k1 = setup["counts"]["K1"]["by_shape"]
+    k_boot = cfg.coarsening_near_null_dim - 1
+    check(h.matrices[0].block_size == 3 and h.num_levels >= 2
+          and h.matrices[1].block_size == cfg.interp_near_null_dim
+          and isinstance(solver.op.mat, spmv.CappedCSR)
+          and (a.nrows, a.nrows, k_boot) in setup_k1,
+          f"elasticity hierarchy: block sizes "
+          f"{[m.block_size for m in h.matrices]} (3, then the candidate "
+          f"dimension {cfg.interp_near_null_dim}); the fine A is "
+          f"{type(solver.op.mat).__name__}; the bootstrap's SpMM ran K1 "
+          f"at k = {k_boot}: {(a.nrows, a.nrows, k_boot) in setup_k1}")
+    solve_s, graph_s, iters = [], [], []
+    for i in range(2):
+        x_true = np.random.default_rng(100 + i).standard_normal(a.nrows)
+        b = solver.op.mv(torch.from_numpy(x_true).to(dev))
+        pair = eager_and_compiled(solver, b, "cg", RTOL, 300)
+        x, info, _ = pair[1]
+        solve_s.append(pair[0][2])
+        graph_s.append(pair[1][2])
+        iters.append(info.iters)
+        true_rel = float(torch.linalg.vector_norm(b - solver.op.mv(x))
+                         / torch.linalg.vector_norm(b))
+        check(info.converged and info.iters <= MAX_ITERS_ELASTICITY
+              and np.isfinite(true_rel) and true_rel <= 1.01 * RTOL
+              and tuple(x.shape) == (a.nrows,),
+              f"elasticity solve {i}: {info.iters} iterations (limit "
+              f"{MAX_ITERS_ELASTICITY}), true relative residual "
+              f"{true_rel:.3e} (limit {1.01 * RTOL:.3e})")
+        check_same_solve(f"elasticity PCG solve {i}", pair, first=i == 0)
+    del pair, x
+    torch.cuda.synchronize()
+    solve_counts = shape_counts()
+    say_shape_counts("elasticity solves", solve_counts)
+    check(sum(solve_counts["K1"].values()) > 0
+          and sum(solve_counts["K2"].values()) > 0,
+          "elasticity path: K1 and K2 launched in the setup and the solves")
+    r = torch.from_numpy(
+        np.random.default_rng(7).standard_normal(a.nrows)).to(dev)
+    t_vc = median_ms(lambda: solver.apply_preconditioner(r), 20)
+    t_vc_dev = median_ms(lambda: solver.apply_preconditioner(r), 20,
+                         graph=True)
+    say(f"elasticity V-cycle: {t_vc:.3f} ms as the solve runs it (enqueued "
+        f"from Python), {t_vc_dev:.3f} ms on the device (CUDA graph "
+        f"replay); PCG solves eager " + ", ".join(f"{s:.4f}" for s in solve_s)
+        + " s, compiled " + ", ".join(f"{s:.4f}" for s in graph_s) + " s")
+
+    # K1 + K2 at every (matrix, k) of the path, float64; A0 also at the
+    # float32 bootstrap's k
+    names = {}
+    for lvl in range(h.num_levels):
+        for letter, host in (("A", h.matrices), ("P", h.interpolations),
+                             ("R", h.restrictions)):
+            if lvl < len(host):
+                names.setdefault(host[lvl].shape, (f"{letter}{lvl}",
+                                                   host[lvl]))
+    by_shape = {kernel: collections.Counter(setup["counts"][kernel]["by_shape"])
+                + solve_counts[kernel] for kernel in ("K1", "K2")}
+    ks = {}
+    for kernel in ("K1", "K2"):
+        for rows, cols, k in by_shape[kernel]:
+            ks.setdefault((rows, cols), set()).add(k)
+    cases = set()
+    for shape, kset in sorted(ks.items()):
+        name, host = names[shape]
+        cases.add(f"elasticity {name}")
+        kernel_cases(f"elasticity {name}",
+                     {torch.float64: spmv.CappedCSR.from_csr(
+                         host, "cuda", torch.float64)},
+                     reps, results, sorted(kset))
+    kernel_cases("elasticity A0",
+                 {torch.float32: spmv.CappedCSR.from_csr(
+                     h.matrices[0], "cuda", torch.float32)},
+                 reps, results, (k_boot,))
+    check({"elasticity A0", "elasticity P0", "elasticity R0",
+           "elasticity A1"} <= cases,
+          "sparse matrices of the elasticity path timed: "
+          + ", ".join(sorted(cases)))
+    return dict(solver=solver, iters=iters[0], cases=cases,
+                launches={k: sum(v.values()) for k, v in by_shape.items()},
+                results=[c for c in results if c["case"] in cases])
+
+
+def bootstrap_phase(f32: dict, refs: dict, results, dia_results) -> dict:
+    """Phase 17: the float32 bootstrap (find_near_null in float32: K1 + K2
+    at (f32, f32), K3 on the adaptive DIA fine A, the block smoother's
+    inverses in float32) from the float64 setups' own draws, on the SA
+    (phase 4), elasticity (phase 16) and adaptive (phase 14) problems:
+    near_null seconds and each level's rows both ways; PCG with the
+    float32-bootstrap hierarchy within twice the JAX package's count (SA,
+    elasticity) and, on SA, the float64 count + 2 (BOOTSTRAP_EXTRA), the
+    adaptive composite within 1.1 x the float64 count to 1e-12; the
+    (f32, f32) launches; K1, K2
+    and K3 at the bootstrap's k = 7, 11 and 63 in float32 against their
+    plain versions (timed in phases 3, 16 and 14)."""
+    out = {}
+    for name, res in f32.items():
+        ref = refs[name]
+        say(setup_line(f"float32 bootstrap, {name}", res))
+        say(f"float32 bootstrap, {name}: near_null {res['seconds']['near_null']:.1f}"
+            f" s against float64's {ref['near_null']:.1f} s; rows float64 "
+            + "; ".join(" / ".join(map(str, r)) for r in ref["rows"])
+            + ", float32 " + "; ".join(" / ".join(map(str, r))
+                                       for r in res["rows"]))
+        say_launch_tables(f"float32 bootstrap, {name}", res["counts"])
+        kernel = ref["kernel"]
+        f32_launches = res["counts"][kernel]["by_dtype"].get("f32f32", 0)
+        iters, rel_res = res["iters"][0], res["rel_res"][0]
+        if name == "adaptive":
+            limit = int(ADAPTIVE_F32_RATIO * ref["iters"])
+            ok = (res["converged"] and rel_res <= ADAPTIVE_TOL
+                  and iters <= limit)
+            text = (f"PCG to {ADAPTIVE_TOL:.0e} with {ADAPTIVE_COMPONENTS} "
+                    f"components: {iters} iterations (float64 "
+                    f"{ref['iters']}; limit {limit}, 1.1 x), final rel "
+                    f"residual {rel_res:.3e}")
+        else:
+            extra = BOOTSTRAP_EXTRA[name]
+            limit = 2 * ref["jax"]
+            bars = f"twice the JAX package's {ref['jax']}"
+            if extra is not None:
+                limit = min(limit, ref["iters"] + extra)
+                bars = f"the float64 count + {extra} and " + bars
+            ok = (res["converged"] and rel_res <= 1.01 * RTOL
+                  and iters <= limit)
+            text = (f"PCG to {RTOL:.0e}: {iters} iterations (float64 "
+                    f"{ref['iters']}, {iters - ref['iters']:+d}; limit "
+                    f"{limit}: {bars}), true relative residual "
+                    f"{rel_res:.3e}")
+        text += f"; ||E||_A {res['e_norm']:.6f}"
+        check(ok and f32_launches > 0,
+              f"float32 bootstrap, {name}: {text}; {kernel} at (f32, f32) "
+              f"{f32_launches} launches")
+        out[name] = dict(res, f32_launches=f32_launches)
+    # the bootstrap's (f32, f32) shapes against their plain versions
+    k7 = next(c for c in results if c["case"] == "A0" and c["k"] == 7
+              and c["dtype"] == "float32")
+    k11 = next(c for c in results if c["case"] == "elasticity A0"
+               and c["k"] == 11 and c["dtype"] == "float32")
+    k63 = next(c for c in dia_results if c["case"] == "adaptive A"
+               and c["k"] == 63 and c["dtype"] == "float32")
+    say(f"the float32 bootstrap's kernels at (f32, f32), held against their "
+        f"plain versions above (limit {TOL['float32']:.0e}): K1 SA A0 k=7 "
+        f"{k7['k1_ms'] * 1e3:.2f} us (bound {k7['k1_bound_ms'] * 1e3:.2f}, "
+        f"library {k7['k1_lib_ms'] * 1e3:.2f}); K1 elasticity A0 k=11 "
+        f"{k11['k1_ms'] * 1e3:.2f} us (bound {k11['k1_bound_ms'] * 1e3:.2f}, "
+        f"library {k11['k1_lib_ms'] * 1e3:.2f}), its K2 "
+        f"{k11['k2_ms'] * 1e3:.2f} us; K3 adaptive fine A k=63 "
+        f"{k63['ms'] * 1e3:.2f} us (bound {k63['bound_ms'] * 1e3:.2f}, "
+        f"library {k63['lib_ms'] * 1e3:.2f})")
+    return dict(runs=out, k7=k7, k11=k11, k63=k63)
+
+
+def slice11_entries(elasticity: dict, boot: dict) -> list:
+    """The kernels line's entries of phases 16 and 17: K1 on the
+    elasticity fine A (float64, k = 1) and K2 on its longest tail (the
+    block-6 coarse A), launches over the elasticity path (its worker's
+    setup and the solves); K1 + K2 at (f32, f32) on the elasticity A0 at
+    the bootstrap's k = 11 (SA A0 at k = 7 beside) and K3 on the
+    adaptive fine A at k = 63, launches over phase 17's three
+    float32-bootstrap setups."""
+    cases = [c for c in elasticity["results"] if c["dtype"] == "float64"]
+    a0 = next(c for c in cases if c["case"] == "elasticity A0"
+              and c["k"] == 1)
+    tail = max((c for c in cases if c["k"] == 1 and c["n_tail"]),
+               key=lambda c: c["n_tail"])
+    runs = boot["runs"]
+    f32 = {kernel: sum(r["counts"][kernel]["by_dtype"].get("f32f32", 0)
+                       for r in runs.values()) for kernel in ("K1", "K2", "K3")}
+    k7, k11, k63 = boot["k7"], boot["k11"], boot["k63"]
+    common = dict(route="cuda", bound_by="bytes",
+                  source="tpu_amg_torch/csrc/spmv.cu")
+    return [
+        dict(name="csr_spmv_capped_elasticity",
+             replaces="tpu_amg/ops/well_pallas.py:77",
+             launches=elasticity["launches"]["K1"],
+             max_abs_err=max(c["err1"] for c in cases),
+             ms=a0["k1_ms"], plain_ms=a0["k1_plain_ms"],
+             bound_ms=a0["k1_bound_ms"], library_ms=a0["k1_lib_ms"],
+             case="elasticity A0", rows=a0["shape"][0], **common),
+        dict(name="coo_patch_elasticity",
+             replaces="tpu_amg/ops/well_pallas.py:457",
+             launches=elasticity["launches"]["K2"],
+             max_abs_err=max(c["err2"] for c in cases),
+             ms=tail["k2_ms"], plain_ms=tail["k2_plain_ms"],
+             bound_ms=tail["k2_bound_ms"], library_ms=tail["k2_lib_ms"],
+             case=tail["case"], rows=tail["shape"][0],
+             tail_entries=tail["n_tail"], **common),
+        dict(name="csr_spmv_capped_f32f32_bootstrap",
+             replaces="tpu_amg/ops/well_pallas.py:77",
+             launches=f32["K1"], max_abs_err=max(k7["err1"], k11["err1"]),
+             ms=k11["k1_ms"], plain_ms=k11["k1_plain_ms"],
+             bound_ms=k11["k1_bound_ms"], library_ms=k11["k1_lib_ms"],
+             case="elasticity A0, k=11", k7_case="SA A0, k=7",
+             k7_ms=k7["k1_ms"], k7_plain_ms=k7["k1_plain_ms"],
+             k7_bound_ms=k7["k1_bound_ms"], k7_library_ms=k7["k1_lib_ms"],
+             **common),
+        dict(name="coo_patch_f32f32_bootstrap",
+             replaces="tpu_amg/ops/well_pallas.py:457",
+             launches=f32["K2"], max_abs_err=k11["err2"],
+             ms=k11["k2_ms"], plain_ms=k11["k2_plain_ms"],
+             bound_ms=k11["k2_bound_ms"], library_ms=k11["k2_lib_ms"],
+             case="elasticity A0, k=11", **common),
+        dict(name="dia_spmv_f32f32_bootstrap",
+             replaces="tpu_amg/ops/dia_pallas.py:34",
+             launches=f32["K3"], max_abs_err=k63["err"],
+             ms=k63["ms"], plain_ms=k63["plain_ms"],
+             bound_ms=k63["bound_ms"], library_ms=k63["lib_ms"],
+             case="adaptive fine A, k=63", route="cuda", bound_by="bytes",
+             source="tpu_amg_torch/csrc/dia.cu"),
+    ]
 
 
 # (value, vector) dtype names of the mixed pairs phase 15 runs
@@ -1974,23 +2332,10 @@ def precision_entries(precision) -> list:
     return entries
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    # 48 keeps the whole run inside 900 s on the card beside phase 14's
-    # 262,144-dof adaptive composite (PERF.md); 64 was the default before
-    # phase 14
-    ap.add_argument("--side", type=int, default=48,
-                    help="the SA path's mesh side: side**3 dofs (48: "
-                         "110,592; 64: 262,144; 101: 1.03M)")
-    ap.add_argument("--reps", type=int, default=50)
-    args = ap.parse_args()
-
+def drive(args, jobs) -> list:
+    """Phases 3-17 (the setups of phases 16 and 17 running in ``jobs``);
+    returns the kernels line's entries."""
     import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script needs one GPU",
-              file=sys.stderr)
-        return 2
 
     from tpu_amg_torch.linop import SparseOperator
     from tpu_amg_torch.ops import (_build, dma, native, primitives, spmv,
@@ -2005,41 +2350,6 @@ def main() -> int:
     from tpu_amg_torch.utils.problems import poisson3d, unstructured_poisson_3d
     from tpu_amg_torch.utils.testing import approx_convergence_factor
     from tpu_amg_torch.utils.timing import HBM_DATASHEET_GBPS, median_ms
-
-    # ---- 1. device
-    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader"]).splitlines()[0]
-    say(smi)
-    kind = torch.cuda.get_device_name(0)
-    say(f"device: {kind}; torch {torch.__version__}; "
-        f"CUDA {torch.version.cuda}; "
-        f"nvcc {run([_build.nvcc_path(), '--version']).splitlines()[-1]}; "
-        f"g++ {run(['g++', '-dumpfullversion'])}")
-
-    # ---- 2. builds, from this checkout's sources
-    builds = {
-        "libamg_kernels.so (nvcc, sm_90a)": spmv.kernel_lib,
-        "libamg_dia.so (nvcc, sm_90a)": dia_ops.kernel_lib,
-        "libamg_stream.so (nvcc, sm_90a)": stream.kernel_lib,
-        "libamg_stages.so (nvcc, sm_90a)": spmv_stages.kernel_lib,
-        "libamg_dma.so (nvcc, sm_90a)": dma.kernel_lib,
-        "libamg_primitives.so (nvcc, sm_90a)": primitives.kernel_lib,
-        "libamg_native.so (g++)": native.lib,
-    }
-    for label in builds:
-        (_build.BUILD_DIR / label.split()[0]).unlink(missing_ok=True)
-
-    def timed(fn):
-        t0 = time.perf_counter()
-        fn()
-        return time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
-        futures = {label: pool.submit(timed, fn) for label, fn in builds.items()}
-        build_s = {label: f.result() for label, f in futures.items()}
-    say("build: " + "; ".join(f"{k} {v:.1f} s" for k, v in build_s.items())
-        + f"; {time.perf_counter() - t0:.1f} s in all, side by side")
 
     # ---- 3a. kernels vs plain on a heavy-row matrix with a small cap
     results = []
@@ -2087,7 +2397,7 @@ def main() -> int:
         say(f"  level {lvl}: n={m.nrows} nnz={m.nnz} "
             f"({m.nnz / m.nrows:.1f}/row)")
     a_mat = solver.op.mat
-    solve_s, graph_s = [], []
+    solve_s, graph_s, sa_iters = [], [], []
     for i in range(3):
         # b = A x_true for a seeded x_true, the reference's own protocol
         # (tools/solve3d.py:87-90)
@@ -2097,6 +2407,7 @@ def main() -> int:
         x, info, _ = pair[1]
         solve_s.append(pair[0][2])
         graph_s.append(pair[1][2])
+        sa_iters.append(info.iters)
         true_rel = float(torch.linalg.vector_norm(b - spmv.plain_spmv(a_mat, x))
                          / torch.linalg.vector_norm(b))
         check(
@@ -2412,6 +2723,35 @@ def main() -> int:
         structured=s_solver, adaptive=adaptive["solver"],
         adaptive_small=adaptive["small"]))
 
+    # ---- 16. block-3 elasticity, from the float64 setup of a worker
+    t0 = time.perf_counter()
+    e_setup = jobs["elasticity f64"].get(timeout=JOB_WAIT)
+    say(f"phase 16: the elasticity setup's worker done "
+        f"{time.perf_counter() - t0:.1f} s after phase 15")
+    elasticity = elasticity_phase(e_setup, e_setup["ckpt"], args.reps,
+                                  results)
+
+    # ---- 17. the float32 bootstrap against phases 4, 16 and 14
+    t0 = time.perf_counter()
+    f32 = {name.split()[0]: jobs[name].get(timeout=JOB_WAIT)
+           for name in ("SA f32", "elasticity f32", "adaptive f32")}
+    say(f"phase 17: the float32-bootstrap setups' workers done "
+        f"{time.perf_counter() - t0:.1f} s after phase 16")
+    a_solver = adaptive["solver"]
+    refs = {
+        "SA": dict(near_null=solver.setup_seconds["near_null"],
+                   rows=[[m.nrows for m in h.matrices]], iters=sa_iters[0],
+                   jax=JAX_ITERS["SA"], kernel="K1"),
+        "elasticity": dict(near_null=e_setup["seconds"]["near_null"],
+                           rows=e_setup["rows"], iters=elasticity["iters"],
+                           jax=JAX_ITERS["elasticity"], kernel="K1"),
+        "adaptive": dict(near_null=a_solver.setup_seconds["near_null"],
+                         rows=[[m.nrows for m in hh.matrices]
+                               for hh in a_solver.component_hierarchies],
+                         iters=adaptive["peel_iters"], kernel="K3"),
+    }
+    boot = bootstrap_phase(f32, refs, results, dia_results)
+
     # the rows timed in L2 (bytes that fit in the card's L2, 50 calls
     # back to back) bound by this run's L2 read rate, without a call's
     # fixed cost (phase 11), in place of the HBM data sheet's rate
@@ -2512,7 +2852,80 @@ def main() -> int:
              l2_plain_ms=best["plain_ms"], l2_bound_ms=best["bound_ms"]),
         stages_entry, dma_entry, primitives_entry,
         *precision_entries(precision),
+        *slice11_entries(elasticity, boot),
     ]
+    return kernels
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    # 48 keeps the whole run inside 900 s on the card beside phase 14's
+    # 262,144-dof adaptive composite (PERF.md); 64 was the default before
+    # phase 14
+    ap.add_argument("--side", type=int, default=48,
+                    help="the SA path's mesh side: side**3 dofs (48: "
+                         "110,592; 64: 262,144; 101: 1.03M)")
+    ap.add_argument("--elasticity-side", type=int, default=ELASTICITY_SIDE,
+                    help="phase 16's mesh side: 3 * side**3 dofs (40: "
+                         "192,000; 55: 499,125)")
+    ap.add_argument("--reps", type=int, default=50)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script needs one GPU",
+              file=sys.stderr)
+        return 2
+
+    from tpu_amg_torch.ops import (_build, dma, native, primitives, spmv,
+                                   spmv_stages, stream)
+    from tpu_amg_torch.ops import dia as dia_ops
+
+    # ---- 1. device
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    say(smi)
+    kind = torch.cuda.get_device_name(0)
+    say(f"device: {kind}; torch {torch.__version__}; "
+        f"CUDA {torch.version.cuda}; "
+        f"nvcc {run([_build.nvcc_path(), '--version']).splitlines()[-1]}; "
+        f"g++ {run(['g++', '-dumpfullversion'])}")
+
+    # ---- 2. builds, from this checkout's sources
+    builds = {
+        "libamg_kernels.so (nvcc, sm_90a)": spmv.kernel_lib,
+        "libamg_dia.so (nvcc, sm_90a)": dia_ops.kernel_lib,
+        "libamg_stream.so (nvcc, sm_90a)": stream.kernel_lib,
+        "libamg_stages.so (nvcc, sm_90a)": spmv_stages.kernel_lib,
+        "libamg_dma.so (nvcc, sm_90a)": dma.kernel_lib,
+        "libamg_primitives.so (nvcc, sm_90a)": primitives.kernel_lib,
+        "libamg_native.so (g++)": native.lib,
+    }
+    for label in builds:
+        (_build.BUILD_DIR / label.split()[0]).unlink(missing_ok=True)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        futures = {label: pool.submit(timed, fn) for label, fn in builds.items()}
+        build_s = {label: f.result() for label, f in futures.items()}
+    say("build: " + "; ".join(f"{k} {v:.1f} s" for k, v in build_s.items())
+        + f"; {time.perf_counter() - t0:.1f} s in all, side by side")
+
+    # the setups of phases 16 and 17 start now, beside phases 3-15
+    with tempfile.TemporaryDirectory() as tmp:
+        pool, jobs = start_setup_jobs(args.elasticity_side, args.side,
+                                      str(Path(tmp) / "elasticity.npz"))
+        try:
+            kernels = drive(args, jobs)
+        finally:
+            pool.terminate()
+            pool.join()
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -179,15 +179,21 @@ def test_simple_geometric_table_matches_jax():
 
 def test_families_match_jax(tmp_path):
     for name, args in (("poisson", (6, 2)), ("poisson", (4, 3)),
-                       ("anisotropic_diffusion", (6,))):
+                       ("anisotropic_diffusion", (6,)), ("elasticity", (3,))):
         got = getattr(models, name)(*args, device="cpu")
         want = getattr(jax_models, name)(*args)
         assert got.name == want.name
+        assert got.matrix.block_size == want.matrix.block_size
+        for part in ("indptr", "indices", "data"):
+            np.testing.assert_array_equal(getattr(got.matrix, part),
+                                          getattr(want.matrix, part))
         np.testing.assert_array_equal(got.matrix.to_dense(),
                                       want.matrix.to_dense())
         np.testing.assert_array_equal(got.rhs, want.rhs)
         for field in dataclasses.fields(got.solver_config):
-            if field.name not in ("dtype", "device"):
+            # torch dtypes and the device: the port's own (the JAX
+            # package picks its bootstrap dtype by platform)
+            if field.name not in ("dtype", "device", "bootstrap_dtype"):
                 assert (getattr(got.solver_config, field.name)
                         == getattr(want.solver_config, field.name))
     mp = models.poisson(8, device="cpu")
@@ -195,8 +201,6 @@ def test_families_match_jax(tmp_path):
     assert info.converged
     np.testing.assert_allclose(mp.matrix.matvec(x.numpy()), mp.rhs,
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match="M17"):
-        models.elasticity(3, device="cpu")
     subprocess.run([sys.executable, "-m", "tpu_amg_torch.tools.make_fem_fixture",
                     "--side", "10", "--out", str(tmp_path / "fem")],
                    cwd=ROOT, check=True, capture_output=True)
@@ -212,6 +216,12 @@ CLI_CASES = {
     "sa": ["--n", "16", "--coarsest-dim", "40", "--coarsening-near-null-dim",
            "16", "--smoothing-iters", "10"],
     "structured": ["--structured", "--problem", "poisson3d", "--n", "12"],
+    # block size 3, on two levels: the preset's cd 12 / 6 and coarsest 40
+    # (at the defaults n=4 is one dense level, ||E||_A = 0)
+    "elasticity3d": ["--problem", "elasticity3d", "--n", "4",
+                     "--coarsest-dim", "40", "--coarsening-near-null-dim",
+                     "12", "--interp-near-null-dim", "6",
+                     "--smoothing-iters", "10"],
 }
 
 
@@ -248,7 +258,6 @@ def test_amg_cli_matches_jax(case, capsys):
     (["--interpolation", "classical"], "M18"),
     (["--classical-opts", "tau=0.5"], "M18"),
     (["--viz-out", "viz.json"], "M21"),
-    (["--problem", "elasticity3d"], "M17"),
 ])
 def test_amg_cli_refuses_unported_options(option, item):
     with pytest.raises(SystemExit, match=item):

@@ -50,6 +50,13 @@ SLICE_8 = ["tpu_amg_torch.preconditioners.composite",
            "tpu_amg_torch.tools.rand_svd_test"]
 # the mixed-precision cycle
 SLICE_10 = ["tpu_amg_torch.precision"]
+# the setup slice and block-3 elasticity: the profiler, the setup and
+# solve tools, the elasticity bench
+SLICE_11 = ["tpu_amg_torch.utils.profiling",
+            "tpu_amg_torch.tools.profile_setup",
+            "tpu_amg_torch.tools.setup3d", "tpu_amg_torch.tools.solve3d",
+            "tpu_amg_torch.tools.bench_elasticity",
+            "tpu_amg_torch.tools.bootstrap_study"]
 
 
 def test_port_imports_no_jax():
@@ -65,6 +72,7 @@ def test_port_imports_no_jax():
     assert set(SLICE_7) <= set(out[2:])
     assert set(SLICE_8) <= set(out[2:])
     assert set(SLICE_10) <= set(out[2:])
+    assert set(SLICE_11) <= set(out[2:])
 
 
 def test_importing_builds_nothing():

@@ -117,17 +117,26 @@ def find_near_null(
     device,
     generator: Optional[torch.Generator] = None,
     starts: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    dtype: torch.dtype = torch.float64,
 ) -> np.ndarray:
     """Two-phase near-null bootstrap (reference adaptivity.rs:264-305).
 
     ``starts`` supplies the two start blocks (l1 phase, block phase);
-    otherwise both are drawn from ``generator`` in that order.  Runs in
-    float64 on ``device``."""
+    otherwise both are drawn from ``generator`` in that order.  Both
+    smoothing phases run in ``dtype`` on ``device``: A (K1 + K2, or K3
+    on a DIA matrix), the l1 diagonal 1 / Σⱼ|aᵢⱼ| rounded to ``dtype``,
+    the block smoother's inverses and the QR.  float32 is the JAX
+    package's accelerator bootstrap (``tpu_amg/adaptivity.py:246-281``);
+    here the caller's dtype applies at every size (the JAX package takes
+    that path only for n ≥ 2^15, and falls back to the host on any
+    error; this function raises).  The partition between the phases is
+    built on the host in float64, and the basis returns as a float64
+    array whatever ``dtype`` is."""
     x1, x2 = starts if starts is not None else (None, None)
-    op = SparseOperator.from_csr(a, device, torch.float64)
-    l1 = DiagonalOperator(diag=to_device(l1_inverse_diag(a), device))
+    op = SparseOperator.from_csr(a, device, dtype)
+    l1 = DiagonalOperator(diag=to_device(l1_inverse_diag(a), device, dtype))
     basis, _ = smooth_vector(op, l1, iterations, near_null_dim, generator,
-                             x1, device)
+                             x1, device, dtype)
 
     p_cfg = PartitionerConfig(
         coarsening_factor=min(
@@ -139,9 +148,9 @@ def find_near_null(
     partition = p_cfg.build_partition(a, basis, weights).expand_blocks(
         a.block_size
     )
-    block_pc = BlockSmoother.build(a, partition, device)
+    block_pc = BlockSmoother.build(a, partition, device, dtype=dtype)
     basis, cfs = smooth_vector(op, block_pc, iterations, near_null_dim,
-                               generator, x2, device)
+                               generator, x2, device, dtype)
     logger.info(
         "find_near_null: ||Ev||_A factors %s",
         np.array2string(cfs, precision=2),
@@ -159,9 +168,10 @@ class AdaptiveConfig:
     """Defaults (adaptivity.rs:36-48): max_components 5, test_iters 50,
     coarsening_near_null_dim 32, constant prepended.
 
-    The bootstrap runs in float64 on ``multigrid_config.device``; the
-    enrichment smoothing runs there in ``multigrid_config.dtype``, the
-    components' own."""
+    The bootstrap runs in ``bootstrap_dtype`` (float64 unless the caller
+    asks for float32: :func:`find_near_null`) on
+    ``multigrid_config.device``; the enrichment smoothing runs there in
+    ``multigrid_config.dtype``, the components' own."""
 
     hierarchy_config: HierarchyConfig = dataclasses.field(
         default_factory=HierarchyConfig
@@ -174,6 +184,7 @@ class AdaptiveConfig:
     test_iters: int = 50
     coarsening_near_null_dim: int = 32
     include_constant_first_near_null: bool = True
+    bootstrap_dtype: torch.dtype = torch.float64
 
     def build(
         self,
@@ -229,6 +240,7 @@ class AdaptiveConfig:
             device,
             generator=generator,
             starts=near_null_starts,
+            dtype=self.bootstrap_dtype,
         )
         if self.include_constant_first_near_null:
             with_const = np.concatenate([np.ones((a.nrows, 1)), nn], axis=1)

@@ -72,11 +72,19 @@ def anisotropic_diffusion(
 
 
 def elasticity(n: int, device: str = "cuda") -> ModelProblem:
-    """3-D linear elasticity (block_size 3): its generator and block-3
-    path wait for their port (ROADMAP M17)."""
-    raise NotImplementedError(
-        "elasticity (block size 3) waits for its port (ROADMAP M17)"
+    """3-D linear elasticity (block_size 3): 6 rigid-body modes → SA
+    candidate dim 6, block-aware coarsening."""
+    a = problems.elasticity_3d(n)
+    cfg = SolverConfig(
+        coarsening_near_null_dim=12,
+        interp_near_null_dim=6,
+        smoothing_iters=15,
+        coarsening_factor=4.0,
+        smoother="chebyshev",
+        smoothing_steps=2,
+        device=device,
     )
+    return ModelProblem("elasticity3d", a, np.ones(a.nrows), cfg)
 
 
 def from_mfem(directory, name: str = "system", device: str = "cuda",

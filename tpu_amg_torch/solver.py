@@ -79,6 +79,10 @@ class SolverConfig:
     composite_components: int = 3  # for method="adaptive"
     reorder: bool = False  # RCM renumbering (utils/reorder.py) before setup
     dtype: torch.dtype = torch.float64
+    # the near-null bootstrap's smoothing dtype (find_near_null): float32
+    # is the JAX package's accelerator bootstrap; the basis and the host
+    # setup stay float64 either way
+    bootstrap_dtype: torch.dtype = torch.float64
     # the cycle's precision (precision.py MODES): None keeps ``dtype``;
     # "f64"/"f32" cast its arrays; "bf16_values" stores them in bf16
     # (vectors stay ``dtype``); "bf16" runs the cycle's vectors in bf16
@@ -108,6 +112,41 @@ def scalar_3d_config(device: str = "cuda", **overrides) -> SolverConfig:
     )
     kw.update(overrides)
     return SolverConfig(**kw)
+
+
+def elasticity_3d_config(device: str = "cuda", **overrides) -> SolverConfig:
+    """The block-3 elasticity SA config of the JAX package's
+    ``tools/setup3d.py --elasticity`` (rigid modes span 6: cd 12 / 6,
+    cf 16, P truncation 0.05, coarse drop 0.01), in float64 like
+    :func:`scalar_3d_config`: the elasticity path of ``chip_smoke.py``
+    and of ``tools/setup3d.py``."""
+    kw = dict(
+        coarsening_near_null_dim=12, interp_near_null_dim=6,
+        coarsening_factor=16.0, smoothing_steps=1, smoothing_iters=8,
+        coarsest_dim=1500, dense_threshold=8192, sa_trunc_tol=0.05,
+        coarse_drop_tol=0.01, dtype=torch.float64, device=device,
+    )
+    kw.update(overrides)
+    return SolverConfig(**kw)
+
+
+def setup_draws(n: int, config: SolverConfig):
+    """The random blocks :meth:`AMGSolver.setup` draws from its CPU
+    generator seeded with ``config.seed`` when the caller passes none, in
+    its order: (``near_null_starts``: the bootstrap's two (n, cd − 1)
+    blocks, ``enrichment_starts``: one (n, cd) block a round of the
+    adaptive composite, none for SA).  Passing them gives the same setup
+    bit for bit; a second setup from the same blocks in another dtype
+    starts where the first did."""
+    g = torch.Generator().manual_seed(config.seed)
+    dim = config.coarsening_near_null_dim
+    starts = tuple(torch.randn(n, dim - 1, generator=g,
+                               dtype=torch.float64).numpy() for _ in range(2))
+    rounds = (config.composite_components - 1
+              if config.method == "adaptive" else 0)
+    blocks = [torch.randn(n, dim, generator=g, dtype=torch.float64).numpy()
+              for _ in range(rounds)]
+    return starts, blocks
 
 
 SOLVE_METHODS = ("cg", "stationary")
@@ -197,6 +236,7 @@ class AMGSolver:
                 max_components=config.composite_components,
                 test_iters=config.smoothing_iters,
                 coarsening_near_null_dim=config.coarsening_near_null_dim,
+                bootstrap_dtype=config.bootstrap_dtype,
             ).build(a, generator, near_null_starts=near_null_starts,
                     enrichment_starts=enrichment_starts,
                     lambda_starts=lambda_starts, return_hierarchies=True,
@@ -217,6 +257,7 @@ class AMGSolver:
             device,
             generator=generator,
             starts=near_null_starts,
+            dtype=config.bootstrap_dtype,
         )
         basis, _ = np.linalg.qr(
             np.concatenate([np.ones((a.nrows, 1)), nn], axis=1)

@@ -22,7 +22,9 @@ the JAX package's ``jax.random`` draws from the same seed.
 study of ``--composite``); the outer PCG and the operator stay float64.
 Options whose modules are not ported yet exit with the ROADMAP item that
 ports them: ``--interpolation classical`` and ``--classical-opts``
-(M18), ``--viz-out`` (M21), ``--problem elasticity3d`` (M17).
+(M18), ``--viz-out`` (M21).  ``--problem elasticity3d`` is the
+structured hex-grid elasticity of ``problems.elasticity_3d`` (block
+size 3), as in the JAX CLI.
 
 Usage: python -m tpu_amg_torch.tools.amg [--device cpu] [--problem aniso2d] [--n 64] ...
 """
@@ -111,8 +113,6 @@ def refuse_unported(args) -> None:
          "M18"),
         (bool(args.classical_opts), "--classical-opts", "M18"),
         (args.viz_out is not None, "--viz-out", "M21"),
-        (args.problem == "elasticity3d" and not args.data_dir,
-         "--problem elasticity3d", "M17"),
     ]
     for given, option, item in unported:
         if given:
@@ -133,6 +133,8 @@ def load_problem(args):
         a = problems.poisson2d(n)
     elif args.problem == "poisson3d":
         a = problems.poisson3d(n)
+    elif args.problem == "elasticity3d":
+        a = problems.elasticity_3d(n)
     else:
         a = problems.anisotropic_diffusion_2d(
             n, epsilon=args.epsilon, theta=args.theta,

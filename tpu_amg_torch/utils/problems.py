@@ -2,9 +2,11 @@
 
 Structured Poisson in 1-D, 2-D and 3-D, rotated anisotropic diffusion
 (the CLI's default problem), the pseudo-unstructured 2-D and 3-D
-FEM-graph Laplacians of the reference's MFEM-loaded systems, and the
-1-D geometric transfers of the refinement study; the same matrices as
-the JAX package's ``tpu_amg/utils/problems.py`` from the same seeds.
+FEM-graph Laplacians of the reference's MFEM-loaded systems, 3-D
+linear elasticity (block_size 3) on an unstructured tet mesh and on a
+structured hex grid, and the 1-D geometric transfers of the refinement
+study; the same matrices as the JAX package's
+``tpu_amg/utils/problems.py`` from the same seeds, bit for bit.
 """
 
 from __future__ import annotations
@@ -277,6 +279,169 @@ def unstructured_poisson_3d(
     if return_coords:
         return csr, coords
     return csr
+
+
+def unstructured_elasticity_3d(
+    side: int, seed: int = 0, jitter: float = 0.3, k_reg: float = 0.3,
+    diag_shift: float = 1e-8, rcm: bool = True, pin_face: bool = True,
+) -> CSR:
+    """Unstructured 3-D vector elasticity: truss (lattice-spring)
+    stiffness on a jittered-grid Delaunay tet mesh, 3 dofs per node
+    (``block_size = 3``).
+
+    Each edge (i, j) with unit direction n contributes the SPD 3×3
+    block K = n nᵀ + k_reg·I to the four block positions of a standard
+    stiffness assembly — the classic truss/spring elasticity model,
+    whose near-null space is the rigid translations (+ approximate
+    rotations), i.e. exactly the vector-dof matrix class the reference
+    targets (core.rs:22-36, block_smoothers.rs:326-399) on an
+    UNSTRUCTURED mesh.  Ordering is block-RCM: RCM on the node graph,
+    dofs grouped node-major so 3-dof blocks stay contiguous.
+    """
+    import scipy.sparse as sps
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    from scipy.spatial import Delaunay
+
+    rng = np.random.default_rng(seed)
+    n_pts = side**3
+    gx, gy, gz = np.meshgrid(*(np.arange(side, dtype=np.float64),) * 3)
+    pts = np.stack([gx.ravel(), gy.ravel(), gz.ravel()], 1)
+    pts += rng.uniform(-jitter, jitter, pts.shape)
+    perm0 = rng.permutation(n_pts)
+    pts = pts[perm0]
+    tri = Delaunay(pts)
+    s = tri.simplices
+    e = np.concatenate([
+        s[:, [0, 1]], s[:, [0, 2]], s[:, [0, 3]],
+        s[:, [1, 2]], s[:, [1, 3]], s[:, [2, 3]],
+    ])
+    e.sort(axis=1)
+    key = e[:, 0].astype(np.int64) * n_pts + e[:, 1]
+    order = np.argsort(key)
+    sk = key[order]
+    first = np.concatenate([[True], sk[1:] != sk[:-1]])
+    e = e[order[first]]
+    i, j = e[:, 0], e[:, 1]
+
+    d = pts[j] - pts[i]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    k_blk = d[:, :, None] * d[:, None, :] + k_reg * np.eye(3)  # (E,3,3)
+
+    # block COO: (i,i)+K (j,j)+K (i,j)-K (j,i)-K, expanded to scalars
+    br = np.concatenate([i, j, i, j])
+    bc = np.concatenate([i, j, j, i])
+    bv = np.concatenate([k_blk, k_blk, -k_blk, -k_blk])
+    a3 = np.arange(3)
+    rows = (3 * br[:, None, None] + a3[None, :, None]).repeat(3, axis=2)
+    cols = (3 * bc[:, None, None] + a3[None, None, :]).repeat(3, axis=1)
+    a = sps.coo_matrix(
+        (bv.ravel(), (rows.ravel(), cols.ravel())),
+        shape=(3 * n_pts, 3 * n_pts),
+    ).tocsr()
+    a = a + sps.eye(3 * n_pts) * diag_shift
+    if pin_face:
+        # ground springs on the z~0 face (the Dirichlet analog): a
+        # free-floating truss has 6 rigid near-null modes at the
+        # diag_shift scale, which makes the coarsest-level factorization
+        # meaningless in f32
+        pinned = np.flatnonzero(pts[:, 2] < 0.6)
+        dof = (3 * pinned[:, None] + a3[None, :]).ravel()
+        lift = np.zeros(3 * n_pts)
+        lift[dof] = 1.0
+        a = a + sps.diags(lift)
+    if rcm:
+        # block-RCM: permute NODES (via the node adjacency), keep the
+        # 3 dofs of each node contiguous
+        adj = sps.coo_matrix(
+            (np.ones(2 * len(i)), (np.concatenate([i, j]),
+                                   np.concatenate([j, i]))),
+            shape=(n_pts, n_pts),
+        ).tocsr()
+        p_node = reverse_cuthill_mckee(adj, symmetric_mode=True)
+        p = (3 * np.asarray(p_node)[:, None] + a3[None, :]).ravel()
+        a = a[p][:, p].tocsr()
+    a.sort_indices()
+    return CSR.from_scipy(a).with_block_size(3)
+
+
+def elasticity_3d(nx: int, ny: int = None, nz: int = None, nu: float = 0.3) -> CSR:
+    """3-D linear elasticity on a structured hex grid (trilinear elements),
+    Dirichlet on the full boundary; 3 dofs per node, ``block_size = 3``
+    (the reference's vector-dof use case, core.rs:22-36)."""
+    ny = ny or nx
+    nz = nz or nx
+    e_mod, rho = 1.0, nu
+    lam = e_mod * rho / ((1 + rho) * (1 - 2 * rho))
+    mu = e_mod / (2 * (1 + rho))
+
+    # trilinear hex element stiffness via 2-point Gauss quadrature
+    gp = np.array([-1.0, 1.0]) / np.sqrt(3.0)
+    corners = [
+        (a, b, c) for c in (0, 1) for b in (0, 1) for a in (0, 1)
+    ]
+    ke = np.zeros((24, 24))
+    C = np.zeros((6, 6))
+    C[:3, :3] = lam
+    C[np.arange(3), np.arange(3)] += 2 * mu
+    C[3:, 3:] = np.eye(3) * mu
+    for gx in gp:
+        for gy in gp:
+            for gz in gp:
+                dn = []
+                for (a, b, c) in corners:
+                    sa, sb, sc = 2 * a - 1, 2 * b - 1, 2 * c - 1
+                    dn.append(
+                        [
+                            0.125 * sa * (1 + sb * gy) * (1 + sc * gz) * 2,
+                            0.125 * sb * (1 + sa * gx) * (1 + sc * gz) * 2,
+                            0.125 * sc * (1 + sa * gx) * (1 + sb * gy) * 2,
+                        ]
+                    )
+                dn = np.array(dn)  # (8, 3)
+                B = np.zeros((6, 24))
+                for i in range(8):
+                    bx, by, bz = dn[i]
+                    B[0, 3 * i] = bx
+                    B[1, 3 * i + 1] = by
+                    B[2, 3 * i + 2] = bz
+                    B[3, 3 * i] = by
+                    B[3, 3 * i + 1] = bx
+                    B[4, 3 * i + 1] = bz
+                    B[4, 3 * i + 2] = by
+                    B[5, 3 * i] = bz
+                    B[5, 3 * i + 2] = bx
+                ke += 0.125 * B.T @ C @ B
+
+    node_idx = -np.ones((nx + 2, ny + 2, nz + 2), dtype=np.int64)
+    node_idx[1:-1, 1:-1, 1:-1] = np.arange(nx * ny * nz).reshape(nx, ny, nz)
+    rows, cols, vals = [], [], []
+    ex, ey, ez = np.meshgrid(
+        np.arange(nx + 1), np.arange(ny + 1), np.arange(nz + 1), indexing="ij"
+    )
+    ex, ey, ez = ex.ravel(), ey.ravel(), ez.ravel()
+    corner_nodes = [
+        node_idx[ex + a, ey + b, ez + c] for (a, b, c) in corners
+    ]
+    for a in range(8):
+        for b in range(8):
+            ia, ib = corner_nodes[a], corner_nodes[b]
+            ok = (ia >= 0) & (ib >= 0)
+            ia, ib = ia[ok], ib[ok]
+            for da in range(3):
+                for db in range(3):
+                    rows.append(3 * ia + da)
+                    cols.append(3 * ib + db)
+                    vals.append(
+                        np.full(len(ia), ke[3 * a + da, 3 * b + db])
+                    )
+    n = 3 * nx * ny * nz
+    return CSR.from_coo(
+        np.concatenate(rows),
+        np.concatenate(cols),
+        np.concatenate(vals),
+        (n, n),
+        block_size=3,
+    ).eliminate_zeros(1e-14)
 
 
 def geometric_interpolation_1d(n_coarse: int) -> CSR:
