@@ -111,9 +111,13 @@ Phases, one printed line per result; any failed check exits non-zero:
      directory, and the adaptive composite (--composite 2) on
      aniso2d(128) with random coefficients, its peel tables printed, and
      the structured elasticity (--problem elasticity3d --n 20, block
-     size 3, 24,000 dofs); every final line parsed and checked, K1 (and
-     K3 on the structured run) launched in each run, K1, K2 and K3 over
-     the five; python -m tpu_amg_torch.tools.profile_setup --side 128
+     size 3, 24,000 dofs), classical AMG (--interpolation classical
+     --problem poisson2d --n 64 --smoother chebyshev: the auto W-cycle;
+     --classical-opts tau=1.3,max=2 on aniso2d(16) with --coarsest-dim
+     100, MEASURED.md:582's options on two levels); every final line
+     parsed and checked, K1 (and K3 on the structured run) launched in
+     each run, K1, K2 and K3 over the seven; python -m
+     tpu_amg_torch.tools.profile_setup --side 128
      --top 15 (cProfile over a float32 setup with the float32 bootstrap:
      its top entries by own time, its phases, K1 at (f32, f32)); then the
      block smoother on the fixture's hierarchy, card against CPU;
@@ -185,10 +189,31 @@ Phases, one printed line per result; any failed check exits non-zero:
      elasticity the float32 bootstrap costs 0-5 iterations: printed, see
      BOOTSTRAP_EXTRA), the adaptive composite's PCG to 1e-12 within 1.1 x
      the float64 count, ||E||_A; the three kernels at those shapes in
-     float32 against their plain versions (phases 3, 16, 14).
-The setups of phases 16 and 17 (the float64 elasticity one and the
-three float32-bootstrap ones) run in two worker processes started after
-phase 2, beside phases 3-15: host setup is single-threaded and takes
+     float32 against their plain versions (phases 3, 16, 14);
+ 18. classical AMG: poisson2d(CLASSICAL_SIDE) (320: 102,400 dofs) with
+     the CLI's defaults and --smoother chebyshev, float64, the config
+     built by the CLI's own parser and builders (tools.amg: parse_args,
+     configs, solver_config, build_hierarchy): its setup in a worker
+     process (below), its phases, each CR round's reduction and C count,
+     the hierarchy's seconds by step (CR is host work in both packages);
+     the checkpoint loaded here (the auto W-cycle, mu = 2), the level
+     table, W-cycle PCG of A x = A x_true to rtol 1e-8 eager and
+     compiled (bitwise equal, at most 30 iterations, twice the JAX
+     package's 15; true residual <= 1.01 rtol), ||E||_A beside the JAX
+     package's 0.696, launches by (rows, cols, k) (K1 and K3 > 0; K2
+     where a row passes K1's cap), the W-cycle's times; the two-level
+     multigrid of levels 0-1, whose "cholesky" coarse solve is banded
+     past the dense cap (n, b, s, nb, bytes, the factor's seconds; the
+     apply at k = 1 and 8 within 1e-10 of scipy's sparse LU; its device
+     us against its HBM bound, both stacks read by each sweep; PCG eager and compiled bitwise equal, no
+     more iterations than the W-cycle); the checkpoint saved and loaded
+     (mu = 2, the W-cycle bitwise equal); K1 (and K2) and K3 (the
+     fine A) against their plain versions at every (matrix, k) the path
+     launched them on.
+The setups of phases 16-18 (the float64 elasticity one, the three
+float32-bootstrap ones and the classical one, first) run in two worker
+processes started after phase 2, beside phases 3-15: host setup is
+single-threaded and takes
 minutes, and the whole run must stay well inside its time limit.  Each
 worker sets its counts to 0 before its setup, reads them after it and
 returns them; the workers are stopped when the script ends.
@@ -196,7 +221,8 @@ Then every row timed with its bytes in the L2 cache is bound by the L2
 read rate of phase 11, and K1's and K2's launches x (time - bound) are
 printed for the SA and structured paths.  Every count is set to 0 just
 before each path (4, 6, 7, 10, 11, 12, each CLI run, the adaptive
-setup, its solves, each mode of phase 15) and read just after it,
+setup, its solves, each mode of phase 15, phase 18's W-cycle and
+two-level runs) and read just after it,
 before the comparison launches.  The last two lines are a JSON object of
 per-kernel results (with each kernel's bound and the library call's
 time; phase 15 adds one entry a mixed kernel and pair) and the device
@@ -211,6 +237,8 @@ import collections
 import concurrent.futures
 import dataclasses
 import json
+import logging
+import os
 import subprocess
 import sys
 import tempfile
@@ -269,10 +297,26 @@ JAX_ITERS = {"SA": 23, "elasticity": 33}  # the JAX package's PCG counts
 # Elasticity is held to twice the JAX package's count, printed beside
 BOOTSTRAP_EXTRA = {"SA": 2, "elasticity": None}
 ADAPTIVE_F32_RATIO = 1.1  # the adaptive composite: at most 1.1 x
-SETUP_WORKERS = 2  # processes running phases 16-17's setups
+SETUP_WORKERS = 2  # processes running phases 16-18's setups
+# the workers' BLAS, OpenMP and torch thread pools, set at their spawn:
+# with 8 threads each beside the main process's own host setups (phases
+# 4, 13, 14, the critical path) the script ran 1,157 s on the H100
+# machine's 8-core host, 935 s with 2 (PERF.md)
+WORKER_THREADS = 2
+THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
 JOB_WAIT = 900  # seconds phase 16 or 17 waits for a setup, at most
 CLI_ELASTICITY_N = 20  # the CLI's elasticity3d run: 24,000 dofs
 PROFILE_SIDE = 128  # tools.profile_setup's run: 16,384 dofs
+# phase 18: classical AMG on poisson2d(320), 102,400 dofs, with the CLI's
+# defaults and --smoother chebyshev (MEASURED.md:428-429, :462-468): the
+# JAX package's auto W-cycle took 15 PCG iterations to 1e-8 there, with
+# ||E||_A 0.696 and op complexity 2.50; the limit is twice that count
+CLASSICAL_SIDE = 320
+CLASSICAL_TOL = 1e-8
+MAX_ITERS_CLASSICAL = 30
+JAX_CLASSICAL = dict(iters=15, e_norm=0.696, op_complexity=2.50)
+BANDED_TOL = 1e-10  # the banded apply against scipy's sparse LU solve
+CLI_CLASSICAL_N = 64  # the CLI's classical run: poisson2d(64), 4,096 dofs
 
 
 def say(msg: str) -> None:
@@ -958,8 +1002,10 @@ def cli_phase():
     """Phase 13: the CLI (python -m tpu_amg_torch.tools.amg) on the card:
     the structured poisson3d(100), the SA default aniso2d, the MFEM
     fixture that the port's fixture writer makes in a temporary
-    directory, and the adaptive composite (--composite 2) on aniso2d(128)
-    with random coefficients, whose peel tables it prints; each final
+    directory, the adaptive composite (--composite 2) on aniso2d(128)
+    with random coefficients, whose peel tables it prints, elasticity3d,
+    and classical AMG (--interpolation classical on poisson2d(64), and
+    with --classical-opts on aniso2d(16)); each final
     line parsed and checked, the launch counts read over each run.  Then
     the block smoother (the CLI's default) on the fixture's hierarchy, on
     the card against the CPU."""
@@ -996,6 +1042,15 @@ def cli_phase():
             (f"SA elasticity3d n={CLI_ELASTICITY_N} (block size 3)",
              ["--problem", "elasticity3d", "--n", str(CLI_ELASTICITY_N)],
              None),
+            # classical: the auto W-cycle; then MEASURED.md:582's
+            # options on aniso2d(16), on two levels
+            (f"classical poisson2d n={CLI_CLASSICAL_N}",
+             ["--problem", "poisson2d", "--n", str(CLI_CLASSICAL_N),
+              "--interpolation", "classical", "--smoother", "chebyshev"],
+             None),
+            ("classical aniso2d n=16 --classical-opts tau=1.3,max=2",
+             ["--interpolation", "classical", "--classical-opts",
+              "tau=1.3,max=2", "--n", "16", "--coarsest-dim", "100"], None),
         ]
         totals = collections.Counter()
         for label, argv, limit in cases:
@@ -1527,14 +1582,73 @@ def say_adaptive_excess(adaptive, results, dia_results) -> None:
 
 # ---- phases 16-17: block-3 elasticity and the float32 bootstrap
 
+class KeepLog(logging.Handler):
+    """Keeps the messages of the loggers it is added to, at INFO."""
+
+    def __init__(self, *names):
+        super().__init__()
+        self.lines = []
+        for name in names:
+            logger = logging.getLogger(name)
+            logger.setLevel(logging.INFO)
+            logger.addHandler(self)
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def classical_argv(side: int) -> list:
+    """Phase 18's CLI arguments: poisson2d(side), classical, Chebyshev,
+    every other option the CLI's default (MEASURED.md:428-429)."""
+    return ["--problem", "poisson2d", "--n", str(side), "--interpolation",
+            "classical", "--smoother", "chebyshev", "--device", "cuda"]
+
+
+def classical_setup(side: int, ckpt: str) -> dict:
+    """Phase 18's setup, in a worker process: the CLI's own configs and
+    setup (tools.amg.configs and build_hierarchy: the near-null
+    bootstrap on the card, the host hierarchy) of poisson2d(side), its
+    launch counts set to 0 just before it and read just after it, the
+    classical module's and the hierarchy's log lines (each CR round's
+    reduction and C count, each level's seconds by step), and the
+    hierarchy saved to ``ckpt``."""
+    import torch
+
+    from tpu_amg_torch.tools import amg, bootstrap_study
+    from tpu_amg_torch.utils import checkpoint
+
+    args = amg.parse_args(classical_argv(side))
+    a, _ = amg.load_problem(args)
+    hier_cfg, _ = amg.configs(args)
+    log = KeepLog("tpu_amg_torch.interpolation.classical",
+                  "tpu_amg_torch.hierarchy")
+    torch.cuda.synchronize()
+    bootstrap_study.reset_launch_counts()
+    t0 = time.perf_counter()
+    h, seconds = amg.build_hierarchy(
+        a, args, hier_cfg, torch.Generator().manual_seed(args.seed))
+    torch.cuda.synchronize()
+    out = dict(side=side, setup_s=time.perf_counter() - t0, seconds=seconds,
+               counts=bootstrap_study.launch_tables(), log=log.lines,
+               rows=[m.nrows for m in h.matrices])
+    t0 = time.perf_counter()
+    checkpoint.save_hierarchy(ckpt, h)
+    out["save_s"] = time.perf_counter() - t0
+    return out
+
+
 def start_setup_jobs(elasticity_side: int, sa_side: int, ckpt: str,
+                     classical_ckpt: str,
                      adaptive_side: int = ADAPTIVE_N):
-    """The four setups phases 16 and 17 read, on two worker processes
-    beside the main one (host setup is single-threaded; the card is
-    shared), as tools.bootstrap_study runs them: the float64 elasticity
-    setup (its checkpoint for phase 16) first, then the float32-bootstrap
-    setups of the SA, elasticity and adaptive problems, each with its
-    solves.  Returns (pool, {name: AsyncResult})."""
+    """The five setups phases 16-18 read, on two worker processes beside
+    the main one (host setup is single-threaded; the card is shared):
+    phase 18's classical setup first (:func:`classical_setup`), then, as
+    tools.bootstrap_study runs them, the float64 elasticity setup (its
+    checkpoint for phase 16) and the float32-bootstrap setups of the SA,
+    elasticity and adaptive problems, each with its solves.  Returns
+    (pool, {name: AsyncResult})."""
+    import multiprocessing
+
     from tpu_amg_torch.tools import bootstrap_study
 
     jobs = {
@@ -1547,7 +1661,21 @@ def start_setup_jobs(elasticity_side: int, sa_side: int, ckpt: str,
         "adaptive f32": dict(kind="adaptive", side=adaptive_side,
                              bootstrap="float32"),
     }
-    return bootstrap_study.start_jobs(jobs, SETUP_WORKERS)
+    saved = {var: os.environ.get(var) for var in THREAD_VARS}
+    os.environ.update({var: str(WORKER_THREADS) for var in THREAD_VARS})
+    try:  # the workers start here, reading these variables
+        pool = multiprocessing.get_context("spawn").Pool(SETUP_WORKERS)
+    finally:
+        for var, value in saved.items():
+            if value is None:
+                os.environ.pop(var)
+            else:
+                os.environ[var] = value
+    results = {"classical": pool.apply_async(
+        classical_setup, (CLASSICAL_SIDE, classical_ckpt))}
+    results.update({name: pool.apply_async(bootstrap_study.setup_job, (job,))
+                    for name, job in jobs.items()})
+    return pool, results
 
 
 def setup_line(label: str, res: dict) -> str:
@@ -1816,6 +1944,335 @@ def slice11_entries(elasticity: dict, boot: dict) -> list:
              case="adaptive fine A, k=63", route="cuda", bound_by="bytes",
              source="tpu_amg_torch/csrc/dia.cu"),
     ]
+
+
+# ---- phase 18: classical AMG and the banded coarse solve
+
+def classical_step_seconds(log: list) -> dict:
+    """The classical hierarchy's seconds by step, summed over its
+    levels, from the classical module's log lines."""
+    sums = collections.Counter()
+    for line in log:
+        if line.startswith("classical smoother partition: "):
+            sums["smoother partition"] += float(line.rsplit(" ", 1)[1][:-1])
+        elif line.startswith("classical level n="):
+            for part in line.split("; ", 1)[1].split(", "):
+                step, secs = part.rsplit(" ", 1)
+                sums[step] += float(secs[:-1])
+    return dict(sums)
+
+
+def path_matrices(mg, h) -> dict:
+    """name -> (host CSR, the float64 CappedCSR the multigrid runs, or
+    None where it runs none) for every A, P and R of ``h``."""
+    from tpu_amg_torch.ops import spmv
+
+    out = {}
+    for letter, host in (("A", h.matrices), ("P", h.interpolations),
+                         ("R", h.restrictions)):
+        for lvl, csr in enumerate(host):
+            op = (getattr(mg.levels[lvl], letter.lower())
+                  if lvl < len(mg.levels) else None)
+            mat = getattr(op, "mat", None)
+            out[f"{letter}{lvl}"] = (
+                csr, mat if isinstance(mat, spmv.CappedCSR) else None)
+    return out
+
+
+def classical_phase(setup: dict, ckpt: str, reps: int, results,
+                    dia_results) -> dict:
+    """Phase 18: classical AMG on poisson2d(side) (102,400 dofs at 320)
+    with the CLI's own configs (tools.amg: parse_args, configs,
+    solver_config) and --smoother chebyshev: the setup of a worker
+    process (its phases, each CR round, its launches), its checkpoint
+    loaded here (AMGSolver.load: the auto W-cycle, μ = 2), the level
+    table, W-cycle PCG to 1e-8 eager and compiled (bitwise equal, at most
+    30 iterations, twice the JAX package's 15), ||E||_A, the launches by
+    (rows, cols, k) and the W-cycle's times; then the two-level multigrid
+    of levels 0-1, whose coarse solve goes banded past the dense cap:
+    the factor's n, b, s, nb and bytes, its apply against scipy's sparse
+    LU at k = 1 and 8 and timed against its bound, PCG (no more
+    iterations than the W-cycle, eager and compiled bitwise equal); the
+    checkpoint round trip; K1 (and K2 where a row passes K1's cap) and
+    K3 (the fine A, DIA) against the plain versions at every (matrix, k)
+    the path launched."""
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from tpu_amg_torch.ops import spmv
+    from tpu_amg_torch.preconditioners.coarse import (
+        DENSE_COARSE_CAP,
+        BandedCholeskySolver,
+    )
+    from tpu_amg_torch.solver import AMGSolver
+    from tpu_amg_torch.sparse.dia import DIA
+    from tpu_amg_torch.tools import amg
+    from tpu_amg_torch.tools.solve3d import level_table
+    from tpu_amg_torch.utils.testing import approx_convergence_factor
+    from tpu_amg_torch.utils.timing import hbm_bound_ms, median_ms
+
+    side = setup["side"]
+    args = amg.parse_args(classical_argv(side))
+    a, _ = amg.load_problem(args)
+    cfg = amg.solver_config(args)
+    dev = torch.device("cuda")
+    say(f"problem: poisson2d({side}): n={a.nrows} nnz={a.nnz}; the CLI's "
+        f"arguments: {' '.join(classical_argv(side))}")
+    sec = setup["seconds"]
+    say(f"classical setup: {setup['setup_s']:.1f} s in a worker process "
+        f"(near_null {sec['near_null']:.1f} s on the card and host, "
+        f"hierarchy {sec['hierarchy']:.1f} s); checkpoint saved in "
+        f"{setup['save_s']:.1f} s; rows "
+        + " / ".join(map(str, setup["rows"])))
+    for line in setup["log"]:
+        say("  " + line)
+    steps = classical_step_seconds(setup["log"])
+    rest = sec["hierarchy"] - sum(steps.values())
+    say("classical hierarchy by step over its levels, s (share of the "
+        "hierarchy's): " + ", ".join(
+            f"{k} {v:.1f} ({v / sec['hierarchy']:.0%})"
+            for k, v in steps.items())
+        + f"; the rest (the coarse near-null post-process, weights) "
+        f"{rest:.1f}")
+    say_launch_tables("classical setup", setup["counts"])
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    solver = AMGSolver.load(ckpt, a, cfg)
+    torch.cuda.synchronize()
+    h, mg = solver.hierarchy, solver.preconditioner
+    say(f"classical checkpoint loaded, multigrid built: "
+        f"{time.perf_counter() - t0:.1f} s; {h.num_levels} levels, mu "
+        f"{mg.mu}, op complexity {h.op_complexity():.3f} (the JAX "
+        f"package's {JAX_CLASSICAL['op_complexity']:.2f}), grid complexity "
+        f"{h.grid_complexity():.3f}")
+    for line in level_table(mg, h):
+        say("  " + line)
+    check(mg.mu == 2 and set(h.partition_kinds) == {"classical"}
+          and h.num_levels >= 3 and isinstance(solver.op.mat, DIA),
+          f"classical hierarchy: kinds {sorted(set(h.partition_kinds))}, "
+          f"auto mu {mg.mu} (a W-cycle), {h.num_levels} levels; the fine "
+          f"A is {type(solver.op.mat).__name__} (K3)")
+    x_true = np.random.default_rng(100).standard_normal(a.nrows)
+    b = solver.op.mv(torch.from_numpy(x_true).to(dev))
+
+    def true_residual(s, x):
+        return float(torch.linalg.vector_norm(b - s.op.mv(x))
+                     / torch.linalg.vector_norm(b))
+
+    pair = eager_and_compiled(solver, b, "cg", CLASSICAL_TOL, 200)
+    x, info, _ = pair[1]
+    w_iters, rel = info.iters, true_residual(solver, x)
+    check(info.converged and w_iters <= MAX_ITERS_CLASSICAL
+          and np.isfinite(rel) and rel <= 1.01 * CLASSICAL_TOL
+          and tuple(x.shape) == (a.nrows,),
+          f"classical W-cycle PCG to {CLASSICAL_TOL:.0e}: {w_iters} "
+          f"iterations (limit {MAX_ITERS_CLASSICAL}; the JAX package's "
+          f"{JAX_CLASSICAL['iters']}), true relative residual {rel:.3e} "
+          f"(limit {1.01 * CLASSICAL_TOL:.3e})")
+    check_same_solve("classical W-cycle PCG", pair, first=True)
+    w_solve_s = (pair[0][2], pair[1][2])
+    del pair, x
+    t0 = time.perf_counter()
+    e_norm = approx_convergence_factor(solver.op, mg)
+    check(0.0 < e_norm < 1.0,
+          f"classical ||E||_A (100 power steps x 5 vectors): {e_norm:.6f} "
+          f"(limit (0, 1); the JAX package's {JAX_CLASSICAL['e_norm']}); "
+          f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    counts = shape_counts()
+    say_shape_counts("classical path (load, PCG eager and compiled, "
+                     "||E||_A)", counts)
+    mats = path_matrices(mg, h)
+    ran = {n: m for n, (_, m) in mats.items() if m is not None}
+    n_tail = sum(m.n_tail for m in ran.values())
+    longest = {n: int(np.diff(csr.indptr).max()) for n, (csr, _) in
+               mats.items()}
+    totals = {k: sum(v.values()) for k, v in counts.items()}
+    check(totals["K1"] > 0 and totals["K3"] > 0
+          and (totals["K2"] > 0) == (n_tail > 0),
+          f"classical path: K1 {totals['K1']}, K3 {totals['K3']} launches; "
+          f"K2 {totals['K2']}, for {n_tail} tail entries past K1's cap of "
+          f"{spmv.DEFAULT_CAP} over the CSR matrices the cycle runs "
+          f"(longest rows: " + ", ".join(f"{k} {v}" for k, v in
+                                         longest.items()) + ")")
+    r = torch.from_numpy(
+        np.random.default_rng(7).standard_normal(a.nrows)).to(dev)
+    t_vc = median_ms(lambda: solver.apply_preconditioner(r), 20)
+    t_vc_dev = median_ms(lambda: solver.apply_preconditioner(r), 20,
+                         graph=True)
+    say(f"classical W-cycle: {t_vc:.3f} ms as the solve runs it (enqueued "
+        f"from Python), {t_vc_dev:.3f} ms on the device (CUDA graph "
+        f"replay); PCG eager {w_solve_s[0]:.4f} s, compiled "
+        f"{w_solve_s[1]:.4f} s (its capture included)")
+
+    # the two-level multigrid of levels 0-1: "cholesky" goes banded
+    h2 = h.truncated(2)
+    coarse = h2.matrices[1]
+    log = KeepLog("tpu_amg_torch.preconditioners.coarse")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    mg2 = AMGSolver._mg_config(cfg).build(h2)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    logging.getLogger("tpu_amg_torch.preconditioners.coarse").removeHandler(
+        log)
+    banded = mg2.coarse_solver
+    kind = AMGSolver._mg_config(cfg).coarse_solver
+    check(isinstance(banded, BandedCholeskySolver) and mg2.mu == 2
+          and coarse.nrows > DENSE_COARSE_CAP,
+          f"two-level multigrid of levels 0-1 ({h2.matrices[0].nrows} / "
+          f"{coarse.nrows} rows, past the dense cap of {DENSE_COARSE_CAP}) "
+          f"built in {t_build:.1f} s: its coarse solve {kind!r} is "
+          f"{type(banded).__name__}; mu {mg2.mu}")
+    nb, s_blk, _ = banded.inv_l_diag.shape
+    say(f"banded Cholesky: n={banded.n} b={banded.bandwidth} s={s_blk} "
+        f"nb={nb}; device bytes {banded.device_bytes() / 1e6:.1f} MB "
+        f"(inv_l_diag and sub, float64); " + "; ".join(log.lines))
+    lu = spla.splu(coarse.to_scipy().tocsc())
+    rng = np.random.default_rng(11)
+    errs = {}
+    for k in (1, 8):
+        xk = rng.standard_normal((coarse.nrows,) if k == 1
+                                 else (coarse.nrows, k))
+        want = lu.solve(xk)
+        got = banded(torch.from_numpy(xk).to(dev)).cpu().numpy()
+        errs[k] = float(np.abs(got - want).max() / np.abs(want).max())
+    xb = torch.from_numpy(rng.standard_normal(coarse.nrows)).to(dev)
+    band_us = median_ms(lambda: banded.mv(xb), 10, graph=True) * 1e3
+    band_eager_us = median_ms(lambda: banded.mv(xb), 10) * 1e3
+    # each of the two sweeps reads both stacks, far past L2
+    band_bytes = 2 * banded.device_bytes()
+    band_bound_us = hbm_bound_ms(band_bytes) * 1e3
+    check(max(errs.values()) <= BANDED_TOL,
+          f"banded apply against scipy's sparse LU solve: max rel err k=1 "
+          f"{errs[1]:.3e}, k=8 {errs[8]:.3e} (limit {BANDED_TOL:.0e}); "
+          f"{band_us:.2f} us on the device (CUDA graph of 10 applies, "
+          f"median of 5), {band_eager_us:.2f} us enqueued; bound "
+          f"{band_bound_us:.2f} us ({band_bytes} bytes: both stacks read "
+          f"by each of the two sweeps, over the HBM data sheet's rate)")
+    solver2 = AMGSolver(a, mg2, hierarchy=h2, config=cfg)
+    pair = eager_and_compiled(solver2, b, "cg", CLASSICAL_TOL, 200)
+    x, info2, _ = pair[1]
+    rel = true_residual(solver2, x)
+    check(info2.converged and info2.iters <= w_iters
+          and rel <= 1.01 * CLASSICAL_TOL,
+          f"two-level PCG (banded coarse solve) to {CLASSICAL_TOL:.0e}: "
+          f"{info2.iters} iterations (limit: the W-cycle's {w_iters}), "
+          f"true relative residual {rel:.3e}")
+    check_same_solve("two-level PCG", pair, first=True)
+    del pair, x
+    torch.cuda.synchronize()
+    counts2 = shape_counts()
+    say_shape_counts("two-level path (build, PCG eager and compiled)",
+                     counts2)
+    t2_vc = median_ms(lambda: solver2.apply_preconditioner(r), 5,
+                      graph=True)
+    say(f"two-level cycle: {t2_vc:.3f} ms on the device (CUDA graph "
+        f"replay), two banded applies in it (mu 2)")
+
+    # the checkpoint: save, load, the same W-cycle bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        solver.save(Path(tmp) / "classical.npz")
+        loaded = AMGSolver.load(Path(tmp) / "classical.npz", a, cfg)
+    same = torch.equal(loaded.apply_preconditioner(r),
+                       solver.apply_preconditioner(r))
+    check(loaded.preconditioner.mu == 2 and same,
+          f"classical checkpoint: the loaded multigrid has mu "
+          f"{loaded.preconditioner.mu}; its W-cycle bitwise equal to the "
+          f"original's on a seeded vector: {same}")
+    del loaded
+
+    # K1 (+ K2 where a tail exists) and K3 at every (matrix, k) of the path
+    by_shape = {kernel: collections.Counter(setup["counts"][kernel]["by_shape"])
+                + counts[kernel] + counts2[kernel]
+                for kernel in ("K1", "K2", "K3")}
+    ks = {}
+    for kernel in ("K1", "K2"):
+        for rows, cols, k in by_shape[kernel]:
+            ks.setdefault((rows, cols), set()).add(k)
+    names = {csr.shape: (n, csr, m) for n, (csr, m) in mats.items()}
+    cases = set()
+    for shape, kset in sorted(ks.items()):
+        name, csr, mat = names[shape]
+        cases.add(f"classical {name}")
+        kernel_cases(f"classical {name}",
+                     {torch.float64: mat if mat is not None else
+                      spmv.CappedCSR.from_csr(csr, "cuda", torch.float64)},
+                     reps, results, sorted(kset))
+    check({"classical A1", "classical P0", "classical R0"} <= cases,
+          "sparse matrices of the classical path timed: "
+          + ", ".join(sorted(cases)))
+    # K3 runs only the fine A (DIA, 5 diagonals)
+    dia_ks = {k for _, _, k in by_shape["K3"]}
+    check(all((rows, cols) == a.shape for rows, cols, _ in by_shape["K3"]),
+          f"classical path: K3 ran only on the fine A ({a.nrows} rows): "
+          f"{sorted(by_shape['K3'])}")
+    dia_kernel_cases("classical A0", solver.op.mat, a, reps, dia_results,
+                     sorted(dia_ks))
+    return dict(solver=solver, cases=cases, by_shape=by_shape,
+                iters=w_iters, two_level_iters=info2.iters, e_norm=e_norm,
+                results=[c for c in results if c["case"] in cases],
+                dia_results=[c for c in dia_results
+                             if c["case"] == "classical A0"])
+
+
+def classical_entries(classical: dict) -> list:
+    """The kernels line's entries of phase 18: K1 on the classical path
+    (its worker's setup, the W-cycle and two-level runs), the first
+    coarse level's A at k = 1 as the headline and every (matrix, k) it
+    ran at in ``shapes`` (time, plain, bound, library, launches); K2 the
+    same where the path has a tail; K3 on the fine A, k = 1 the
+    headline."""
+    cases = classical["results"]
+    out = []
+    for kernel, key, name, replaces in (
+            ("K1", "k1", "csr_spmv_capped_classical",
+             "tpu_amg/ops/well_pallas.py:77"),
+            ("K2", "k2", "coo_patch_classical",
+             "tpu_amg/ops/well_pallas.py:457")):
+        launched = classical["by_shape"][kernel]
+        rows = [c for c in cases if (*c["shape"], c["k"]) in launched]
+        if not rows:
+            continue
+        head = next((c for c in rows if c["case"] == "classical A1"
+                     and c["k"] == 1), rows[0])
+        out.append(dict(
+            name=name, route="cuda", source="tpu_amg_torch/csrc/spmv.cu",
+            replaces=replaces, launches=sum(launched.values()),
+            max_abs_err=max(c[f"err{key[1]}"] for c in rows),
+            ms=head[f"{key}_ms"], plain_ms=head[f"{key}_plain_ms"],
+            bound_ms=head[f"{key}_bound_ms"], bound_by="bytes",
+            library_ms=head[f"{key}_lib_ms"], case=head["case"],
+            rows=head["shape"][0],
+            shapes=[dict(case=c["case"], rows=c["shape"][0],
+                         cols=c["shape"][1], k=c["k"],
+                         launches=launched[(*c["shape"], c["k"])],
+                         max_abs_err=c[f"err{key[1]}"], ms=c[f"{key}_ms"],
+                         plain_ms=c[f"{key}_plain_ms"],
+                         bound_ms=c[f"{key}_bound_ms"],
+                         library_ms=c[f"{key}_lib_ms"]) for c in rows]))
+    # K3 on the fine A, float64 as the path runs it
+    launched = classical["by_shape"]["K3"]
+    rows = [c for c in classical["dia_results"] if c["dtype"] == "float64"]
+    head = next(c for c in rows if c["k"] == 1)
+    out.append(dict(
+        name="dia_spmv_classical", route="cuda",
+        source="tpu_amg_torch/csrc/dia.cu",
+        replaces="tpu_amg/ops/dia_pallas.py:34",
+        launches=sum(launched.values()),
+        max_abs_err=max(c["err"] for c in rows),
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by="bytes", library_ms=head["lib_ms"], case=head["case"],
+        rows=head["n"], diagonals=head["diagonals"],
+        shapes=[dict(case=c["case"], rows=c["n"], cols=c["n"], k=c["k"],
+                     launches=launched[(c["n"], c["n"], c["k"])],
+                     max_abs_err=c["err"], ms=c["ms"],
+                     plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+                     library_ms=c["lib_ms"]) for c in rows]))
+    return out
 
 
 # (value, vector) dtype names of the mixed pairs phase 15 runs
@@ -2332,9 +2789,10 @@ def precision_entries(precision) -> list:
     return entries
 
 
-def drive(args, jobs) -> list:
-    """Phases 3-17 (the setups of phases 16 and 17 running in ``jobs``);
-    returns the kernels line's entries."""
+def drive(args, jobs, jobs_ckpt) -> list:
+    """Phases 3-18 (the setups of phases 16-18 running in ``jobs``, the
+    checkpoints they write in ``jobs_ckpt``); returns the kernels line's
+    entries."""
     import torch
 
     from tpu_amg_torch.linop import SparseOperator
@@ -2752,6 +3210,14 @@ def drive(args, jobs) -> list:
     }
     boot = bootstrap_phase(f32, refs, results, dia_results)
 
+    # ---- 18. classical AMG, from the setup of a worker
+    t0 = time.perf_counter()
+    c_setup = jobs["classical"].get(timeout=JOB_WAIT)
+    say(f"phase 18: the classical setup's worker done "
+        f"{time.perf_counter() - t0:.1f} s after phase 17")
+    classical = classical_phase(c_setup, jobs_ckpt["classical"], args.reps,
+                                results, dia_results)
+
     # the rows timed in L2 (bytes that fit in the card's L2, 50 calls
     # back to back) bound by this run's L2 read rate, without a call's
     # fixed cost (phase 11), in place of the HBM data sheet's rate
@@ -2853,6 +3319,7 @@ def drive(args, jobs) -> list:
         stages_entry, dma_entry, primitives_entry,
         *precision_entries(precision),
         *slice11_entries(elasticity, boot),
+        *classical_entries(classical),
     ]
     return kernels
 
@@ -2917,12 +3384,14 @@ def main() -> int:
     say("build: " + "; ".join(f"{k} {v:.1f} s" for k, v in build_s.items())
         + f"; {time.perf_counter() - t0:.1f} s in all, side by side")
 
-    # the setups of phases 16 and 17 start now, beside phases 3-15
+    # the setups of phases 16-18 start now, beside phases 3-15
     with tempfile.TemporaryDirectory() as tmp:
+        ckpts = {"classical": str(Path(tmp) / "classical.npz")}
         pool, jobs = start_setup_jobs(args.elasticity_side, args.side,
-                                      str(Path(tmp) / "elasticity.npz"))
+                                      str(Path(tmp) / "elasticity.npz"),
+                                      ckpts["classical"])
         try:
-            kernels = drive(args, jobs)
+            kernels = drive(args, jobs, ckpts)
         finally:
             pool.terminate()
             pool.join()

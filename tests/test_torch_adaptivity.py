@@ -184,6 +184,7 @@ def _adaptive_kwargs(jax_side: bool, max_components: int):
         dev = {}
     else:
         part, interp = PartitionerConfig, InterpolationConfig(
+            kind="aggregation",
             aggregation=AggregationConfig(
                 candidate_dimension=2,
                 partitioner_config=PartitionerConfig(

@@ -118,11 +118,10 @@ def _hierarchy_kwargs(jax_side: bool):
         (PartitionerConfig, InterpolationConfig, AggregationConfig,
          HierarchyConfig))
     extra = {} if jax_side else {"device": "cpu"}
-    kind = {"kind": "aggregation"} if jax_side else {}
     return hier(
         coarsest_dim=60,
         interpolation_config=interp(
-            **kind,
+            kind="aggregation",
             aggregation=agg(
                 candidate_dimension=6,
                 partitioner_config=part(coarsening_factor=4.0,

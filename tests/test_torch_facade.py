@@ -291,6 +291,7 @@ def _small_hierarchy():
     return HierarchyConfig(
         coarsest_dim=8, max_levels=2, device="cpu",
         interpolation_config=InterpolationConfig(
+            kind="aggregation",
             aggregation=AggregationConfig(
                 candidate_dimension=1,
                 partitioner_config=PartitionerConfig(
@@ -434,9 +435,33 @@ def test_adaptive_load_keeps_the_apply_bitwise(adaptive_solvers, tmp_path):
 
 
 @pytest.mark.parametrize("method,error,match", [
-    ("classical", NotImplementedError, "M18"),
     ("smoothed", ValueError, "unknown method"),
 ])
 def test_unported_methods_raise(method, error, match):
     with pytest.raises(error, match=match):
         SolverConfig(method=method, device="cpu")
+
+
+def test_classical_method_sets_up_and_solves(tmp_path):
+    """method="classical": the CR+LS hierarchy, a W-cycle, PCG to 1e-8,
+    and the checkpoint's W-cycle after load (tests/test_torch_classical.py
+    holds it against the JAX package)."""
+    a = poisson2d(24)
+    cfg = SolverConfig(device="cpu", method="classical",
+                       coarsening_near_null_dim=4, smoothing_iters=5,
+                       coarsest_dim=40, dense_threshold=64)
+    solver = AMGSolver.setup(a, cfg)
+    h = solver.hierarchy
+    assert h.num_levels >= 3 and set(h.partition_kinds) == {"classical"}
+    assert solver.preconditioner.mu == 2
+    b = np.random.default_rng(2).standard_normal(a.nrows)
+    x, info = solver.solve(b, rtol=1e-8)
+    assert info.converged and info.iters <= 20
+    assert (np.linalg.norm(b - a.matvec(x.numpy()))
+            <= 1e-8 * np.linalg.norm(b))
+    solver.save(tmp_path / "c.npz")
+    again = AMGSolver.load(tmp_path / "c.npz", a, cfg)
+    assert again.preconditioner.mu == 2
+    r = torch.from_numpy(b)
+    assert torch.equal(again.apply_preconditioner(r),
+                       solver.apply_preconditioner(r))

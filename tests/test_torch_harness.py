@@ -255,13 +255,58 @@ def test_amg_cli_matches_jax(case, capsys):
 
 
 @pytest.mark.parametrize("option,item", [
-    (["--interpolation", "classical"], "M18"),
-    (["--classical-opts", "tau=0.5"], "M18"),
     (["--viz-out", "viz.json"], "M21"),
 ])
 def test_amg_cli_refuses_unported_options(option, item):
     with pytest.raises(SystemExit, match=item):
         amg_cli.main(["--device", "cpu", *option])
+
+
+CLASSICAL_CASES = {
+    # the README's CPU run: a W-cycle by default
+    "classical": ["--problem", "poisson2d", "--interpolation", "classical",
+                  "--n", "32", "--smoother", "chebyshev"],
+    # MEASURED.md:582's options, on two levels
+    "opts": ["--interpolation", "classical", "--classical-opts",
+             "tau=1.3,max=2", "--n", "16", "--coarsest-dim", "100"],
+    "mu": ["--interpolation", "classical", "--n", "16", "--coarsest-dim",
+           "100", "--mu", "1", "--classical-opts",
+           "search=2,depth=1,cands=8,cr_target=0.4,relax=4"],
+}
+
+
+@pytest.mark.parametrize("case", list(CLASSICAL_CASES))
+def test_amg_cli_classical(case, capsys):
+    """--interpolation classical and --classical-opts run: the final
+    line parses, PCG converges and ||E||_A is in (0, 1) on a classical
+    hierarchy of two or more levels."""
+    amg_cli.main(["--device", "cpu", "--tol", "1e-8",
+                  *CLASSICAL_CASES[case]])
+    out = capsys.readouterr()
+    cg_iters, sli_iters, a_norm, oc = _final_line(out.out)
+    assert "Hierarchy(levels=" in out.err and "cg_converged=True" in out.err
+    assert "Hierarchy(levels=1" not in out.err
+    assert 0 < cg_iters <= 30 and 0.0 < a_norm < 1.0 and oc > 1.0
+
+
+def test_amg_cli_classical_config():
+    """The classical options reach the config; --mu overrides the auto
+    choice; an unknown key exits."""
+    args = amg_cli.parse_args(["--device", "cpu", "--interpolation",
+                               "classical", "--classical-opts",
+                               "tau=1.3,max=2,cands=8,relax=4", "--mu", "1"])
+    hier_cfg, mg_cfg = amg_cli.configs(args)
+    interp = hier_cfg.interpolation_config
+    assert interp.kind == "classical" and mg_cfg.mu == 1
+    ls, cr = interp.classical.ls_options, interp.classical.cr_options
+    assert (ls.tau_threshold, ls.max_interp, ls.max_candidates,
+            cr.relax_steps) == (1.3, 2, 8, 4)
+    sa_cfg, _ = amg_cli.configs(amg_cli.parse_args(["--device", "cpu"]))
+    assert sa_cfg.interpolation_config.kind == "aggregation"
+    assert amg_cli.solver_config(args).method == "classical"
+    with pytest.raises(SystemExit, match="unknown classical opt 'bogus'"):
+        amg_cli.main(["--device", "cpu", "--n", "8", "--classical-opts",
+                      "bogus=1"])
 
 
 PRECISION_PATHS = {

@@ -57,6 +57,11 @@ SLICE_11 = ["tpu_amg_torch.utils.profiling",
             "tpu_amg_torch.tools.setup3d", "tpu_amg_torch.tools.solve3d",
             "tpu_amg_torch.tools.bench_elasticity",
             "tpu_amg_torch.tools.bootstrap_study"]
+# classical AMG and the banded coarse solve
+SLICE_12 = ["tpu_amg_torch.interpolation.classical",
+            "tpu_amg_torch.preconditioners.coarse",
+            "tpu_amg_torch.preconditioners.block_smoother",
+            "tpu_amg_torch.partition.strength"]
 
 
 def test_port_imports_no_jax():
@@ -73,6 +78,7 @@ def test_port_imports_no_jax():
     assert set(SLICE_8) <= set(out[2:])
     assert set(SLICE_10) <= set(out[2:])
     assert set(SLICE_11) <= set(out[2:])
+    assert set(SLICE_12) <= set(out[2:])
 
 
 def test_importing_builds_nothing():

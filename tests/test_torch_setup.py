@@ -124,6 +124,7 @@ def _hierarchies(name, trunc, drop):
     ).build(ref_a, nn)
     got = HierarchyConfig(
         interpolation_config=InterpolationConfig(
+            kind="aggregation",
             aggregation=AggregationConfig(
                 partitioner_config=PartitionerConfig(coarsening_factor=8.0),
                 **agg,

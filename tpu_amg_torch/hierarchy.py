@@ -165,6 +165,26 @@ class Hierarchy:
         self.near_nulls.append(coarse_nn)
         self.nn_weights.append(create_weights(coarse, coarse_nn))
 
+    def truncated(self, num_levels: int) -> "Hierarchy":
+        """Levels 0 .. num_levels − 1 of this hierarchy (shared, not
+        copied), with ``max_levels`` = num_levels: the hierarchy a setup
+        capped at that many levels builds from the same basis, since the
+        level loop makes each level from the one before alone."""
+        if not 1 <= num_levels <= self.num_levels:
+            raise ValueError(f"num_levels {num_levels} outside 1.."
+                             f"{self.num_levels}")
+        cut = num_levels - 1
+        return Hierarchy(
+            config=dataclasses.replace(self.config, max_levels=num_levels),
+            matrices=self.matrices[:num_levels],
+            restrictions=self.restrictions[:cut],
+            interpolations=self.interpolations[:cut],
+            partitions=self.partitions[:cut],
+            partition_kinds=self.partition_kinds[:cut],
+            near_nulls=self.near_nulls[:num_levels],
+            nn_weights=self.nn_weights[:num_levels],
+        )
+
     # ------------------------------------------------------------------
     @property
     def num_levels(self) -> int:

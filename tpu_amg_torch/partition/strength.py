@@ -70,6 +70,43 @@ class Graph:
         new.eliminate_zeros()
         return Graph(adj=new)
 
+    def maximal_independent_set(self, f_points: np.ndarray) -> np.ndarray:
+        """Greedy MIS by descending strength-degree over current F-points
+        (reference mod.rs:395-423, used by compatible relaxation).
+
+        Mutates ``f_points`` to all-False and returns the new C-points.
+
+        Independence is enforced over the SYMMETRIZED adjacency: the
+        θ-filter keeps each node's own top-θ list, so i may retain j
+        while j drops i.  The reference removes only out-neighbours of
+        each pick (mod.rs:414-417), which on a strongly one-sided graph
+        (e.g. a constant near-null candidate makes every affinity tie)
+        lets runs of mutually-adjacent nodes all enter the "independent"
+        set.  Removing in-neighbours too restores true independence and
+        is a no-op when the kept lists are symmetric.
+        """
+        idx = np.flatnonzero(f_points)
+        sub = self.adj[idx][:, idx]
+        degrees = np.asarray(sub.sum(axis=1)).ravel()
+        order = idx[np.argsort(-degrees, kind="stable")]
+        sym = self._sym()
+        indptr, indices = sym.indptr, sym.indices
+        new_c = []
+        for i in order:
+            if f_points[i]:
+                f_points[i] = False
+                new_c.append(i)
+                f_points[indices[indptr[i] : indptr[i + 1]]] = False
+        return np.array(new_c, dtype=np.int64)
+
+    def _sym(self) -> sps.csr_matrix:
+        """Symmetrized pattern (cached) for independence checks."""
+        cached = getattr(self, "_sym_adj", None)
+        if cached is None:
+            cached = (self.adj + self.adj.T).tocsr()
+            object.__setattr__(self, "_sym_adj", cached)
+        return cached
+
 
 def _effective_depth(
     a: CSR, max_depth: int, reach_budget: int = 800, samples: int = 32

@@ -90,6 +90,24 @@ class BlockSmoother(LinearOperator):
         partition came from a block-contracted graph, reference
         partitioners/mod.rs:294-301).
         """
+        return BlockSmoother.build_cached(a, partition, device, dtype)[0]
+
+    @staticmethod
+    def build_cached(a: CSR, partition: Partition, device=None,
+                     dtype=torch.float64, cache=None,
+                     host_only: bool = False):
+        """``build`` plus an opaque cache enabling *exact incremental*
+        rebuilds: when called again with the same partition on a
+        modified matrix (compatible relaxation re-zeroes C rows/cols
+        each round, interpolation/classical.py), only aggregates whose
+        assembled block changed are re-factorized.  Returns (smoother,
+        cache).
+
+        ``host_only=True`` places nothing on a device and returns
+        ``(None, cache)``: the cache then powers :func:`host_apply` for
+        setup-phase relaxation loops (compatible relaxation), which keep
+        Cholesky factors and solve with them (potrs) instead of forming
+        explicit inverses."""
         n = a.nrows
         if partition.num_nodes != n:
             raise ValueError(
@@ -121,6 +139,8 @@ class BlockSmoother(LinearOperator):
         fdt = np.float32 if dtype == torch.float32 else np.float64
 
         buckets = []
+        new_cache: dict = {"n_aggs": n_aggs, "by_size": {}}
+        kind = "chol" if host_only else "inv"
         for s_b in np.unique(padded):
             agg_sel = np.flatnonzero(padded == s_b)
             n_b = len(agg_sel)
@@ -172,15 +192,84 @@ class BlockSmoother(LinearOperator):
             dofs_b = np.flatnonzero(slot[node_to_agg] >= 0)
             idx[slot[node_to_agg[dofs_b]], local_rank[dofs_b]] = dofs_b
             mask[slot[node_to_agg[dofs_b]], local_rank[dofs_b]] = 1.0
-            inv = _spd_inverse(np.ascontiguousarray(blocks, fdt))
-            buckets.append(
-                BlockBucket(
-                    inv_blocks=to_device(inv, device, dtype),
-                    idx=to_device(idx, device),
-                    mask=to_device(mask, device, dtype),
+            prev = None
+            if (
+                cache is not None
+                and cache.get("n_aggs") == n_aggs
+                and int(s_b) in cache["by_size"]
+            ):
+                prev = cache["by_size"][int(s_b)]
+            if host_only:
+                factor = _spd_cholesky
+            else:
+                def factor(b, _fdt=fdt):
+                    return _spd_inverse(np.ascontiguousarray(b, _fdt))
+            if (
+                prev is not None
+                and kind in prev
+                and prev["blocks"].shape == blocks.shape
+            ):
+                # exact incremental: re-factor only changed aggregates
+                changed = np.flatnonzero(
+                    np.any(prev["blocks"] != blocks, axis=(1, 2))
                 )
-            )
-        return BlockSmoother(buckets=tuple(buckets), n=n)
+                fac = prev[kind].copy()
+                if len(changed):
+                    fac[changed] = factor(blocks[changed])
+            else:
+                fac = factor(blocks)
+            new_cache["by_size"][int(s_b)] = {
+                "blocks": blocks, kind: fac, "idx": idx, "mask": mask,
+            }
+            if not host_only:
+                buckets.append(
+                    BlockBucket(
+                        inv_blocks=to_device(fac, device, dtype),
+                        idx=to_device(idx, device),
+                        mask=to_device(mask, device, dtype),
+                    )
+                )
+        if host_only:
+            return None, new_cache
+        return BlockSmoother(buckets=tuple(buckets), n=n), new_cache
+
+
+def host_apply(cache: dict, x: np.ndarray) -> np.ndarray:
+    """Apply the block smoother on the host from a ``build_cached``
+    cache: per bucket one gather, one batched solve (or matmul), one
+    disjoint assignment.  The setup-phase twin of
+    :meth:`BlockSmoother.mv` for relaxation loops that stay on the
+    host (compatible relaxation)."""
+    out = np.zeros_like(x)
+    for e in cache["by_size"].values():
+        idx, mask = e["idx"], e["mask"]
+        rhs = x[idx] * mask
+        if "chol" in e:
+            from scipy.linalg import get_lapack_funcs
+
+            chol = e["chol"]
+            (potrs,) = get_lapack_funcs(("potrs",), (chol,))
+            sol = np.empty_like(rhs)
+            for k in range(chol.shape[0]):
+                sol[k], _ = potrs(chol[k], rhs[k], lower=1)
+        else:
+            sol = np.matmul(e["inv"], rhs[..., None])[..., 0]
+        flat = mask.ravel().astype(bool)
+        out[idx.ravel()[flat]] = sol.ravel()[flat]
+    return out
+
+
+def _spd_cholesky(blocks: np.ndarray) -> np.ndarray:
+    """Batched lower-Cholesky factors (:func:`host_apply` solves with
+    potrs); a block whose factorization fails is factored with a tiny
+    diagonal lift (1e-10 of its trace)."""
+    try:
+        return np.linalg.cholesky(blocks)
+    except np.linalg.LinAlgError:
+        lift = blocks + 1e-10 * np.einsum(
+            "bii->b", np.abs(blocks)
+        )[:, None, None] * np.eye(blocks.shape[1])
+        return np.linalg.cholesky(lift)
 
 
 def _spd_inverse(blocks: np.ndarray) -> np.ndarray:

@@ -41,7 +41,7 @@ logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class MultigridConfig:
-    """Defaults: μ=1 (SA), smoothing_steps 1, Cholesky coarsest
+    """Defaults: μ auto, smoothing_steps 1, Cholesky coarsest
     (multigrid.rs:35-44); smoother partition cf defaults to the CLI's
     block_smoother_size 128 (examples/amg/main.rs:107).
 
@@ -50,6 +50,10 @@ class MultigridConfig:
     in D⁻¹A), or "l1"/"l2"/"jacobi" diagonal smoothing.
     """
 
+    # cycle index: None = auto (1 for SA hierarchies, 2 for classical,
+    # as the JAX package's builder picks: its classical V-cycle loses
+    # the two-level quality through the recursion of a cf≈2.2 C/F
+    # hierarchy, which the W-cycle keeps, MEASURED.md:436-452)
     mu: Optional[int] = None
     smoothing_steps: int = 1
     coarse_solver: str = "cholesky"
@@ -135,6 +139,14 @@ class MultigridConfig:
         return Multigrid(
             levels=tuple(levels),
             coarse_solver=coarse,
-            mu=1 if self.mu is None else self.mu,  # SA hierarchies: V-cycle
+            mu=self.cycle_index(hierarchy),
             smoothing_steps=self.smoothing_steps,
         )
+
+    def cycle_index(self, hierarchy: Hierarchy) -> int:
+        """μ: ``mu`` when set, else 2 for a hierarchy with a classical
+        level and 1 otherwise (tpu_amg/preconditioners/
+        multigrid_builder.py:234-239)."""
+        if self.mu is not None:
+            return self.mu
+        return 2 if "classical" in hierarchy.partition_kinds else 1

@@ -6,16 +6,17 @@
     AMGSolver.load("hier.npz", a, config)          # and resume
 
 Setup bootstraps a near-null basis on the device, builds the SA
-hierarchy on the host, and builds the device-side multigrid
-(``method="sa"``), or builds the adaptive composite of several such
-multigrids (``method="adaptive"``, :class:`AdaptiveConfig`); ``solve``
-runs PCG (or stationary iteration) preconditioned by that V-cycle or
-composite, through :meth:`AMGSolver.compile`: on a CUDA device one
-iteration of the solve is captured in a CUDA graph and replayed.
+(``method="sa"``) or classical CR+LS (``method="classical"``) hierarchy
+on the host, and builds the device-side multigrid (a V-cycle for SA, a
+W-cycle for classical unless ``mu`` says otherwise), or builds the
+adaptive composite of several SA multigrids (``method="adaptive"``,
+:class:`AdaptiveConfig`); ``solve`` runs PCG (or stationary iteration)
+preconditioned by that cycle or composite, through
+:meth:`AMGSolver.compile`: on a CUDA device one iteration of the solve
+is captured in a CUDA graph and replayed.
 ``cycle_precision`` evaluates the V-cycle or composite in a narrower
 dtype (:mod:`tpu_amg_torch.precision`), after setup and after load; the
 outer Krylov loop and ``AMGSolver.op`` keep ``dtype``.
-``method="classical"`` is not ported yet (ROADMAP M18).
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from tpu_amg_torch.sparse import CSR
 logger = logging.getLogger(__name__)
 
 
-SETUP_METHODS = ("sa", "adaptive")
+SETUP_METHODS = ("sa", "classical", "adaptive")
 
 
 @dataclasses.dataclass
@@ -56,7 +57,7 @@ class SolverConfig:
     raises when PyTorch sees no card, and nothing falls back to the CPU.
     """
 
-    method: str = "sa"  # "sa" | "adaptive" ("classical": ROADMAP M18)
+    method: str = "sa"  # "sa" | "classical" | "adaptive"
     # NOTE: the effective aggregation size is coarsening_factor *
     # interp_near_null_dim / block_size (reference mod.rs:135-137).
     # Keep it >= ~25 for 3-D scalar problems — too-small aggregates with
@@ -74,7 +75,7 @@ class SolverConfig:
     smoother: str = "chebyshev"  # "block" | "chebyshev" | "l1" | ...
     smoothing_steps: int = 2
     dense_threshold: int = 2048  # levels at or under this are dense
-    mu: Optional[int] = None  # auto: 1 for SA
+    mu: Optional[int] = None  # auto: 1 for SA, 2 for classical
     block_smoother_size: float = 128.0
     composite_components: int = 3  # for method="adaptive"
     reorder: bool = False  # RCM renumbering (utils/reorder.py) before setup
@@ -91,9 +92,6 @@ class SolverConfig:
     seed: int = 0
 
     def __post_init__(self):
-        if self.method == "classical":
-            raise NotImplementedError(
-                "method 'classical' is not ported yet (ROADMAP M18)")
         if self.method not in SETUP_METHODS:
             raise ValueError(f"unknown method {self.method!r} "
                              f"(one of {SETUP_METHODS})")
@@ -135,9 +133,9 @@ def setup_draws(n: int, config: SolverConfig):
     generator seeded with ``config.seed`` when the caller passes none, in
     its order: (``near_null_starts``: the bootstrap's two (n, cd − 1)
     blocks, ``enrichment_starts``: one (n, cd) block a round of the
-    adaptive composite, none for SA).  Passing them gives the same setup
-    bit for bit; a second setup from the same blocks in another dtype
-    starts where the first did."""
+    adaptive composite, none for SA or classical).  Passing them gives
+    the same setup bit for bit; a second setup from the same blocks in
+    another dtype starts where the first did."""
     g = torch.Generator().manual_seed(config.seed)
     dim = config.coarsening_near_null_dim
     starts = tuple(torch.randn(n, dim - 1, generator=g,
@@ -190,8 +188,9 @@ class AMGSolver:
         enrichment_starts: Optional[Sequence[np.ndarray]] = None,
         lambda_starts: Optional[Sequence] = None,
     ) -> "AMGSolver":
-        """Bootstrap + hierarchy + multigrid (``method="sa"``), or the
-        adaptive composite (``method="adaptive"``).
+        """Bootstrap + hierarchy + multigrid (``method="sa"`` or
+        ``"classical"``), or the adaptive composite
+        (``method="adaptive"``).
 
         Random draws (the two near-null start blocks, and for the
         adaptive composite one enrichment block a round) come from a CPU
@@ -209,6 +208,8 @@ class AMGSolver:
 
             a, perm, _ = rcm_reorder(a)
         interp = InterpolationConfig(
+            kind="classical" if config.method == "classical"
+            else "aggregation",
             aggregation=AggregationConfig(
                 candidate_dimension=config.interp_near_null_dim,
                 filter_theta=config.sa_filter_theta,
@@ -355,8 +356,8 @@ class AMGSolver:
 
     def save(self, path) -> None:
         """Checkpoint the setup artifact (``utils/checkpoint.py``, the JAX
-        package's format): the hierarchy (SA) or the per-component
-        hierarchies (adaptive composite)."""
+        package's format): the hierarchy (SA, classical) or the
+        per-component hierarchies (adaptive composite)."""
         from tpu_amg_torch.utils import checkpoint
 
         if self.hierarchy is not None:

@@ -3,7 +3,8 @@
 
 Equivalent of the reference's main program (reference examples/amg/main.rs):
 load or generate an SPD system, bootstrap a near-null basis, build the
-hierarchy + multigrid (or the structured multigrid, or with
+SA or (``--interpolation classical``) classical CR+LS hierarchy +
+multigrid (or the structured multigrid, or with
 ``--composite N`` the adaptive composite of N multigrids, whose
 component-peel study prints a PCG and a stationary table), solve with
 PCG and stationary iteration, estimate ‖E‖_A, and print the
@@ -20,9 +21,12 @@ the JAX package's ``jax.random`` draws from the same seed.
 ``--precision`` casts the built preconditioner on every path
 (:func:`tpu_amg_torch.precision.cast_preconditioner`, after the peel
 study of ``--composite``); the outer PCG and the operator stay float64.
-Options whose modules are not ported yet exit with the ROADMAP item that
-ports them: ``--interpolation classical`` and ``--classical-opts``
-(M18), ``--viz-out`` (M21).  ``--problem elasticity3d`` is the
+``--classical-opts key=val,...`` sets the classical coarsening's knobs
+(``tau``, ``search``, ``depth``, ``max``, ``cands``, ``cr_target``,
+``relax``; another key exits).  ``--mu`` overrides the cycle index,
+whose default is 1 for SA and 2 (a W-cycle) for classical.  The one
+option whose module is not ported yet, ``--viz-out``, exits with the
+ROADMAP item that ports it (M21).  ``--problem elasticity3d`` is the
 structured hex-grid elasticity of ``problems.elasticity_3d`` (block
 size 3), as in the JAX CLI.
 
@@ -58,7 +62,9 @@ def parse_args(argv=None):
     p.add_argument("--interpolation", type=str, default="sa",
                    choices=["sa", "classical"])
     p.add_argument("--classical-opts", type=str, default="",
-                   help="classical interpolation overrides (ROADMAP M18)")
+                   help="key=val,... overrides: tau=, search=, depth=, "
+                        "max=, cands=, cr_target=, relax= "
+                        "(reference examples/amg/main.rs:502-547)")
     p.add_argument("--coarsening-factor", type=float, default=8.0)
     p.add_argument("--sa-filter", type=float, default=None,
                    help="filtered-SA P smoothing threshold theta "
@@ -80,7 +86,8 @@ def parse_args(argv=None):
                    choices=["block", "chebyshev", "l1", "l2", "jacobi"])
     p.add_argument("--chebyshev-degree", type=int, default=3)
     p.add_argument("--mu", type=int, default=None,
-                   help="cycle index (default: auto — 1 for SA)")
+                   help="cycle index (default: auto — 1 for SA, 2 for "
+                        "classical)")
     p.add_argument("--composite", type=int, default=None,
                    help="adaptive composite with N components")
     p.add_argument("--structured", action="store_true",
@@ -109,14 +116,132 @@ def refuse_unported(args) -> None:
     """Exit, naming the ROADMAP item, on an option whose module is not
     ported yet: none is silently ignored."""
     unported = [
-        (args.interpolation == "classical", "--interpolation classical",
-         "M18"),
-        (bool(args.classical_opts), "--classical-opts", "M18"),
         (args.viz_out is not None, "--viz-out", "M21"),
     ]
     for given, option, item in unported:
         if given:
             raise SystemExit(f"{option} is not ported yet (ROADMAP {item})")
+
+
+def classical_config(opts: str):
+    """The classical coarsening's config from ``--classical-opts``
+    (``key=val,...``; the mini parser of examples/amg.py, reference
+    examples/amg/main.rs:502-547).  An unknown key exits."""
+    from tpu_amg_torch.interpolation.classical import (
+        ClassicalConfig,
+        CompatibleRelaxationConfig,
+        LeastSquaresConfig,
+    )
+
+    ls_cfg, cr_cfg = LeastSquaresConfig(), CompatibleRelaxationConfig()
+    for kv in filter(None, opts.split(",")):
+        k, v = kv.split("=")
+        if k == "tau":
+            ls_cfg.tau_threshold = float(v)
+        elif k == "search":
+            ls_cfg.search_depth = int(v)
+        elif k == "depth":
+            ls_cfg.depth_ls = int(v)
+        elif k == "max":
+            ls_cfg.max_interp = int(v)
+        elif k == "cands":
+            ls_cfg.max_candidates = int(v)
+        elif k == "cr_target":
+            cr_cfg.target_convergence = float(v)
+        elif k == "relax":
+            cr_cfg.relax_steps = int(v)
+        else:
+            raise SystemExit(f"unknown classical opt {k!r}")
+    return ClassicalConfig(cr_options=cr_cfg, ls_options=ls_cfg)
+
+
+def solver_config(args):
+    """The :class:`SolverConfig` of the arguments' setup and multigrid
+    knobs, float64: ``AMGSolver.load`` of a checkpoint of the CLI's
+    hierarchy with it builds the CLI's own multigrid (the classical
+    options live in the hierarchy; ``--chebyshev-degree`` must be its
+    default, 3)."""
+    from tpu_amg_torch.solver import SolverConfig
+
+    return SolverConfig(
+        method="classical" if args.interpolation == "classical" else "sa",
+        coarsening_near_null_dim=args.coarsening_near_null_dim,
+        interp_near_null_dim=args.interp_near_null_dim,
+        sa_filter_theta=args.sa_filter,
+        sa_trunc_tol=args.sa_trunc,
+        smoothing_iters=args.smoothing_iters,
+        coarsening_factor=args.coarsening_factor,
+        aggregation_iters=args.aggregation_iters,
+        coarsest_dim=args.coarsest_dim,
+        max_levels=args.max_levels,
+        smoother=args.smoother,
+        smoothing_steps=args.smoothing_steps,
+        mu=args.mu,
+        block_smoother_size=args.block_smoother_size,
+        dtype=torch.float64,
+        device=args.device,
+        seed=args.seed,
+    )
+
+
+def configs(args):
+    """(HierarchyConfig, MultigridConfig) of the arguments, as
+    examples/amg.py builds them: ``--interpolation`` picks the
+    coarsening family (SA, or classical with ``--classical-opts``); the
+    multigrid is :func:`solver_config`'s with ``--chebyshev-degree``."""
+    from tpu_amg_torch.hierarchy import HierarchyConfig
+    from tpu_amg_torch.interpolation import (
+        AggregationConfig,
+        InterpolationConfig,
+    )
+    from tpu_amg_torch.partition import PartitionerConfig
+    from tpu_amg_torch.solver import AMGSolver
+
+    interp = InterpolationConfig(
+        kind="aggregation" if args.interpolation == "sa" else "classical",
+        aggregation=AggregationConfig(
+            candidate_dimension=args.interp_near_null_dim,
+            filter_theta=args.sa_filter,
+            trunc_tol=args.sa_trunc,
+            partitioner_config=PartitionerConfig(
+                coarsening_factor=args.coarsening_factor,
+                max_improvement_iters=args.aggregation_iters,
+            ),
+        ),
+        classical=classical_config(args.classical_opts),
+    )
+    hier_cfg = HierarchyConfig(
+        coarsest_dim=args.coarsest_dim,
+        interpolation_config=interp,
+        max_levels=args.max_levels,
+        device=args.device,
+    )
+    mg_cfg = dataclasses.replace(
+        AMGSolver._mg_config(solver_config(args)),
+        chebyshev_degree=args.chebyshev_degree,
+    )
+    return hier_cfg, mg_cfg
+
+
+def build_hierarchy(a, args, hier_cfg, generator):
+    """The CLI's setup of a hierarchy: the near-null bootstrap on
+    ``args.device`` (its draws from ``generator``), the QR of [1, basis],
+    and the host hierarchy.  Returns (hierarchy, {phase: seconds})."""
+    from tpu_amg_torch.adaptivity import find_near_null
+    from tpu_amg_torch.hierarchy import create_weights
+
+    t0 = time.perf_counter()
+    nn = find_near_null(
+        a, args.smoothing_iters, args.coarsening_near_null_dim - 1,
+        args.block_smoother_size, args.device, generator=generator,
+    )
+    basis, _ = np.linalg.qr(
+        np.concatenate([np.ones((a.nrows, 1)), nn], axis=1)
+    )
+    t1 = time.perf_counter()
+    hierarchy = hier_cfg.build(a, basis, create_weights(a, basis))
+    return hierarchy, dict(near_null=t1 - t0,
+                           hierarchy=time.perf_counter() - t1)
 
 
 def load_problem(args):
@@ -217,16 +342,9 @@ def main(argv=None):
         level=logging.INFO if args.verbose else logging.WARNING,
         format="%(levelname)s %(name)s: %(message)s",
     )
-    from tpu_amg_torch.adaptivity import AdaptiveConfig, find_near_null
+    from tpu_amg_torch.adaptivity import AdaptiveConfig
     from tpu_amg_torch.device import disable_tf32, resolve_device
-    from tpu_amg_torch.hierarchy import HierarchyConfig, create_weights
-    from tpu_amg_torch.interpolation import (
-        AggregationConfig,
-        InterpolationConfig,
-    )
     from tpu_amg_torch.linop import SparseOperator
-    from tpu_amg_torch.partition import PartitionerConfig
-    from tpu_amg_torch.preconditioners.multigrid_builder import MultigridConfig
     from tpu_amg_torch.utils.testing import (
         approx_convergence_factor,
         test_solver,
@@ -245,35 +363,7 @@ def main(argv=None):
     generator = torch.Generator().manual_seed(args.seed)
     t_setup = time.time()
 
-    interp = InterpolationConfig(
-        aggregation=AggregationConfig(
-            candidate_dimension=args.interp_near_null_dim,
-            filter_theta=args.sa_filter,
-            trunc_tol=args.sa_trunc,
-            partitioner_config=PartitionerConfig(
-                coarsening_factor=args.coarsening_factor,
-                max_improvement_iters=args.aggregation_iters,
-            ),
-        ),
-    )
-    hier_cfg = HierarchyConfig(
-        coarsest_dim=args.coarsest_dim,
-        interpolation_config=interp,
-        max_levels=args.max_levels,
-        device=args.device,
-    )
-    mg_cfg = MultigridConfig(
-        mu=args.mu,
-        smoothing_steps=args.smoothing_steps,
-        smoother=args.smoother,
-        chebyshev_degree=args.chebyshev_degree,
-        smoother_partitioner=PartitionerConfig(
-            coarsening_factor=args.block_smoother_size,
-            max_improvement_iters=50,
-        ),
-        dtype=torch.float64,
-        device=args.device,
-    )
+    hier_cfg, mg_cfg = configs(args)
     rhs_t = torch.from_numpy(np.asarray(rhs, dtype=np.float64)).to(device)
 
     if args.structured:
@@ -310,15 +400,7 @@ def main(argv=None):
             *test_composite(pc, rhs_t, x0, args.max_iters, args.tol)))
         op_complexity = float("nan")  # per-component hierarchies
     else:
-        nn = find_near_null(
-            a, args.smoothing_iters, args.coarsening_near_null_dim - 1,
-            args.block_smoother_size, device, generator=generator,
-        )
-        basis, _ = np.linalg.qr(
-            np.concatenate([np.ones((a.nrows, 1)), nn], axis=1)
-        )
-        weights = create_weights(a, basis)
-        hierarchy = hier_cfg.build(a, basis, weights)
+        hierarchy, _ = build_hierarchy(a, args, hier_cfg, generator)
         print(repr(hierarchy), file=sys.stderr)
         pc = mg_cfg.build(hierarchy)
         sync()

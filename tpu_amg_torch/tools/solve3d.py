@@ -41,11 +41,29 @@ def level_table(mg, hierarchy) -> list:
             else:
                 fmt = f"CSR (K1 + K2, tail {op.mat.n_tail})"
         else:
-            fmt = "coarse: dense Cholesky inverse"
+            fmt = f"coarse: {coarse_description(mg.coarse_solver)}"
         lines.append(f"level {lvl}: n={host.nrows} nnz={host.nnz} "
                      f"({host.nnz / host.nrows:.1f}/row) "
                      f"block={host.block_size} {fmt}")
     return lines
+
+
+def coarse_description(coarse) -> str:
+    """What a multigrid's coarse solve is: the dense Cholesky inverse,
+    the dense pseudo-inverse, or the banded Cholesky factor (its RCM
+    bandwidth b, block size s and block count nb)."""
+    from tpu_amg_torch.preconditioners.coarse import (
+        BandedCholeskySolver,
+        DensePinvSolver,
+    )
+
+    if isinstance(coarse, BandedCholeskySolver):
+        nb, s, _ = coarse.inv_l_diag.shape
+        return (f"banded Cholesky (b={coarse.bandwidth}, s={s}, nb={nb}, "
+                f"{coarse.device_bytes() / 1e6:.1f} MB)")
+    if isinstance(coarse, DensePinvSolver):
+        return "dense pseudo-inverse"
+    return "dense Cholesky inverse"
 
 
 def vcycle_ms(mg, x, device, reps: int):
