@@ -210,19 +210,43 @@ Phases, one printed line per result; any failed check exits non-zero:
      (mu = 2, the W-cycle bitwise equal); K1 (and K2) and K3 (the
      fine A) against their plain versions at every (matrix, k) the path
      launched them on.
+  19. distribution on torch.distributed, its parts one after
+     another so that no timed solve shares the card: (a) NCCL at world
+     size 1 in this process: phase 4's SA multigrid and phase 7's
+     structured one sharded (parallel.dist.solve_sharded: HaloCSR K1 +
+     K2, HaloDIA K3, halo 0), eager PCG of A x = A x_true to rtol 1e-6
+     against the unsharded eager solve (the same iterations, x within
+     1e-12, bitwise or not), each solve run once untimed and then timed,
+     launches counted over the timed sharded solve; (b) both paths again
+     on 2 gloo ranks sharing the card (this script's own rank program,
+     python -m chip_smoke --dist-rank: the SA multigrid from phase 4's
+     checkpoint, the structured one rebuilt; a halo above 0 on both fine
+     levels; each level's form and halo, per-shard nnz, bytes a fine
+     SpMV, seconds an iteration, launches by (rows, cols, k) summed over
+     the ranks: K1 and K2 (SA) and K3 (structured) > 0; the same
+     iterations as one rank, x within 1e-10); (c) tools.dryrun_multichip
+     on 2 gloo ranks and at world size 1 (NCCL, here), every gate; the
+     ranks start from this process's build; then K1 + K2 on rank 0's
+     block of A0 and R0 at 2 ranks and K3 on its padded local structured
+     A0, against their plain versions, timed beside the library's call
+     and their bounds (K3's on the shard's own rows), their launches
+     those of (b) at that shape.
 The setups of phases 16-18 (the float64 elasticity one, the three
 float32-bootstrap ones and the classical one, first) run in two worker
 processes started after phase 2, beside phases 3-15: host setup is
 single-threaded and takes
 minutes, and the whole run must stay well inside its time limit.  Each
 worker sets its counts to 0 before its setup, reads them after it and
-returns them; the workers are stopped when the script ends.
+returns them; the workers are stopped when the script ends.  After the
+setups the workers run phase 13's three longest CLI runs (SA aniso2d
+n=256, the composite, elasticity3d), counted the same way and checked
+after phase 18.
 Then every row timed with its bytes in the L2 cache is bound by the L2
 read rate of phase 11, and K1's and K2's launches x (time - bound) are
 printed for the SA and structured paths.  Every count is set to 0 just
 before each path (4, 6, 7, 10, 11, 12, each CLI run, the adaptive
 setup, its solves, each mode of phase 15, phase 18's W-cycle and
-two-level runs) and read just after it,
+two-level runs, phase 19's sharded solves) and read just after it,
 before the comparison launches.  The last two lines are a JSON object of
 per-kernel results (with each kernel's bound and the library call's
 time; phase 15 adds one entry a mixed kernel and pair) and the device
@@ -317,6 +341,19 @@ MAX_ITERS_CLASSICAL = 30
 JAX_CLASSICAL = dict(iters=15, e_norm=0.696, op_complexity=2.50)
 BANDED_TOL = 1e-10  # the banded apply against scipy's sparse LU solve
 CLI_CLASSICAL_N = 64  # the CLI's classical run: poisson2d(64), 4,096 dofs
+# phase 13's three longest CLI runs (185 s of host setup in all on the
+# H100's host, PERF.md): they run in the setup workers after phases
+# 16-18's setups, beside the main process (the CLI is a process of its
+# own in use), and are checked after phase 18 as the others are
+CLI_WORKER_CASES = (
+    (f"SA aniso2d n={CLI_SA_N}", ["--problem", "aniso2d", "--n",
+                                  str(CLI_SA_N)], None),
+    (f"adaptive aniso2d n={CLI_COMPOSITE_N} random",
+     ["--problem", "aniso2d", "--n", str(CLI_COMPOSITE_N),
+      "--coefficient", "random", "--composite", "2"], None),
+    (f"SA elasticity3d n={CLI_ELASTICITY_N} (block size 3)",
+     ["--problem", "elasticity3d", "--n", str(CLI_ELASTICITY_N)], None),
+)
 
 
 def say(msg: str) -> None:
@@ -1006,9 +1043,11 @@ def cli_phase():
     with random coefficients, whose peel tables it prints, elasticity3d,
     and classical AMG (--interpolation classical on poisson2d(64), and
     with --classical-opts on aniso2d(16)); each final
-    line parsed and checked, the launch counts read over each run.  Then
-    the block smoother (the CLI's default) on the fixture's hierarchy, on
-    the card against the CPU."""
+    line parsed and checked, the launch counts read over each run (the
+    SA aniso2d, composite and elasticity runs in the setup workers,
+    checked by :func:`cli_worker_phase`).  Then the block smoother (the
+    CLI's default) on the fixture's hierarchy, on the card against the
+    CPU.  Returns the launches over this process's CLI runs."""
     import collections
 
     import torch
@@ -1032,16 +1071,8 @@ def cli_phase():
             ("structured poisson3d(100)", ["--problem", "poisson3d", "--n",
                                            "100", "--structured", "--tol",
                                            "1e-6"], MAX_ITERS_STRUCTURED),
-            (f"SA aniso2d n={CLI_SA_N}", ["--problem", "aniso2d", "--n",
-                                          str(CLI_SA_N)], None),
             ("SA MFEM fixture", ["--data-dir", str(fixture), "--name", name,
                                  "--coarsest-dim", "200"], None),
-            (f"adaptive aniso2d n={CLI_COMPOSITE_N} random",
-             ["--problem", "aniso2d", "--n", str(CLI_COMPOSITE_N),
-              "--coefficient", "random", "--composite", "2"], None),
-            (f"SA elasticity3d n={CLI_ELASTICITY_N} (block size 3)",
-             ["--problem", "elasticity3d", "--n", str(CLI_ELASTICITY_N)],
-             None),
             # classical: the auto W-cycle; then MEASURED.md:582's
             # options on aniso2d(16), on two levels
             (f"classical poisson2d n={CLI_CLASSICAL_N}",
@@ -1062,36 +1093,7 @@ def cli_phase():
                           coo_patch=spmv.coo_patch_launches,
                           dia_spmv=dia.dia_spmv_launches)
             totals.update(counts)
-            fields = line.split()
-            try:
-                cg_iters, sli_iters = int(fields[0]), int(fields[1])
-                e_norm, oc = float(fields[2]), float(fields[3])
-                formed = len(fields) == 4
-            except (IndexError, ValueError):
-                cg_iters = sli_iters = 0
-                e_norm = oc = float("nan")
-                formed = False
-            structured = "--structured" in argv
-            composite = "--composite" in argv
-            if composite:
-                tables = text[text.find("Composite PCG results:"):]
-                say(tables[:tables.rfind("+") + 1])
-            check(formed and cg_iters > 0 and sli_iters > 0
-                  and 0.0 < e_norm < 1.0
-                  and (np.isnan(oc) if structured or composite
-                       else oc >= 1.0)
-                  and (limit is None or cg_iters <= limit)
-                  and (not composite or "Composite stationary results:"
-                       in text)
-                  and counts["csr_spmv_capped"] > 0
-                  and (counts["dia_spmv"] > 0 or not structured),
-                  f"CLI {label}: final line {line!r} (cg_iters "
-                  f"{cg_iters}" + ("" if limit is None else
-                                   f", limit {limit}")
-                  + f"), {secs:.1f} s; launches " + ", ".join(
-                      f"{k} {v}" for k, v in counts.items()))
-        check(min(totals.values()) > 0, "launches over the CLI runs: "
-              + ", ".join(f"{k} {v}" for k, v in totals.items()))
+            check_cli(label, argv, limit, line, secs, text, counts)
         # the setup profiler: cProfile over AMGSolver.setup (float32, the
         # float32 bootstrap) on unstructured_fem_system(128)
         torch.cuda.synchronize()
@@ -1134,6 +1136,66 @@ def cli_phase():
           f"{s_gpu.hierarchy.num_levels} levels): V-cycle rel diff card "
           f"against CPU {diffs[0]:.2e} (mv), {diffs[1]:.2e} (mm, k=5) "
           f"(limit 1e-10); PCG card {ig.iters} / CPU {ic.iters} iterations")
+    return totals
+
+
+def check_cli(label, argv, limit, line, secs, text, counts) -> None:
+    """One CLI run's final line parsed and checked, with its launches."""
+    fields = line.split()
+    try:
+        cg_iters, sli_iters = int(fields[0]), int(fields[1])
+        e_norm, oc = float(fields[2]), float(fields[3])
+        formed = len(fields) == 4
+    except (IndexError, ValueError):
+        cg_iters = sli_iters = 0
+        e_norm = oc = float("nan")
+        formed = False
+    structured = "--structured" in argv
+    composite = "--composite" in argv
+    if composite:
+        tables = text[text.find("Composite PCG results:"):]
+        say(tables[:tables.rfind("+") + 1])
+    check(formed and cg_iters > 0 and sli_iters > 0
+          and 0.0 < e_norm < 1.0
+          and (np.isnan(oc) if structured or composite else oc >= 1.0)
+          and (limit is None or cg_iters <= limit)
+          and (not composite or "Composite stationary results:" in text)
+          and counts["csr_spmv_capped"] > 0
+          and (counts["dia_spmv"] > 0 or not structured),
+          f"CLI {label}: final line {line!r} (cg_iters {cg_iters}"
+          + ("" if limit is None else f", limit {limit}")
+          + f"), {secs:.1f} s; launches " + ", ".join(
+              f"{k} {v}" for k, v in counts.items()))
+
+
+def cli_job(argv) -> dict:
+    """One CLI run in a setup worker (CLI_WORKER_CASES): its launch
+    counts set to 0 just before it and read just after it."""
+    import torch
+
+    from tpu_amg_torch.ops import dia, spmv
+
+    reset_counts()
+    line, secs, text = run_cli("tpu_amg_torch.tools.amg", argv)
+    torch.cuda.synchronize()
+    return dict(line=line, secs=secs, text=text, counts=dict(
+        csr_spmv_capped=spmv.csr_spmv_launches,
+        coo_patch=spmv.coo_patch_launches, dia_spmv=dia.dia_spmv_launches))
+
+
+def cli_worker_phase(jobs, totals) -> None:
+    """Phase 13's CLI runs of the setup workers (CLI_WORKER_CASES),
+    checked as the others, and the launches over every CLI run."""
+    t0 = time.perf_counter()
+    for label, argv, limit in CLI_WORKER_CASES:
+        res = jobs[f"cli {label}"].get(timeout=JOB_WAIT)
+        totals.update(res["counts"])
+        check_cli(label + " (a setup worker)", argv, limit, res["line"],
+                  res["secs"], res["text"], res["counts"])
+    say(f"phase 13: the CLI runs of the setup workers done "
+        f"{time.perf_counter() - t0:.1f} s after phase 18")
+    check(min(totals.values()) > 0, "launches over the CLI runs: "
+          + ", ".join(f"{k} {v}" for k, v in totals.items()))
 
 
 def dia_to_csr(dia):
@@ -1548,7 +1610,6 @@ def adaptive_phase(reps, results, dia_results) -> dict:
           f"{len(s_gpu.component_hierarchies)} components: apply rel diff "
           f"card against CPU {diffs[0]:.2e} (mv), {diffs[1]:.2e} (mm, k=5) "
           f"(limit 1e-10); PCG card {ig.iters} / CPU {ic.iters} iterations")
-
     # rand-SVD on the card
     svd = rand_svd_test.run("cuda")
     check(svd["score"] >= 0.99,
@@ -1645,8 +1706,9 @@ def start_setup_jobs(elasticity_side: int, sa_side: int, ckpt: str,
     phase 18's classical setup first (:func:`classical_setup`), then, as
     tools.bootstrap_study runs them, the float64 elasticity setup (its
     checkpoint for phase 16) and the float32-bootstrap setups of the SA,
-    elasticity and adaptive problems, each with its solves.  Returns
-    (pool, {name: AsyncResult})."""
+    elasticity and adaptive problems, each with its solves; then phase
+    13's CLI_WORKER_CASES (:func:`cli_job`).  Returns (pool, {name:
+    AsyncResult})."""
     import multiprocessing
 
     from tpu_amg_torch.tools import bootstrap_study
@@ -1675,6 +1737,8 @@ def start_setup_jobs(elasticity_side: int, sa_side: int, ckpt: str,
         classical_setup, (CLASSICAL_SIDE, classical_ckpt))}
     results.update({name: pool.apply_async(bootstrap_study.setup_job, (job,))
                     for name, job in jobs.items()})
+    results.update({f"cli {label}": pool.apply_async(cli_job, (argv,))
+                    for label, argv, _ in CLI_WORKER_CASES})
     return pool, results
 
 
@@ -2272,6 +2336,286 @@ def classical_entries(classical: dict) -> list:
                      max_abs_err=c["err"], ms=c["ms"],
                      plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
                      library_ms=c["lib_ms"]) for c in rows]))
+    return out
+
+
+# ---- phase 19: distribution on torch.distributed
+
+DIST_RANKS = 2  # gloo ranks sharing the card (NCCL takes one rank a GPU)
+DIST_RTOL_NCCL = 1e-12  # one rank: the sharded solve against the unsharded
+DIST_RTOL_GLOO = 1e-10  # two ranks: the dots summed in another order
+DIST_TIMEOUT = 600  # seconds the launched ranks of phase 19 may take
+DIST_MAXITER = 200
+
+
+def shard_record(op, pc, group) -> dict:
+    """One path's eager PCG of A x = A x_true (seeded x_true) to RTOL,
+    sharded over ``group`` against the unsharded solve on this rank
+    (``parallel.dist.solve_sharded``, each solve run once untimed, then
+    timed; the launches read just before and just after the timed
+    sharded solve): a collective over the group; the record, with the
+    launches by (rows, cols, k) and the fine level's stored entries of
+    every rank, on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_amg_torch.parallel.dist import solve_sharded
+    from tpu_amg_torch.parallel.halo import HaloCSR, HaloDIA, exchange_bytes
+
+    x_true = np.random.default_rng(100).standard_normal(op.shape[0])
+    b = op.mv(torch.from_numpy(x_true).cuda())
+    run = solve_sharded(op, pc, b, group, rtol=RTOL, maxiter=DIST_MAXITER,
+                        warmup=True)
+    fine = run.fine
+    halo = getattr(fine, "halo", None)
+    # this rank's stored entries: a halo form's local matrix, or the
+    # all-gather form's row block
+    local = (fine.local if isinstance(fine, (HaloCSR, HaloDIA))
+             else getattr(getattr(fine, "inner", None), "local", None))
+    mine = dict(launches=run.launches, nnz=getattr(local, "nnz", None))
+    every = [None] * group.size
+    dist.all_gather_object(every, mine, group=group.group)
+    launches = {k: collections.Counter() for k in ("K1", "K2", "K3")}
+    for rank in every:
+        for k, by_shape in rank["launches"].items():
+            launches[k].update(by_shape)
+    return {
+        "ranks": group.size, "backend": group.backend,
+        "fine": type(fine).__name__, "fine_halo": halo,
+        "levels": run.forms,
+        "level_halos": [getattr(lv.a, "halo", None)
+                        for lv in getattr(run.pc, "levels", ())],
+        "fine_nnz_per_shard": [r["nnz"] for r in every],
+        "bytes_per_spmv": (exchange_bytes(halo, group, 1, b.dtype)
+                           if isinstance(fine, (HaloCSR, HaloDIA)) else None),
+        "iters": run.info.iters, "iters_one_rank": run.info_one.iters,
+        "converged": bool(run.info.converged), "x_rel_err": run.rel_err,
+        "bitwise": bool(run.bitwise),
+        "s_per_iteration": run.seconds / max(run.info.iters, 1),
+        "s_per_iteration_one_rank": run.seconds_one / max(run.info_one.iters,
+                                                          1),
+        "launches": {k: sum(v.values()) for k, v in launches.items()},
+        "launches_by_shape": {k: [[*key, n] for key, n in sorted(v.items())]
+                              for k, v in launches.items()},
+    }
+
+
+def dist_rank_main(ckpt: str, side: int) -> int:
+    """Phase 19 (b), one of DIST_RANKS gloo ranks on this card, started
+    by :func:`distributed_phase` (``python -m chip_smoke --dist-rank
+    CKPT``) after phase 2 built the kernels: phase 4's SA multigrid from
+    its checkpoint and phase 7's structured one, rebuilt here, each
+    solved sharded over the ranks (:func:`shard_record`); rank 0 prints
+    one JSON object of both records."""
+    import torch
+
+    from tpu_amg_torch.parallel import multihost
+    from tpu_amg_torch.parallel.dist import make_solver_mesh
+    from tpu_amg_torch.solver import AMGSolver, SolverConfig, scalar_3d_config
+    from tpu_amg_torch.structured import build_structured_multigrid
+    from tpu_amg_torch.utils.problems import poisson3d, unstructured_poisson_3d
+
+    multihost.initialize("gloo")
+    try:
+        group = make_solver_mesh()
+        a = unstructured_poisson_3d(side)
+        sa = AMGSolver.load(ckpt, a, scalar_3d_config("cuda"))
+        ps = poisson3d(STRUCTURED_SIDE)
+        smg = build_structured_multigrid(ps, (STRUCTURED_SIDE,) * 3,
+                                         device="cuda", coarsest_dim=1000,
+                                         dtype=torch.float64)
+        s_op = AMGSolver(ps, smg, config=SolverConfig(device="cuda")).op
+        out = {"SA": shard_record(sa.op, sa.preconditioner, group),
+               "structured": shard_record(s_op, smg, group)}
+        if group.index == 0:
+            print(json.dumps(out), flush=True)
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def dist_launch(module: str, argv: list) -> str:
+    """``module`` as DIST_RANKS gloo ranks on this card (their kernels
+    built by phase 2): rank 0's output; a failed rank raises."""
+    from tpu_amg_torch.parallel.multihost import launch
+
+    return launch(module, argv, DIST_RANKS, DIST_TIMEOUT)[0]
+
+
+def check_shard_record(label: str, rec: dict, limit: float,
+                       kernels: tuple) -> None:
+    halos = (f"fine {rec['fine']} (halo {rec['fine_halo']}), levels "
+             f"{rec['levels']} (halos {rec['level_halos']})")
+    check(rec["converged"] and rec["iters"] == rec["iters_one_rank"]
+          and rec["x_rel_err"] <= limit
+          and all(rec["launches"][k] > 0 for k in kernels),
+          f"{label} sharded over {rec['ranks']} {rec['backend']} rank(s) on "
+          f"the card: {halos}; fine nnz per shard "
+          f"{rec['fine_nnz_per_shard']}; {rec['bytes_per_spmv']} bytes "
+          f"exchanged per fine SpMV; PCG {rec['iters']} iterations (one "
+          f"rank {rec['iters_one_rank']}), x rel diff {rec['x_rel_err']:.3e} "
+          f"(limit {limit:.0e}), bitwise {rec['bitwise']}; "
+          f"{rec['s_per_iteration'] * 1e3:.3f} ms an iteration (one rank "
+          f"{rec['s_per_iteration_one_rank'] * 1e3:.3f}), each solve timed "
+          f"after an untimed one; launches summed over the ranks "
+          + ", ".join(f"{k} {v}" for k, v in rec["launches"].items()))
+    for k, rows in rec["launches_by_shape"].items():
+        if rows:
+            say(f"  {label}, {rec['ranks']} rank(s): {k} launches by (rows, "
+                f"cols, k): " + ", ".join(f"{tuple(r[:3])} {r[3]}"
+                                          for r in rows))
+
+
+def distributed_phase(solver, s_op, smg, side: int, reps: int, results,
+                      dia_results) -> dict:
+    """Phase 19, its parts one after another so that no timed solve
+    shares the card: (a) the SA and structured paths sharded over NCCL
+    at world size 1 in this process; (b) both on DIST_RANKS gloo ranks
+    sharing the card (:func:`dist_rank_main`); (c)
+    ``tools.dryrun_multichip`` on DIST_RANKS gloo ranks and, beside
+    them, at world size 1 (NCCL) here.  Then K1 + K2 and K3 on rank 0's
+    local matrices at DIST_RANKS (the SA path's A0 and R0, the
+    structured A0 as HaloDIA's padded local DIA) against their plain
+    versions."""
+    import torch
+
+    from tpu_amg_torch.parallel import multihost
+    from tpu_amg_torch.parallel.dist import (make_solver_mesh,
+                                             shard_csr_rect, shard_operator)
+    from tpu_amg_torch.parallel.halo import HaloCSR, HaloDIA
+    from tpu_amg_torch.shard_utils import SolverGroup
+    from tpu_amg_torch.tools import dryrun_multichip
+    from tpu_amg_torch.utils.timing import hbm_bound_ms
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) NCCL at world size 1, in this process, alone on the card
+    multihost.initialize("nccl", world_size=1, rank=0,
+                         init_method=f"tcp://localhost:"
+                                     f"{multihost.free_port()}")
+    try:
+        group = make_solver_mesh()
+        for label, op, pc, kernels in (
+                ("SA", solver.op, solver.preconditioner, ("K1",)),
+                ("structured", s_op, smg, ("K3",))):
+            rec = shard_record(op, pc, group)
+            check_shard_record(label, rec, DIST_RTOL_NCCL, kernels)
+            out[f"nccl {label}"] = rec
+    finally:
+        multihost.shutdown()
+    # (b) DIST_RANKS gloo ranks on the card, alone on it
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "sa.npz")
+        solver.save(ckpt)
+        text = dist_launch("chip_smoke", ["--dist-rank", ckpt, "--side",
+                                          str(side)])
+    ranks = json.loads(next(ln for ln in reversed(text.splitlines())
+                            if ln.startswith("{")))
+    check_shard_record("SA", ranks["SA"], DIST_RTOL_GLOO, ("K1", "K2"))
+    check_shard_record("structured", ranks["structured"], DIST_RTOL_GLOO,
+                       ("K3",))
+    check(ranks["structured"]["fine"] == "HaloDIA"
+          and ranks["structured"]["fine_halo"] > 0
+          and ranks["SA"]["fine"] == "HaloCSR"
+          and ranks["SA"]["fine_halo"] > 0,
+          f"the fine levels at {DIST_RANKS} ranks exchange halos: SA "
+          f"{ranks['SA']['fine']} halo {ranks['SA']['fine_halo']}, "
+          f"structured {ranks['structured']['fine']} halo "
+          f"{ranks['structured']['fine_halo']}")
+    out.update({f"gloo {k}": v for k, v in ranks.items()})
+    # (c) the dry run on DIST_RANKS gloo ranks, and at world size 1 here
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        job = pool.submit(dist_launch, "tpu_amg_torch.tools.dryrun_multichip",
+                          ["--backend", "gloo", "--device", "cuda"])
+        t0 = time.perf_counter()
+        dryrun_multichip.main(["--backend", "nccl"])
+        say(f"dryrun_multichip at world size 1 (NCCL): every gate passed, "
+            f"{time.perf_counter() - t0:.1f} s")
+        dry = job.result()
+    for line in dry.splitlines():
+        if line.startswith("dryrun"):
+            say(f"[{DIST_RANKS} gloo ranks] {line}")
+    check(dry.count(" OK") == 4,
+          f"dryrun_multichip at {DIST_RANKS} gloo ranks on the card: "
+          f"{dry.count(' OK')} of 4 phases passed their gates")
+    # K1 + K2 and K3 per shard: rank 0's local matrices at DIST_RANKS
+    shard0 = SolverGroup(None, DIST_RANKS, 0, "gloo")
+    levels = solver.preconditioner.levels
+
+    def local(op):  # a halo form's local matrix, or the all-gather form's
+        return op.local if isinstance(op, (HaloCSR, HaloDIA)) else \
+            op.inner.local
+
+    a0 = local(shard_operator(levels[0].a, shard0))
+    r0 = local(shard_csr_rect(levels[0].r, shard0, True, True))
+    kernel_cases("D A0 shard", {torch.float64: a0}, reps, results,
+                 ks=(1,))
+    kernel_cases("D R0 shard", {torch.float64: r0}, reps, results, ks=(1,))
+    s0 = HaloDIA.from_dia(smg.levels[0].a.mat, shard0)
+    dia_kernel_cases("D S A0 shard", s0.local, dia_to_csr(s0.local), reps,
+                     dia_results, ks=(1,))
+    out["cases"] = {"K1": ("D A0 shard", tuple(a0.shape)),
+                    "K2": ("D R0 shard", tuple(r0.shape)),
+                    "K3": ("D S A0 shard", tuple(s0.local.shape))}
+    # K3's bound on the shard's own rows: its n_loc rows of the
+    # diagonals read, its rows and the two slabs of x read, n_loc rows of
+    # y written (k = 1); the padded local DIA's 2 halo rows of zeros are
+    # no part of the function (bound_in_l2 re-bounds it in L2 later)
+    n_loc, halo = s0.n_loc_rows, s0.halo
+    out["k3_own_rows"], out["k3_halo"] = n_loc, halo
+    for rec in dia_results:
+        if rec["case"] == "D S A0 shard":
+            padded = rec["bytes"]
+            rec["bytes"] = ((len(s0.offsets) * n_loc + (n_loc + 2 * halo)
+                             + n_loc) * (8 if rec["dtype"] == "float64"
+                                         else 4))
+            rec["bound_ms"] = hbm_bound_ms(rec["bytes"])
+            say(f"K3 D S A0 shard {rec['dtype']} k=1: bound on the shard's "
+                f"{n_loc} own rows (halo {halo}): {rec['bytes'] / 1e6:.2f} "
+                f"MB, {rec['bound_ms'] * 1e3:.2f} us over HBM (the padded "
+                f"local DIA's {n_loc + 2 * halo} rows: {padded / 1e6:.2f} "
+                f"MB)")
+    say(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def distributed_entries(dist_out: dict, results, dia_results) -> list:
+    """The kernels line's entries of phase 19: K1, K2 and K3 on rank 0's
+    local matrix at DIST_RANKS (float64, k = 1), each with the launches
+    of (b)'s sharded solves at that shape, summed over the ranks."""
+    by_shape = {k: collections.Counter() for k in ("K1", "K2", "K3")}
+    for path in ("gloo SA", "gloo structured"):
+        for k, rows in dist_out[path]["launches_by_shape"].items():
+            by_shape[k].update({tuple(r[:3]): r[3] for r in rows})
+    out = []
+    for kernel, key, name, replaces, source in (
+            ("K1", "k1", "csr_spmv_capped_distributed",
+             "tpu_amg/ops/well_pallas.py:77", "tpu_amg_torch/csrc/spmv.cu"),
+            ("K2", "k2", "coo_patch_distributed",
+             "tpu_amg/ops/well_pallas.py:457", "tpu_amg_torch/csrc/spmv.cu")):
+        case, shape = dist_out["cases"][kernel]
+        c = next(r for r in results if r["case"] == case
+                 and r["dtype"] == "float64" and r["k"] == 1)
+        out.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=by_shape[kernel][(*shape, 1)],
+            max_abs_err=c[f"err{key[1]}"],
+            ms=c[f"{key}_ms"], plain_ms=c[f"{key}_plain_ms"],
+            bound_ms=c[f"{key}_bound_ms"], bound_by="bytes",
+            library_ms=c[f"{key}_lib_ms"], case=case,
+            rows=shape[0], cols=shape[1]))
+    case, shape = dist_out["cases"]["K3"]
+    c = next(r for r in dia_results if r["case"] == case
+             and r["dtype"] == "float64" and r["k"] == 1)
+    out.append(dict(
+        name="dia_spmv_distributed", route="cuda",
+        source="tpu_amg_torch/csrc/dia.cu",
+        replaces="tpu_amg/ops/dia_pallas.py:34",
+        launches=by_shape["K3"][(*shape, 1)],
+        max_abs_err=c["err"], ms=c["ms"], plain_ms=c["plain_ms"],
+        bound_ms=c["bound_ms"], bound_by="bytes", library_ms=c["lib_ms"],
+        case=case, rows=c["n"], own_rows=dist_out["k3_own_rows"],
+        halo=dist_out["k3_halo"], diagonals=c["diagonals"]))
     return out
 
 
@@ -3169,8 +3513,8 @@ def drive(args, jobs, jobs_ckpt) -> list:
     l2, dma_entry = dma_phase(args.reps)
     primitives_entry = primitives_phase(args.reps)
 
-    # ---- 13. the CLI on the card
-    cli_phase()
+    # ---- 13. the CLI on the card (its longest runs in the setup workers)
+    cli_totals = cli_phase()
 
     # ---- 14. the adaptive composite at 262,144 dofs
     adaptive = adaptive_phase(args.reps, results, dia_results)
@@ -3217,6 +3561,13 @@ def drive(args, jobs, jobs_ckpt) -> list:
         f"{time.perf_counter() - t0:.1f} s after phase 17")
     classical = classical_phase(c_setup, jobs_ckpt["classical"], args.reps,
                                 results, dia_results)
+
+    # ---- 13, the CLI runs of the setup workers
+    cli_worker_phase(jobs, cli_totals)
+
+    # ---- 19. distribution: NCCL at world size 1, gloo ranks on the card
+    dist_out = distributed_phase(solver, s_op, smg, args.side, args.reps,
+                                 results, dia_results)
 
     # the rows timed in L2 (bytes that fit in the card's L2, 50 calls
     # back to back) bound by this run's L2 read rate, without a call's
@@ -3320,6 +3671,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
         *precision_entries(precision),
         *slice11_entries(elasticity, boot),
         *classical_entries(classical),
+        *distributed_entries(dist_out, results, dia_results),
     ]
     return kernels
 
@@ -3336,6 +3688,9 @@ def main() -> int:
                     help="phase 16's mesh side: 3 * side**3 dofs (40: "
                          "192,000; 55: 499,125)")
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--dist-rank", metavar="CKPT", default=None,
+                    help="run as one rank of phase 19 (b) on phase 4's "
+                         "checkpoint (started by phase 19 itself)")
     args = ap.parse_args()
 
     import torch
@@ -3344,6 +3699,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs one GPU",
               file=sys.stderr)
         return 2
+    if args.dist_rank is not None:
+        return dist_rank_main(args.dist_rank, args.side)
 
     from tpu_amg_torch.ops import (_build, dma, native, primitives, spmv,
                                    spmv_stages, stream)

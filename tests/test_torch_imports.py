@@ -63,6 +63,15 @@ SLICE_12 = ["tpu_amg_torch.interpolation.classical",
             "tpu_amg_torch.preconditioners.block_smoother",
             "tpu_amg_torch.partition.strength"]
 
+# distribution over torch.distributed: the shard primitives, the halo
+# operators, sharding, the process scaffolding, the dry run and the
+# weak-scaling harness
+SLICE_13 = ["tpu_amg_torch.shard_utils", "tpu_amg_torch.parallel",
+            "tpu_amg_torch.parallel.dist", "tpu_amg_torch.parallel.halo",
+            "tpu_amg_torch.parallel.multihost",
+            "tpu_amg_torch.tools.dryrun_multichip",
+            "tpu_amg_torch.tools.bench_scaling"]
+
 
 def test_port_imports_no_jax():
     out = subprocess.run(
@@ -79,6 +88,7 @@ def test_port_imports_no_jax():
     assert set(SLICE_10) <= set(out[2:])
     assert set(SLICE_11) <= set(out[2:])
     assert set(SLICE_12) <= set(out[2:])
+    assert set(SLICE_13) <= set(out[2:])
 
 
 def test_importing_builds_nothing():
@@ -130,6 +140,17 @@ def test_probe_clis_default_to_the_card(cli):
     mod = importlib.import_module(f"tpu_amg_torch.tools.{cli}")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.run([])
+
+
+@pytest.mark.parametrize("tool", ["dryrun_multichip", "bench_scaling"])
+def test_distributed_tools_default_to_the_card(tool):
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    mod = importlib.import_module(f"tpu_amg_torch.tools.{tool}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
 
 
 def test_cuda_config_raises_without_card():

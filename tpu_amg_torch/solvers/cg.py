@@ -11,7 +11,9 @@ convergence; that read is also the residual history.  One small
 device-to-host copy per iteration is cheap next to a V-cycle, and the
 solve stops at exactly the iteration where it converged.  An iteration
 is a function of the loop's state (:func:`cg_step`) with no host read in
-it, so that ``AMGSolver.compile`` can capture it in a CUDA graph.
+it, so that ``AMGSolver.compile`` can capture it in a CUDA graph.  The
+dot products are :func:`tpu_amg_torch.shard_utils.sdot`, all-reduced
+over the active solver group in a sharded solve.
 """
 
 from __future__ import annotations
@@ -23,16 +25,7 @@ import numpy as np
 import torch
 
 from tpu_amg_torch.linop import LinearOperator
-
-
-def sdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Real inner product (a 0-d tensor on the inputs' device)."""
-    return torch.sum(a * b)
-
-
-def snorm(a: torch.Tensor) -> torch.Tensor:
-    """2-norm via sdot."""
-    return torch.sqrt(torch.sum(a * a))
+from tpu_amg_torch.shard_utils import sdot, snorm
 
 
 @dataclasses.dataclass

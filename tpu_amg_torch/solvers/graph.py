@@ -29,6 +29,7 @@ import collections
 
 import torch
 
+from tpu_amg_torch import shard_utils
 from tpu_amg_torch.ops import dia, spmv
 
 WARMUP_STEPS = 1
@@ -76,6 +77,12 @@ class GraphStep:
     :func:`tpu_amg_torch.solvers.cg.iterate` takes of a step."""
 
     def __init__(self, step, state):
+        if shard_utils.active_group() is not None:
+            # a sharded step's collectives and host reads (gloo) would be
+            # captured as they are, or not at all: a sharded solve runs
+            # eager
+            raise RuntimeError("no CUDA graph of a sharded solve: a solver "
+                               "group is active (parallel.dist.set_group)")
         self.state = tuple(t.clone() for t in state)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())

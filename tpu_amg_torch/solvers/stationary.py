@@ -22,7 +22,8 @@ from typing import Optional
 import torch
 
 from tpu_amg_torch.linop import LinearOperator
-from tpu_amg_torch.solvers.cg import iterate, snorm
+from tpu_amg_torch.shard_utils import snorm
+from tpu_amg_torch.solvers.cg import iterate
 
 
 def stationary_start(a: LinearOperator, b: torch.Tensor,
