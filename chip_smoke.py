@@ -157,7 +157,8 @@ Phases, one printed line per result; any failed check exits non-zero:
      residual <= 1e-5 ||b||, bf16 launches in the bf16 modes, the
      V-cycle's times and its dense and smoother shares; the adaptive
      composite in "bf16_values" and "f32" (one eager PCG each, the
-     composite V-cycle, the block smoothers' share; "f32" within the
+     composite V-cycle and the block smoothers' share, both by
+     tools.vcycle_breakdown; "f32" within the
      uncast count + 3, "bf16_values" reported as it ends, with a finite
      iterate: neither package's cycle converges within that bound on
      this problem, tests/test_torch_precision.py), and phase 14's small
@@ -231,6 +232,34 @@ Phases, one printed line per result; any failed check exits non-zero:
      A0, against their plain versions, timed beside the library's call
      and their bounds (K3's on the shard's own rows), their launches
      those of (b) at that shape.
+  20. the rest of M21, each path's counts set to 0 just before it and
+     read just after it: (a) tools.bench_vcycle through its entry point
+     (poisson3d(64) float32 structured V-cycle, f32 / bf16_values / bf16,
+     the speed-of-light estimate over stream_sum's 1 GiB read rate, the
+     f32 PCG solve within 18 iterations and the bf16_values one
+     converged), then K3 on its A0 and A1 at (f32, f32) against the
+     plain version; (b) tools.bench_unstructured at side 512 (262,144
+     dofs) on the checkpoint of its setup in a worker: its JSON line,
+     bf16_values within 64 iterations, op complexity beside the JAX
+     package's 1.64; (c) the real-FEM solve: tools.make_fem_fixture
+     --side 512 written into a temporary directory and set up in a worker
+     (260,100 dofs after the loader's Dirichlet elimination, the bench's
+     config), loaded here, PCG to rtol 1e-6 on the fixture's load vector
+     and on b = A x_true, both converged within 200 iterations, the true
+     relative residual of b = A x_true and of a float64 outer loop around
+     the float32 cycle on the load vector within 1.01 rtol, and of the
+     float32 load-vector solve within 1.01 rtol plus the rounding of one
+     float32 A·x (its bound), the synthetic count of (b) beside; K1 + K2
+     (and K3 where a level is DIA) on its A0, P0 and R0 at (f32, f32)
+     against the plain versions; (d) tools.vcycle_breakdown on phase 4's
+     SA multigrid and phase 14's composite (each level's A, smoother, P, R,
+     the coarse solve, the sum of components within 0.7-1.15 of the full
+     apply, the composite's costliest smoother and its share); (e)
+     tools.aggregation on aniso2d(256): each logged pass's metrics,
+     modularity not falling from the first to the last, the JAX
+     example's JSON keys; (f) tools.amg
+     --viz-out on aniso2d(64): one level entry a level but the coarsest,
+     each node_to_agg of its level's length.
 The setups of phases 16-18 (the float64 elasticity one, the three
 float32-bootstrap ones and the classical one, first) run in two worker
 processes started after phase 2, beside phases 3-15: host setup is
@@ -240,7 +269,7 @@ worker sets its counts to 0 before its setup, reads them after it and
 returns them; the workers are stopped when the script ends.  After the
 setups the workers run phase 13's three longest CLI runs (SA aniso2d
 n=256, the composite, elasticity3d), counted the same way and checked
-after phase 18.
+after phase 18, and then phase 20's two 262k setups.
 Then every row timed with its bytes in the L2 cache is bound by the L2
 read rate of phase 11, and K1's and K2's launches x (time - bound) are
 printed for the SA and structured paths.  Every count is set to 0 just
@@ -1211,9 +1240,10 @@ def dia_to_csr(dia):
     return CSR.from_coo(rows[keep], cols[keep], vals[keep], dia.shape)
 
 
-def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8)):
+def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8),
+                     dtypes=None):
     """K3 against its plain version on one DIA matrix, float64 and
-    float32, and bitwise against its first design and against a second
+    float32 (or ``dtypes``), and bitwise against its first design and against a second
     call; device times of K3, its first design, the plain version and K1
     + K2 on the same matrix as a capped CSR (CUDA graph replays); below
     k = TILED_MIN_K, where K3 runs its first design, also the band-tile
@@ -1225,7 +1255,7 @@ def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8)):
     from tpu_amg_torch.utils.timing import hbm_bound_ms, median_ms
 
     n, n_diags = dia64.shape[0], len(dia64.offsets)
-    for dtype in (torch.float64, torch.float32):
+    for dtype in dtypes or (torch.float64, torch.float32):
         dname = str(dtype).replace("torch.", "")
         mat = dia64 if dtype == torch.float64 else dia64.astype(dtype)
         capped = spmv.CappedCSR.from_csr(csr, "cuda", dtype)
@@ -1699,7 +1729,7 @@ def classical_setup(side: int, ckpt: str) -> dict:
 
 
 def start_setup_jobs(elasticity_side: int, sa_side: int, ckpt: str,
-                     classical_ckpt: str,
+                     classical_ckpt: str, workdir: str,
                      adaptive_side: int = ADAPTIVE_N):
     """The five setups phases 16-18 read, on two worker processes beside
     the main one (host setup is single-threaded; the card is shared):
@@ -1707,8 +1737,10 @@ def start_setup_jobs(elasticity_side: int, sa_side: int, ckpt: str,
     tools.bootstrap_study runs them, the float64 elasticity setup (its
     checkpoint for phase 16) and the float32-bootstrap setups of the SA,
     elasticity and adaptive problems, each with its solves; then phase
-    13's CLI_WORKER_CASES (:func:`cli_job`).  Returns (pool, {name:
-    AsyncResult})."""
+    13's CLI_WORKER_CASES (:func:`cli_job`); then phase 20's two setups
+    (:func:`slice14_setup`: the unstructured bench's and the real FEM's,
+    the fixture written and the checkpoints saved under ``workdir``).
+    Returns (pool, {name: AsyncResult})."""
     import multiprocessing
 
     from tpu_amg_torch.tools import bootstrap_study
@@ -1739,6 +1771,11 @@ def start_setup_jobs(elasticity_side: int, sa_side: int, ckpt: str,
                     for name, job in jobs.items()})
     results.update({f"cli {label}": pool.apply_async(cli_job, (argv,))
                     for label, argv, _ in CLI_WORKER_CASES})
+    for kind, side in (("unstructured", UNSTRUCTURED_SIDE),
+                       ("fem", FEM_SIDE_SOLVE)):
+        results[f"phase 20 {kind}"] = pool.apply_async(
+            slice14_setup,
+            (kind, side, str(Path(workdir) / f"{kind}.npz"), workdir))
     return pool, results
 
 
@@ -2619,6 +2656,515 @@ def distributed_entries(dist_out: dict, results, dia_results) -> list:
     return out
 
 
+# ---- phase 20: the rest of M21
+
+# (a) bench_vcycle at 64^3 float32: the JAX package took 9 PCG
+# iterations there (MEASURED.md:570-573); the limit is twice that
+MAX_ITERS_VCYCLE = 18
+# (b) bench_unstructured at side 512 (262,144 dofs): the JAX package's
+# "bf16_values" solve took 32 iterations with cd 2 and one smoothing
+# step, op complexity 1.64 (MEASURED.md:404-414); the limit is twice that
+UNSTRUCTURED_SIDE = 512
+MAX_ITERS_UNSTRUCTURED_BF16 = 64
+JAX_OP_COMPLEXITY_UNSTRUCTURED = 1.64
+# (c) the real-FEM solve (VERDICT.md:242-246): tools.make_fem_fixture at
+# side 512 writes 262,144 points, 2,044 of them on the boundary: 260,100
+# dofs after the loader's Dirichlet elimination; rtol 1e-6, at most 200
+FEM_SIDE_SOLVE = 512
+FEM_MAXITER = 200
+# the true relative residual's limit: 1.01 rtol, as phases 5, 14 and 18
+# hold theirs; the float32 loop on the load vector adds the rounding of
+# one float32 A·x, γ_m ≈ m·2^-24 times ||(|A||x|)|| / ||b|| (m the longest
+# row of A): its smooth solution has ||A|| ||x|| >> ||b||
+TRUE_RES_SLACK = 1.01
+FEM_EPS32 = 2.0 ** -24
+# (d) the breakdown's CUDA graphs: applies a graph
+BREAKDOWN_REPS = 20
+# the sum of components over the full apply, three runs on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md): SA 0.830 / 0.838 / 0.832, the
+# composite 0.973 / 0.992 / 0.967; a halved or doubled smoother count
+# (SA about 0.5 or 1.5) leaves the band
+BREAKDOWN_BAND = (0.7, 1.15)
+# (e) tools.aggregation on aniso2d(256), 65,536 dofs
+AGGREGATION_N = 256
+AGGREGATION_K = 8  # its --near-null-dim: the smoothing's SpMM width
+AGGREGATION_KEYS = {"node_to_agg", "stats", "metrics", "convergence_factors"}
+# (f) the CLI's --viz-out on SA aniso2d(64), 4,096 dofs
+VIZ_ARGV = ["--problem", "aniso2d", "--n", "64"]
+VCYCLE_KEYS = {"metric", "value", "unit", "vs_baseline", "value_bf16_values",
+               "value_bf16"}
+UNSTRUCTURED_KEYS = {"metric", "setup_s", "value", "unit", "vs_baseline",
+                     "value_bf16_values", "solve_ms_f32",
+                     "solve_ms_bf16_values", "iters_f32", "iters_bf16_values"}
+
+
+def slice14_setup(kind: str, side: int, ckpt: str, workdir: str) -> dict:
+    """One of phase 20's two host setups, in a setup worker: the
+    problem (``unstructured_poisson_2d(side)``, or for ``kind="fem"`` the
+    fixture that ``python -m tpu_amg_torch.tools.make_fem_fixture --side
+    side`` writes under ``workdir``, loaded with its Dirichlet rows
+    eliminated), then ``AMGSolver.setup`` with
+    :func:`tpu_amg_torch.solver.unstructured_config`, its launch counts
+    set to 0 just before it and read just after it, and the hierarchy
+    saved to ``ckpt``."""
+    import torch
+
+    from tpu_amg_torch.solver import AMGSolver, unstructured_config
+    from tpu_amg_torch.tools import bench_unstructured, bootstrap_study
+    from tpu_amg_torch.utils.io import load_mfem_linear_system
+
+    out = dict(kind=kind, side=side, ckpt=ckpt)
+    t0 = time.perf_counter()
+    if kind == "fem":
+        name = f"fem_square_k100_s{side}"
+        d = Path(workdir) / name
+        subprocess.run(
+            [sys.executable, "-m", "tpu_amg_torch.tools.make_fem_fixture",
+             "--side", str(side), "--out", str(d)],
+            check=True, capture_output=True, text=True,
+            cwd=Path(__file__).resolve().parent)
+        out["fixture_s"] = time.perf_counter() - t0
+        a = load_mfem_linear_system(d, name).matrix
+        out.update(dir=str(d), name=name)
+    else:
+        a = bench_unstructured.problem(side, 2)
+    out.update(problem_s=time.perf_counter() - t0, n=a.nrows, nnz=a.nnz)
+    torch.cuda.synchronize()
+    bootstrap_study.reset_launch_counts()
+    t0 = time.perf_counter()
+    solver = AMGSolver.setup(a, unstructured_config("cuda"))
+    torch.cuda.synchronize()
+    h = solver.hierarchy
+    out.update(setup_s=time.perf_counter() - t0,
+               seconds=dict(solver.setup_seconds),
+               counts=bootstrap_study.launch_tables(),
+               rows=[m.nrows for m in h.matrices],
+               op_complexity=h.op_complexity())
+    solver.save(ckpt)
+    return out
+
+
+def slice14_setup_line(label: str, res: dict) -> str:
+    return (f"{label}: n={res['n']} nnz={res['nnz']} ("
+            + (f"fixture written in {res['fixture_s']:.1f} s, "
+               if "fixture_s" in res else "")
+            + f"problem {res['problem_s']:.1f} s); setup {res['setup_s']:.1f}"
+            " s (" + ", ".join(f"{k} {v:.1f} s"
+                               for k, v in res["seconds"].items())
+            + f"; a worker process); rows "
+            + " / ".join(map(str, res["rows"]))
+            + f"; op complexity {res['op_complexity']:.3f}; setup launches "
+            + ", ".join(f"{k} {sum(t['by_shape'].values())}"
+                        for k, t in res["counts"].items()))
+
+
+def path_kernel_cases(label, ops, reps, results, dia_results) -> list:
+    """K1 + K2 (a capped CSR) or K3 (a DIA) against the plain version on
+    each of ``ops`` ({name: SparseOperator}) at k = 1 in its own dtype;
+    returns the case names."""
+    import torch
+
+    from tpu_amg_torch.sparse.dia import DIA
+
+    names = []
+    for name, op in ops.items():
+        case = f"{label} {name}"
+        mat = op.mat
+        if isinstance(mat, DIA):
+            dia_kernel_cases(case, mat, dia_to_csr(mat), reps, dia_results,
+                             ks=(1,), dtypes=(mat.data.dtype,))
+        else:
+            kernel_cases(case, {mat.data.dtype: mat}, reps, results, ks=(1,))
+        names.append(case)
+    return names
+
+
+def fem_solve(f: dict, reps: int, results, dia_results) -> dict:
+    """Phase 20 (c): the real-FEM system loaded from the fixture the
+    worker wrote, its hierarchy from the worker's checkpoint, PCG to
+    rtol 1e-6 (at most FEM_MAXITER) on the fixture's load vector and on
+    b = A x_true, each solved twice (the second timed)."""
+    import torch
+
+    from tpu_amg_torch.linop import SparseOperator
+    from tpu_amg_torch.solver import AMGSolver, unstructured_config
+    from tpu_amg_torch.utils.io import load_mfem_linear_system
+
+    system = load_mfem_linear_system(f["dir"], f["name"])
+    a = system.matrix
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver = AMGSolver.load(f["ckpt"], a, unstructured_config("cuda"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    dev = solver.device
+    x_true = np.random.default_rng(3).standard_normal(a.nrows)
+    rhs = {"load vector": torch.from_numpy(system.rhs[:, 0]).to(
+               dev, torch.float32),
+           "A x_true": solver.op.mv(torch.from_numpy(x_true).to(
+               dev, torch.float32))}
+    abs_a = a.to_scipy()
+    abs_a.data = np.abs(abs_a.data)
+    longest = int(a.row_nnz().max())
+
+    def record(b, x, info, secs, float32):
+        """The solve's numbers and its limit on the true residual: rtol,
+        plus for a float32 loop the rounding of one float32 A·x, γ_m |A||x|
+        with m the longest row (the loop's residual is float32's own)."""
+        b64, x64 = b.double().cpu().numpy(), x.double().cpu().numpy()
+        nb = np.linalg.norm(b64)
+        rounding = (longest * FEM_EPS32 * np.linalg.norm(abs_a @ np.abs(x64))
+                    / nb)
+        return dict(iters=info.iters, converged=info.converged, s=secs,
+                    true_res=float(np.linalg.norm(b64 - a.matvec(x64)) / nb),
+                    rounding=float(rounding),
+                    limit=TRUE_RES_SLACK * RTOL + (rounding if float32
+                                                   else 0.0),
+                    finite=bool(torch.isfinite(x).all()))
+
+    torch.cuda.synchronize()
+    reset_counts()
+    solves = {}
+    for label, b in rhs.items():
+        x, info = solver.solve(b, rtol=RTOL, maxiter=FEM_MAXITER)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = solver.solve(b, rtol=RTOL, maxiter=FEM_MAXITER)
+        torch.cuda.synchronize()
+        # the load vector's solution is smooth, ||A|| ||x|| >> ||b||: its
+        # float32 loop's true residual stops at A·x's float32 rounding
+        solves[label] = record(b, x, info, time.perf_counter() - t0,
+                               float32=label == "load vector")
+    torch.cuda.synchronize()
+    counts = shape_counts()
+    # the same hierarchy with a float64 outer loop around the float32
+    # cycle reaches rtol on the load vector
+    wide = AMGSolver.load(f["ckpt"], a, unstructured_config(
+        "cuda", dtype=torch.float64, cycle_precision="f32"))
+    b = torch.from_numpy(system.rhs[:, 0]).to(dev, torch.float64)
+    x, info = wide.solve(b, rtol=RTOL, maxiter=FEM_MAXITER)
+    solves["load vector, float64 outer loop, float32 cycle"] = record(
+        b, x, info, float("nan"), float32=False)
+    mg = solver.preconditioner
+    lvl = mg.levels[0]
+    ops = {"A0": solver.op, "P0": lvl.p, "R0": lvl.r}
+    if (isinstance(lvl.a, SparseOperator)
+            and type(lvl.a.mat) is not type(solver.op.mat)):
+        ops["A0 (cycle)"] = lvl.a  # the cycle's A0 in another format
+    cases = path_kernel_cases("FEM", ops, reps, results, dia_results)
+    return dict(n=a.nrows, nnz=a.nnz, load_s=load_s, solves=solves,
+                counts=counts, cases=cases,
+                op_complexity=solver.hierarchy.op_complexity(),
+                rows=[m.nrows for m in solver.hierarchy.matrices],
+                formats=[f"{type(lv.a).__name__}"
+                         + (f"({type(lv.a.mat).__name__})"
+                            if hasattr(lv.a, "mat")
+                            and not isinstance(lv.a.mat, torch.Tensor)
+                            else "") for lv in mg.levels],
+                outer=type(solver.op.mat).__name__)
+
+
+def composite_smoother_share(bd: dict):
+    """(component, level, ms, share) of the composite's costliest
+    smoother: its applies in one sweep (2·steps a cycle, times the
+    member's runs) over the full composite apply."""
+    best = max(
+        (runs * 2 * comp["steps"] * lv["smoother_ms"], c, lv["level"])
+        for c, (runs, comp) in enumerate(zip(bd["runs"], bd["components"]))
+        for lv in comp["levels"])
+    return best[1], best[2], best[0], best[0] / bd["full_ms"]
+
+
+def sweep_smoother_ms(bd: dict) -> float:
+    """Every smoother's time in one composite apply, from a breakdown:
+    2·steps applies a level a member cycle, times the member's runs."""
+    return sum(runs * 2 * comp["steps"] * lv["smoother_ms"]
+               for runs, comp in zip(bd["runs"], bd["components"])
+               for lv in comp["levels"])
+
+
+def slice14_phase(jobs, reps: int, results, dia_results, sa_solver,
+                  composite, workdir: str) -> dict:
+    """Phase 20: (a) ``tools.bench_vcycle`` through its entry point; (b)
+    ``tools.bench_unstructured`` at side 512 on the worker's checkpoint;
+    (c) the real-FEM solve (:func:`fem_solve`); (d) ``tools.vcycle_breakdown``
+    on phase 4's SA multigrid and phase 14's composite; (e)
+    ``tools.aggregation`` on aniso2d(256); (f) the CLI's ``--viz-out``.
+    Every count is set to 0 just before each of (a), (b), (c), (e), (f)
+    and read just after it."""
+    import contextlib
+    import io
+
+    import torch
+
+    from tpu_amg_torch.ops import stream
+    from tpu_amg_torch.sparse.dia import DIA
+    from tpu_amg_torch.tools import aggregation
+    from tpu_amg_torch.tools import amg as amg_cli
+    from tpu_amg_torch.tools import (bench_unstructured, bench_vcycle,
+                                     vcycle_breakdown)
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) bench_vcycle: the structured 64^3 float32 V-cycle, its
+    # speed-of-light estimate, the bf16 modes and both PCG solves
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = bench_vcycle.run([])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, n_stream = shape_counts(), stream.stream_sum_launches
+    say_shape_counts("phase 20 (a) bench_vcycle", counts)
+    js, f32, b16 = (res["json"], res["solves"]["f32"],
+                    res["solves"]["bf16_values"])
+    check(set(js) == VCYCLE_KEYS and f32["converged"]
+          and f32["iters"] <= MAX_ITERS_VCYCLE and b16["converged"]
+          and sum(counts["K3"].values()) > 0 and n_stream > 0,
+          f"phase 20 (a) bench_vcycle (poisson3d(64), float32, "
+          f"{len(res['multigrid'].levels) + 1} levels) in {secs:.1f} s: "
+          f"{json.dumps(js)}; the estimate's read rate {res['bandwidth_gbps']:.1f}"
+          f" GB/s (stream_sum at 1 GiB, {n_stream} launches), estimate "
+          f"{res['sol_ms']:.4f} ms; PCG f32 {f32['iters']} iterations (limit "
+          f"{MAX_ITERS_VCYCLE}) {f32['s'] * 1e3:.2f} ms, bf16_values cycle "
+          f"{b16['iters']} iterations {b16['s'] * 1e3:.2f} ms, both "
+          "converged")
+    mg = res["multigrid"]
+    vc_cases = []
+    for i, lvl in enumerate(mg.levels[:2]):
+        if isinstance(getattr(lvl.a, "mat", None), DIA):
+            name = f"vcycle A{i}"
+            dia_kernel_cases(name, lvl.a.mat, dia_to_csr(lvl.a.mat), reps,
+                             dia_results, ks=(1,), dtypes=(torch.float32,))
+            vc_cases.append(name)
+    check(len(vc_cases) == 2, f"phase 20 (a): K3 on the DIA levels "
+          f"{vc_cases} (expected A0 and A1)")
+    out["vcycle"] = dict(json=js, solves=res["solves"], counts=counts,
+                         cases=vc_cases, stream=n_stream)
+
+    # (b) bench_unstructured at side 512 on the worker's checkpoint
+    t0 = time.perf_counter()
+    u = jobs["phase 20 unstructured"].get(timeout=JOB_WAIT)
+    say(f"phase 20 (b): the unstructured setup's worker done "
+        f"{time.perf_counter() - t0:.1f} s after (a)")
+    say(slice14_setup_line(f"unstructured_poisson_2d({UNSTRUCTURED_SIDE})",
+                           u))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ures = bench_unstructured.run(["--side", str(UNSTRUCTURED_SIDE),
+                                   "--ckpt", u["ckpt"]])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = shape_counts()
+    say_shape_counts("phase 20 (b) bench_unstructured", counts)
+    uj = ures["json"]
+    check(set(uj) == UNSTRUCTURED_KEYS
+          and ures["solves"]["f32"]["converged"]
+          and ures["solves"]["bf16_values"]["converged"]
+          and uj["iters_bf16_values"] <= MAX_ITERS_UNSTRUCTURED_BF16
+          and sum(counts["K1"].values()) > 0,
+          f"phase 20 (b) bench_unstructured side {UNSTRUCTURED_SIDE} "
+          f"({ures['a'].nrows} dofs) in {secs:.1f} s (the hierarchy loaded "
+          f"from the worker's setup of {u['setup_s']:.1f} s): {json.dumps(uj)}"
+          f"; bf16_values {uj['iters_bf16_values']} iterations (limit "
+          f"{MAX_ITERS_UNSTRUCTURED_BF16}); op complexity "
+          f"{ures['op_complexity']:.3f} (the JAX package's "
+          f"{JAX_OP_COMPLEXITY_UNSTRUCTURED})")
+    out["unstructured"] = dict(json=uj, setup=u, counts=counts,
+                               op_complexity=ures["op_complexity"])
+
+    # (c) the real-FEM solve at 260,100 dofs
+    t0 = time.perf_counter()
+    f = jobs["phase 20 fem"].get(timeout=JOB_WAIT)
+    say(f"phase 20 (c): the FEM fixture and setup's worker done "
+        f"{time.perf_counter() - t0:.1f} s after (b)")
+    say(slice14_setup_line(f"make_fem_fixture --side {FEM_SIDE_SOLVE}", f))
+    fem = fem_solve(f, reps, results, dia_results)
+    say_shape_counts("phase 20 (c) the real-FEM solves", fem["counts"])
+    for label, s in fem["solves"].items():
+        bounded = (f" (limit {s['limit']:.3e}: rtol x {TRUE_RES_SLACK} + "
+                   f"float32 A·x rounding {s['rounding']:.3e}; bounded by "
+                   "float32, not converged to rtol)"
+                   if s["limit"] > TRUE_RES_SLACK * RTOL else
+                   f" (limit {s['limit']:.3e}; float32 A·x rounding "
+                   f"{s['rounding']:.3e})")
+        check(s["converged"] and s["iters"] <= FEM_MAXITER and s["finite"]
+              and s["true_res"] <= s["limit"]
+              and sum(fem["counts"]["K1"].values()) > 0,
+              f"phase 20 (c) real FEM (P1, 100:1 checkerboard, {fem['n']} "
+              f"dofs, nnz {fem['nnz']}), b = {label}: {s['iters']} PCG "
+              f"iterations to {RTOL:.0e} (limit {FEM_MAXITER}), solve "
+              f"{s['s']:.3f} s, true relative residual {s['true_res']:.3e}"
+              f"{bounded}; setup {f['setup_s']:.1f} s (a worker; loaded "
+              f"here in {fem['load_s']:.1f} s), op complexity "
+              f"{fem['op_complexity']:.3f}; levels "
+              + " / ".join(map(str, fem["rows"])) + f" ({', '.join(fem['formats'])}"
+              f"; outer A {fem['outer']}); the synthetic "
+              f"unstructured_poisson_2d({UNSTRUCTURED_SIDE}) under the same "
+              f"config: {uj['iters_f32']} iterations (f32), op complexity "
+              f"{ures['op_complexity']:.3f}")
+    out["fem"] = dict(fem, setup=f)
+
+    # (d) the breakdown of phase 4's SA cycle and phase 14's composite
+    bds = {}
+    for label, pc in (("SA", sa_solver.preconditioner),
+                      ("adaptive composite", composite)):
+        say(f"phase 20 (d) vcycle_breakdown of the {label}:")
+        bd = vcycle_breakdown.breakdown(pc, BREAKDOWN_REPS, say=say)
+        bds[label] = bd
+        for c, comp in enumerate(bd.get("components", [bd])):
+            say(f"  {label}" + (f" component {c}" if "components" in bd
+                                else "") + ", us: " + "; ".join(
+                f"level {lv['level']} ({lv['fmt']}, n {lv['n']}) A "
+                f"{lv['a_ms'] * 1e3:.2f} S {lv['smoother_ms'] * 1e3:.2f} "
+                f"P {lv['p_ms'] * 1e3:.2f} R {lv['r_ms'] * 1e3:.2f}"
+                for lv in comp["levels"])
+                + f"; coarse {comp['coarse']['ms'] * 1e3:.2f}; sum "
+                f"{comp['sum_ms'] * 1e3:.2f} against the cycle "
+                f"{comp['full_ms'] * 1e3:.2f}")
+        ratio = bd["sum_ms"] / bd["full_ms"]
+        check(BREAKDOWN_BAND[0] <= ratio <= BREAKDOWN_BAND[1],
+              f"phase 20 (d) {label}: sum of components {bd['sum_ms']:.3f} "
+              f"ms against the full apply {bd['full_ms']:.3f} ms (ratio "
+              f"{ratio:.3f}, band {BREAKDOWN_BAND[0]}-{BREAKDOWN_BAND[1]})")
+    c, lvl, ms, share = composite_smoother_share(bds["adaptive composite"])
+    say(f"phase 20 (d): the composite's costliest smoother is component "
+        f"{c}'s level {lvl}: {ms:.3f} ms of the sweep's "
+        f"{bds['adaptive composite']['full_ms']:.3f} ms ({100 * share:.1f}%)")
+    out["breakdown"] = dict(bds, top=dict(component=c, level=lvl, ms=ms,
+                                          share=share))
+
+    # (e) tools.aggregation on aniso2d(256)
+    path = Path(workdir) / "aggregation.json"
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        aggregation.run(["--problem", "aniso2d", "--n", str(AGGREGATION_N),
+                         "--out", str(path)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = shape_counts()
+    say_shape_counts("phase 20 (e) tools.aggregation", counts)
+    payload = json.loads(path.read_text())
+    mods = [m["modularity"] for m in payload["metrics"]]
+    for m in payload["metrics"]:
+        say(f"  pass {m['iteration']}: modularity {m['modularity']:.6f}, "
+            f"edge cost {m['edge_cost']:.6e}, size cost {m['size_cost']:.6e}")
+    check(set(payload) == AGGREGATION_KEYS
+          and len(payload["node_to_agg"]) == AGGREGATION_N ** 2
+          and len(mods) > 1 and mods[-1] >= mods[0]
+          and any(key[2] == AGGREGATION_K for kernel in ("K1", "K3")
+                  for key in counts[kernel]),
+          f"phase 20 (e) tools.aggregation aniso2d({AGGREGATION_N}) in "
+          f"{secs:.1f} s: {len(mods)} logged passes, modularity "
+          f"{mods[0]:.6f} -> {mods[-1]:.6f}; {payload['stats']}; the "
+          f"smoothing's SpMM at k = {AGGREGATION_K}: K1 at k = "
+          f"{sorted({key[2] for key in counts['K1']})}, K3 (a DIA A) at k = "
+          f"{sorted({key[2] for key in counts['K3']})}")
+    out["aggregation"] = dict(counts=counts, mods=mods)
+
+    # (f) one CLI run with --viz-out
+    path = Path(workdir) / "hierarchy_viz.json"
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as cli_out, \
+            contextlib.redirect_stderr(err):
+        amg_cli.main([*VIZ_ARGV, "--viz-out", str(path)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = shape_counts()
+    num_levels = int(err.getvalue().split("Hierarchy(levels=")[1]
+                     .split(",")[0])
+    viz = json.loads(path.read_text())
+    lens = [(len(lv["node_to_agg"]), lv["dims"][0]) for lv in viz["levels"]]
+    check(len(viz["levels"]) == num_levels - 1
+          and all(n == d for n, d in lens)
+          and sum(counts["K1"].values()) > 0,
+          f"phase 20 (f) tools.amg {' '.join(VIZ_ARGV)} --viz-out in "
+          f"{secs:.1f} s: final line "
+          f"{cli_out.getvalue().strip().splitlines()[-1]!r}; {num_levels} "
+          f"levels, {len(viz['levels'])} level entries, node_to_agg "
+          f"lengths {[n for n, _ in lens]}")
+    out["viz"] = dict(counts=counts)
+    say(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def slice14_entries(p20: dict, results, dia_results) -> list:
+    """The kernels line's entries of phase 20: K1 and K2 (float32) on the
+    real-FEM path's CSR operators, A0 (the outer operator) the headline,
+    every (matrix, k) in ``shapes``; K3 (float32) on bench_vcycle's A0
+    and A1, and on the real-FEM cycle's A0 where it is DIA.  Launches:
+    the path's (the real-FEM solves; bench_vcycle's run), and over every
+    path of phase 20 in ``launches_phase20``."""
+    total = collections.Counter()
+    for part in ("vcycle", "unstructured", "fem", "aggregation", "viz"):
+        for kernel, by_shape in p20[part]["counts"].items():
+            total[kernel] += sum(by_shape.values())
+    fem = p20["fem"]
+    out = []
+
+    def entry(name, source, replaces, kernel, rows, key, launched, extra):
+        head = rows[0]
+        if key == "k3":
+            def shape(c):
+                return (c["n"], c["n"], c["k"])
+            fields = dict(ms="ms", plain_ms="plain_ms", bound_ms="bound_ms",
+                          library_ms="lib_ms", err="err")
+        else:
+            def shape(c):
+                return (*c["shape"], c["k"])
+            fields = dict(ms=f"{key}_ms", plain_ms=f"{key}_plain_ms",
+                          bound_ms=f"{key}_bound_ms",
+                          library_ms=f"{key}_lib_ms", err=f"err{key[1]}")
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(launched.values()),
+            launches_phase20=total[kernel],
+            max_abs_err=max(c[fields["err"]] for c in rows),
+            ms=head[fields["ms"]], plain_ms=head[fields["plain_ms"]],
+            bound_ms=head[fields["bound_ms"]], bound_by="bytes",
+            library_ms=head[fields["library_ms"]], case=head["case"],
+            dtype="float32",
+            shapes=[dict(case=c["case"], shape=list(shape(c)),
+                         launches=launched.get(shape(c), 0),
+                         max_abs_err=c[fields["err"]],
+                         ms=c[fields["ms"]], plain_ms=c[fields["plain_ms"]],
+                         bound_ms=c[fields["bound_ms"]],
+                         library_ms=c[fields["library_ms"]]) for c in rows],
+            **extra)
+
+    csr = [c for c in results if c["case"] in fem["cases"]]
+    for kernel, key, name, replaces in (
+            ("K1", "k1", "csr_spmv_capped_fem_f32",
+             "tpu_amg/ops/well_pallas.py:77"),
+            ("K2", "k2", "coo_patch_fem_f32",
+             "tpu_amg/ops/well_pallas.py:457")):
+        rows = [c for c in csr if kernel == "K1" or c["n_tail"]]
+        if rows:
+            out.append(entry(name, "tpu_amg_torch/csrc/spmv.cu", replaces,
+                             kernel, rows, key, fem["counts"][kernel],
+                             dict(rows=rows[0]["shape"][0])))
+    fem_dia = [c for c in dia_results if c["case"] in fem["cases"]]
+    if fem_dia:
+        out.append(entry("dia_spmv_fem_f32", "tpu_amg_torch/csrc/dia.cu",
+                         "tpu_amg/ops/dia_pallas.py:34", "K3", fem_dia, "k3",
+                         fem["counts"]["K3"], dict(rows=fem_dia[0]["n"])))
+    vc = p20["vcycle"]
+    vc_rows = [c for c in dia_results if c["case"] in vc["cases"]]
+    out.append(entry("dia_spmv_vcycle_f32", "tpu_amg_torch/csrc/dia.cu",
+                     "tpu_amg/ops/dia_pallas.py:34", "K3", vc_rows, "k3",
+                     vc["counts"]["K3"],
+                     dict(rows=vc_rows[0]["n"],
+                          diagonals=vc_rows[0]["diagonals"])))
+    return out
+
+
 # (value, vector) dtype names of the mixed pairs phase 15 runs
 PRECISION_PAIRS = (("bfloat16", "float64"), ("bfloat16", "float32"),
                    ("float32", "float64"))
@@ -2924,7 +3470,8 @@ def adaptive_precision(solver, small, totals) -> dict:
     """The adaptive composite in "bf16_values" and "f32" beside its
     uncast cycle: one eager PCG solve of A x = A x_true to 1e-6 each (at
     most ADAPTIVE_CAST_MAXITER iterations), ms an iteration, the
-    composite V-cycle on the device and its block smoothers' share.
+    composite V-cycle on the device and its block smoothers' share (both
+    from :func:`tpu_amg_torch.tools.vcycle_breakdown.breakdown`).
     "f32" must converge within the uncast solve's iterations + 3.
     "bf16_values" does not on this problem, in either package
     (ADAPTIVE_CAST_MAXITER): its solve must end with a finite iterate
@@ -2935,12 +3482,11 @@ def adaptive_precision(solver, small, totals) -> dict:
 
     from tpu_amg_torch.precision import cast_preconditioner
     from tpu_amg_torch.solvers import cg
-    from tpu_amg_torch.utils.timing import median_ms
+    from tpu_amg_torch.tools import vcycle_breakdown
 
     op, n = solver.op, solver.op.shape[0]
     b = op.mv(torch.from_numpy(
         np.random.default_rng(200).standard_normal(n)).cuda())
-    r = torch.from_numpy(np.random.default_rng(7).standard_normal(n)).cuda()
     base, out = None, {}
     for mode in (None,) + ADAPTIVE_MODES:
         pc = cast_preconditioner(solver.preconditioner, mode)
@@ -2955,17 +3501,10 @@ def adaptive_precision(solver, small, totals) -> dict:
         true_rel = float(torch.linalg.vector_norm(b - op.mv(x))
                          / torch.linalg.vector_norm(b))
         limit = 500 if base is None else base + 3
-        t_dev = median_ms(lambda: pc.mv(r), 10, graph=True)
-        # the block smoothers: 2 s applies a level a component V-cycle,
-        # each component as often as the sweep runs it
-        t_s = 0.0
-        for comp in pc.sweep():
-            for level in comp.levels:
-                v = torch.randn(level.a.shape[0], dtype=torch.float64,
-                                generator=torch.Generator().manual_seed(3))
-                v = v.cuda()
-                t_s += 2 * comp.smoothing_steps * median_ms(
-                    lambda lv=level, v=v: lv.smoother.mv(v), 10, graph=True)
+        # the composite apply and its block smoothers' share, both from
+        # one tools.vcycle_breakdown attribution
+        bd = vcycle_breakdown.breakdown(pc, 10, say=lambda msg: None)
+        t_dev, t_s = bd["full_ms"], sweep_smoother_ms(bd)
         inv_mb = sum(bk.inv_blocks.numel() * bk.inv_blocks.element_size()
                      for comp in pc.components for level in comp.levels
                      for bk in getattr(level.smoother, "buckets", ())) / 1e6
@@ -3134,8 +3673,9 @@ def precision_entries(precision) -> list:
 
 
 def drive(args, jobs, jobs_ckpt) -> list:
-    """Phases 3-18 (the setups of phases 16-18 running in ``jobs``, the
-    checkpoints they write in ``jobs_ckpt``); returns the kernels line's
+    """Phases 3-20 (the setups of phases 16-18 and 20 running in
+    ``jobs``, the checkpoints they write in ``jobs_ckpt``, their
+    directory ``jobs_ckpt["dir"]``); returns the kernels line's
     entries."""
     import torch
 
@@ -3569,6 +4109,11 @@ def drive(args, jobs, jobs_ckpt) -> list:
     dist_out = distributed_phase(solver, s_op, smg, args.side, args.reps,
                                  results, dia_results)
 
+    # ---- 20. the rest of M21: the V-cycle benches, the real-FEM solve,
+    # the breakdown, the aggregation tool and --viz-out
+    p20 = slice14_phase(jobs, args.reps, results, dia_results, solver,
+                        adaptive["solver"].preconditioner, jobs_ckpt["dir"])
+
     # the rows timed in L2 (bytes that fit in the card's L2, 50 calls
     # back to back) bound by this run's L2 read rate, without a call's
     # fixed cost (phase 11), in place of the HBM data sheet's rate
@@ -3672,6 +4217,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
         *slice11_entries(elasticity, boot),
         *classical_entries(classical),
         *distributed_entries(dist_out, results, dia_results),
+        *slice14_entries(p20, results, dia_results),
     ]
     return kernels
 
@@ -3744,9 +4290,10 @@ def main() -> int:
     # the setups of phases 16-18 start now, beside phases 3-15
     with tempfile.TemporaryDirectory() as tmp:
         ckpts = {"classical": str(Path(tmp) / "classical.npz")}
+        ckpts["dir"] = tmp
         pool, jobs = start_setup_jobs(args.elasticity_side, args.side,
                                       str(Path(tmp) / "elasticity.npz"),
-                                      ckpts["classical"])
+                                      ckpts["classical"], tmp)
         try:
             kernels = drive(args, jobs, ckpts)
         finally:

@@ -254,14 +254,6 @@ def test_amg_cli_matches_jax(case, capsys):
         assert got[3] == pytest.approx(want[3], rel=0.2)
 
 
-@pytest.mark.parametrize("option,item", [
-    (["--viz-out", "viz.json"], "M21"),
-])
-def test_amg_cli_refuses_unported_options(option, item):
-    with pytest.raises(SystemExit, match=item):
-        amg_cli.main(["--device", "cpu", *option])
-
-
 CLASSICAL_CASES = {
     # the README's CPU run: a W-cycle by default
     "classical": ["--problem", "poisson2d", "--interpolation", "classical",

@@ -72,6 +72,13 @@ SLICE_13 = ["tpu_amg_torch.shard_utils", "tpu_amg_torch.parallel",
             "tpu_amg_torch.tools.dryrun_multichip",
             "tpu_amg_torch.tools.bench_scaling"]
 
+# the rest of M21: the viz export, the aggregation tool, the V-cycle
+# breakdown and the two V-cycle benches
+SLICE_14 = ["tpu_amg_torch.utils.viz", "tpu_amg_torch.tools.aggregation",
+            "tpu_amg_torch.tools.vcycle_breakdown",
+            "tpu_amg_torch.tools.bench_vcycle",
+            "tpu_amg_torch.tools.bench_unstructured"]
+
 
 def test_port_imports_no_jax():
     out = subprocess.run(
@@ -89,6 +96,7 @@ def test_port_imports_no_jax():
     assert set(SLICE_11) <= set(out[2:])
     assert set(SLICE_12) <= set(out[2:])
     assert set(SLICE_13) <= set(out[2:])
+    assert set(SLICE_14) <= set(out[2:])
 
 
 def test_importing_builds_nothing():
@@ -151,6 +159,20 @@ def test_distributed_tools_default_to_the_card(tool):
     mod = importlib.import_module(f"tpu_amg_torch.tools.{tool}")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main([])
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("aggregation", []), ("bench_vcycle", []), ("bench_unstructured", []),
+    ("vcycle_breakdown", ["--ckpt", "none.npz"]),
+])
+def test_slice14_tools_default_to_the_card(tool, argv):
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    mod = importlib.import_module(f"tpu_amg_torch.tools.{tool}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
 
 
 def test_cuda_config_raises_without_card():

@@ -219,6 +219,30 @@ class ScaledIdentity(LinearOperator):
         return scale(self.scale, xs)
 
 
+@dataclasses.dataclass(frozen=True)
+class ComposedOperator(LinearOperator):
+    """B ∘ A: y = B(A(x)). rmv = Aᵀ Bᵀ."""
+
+    a: LinearOperator
+    b: LinearOperator
+
+    @property
+    def shape(self):
+        return (self.b.shape[0], self.a.shape[1])
+
+    def mv(self, x):
+        return self.b.mv(self.a.mv(x))
+
+    def mm(self, xs):
+        return self.b.mm(self.a.mm(xs))
+
+    def rmv(self, x):
+        return self.a.rmv(self.b.rmv(x))
+
+    def rmm(self, xs):
+        return self.a.rmm(self.b.rmm(xs))
+
+
 def aslinearoperator(x, device, dtype=torch.float64) -> LinearOperator:
     """A host CSR becomes a :class:`SparseOperator`, a dense array a
     :class:`DenseOperator`; operators pass through."""

@@ -9,6 +9,7 @@ form.
 from tpu_amg_torch.partition.modularity import (
     ModularityPartitioner,
     PartitionerConfig,
+    build_partition,
 )
 from tpu_amg_torch.partition.multilevel import MultilevelPartitionerConfig
 from tpu_amg_torch.partition.partition import Partition, PartitionStats
@@ -21,5 +22,6 @@ __all__ = [
     "Graph",
     "ModularityPartitioner",
     "PartitionerConfig",
+    "build_partition",
     "MultilevelPartitionerConfig",
 ]

@@ -35,10 +35,12 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+from typing import Callable, Optional
 
 import numpy as np
 import scipy.sparse as sps
 
+from tpu_amg_torch.errors import CoarseningStalled
 from tpu_amg_torch.ops import native
 from tpu_amg_torch.partition.partition import Partition
 from tpu_amg_torch.partition.strength import Graph, strength_graph
@@ -54,6 +56,11 @@ class PartitionerConfig:
     agg_size_penalty: float = 1.0
     max_improvement_iters: int = 100
     max_depth: int = 3  # strength-graph BFS depth (mod.rs:290)
+    # strict=False keeps the reference's degrade-gracefully default
+    # (warn-and-break on a stalled matching, modularity.rs:183-186);
+    # strict=True raises errors.CoarseningStalled instead so adaptive
+    # callers can catch it and loosen the coarsening factor.
+    strict: bool = False
     # split disconnected aggregates after improvement (the reference
     # knowingly leaves them — modularity.rs:440 "This can break
     # aggregates into disconnected components... not great"; scattered
@@ -72,8 +79,17 @@ class PartitionerConfig:
     # setup) with no measurable effect on aggregate quality or solve
     # iterations.  0 restores the reference's fixed-iteration behavior.
     improvement_tol: float = 1e-3
+    # called as callback(pass, partitioner) after each improvement pass
+    # (the metrics stream of tools/aggregation.py); None changes nothing
+    callback: Optional[Callable[[int, "ModularityPartitioner"], None]] = None
 
-    def build(self, a, near_null, nn_weights) -> "ModularityPartitioner":
+    def build(
+        self,
+        a,
+        near_null,
+        nn_weights,
+        starting_partition: Optional[Partition] = None,
+    ) -> "ModularityPartitioner":
         """Reference PartitionerConfig::build (mod.rs:273-309).
 
         Builds the strength graph on the scalar matrix, contracts by
@@ -87,8 +103,9 @@ class PartitionerConfig:
         if bs > 1:
             node_to_block = np.arange(a.nrows) // bs
             graph = graph.contract(node_to_block, a.nrows // bs)
-        part = ModularityPartitioner(graph, self)
-        part.initialize_partition()
+        part = ModularityPartitioner(graph, self, starting_partition)
+        if starting_partition is None:
+            part.initialize_partition()
         part.improve_partition()
         return part
 
@@ -97,20 +114,73 @@ class PartitionerConfig:
         return self.build(a, near_null, nn_weights).partition
 
 
+def build_partition(a, near_null, nn_weights, **kwargs) -> Partition:
+    return PartitionerConfig(**kwargs).build_partition(a, near_null, nn_weights)
+
+
 class ModularityPartitioner:
     """Stateful two-phase partitioner (host-side setup algorithm)."""
 
-    def __init__(self, graph: Graph, config: PartitionerConfig):
+    def __init__(
+        self,
+        graph: Graph,
+        config: PartitionerConfig,
+        starting_partition: Optional[Partition] = None,
+        node_weights: Optional[np.ndarray] = None,
+    ):
         n = graph.n
         self.config = config
-        self.base_graph = graph  # fine graph (for improvement)
+        self.base_graph = graph  # fine graph (for improvement + metrics)
         self.graph = graph  # coarsened during matching
         self.base_row_sums = graph.row_sums()
         self.inverse_total = 1.0 / max(self.base_row_sums.sum(), 1e-300)
+        self.node_weights = (
+            np.ones(n, dtype=np.int64)
+            if node_weights is None
+            else np.asarray(node_weights, dtype=np.int64)
+        )
+        if starting_partition is not None:
+            starting_partition.validate()
+            self.partition = starting_partition
+            self._rebuild_merged_state()
+        else:
+            self.partition = Partition.singleton(n)
+            self.row_sums = self.base_row_sums.copy()
+            self.agg_sizes = self.node_weights.copy()
+
+    # ------------------------------------------------------------------
+    def _rebuild_merged_state(self):
+        p = self.partition
+        self.agg_sizes = np.bincount(
+            p.node_to_agg, weights=self.node_weights, minlength=p.num_aggs
+        ).astype(np.int64)
+        self.row_sums = np.bincount(
+            p.node_to_agg, weights=self.base_row_sums, minlength=p.num_aggs
+        )
+        self.graph = self.base_graph.contract(p.node_to_agg, p.num_aggs)
+
+    # ------------------------------------------------------------------
+    def rebase(self, base_partition: Partition):
+        """Re-partition on a coarser base: contract the strength graph by
+        ``base_partition`` and restart matching + improvement over the
+        aggregated nodes (reference Partitioner::rebase + aggregate,
+        modularity.rs:136-141, 208-234).  The caller composes the
+        returned coarse partition with ``base_partition``."""
+        base_partition.validate()
+        graph = self.base_graph.contract(
+            base_partition.node_to_agg, base_partition.num_aggs
+        )
+        self.base_graph = graph
+        self.graph = graph
+        self.base_row_sums = graph.row_sums()
+        self.inverse_total = 1.0 / max(self.base_row_sums.sum(), 1e-300)
+        n = graph.n
         self.node_weights = np.ones(n, dtype=np.int64)
         self.partition = Partition.singleton(n)
         self.row_sums = self.base_row_sums.copy()
         self.agg_sizes = self.node_weights.copy()
+        self.initialize_partition()
+        self.improve_partition()
 
     # ------------------------------------------------------------------
     # Phase 1: greedy matching until target coarsening factor
@@ -121,6 +191,8 @@ class ModularityPartitioner:
             pairs, unmatched = self._greedy_matching(cf)
             if len(pairs) == 0:
                 achieved = self.partition.num_nodes / self.partition.num_aggs
+                if self.config.strict:
+                    raise CoarseningStalled(cf, achieved)
                 logger.warning(
                     "greedy partitioner stalled: target cf %.2f achieved %.2f",
                     cf,
@@ -204,6 +276,12 @@ class ModularityPartitioner:
     # ------------------------------------------------------------------
     # Phase 2: local-move refinement
     # ------------------------------------------------------------------
+    def _size_cost(self, sizes):
+        """(4·|s−cf|/cf)⁴ · penalty (modularity.rs:385-389)."""
+        cf = self.config.coarsening_factor
+        rel = np.abs(sizes - cf) / cf
+        return (4.0 * rel) ** 4 * self.config.agg_size_penalty
+
     def _best_moves(self):
         """Best positive-Δq move per node (modularity.rs:391-467), one
         native O(E) pass."""
@@ -241,11 +319,15 @@ class ModularityPartitioner:
             ).astype(np.int64)
             mi, mt, dq = self._best_moves()
             if len(mi) == 0:
+                if self.config.callback is not None:
+                    self.config.callback(it, self)
                 break
             order = np.argsort(-dq, kind="stable")
             swaps = self._apply_move_batch(
                 mi[order], mt[order], indptr, indices, node_to_agg
             )
+            if self.config.callback is not None:
+                self.config.callback(it, self)
             logger.debug("improvement pass %d: %d swaps", it, swaps)
             dq_total = float(dq.sum())
             if dq_first is None:
@@ -366,3 +448,26 @@ class ModularityPartitioner:
                 break  # isolated small aggregates with no outside edges
             partition = merged
         return partition
+
+    # ------------------------------------------------------------------
+    # metrics (modularity.rs:236-287)
+    # ------------------------------------------------------------------
+    def modularity(self) -> float:
+        rows, cols, w = self.base_graph.edges()
+        agg = self.partition.node_to_agg
+        same = agg[rows] == agg[cols]
+        expected = (
+            self.base_row_sums[rows[same]]
+            * self.base_row_sums[cols[same]]
+            * self.inverse_total
+        )
+        return float((w[same] - expected).sum() * self.inverse_total)
+
+    def total_edge_cost(self) -> float:
+        rows, cols, w = self.base_graph.edges()
+        agg = self.partition.node_to_agg
+        cut = (agg[rows] != agg[cols]) & (cols > rows)
+        return float(w[cut].sum())
+
+    def total_agg_size_cost(self) -> float:
+        return float(self._size_cost(self.agg_sizes.astype(np.float64)).sum())

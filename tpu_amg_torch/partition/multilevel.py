@@ -47,9 +47,12 @@ class MultilevelPartitionerConfig:
             ]
         )
 
-    def build_partition(self, a, near_null, nn_weights) -> Partition:
+    def build_partition(
+        self, a, near_null, nn_weights, callback=None
+    ) -> Partition:
         """The composed fine-node → aggregate partition (over block nodes
-        when a.block_size > 1)."""
+        when a.block_size > 1); ``callback(stage, composed)``, when given,
+        is called after each stage with the partition composed so far."""
         near_null = np.asarray(near_null, dtype=np.float64)
         if near_null.ndim == 1:
             near_null = near_null[:, None]
@@ -62,14 +65,22 @@ class MultilevelPartitionerConfig:
             graph = graph.contract(node_to_block, a.nrows // bs)
 
         composed: Optional[Partition] = None
-        for cfg in self.partitioner_configs:
+        for stage, cfg in enumerate(self.partitioner_configs):
             if graph.n <= 1:
                 break
             part = ModularityPartitioner(graph, cfg)
             part.initialize_partition()
             part.improve_partition()
-            stage = part.partition
-            composed = stage if composed is None else composed.compose(stage)
-            graph = graph.contract(stage.node_to_agg, stage.num_aggs)
+            stage_partition = part.partition
+            composed = (
+                stage_partition
+                if composed is None
+                else composed.compose(stage_partition)
+            )
+            if callback is not None:
+                callback(stage, composed)
+            graph = graph.contract(
+                stage_partition.node_to_agg, stage_partition.num_aggs
+            )
         composed.validate()
         return composed

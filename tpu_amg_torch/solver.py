@@ -128,6 +128,21 @@ def elasticity_3d_config(device: str = "cuda", **overrides) -> SolverConfig:
     return SolverConfig(**kw)
 
 
+def unstructured_config(device: str = "cuda", **overrides) -> SolverConfig:
+    """The SA config of the JAX package's ``bench_unstructured.py``
+    (cd 8 / 2, one smoothing step, 10 smoothing iterations, coarsest
+    1500, float32, levels at or under 8192 rows dense): the unstructured
+    2-D bench (``tools/bench_unstructured.py``) and the real-FEM solve of
+    ``chip_smoke.py``."""
+    kw = dict(
+        coarsening_near_null_dim=8, interp_near_null_dim=2,
+        smoothing_steps=1, smoothing_iters=10, coarsest_dim=1500,
+        dtype=torch.float32, dense_threshold=8192, device=device,
+    )
+    kw.update(overrides)
+    return SolverConfig(**kw)
+
+
 def setup_draws(n: int, config: SolverConfig):
     """The random blocks :meth:`AMGSolver.setup` draws from its CPU
     generator seeded with ``config.seed`` when the caller passes none, in

@@ -24,9 +24,10 @@ study of ``--composite``); the outer PCG and the operator stay float64.
 ``--classical-opts key=val,...`` sets the classical coarsening's knobs
 (``tau``, ``search``, ``depth``, ``max``, ``cands``, ``cr_target``,
 ``relax``; another key exits).  ``--mu`` overrides the cycle index,
-whose default is 1 for SA and 2 (a W-cycle) for classical.  The one
-option whose module is not ported yet, ``--viz-out``, exits with the
-ROADMAP item that ports it (M21).  ``--problem elasticity3d`` is the
+whose default is 1 for SA and 2 (a W-cycle) for classical.
+``--viz-out PATH`` writes the SA or classical hierarchy's partitions and
+first near-null vectors as JSON (:func:`tpu_amg_torch.utils.viz.dump_hierarchy_viz`)
+where the JAX CLI does, after the hierarchy is built.  ``--problem elasticity3d`` is the
 structured hex-grid elasticity of ``problems.elasticity_3d`` (block
 size 3), as in the JAX CLI.
 
@@ -99,7 +100,7 @@ def parse_args(argv=None):
                         "(the hand-written kernels) or cpu (their plain "
                         "versions)")
     p.add_argument("--viz-out", type=str, default=None,
-                   help="hierarchy viz JSON (ROADMAP M21)")
+                   help="write the hierarchy viz JSON here")
     p.add_argument("--skip-sli", action="store_true",
                    help="skip the stationary-iteration solve (prints -1)")
     p.add_argument("--skip-enorm", action="store_true",
@@ -110,17 +111,6 @@ def parse_args(argv=None):
                         "(precision.py); outer PCG stays f64")
     p.add_argument("-v", "--verbose", action="store_true")
     return p.parse_args(argv)
-
-
-def refuse_unported(args) -> None:
-    """Exit, naming the ROADMAP item, on an option whose module is not
-    ported yet: none is silently ignored."""
-    unported = [
-        (args.viz_out is not None, "--viz-out", "M21"),
-    ]
-    for given, option, item in unported:
-        if given:
-            raise SystemExit(f"{option} is not ported yet (ROADMAP {item})")
 
 
 def classical_config(opts: str):
@@ -337,7 +327,6 @@ def composite_tables(pcg_rows, sli_rows) -> str:
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_unported(args)
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING,
         format="%(levelname)s %(name)s: %(message)s",
@@ -402,6 +391,10 @@ def main(argv=None):
     else:
         hierarchy, _ = build_hierarchy(a, args, hier_cfg, generator)
         print(repr(hierarchy), file=sys.stderr)
+        if args.viz_out:
+            from tpu_amg_torch.utils.viz import dump_hierarchy_viz
+
+            dump_hierarchy_viz(hierarchy, args.viz_out)
         pc = mg_cfg.build(hierarchy)
         sync()
         op_complexity = hierarchy.op_complexity()

@@ -86,3 +86,24 @@ def call_ms(fn, device: torch.device, reps: int) -> float:
             fn()
         times.append((time.perf_counter() - t0) * 1e3 / reps)
     return float(np.median(times))
+
+
+def solve_best(solver, b, rtol: float, maxiter: int, runs: int = 3) -> dict:
+    """``solver.solve(b)`` once, then ``runs`` more, each timed on the
+    host clock around a synchronised solve: the best seconds (``s``),
+    with the last solve's iterations, convergence, final residual and
+    ``x``."""
+    def sync():
+        if solver.device.type == "cuda":
+            torch.cuda.synchronize(solver.device)
+
+    x, info = solver.solve(b, rtol=rtol, maxiter=maxiter)
+    sync()
+    best = float("inf")
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        x, info = solver.solve(b, rtol=rtol, maxiter=maxiter)
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    return dict(s=best, iters=info.iters, converged=info.converged,
+                final_res=info.final_res, x=x)
