@@ -4,11 +4,13 @@ Usage: python3 chip_smoke.py [--side 48] [--elasticity-side 40] [--reps 50]
 
 Phases, one printed line per result; any failed check exits non-zero:
   1. device: nvidia-smi's name and power limit, torch / CUDA / nvcc / g++;
-  2. builds: the six CUDA kernel libraries (nvcc: K1 + K2, K3 (both
-     designs), the
+  2. builds: the six CUDA kernel libraries (nvcc: K1 + K2, K3 (its
+     three designs), the
      stream probe, K1's stage ablations, the copy probe, the primitive
      probe) and the native host library (g++), from the sources in this
-     checkout, all seven compilers started together;
+     checkout, all seven compilers started together, and beside them
+     ptxas's report of csrc/dia.cu (nvcc -Xptxas -v): K3's row-chunk
+     kernel's registers at every pair, k and R, none may spill;
   3. K1/K2 vs their plain PyTorch versions on the card: a random
      heavy-row matrix with a small cap; A0 of unstructured_poisson_3d(64)
      (262,144 rows, past the L2 at k=1) at k=1, whatever --side is: the
@@ -61,9 +63,12 @@ Phases, one printed line per result; any failed check exits non-zero:
      cols, k); the V-cycle's times;
   8. K3 vs its plain version at that path's level-0 and level-1
      operators, k = 1, 7, 8, float64 and float32, bitwise against its
-     first design (K3 runs it below k = 8 and the band-tile design from
-     k = 8 up; each callable uncounted) and against a second call, with
-     the first design's time, below k = 8 the band-tile design's,
+     first design (K3 runs the row-chunk design below k = 8 and the
+     band-tile design from k = 8 up; each design callable uncounted, the
+     first design the reference) and against a second call, with
+     the first design's time (taken in turns with K3's: A B B A), below
+     k = 8 the band-tile design's, the row-chunk design's fixed cost of a
+     launch (one diagonal, 4,096 rows, float32, k = 1),
      K1 + K2 on the same matrices as a capped CSR and the library's
      SpMV / SpMM from CSR storage beside it; K3's diagonal sweep (python
      -m tpu_amg_torch.tools.diasweep's: k = 64, float64, 262,144 rows,
@@ -148,8 +153,9 @@ Phases, one printed line per result; any failed check exits non-zero:
      A0 and the SA path's A0, P0, R0, A1 (k = 1, 8), K3 on the
      structured A0 and A1 and the adaptive fine A (k = 1, 8, 64), each
      against its plain version at T's tolerance, two calls bitwise
-     equal, the band tiles bitwise equal to the first design from k = 8,
-     timed beside the (T, T) kernel on the widened values, the library's
+     equal, K3 (the row-chunk design at k = 1) and the band tiles bitwise
+     equal to the first design and timed in turns with it, beside the
+     (T, T) kernel on the widened values, the library's
      call on them and the bound of the bytes with V-sized values; the
      SA and structured paths cast to None, "f32", "bf16_values" and
      "bf16", each with 3 PCG solves to rtol 1e-6 eager and compiled
@@ -270,16 +276,23 @@ returns them; the workers are stopped when the script ends.  After the
 setups the workers run phase 13's three longest CLI runs (SA aniso2d
 n=256, the composite, elasticity3d), counted the same way and checked
 after phase 18, and then phase 20's two 262k setups.
-Then every row timed with its bytes in the L2 cache is bound by the L2
-read rate of phase 11, and K1's and K2's launches x (time - bound) are
-printed for the SA and structured paths.  Every count is set to 0 just
-before each path (4, 6, 7, 10, 11, 12, each CLI run, the adaptive
+Then every path that runs K3 below k = 8 (structured, adaptive,
+classical, bench_vcycle, the real FEM) solves one seeded b by eager PCG
+twice, with K3 as routed and with those launches on the first design:
+the same iterations, histories and, bitwise, x.  Then every row timed
+with its bytes in the L2 cache is bound by the L2 read rate of phase 11,
+and K1's and K2's launches x (time - bound) are printed for the SA and
+structured paths; every K3 case below k = 8 is printed with its path's
+launches, the row-chunk and first designs' times, the bound and the
+launch's fixed cost, and launches x time summed for both designs.
+Every count is set to 0 just before each path (4, 6, 7, 10, 11, 12, each CLI run, the adaptive
 setup, its solves, each mode of phase 15, phase 18's W-cycle and
 two-level runs, phase 19's sharded solves) and read just after it,
 before the comparison launches.  The last two lines are a JSON object of
 per-kernel results (with each kernel's bound and the library call's
-time; phase 15 adds one entry a mixed kernel and pair) and the device
-line.  With no CUDA device it exits with code 2
+time; phase 15 adds one entry a mixed kernel and pair; `dia_spmv_row`
+is K3's row-chunk design, its cases below k = 8 in `shapes`) and the
+device line.  With no CUDA device it exits with code 2
 and prints no result.
 """
 
@@ -398,6 +411,51 @@ def check(ok: bool, msg: str) -> None:
 def run(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True,
                           check=True).stdout.strip()
+
+
+# the row-chunk kernel's template arguments in its mangled name: the
+# values' type, X's type, k, R and C
+ROW_KERNEL = (r"row_kernelI(d|f|13__nv_bfloat16)(d|f)Li(\d+)ELi(\d+)E"
+              r"Li(\d+)E")
+MANGLED_PAIR = {("d", "d"): "f64", ("f", "f"): "f32", ("f", "d"): "f32f64",
+                ("13__nv_bfloat16", "f"): "bf16f32",
+                ("13__nv_bfloat16", "d"): "bf16f64"}
+
+
+def row_kernel_registers(report: dict) -> dict:
+    """ptxas's report (``_build.ptxas_report``) of K3's row-chunk
+    kernels by pair: {pair: [(k, R, C, registers, stack, spill
+    bytes)]}."""
+    import re
+
+    out = collections.defaultdict(list)
+    for name, r in report.items():
+        m = re.search(ROW_KERNEL, name)
+        if m:
+            out[MANGLED_PAIR[m.group(1), m.group(2)]].append(
+                (*(int(m.group(i)) for i in (3, 4, 5)), r["registers"],
+                 r.get("stack", 0),
+                 r.get("spill_stores", 0) + r.get("spill_loads", 0)))
+    return {pair: sorted(rows) for pair, rows in out.items()}
+
+
+def say_row_registers(report: dict) -> bool:
+    """Print the row-chunk kernels' registers and spills, a line a pair;
+    True where every pair has its instances (each k and (R, C) of
+    ``ops.dia.row_shapes``) and none spills."""
+    from tpu_amg_torch.ops import dia as dia_ops
+
+    want = sorted((k, r, c) for k in range(1, dia_ops.ROW_MAX_K + 1)
+                  for r, c in dia_ops.row_shapes(k))
+    rows = row_kernel_registers(report)
+    for pair, insts in sorted(rows.items()):
+        say(f"ptxas -v, K3 row_kernel {pair}: " + ", ".join(
+            f"k={k} R={r} C={c} {regs} regs"
+            + (f" stack {st} B" if st else "") + (f" SPILL {sp} B" if sp else "")
+            for k, r, c, regs, st, sp in insts))
+    return (sorted(rows) == sorted(MANGLED_PAIR.values())
+            and all([(k, r, c) for k, r, c, *_ in v] == want
+                    and not any(sp for *_, sp in v) for v in rows.values()))
 
 
 def heavy_row_matrix(seed: int = 0):
@@ -675,6 +733,40 @@ def check_same_solve(label: str, pair, first: bool) -> None:
           f"ms an iteration), compiled {tg:.4f} s "
           f"({tg / max(ig.iters, 1) * 1e3:.3f} ms an iteration"
           + ("; its capture included)" if first else ")"))
+
+
+def first_design_solves(paths) -> None:
+    """Each path's eager PCG solve as K3 routes it, then again with
+    every K3 launch below TILED_MIN_K sent to the first design (the
+    wrapper's row-chunk launch swapped for the first design's for that
+    solve): the same iterations, residual history and, bitwise, x.
+    ``paths``: (label, operator, preconditioner, rtol, maxiter); b is
+    seeded, in the operator's dtype.  Run after every path's launch
+    counts were read: these solves count launches too."""
+    import torch
+
+    from tpu_amg_torch.ops import dia as dia_ops
+    from tpu_amg_torch.solvers import cg
+
+    for label, op, pc, rtol, maxiter in paths:
+        b = torch.from_numpy(np.random.default_rng(16).standard_normal(
+            op.shape[0])).to("cuda", op.mat.dtype)
+        x1, i1 = cg(op, b, pc, rtol=rtol, maxiter=maxiter)
+        routed = dia_ops._row
+        dia_ops._row = dia_ops._first
+        try:
+            x2, i2 = cg(op, b, pc, rtol=rtol, maxiter=maxiter)
+            torch.cuda.synchronize()
+        finally:
+            dia_ops._row = routed
+        same_hist = i1.history().tolist() == i2.history().tolist()
+        same_x = torch.equal(x1, x2)
+        check(i1.iters == i2.iters and same_hist and same_x,
+              f"{label}: eager PCG with K3 below k = "
+              f"{dia_ops.TILED_MIN_K} on the row-chunk design {i1.iters} / "
+              f"on the first design {i2.iters} iterations (rtol "
+              f"{rtol:.0e}), histories equal: {same_hist}, x bitwise "
+              f"equal: {same_x}")
 
 
 def run_cli(module: str, argv) -> tuple:
@@ -1243,16 +1335,18 @@ def dia_to_csr(dia):
 def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8),
                      dtypes=None):
     """K3 against its plain version on one DIA matrix, float64 and
-    float32 (or ``dtypes``), and bitwise against its first design and against a second
-    call; device times of K3, its first design, the plain version and K1
-    + K2 on the same matrix as a capped CSR (CUDA graph replays); below
-    k = TILED_MIN_K, where K3 runs its first design, also the band-tile
-    design (uncounted, not routed)."""
+    float32 (or ``dtypes``), and bitwise against its first design and
+    against a second call; device times of K3 and its first design
+    (in turns, A B B A), the plain version and K1 + K2 on the same
+    matrix as a capped CSR (CUDA graph replays); below k = TILED_MIN_K,
+    where K3 runs its row-chunk design, also the band-tile design
+    (uncounted, not routed)."""
     import torch
 
     from tpu_amg_torch.ops import dia as dia_ops
     from tpu_amg_torch.ops import spmv
-    from tpu_amg_torch.utils.timing import hbm_bound_ms, median_ms
+    from tpu_amg_torch.utils.timing import (alternating_ms, hbm_bound_ms,
+                                            median_ms)
 
     n, n_diags = dia64.shape[0], len(dia64.offsets)
     for dtype in dtypes or (torch.float64, torch.float32):
@@ -1280,9 +1374,9 @@ def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8),
             err = float((y - p).abs().max())
             rel_csr = float((yc - p).abs().max()) / scale
             plan = dia_ops.plan_for(mat, x)
-            t = median_ms(lambda: dia_ops.dia_spmv(mat, x), reps, graph=True)
-            tf = median_ms(lambda: dia_ops.launch_first_design(mat, x), reps,
-                           graph=True)
+            t, tf = alternating_ms(
+                [lambda: dia_ops.dia_spmv(mat, x),
+                 lambda: dia_ops.launch_first_design(mat, x)], reps)
             tiled = k >= dia_ops.TILED_MIN_K
             tt = t if tiled else median_ms(
                 lambda: dia_ops.launch_band_tiles(mat, x), reps, graph=True)
@@ -1296,8 +1390,12 @@ def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8),
             dia_bytes = (n_diags * n + 2 * n * k) * isz
             csr_bytes = (capped.nnz * (isz + 4) + 8 * (n + 1)
                          + 2 * n * k * isz)
-            design = (f"band tiles T={plan.tile}, {len(plan.bands)} bands"
-                      if tiled else "first design")
+            if tiled:
+                design = f"band tiles T={plan.tile}, {len(plan.bands)} bands"
+            else:
+                rp = dia_ops.row_plan_for(mat, x)
+                design = (f"row-chunk R={rp.rows_per_thread} C={rp.cols} x "
+                          f"{rp.threads} threads, U={rp.chunk}")
             check(
                 err / scale <= TOL[dname] and rel_csr <= TOL[dname] and same,
                 f"K3 {name} {dname} k={k}: n {n}, {n_diags} diagonals, "
@@ -1320,7 +1418,8 @@ def dia_kernel_cases(name, dia64, csr, reps, results, ks=(1, 7, 8),
                                 csr_ms=tc, bytes=dia_bytes,
                                 csr_bytes=csr_bytes, lib_ms=tl,
                                 bound_ms=hbm_bound_ms(dia_bytes), n=n,
-                                diagonals=n_diags, bands=len(plan.bands)))
+                                diagonals=n_diags, bands=len(plan.bands),
+                                design=design))
 
 
 def level_lines(mg):
@@ -2616,14 +2715,21 @@ def distributed_phase(solver, s_op, smg, side: int, reps: int, results,
     return out
 
 
-def distributed_entries(dist_out: dict, results, dia_results) -> list:
-    """The kernels line's entries of phase 19: K1, K2 and K3 on rank 0's
-    local matrix at DIST_RANKS (float64, k = 1), each with the launches
-    of (b)'s sharded solves at that shape, summed over the ranks."""
+def dist_by_shape(dist_out: dict) -> dict:
+    """K1's, K2's and K3's launches by (rows, cols, k) over (b)'s sharded
+    solves, summed over the ranks."""
     by_shape = {k: collections.Counter() for k in ("K1", "K2", "K3")}
     for path in ("gloo SA", "gloo structured"):
         for k, rows in dist_out[path]["launches_by_shape"].items():
             by_shape[k].update({tuple(r[:3]): r[3] for r in rows})
+    return by_shape
+
+
+def distributed_entries(dist_out: dict, results, dia_results) -> list:
+    """The kernels line's entries of phase 19: K1, K2 and K3 on rank 0's
+    local matrix at DIST_RANKS (float64, k = 1), each with the launches
+    of (b)'s sharded solves at that shape, summed over the ranks."""
+    by_shape = dist_by_shape(dist_out)
     out = []
     for kernel, key, name, replaces, source in (
             ("K1", "k1", "csr_spmv_capped_distributed",
@@ -2853,6 +2959,7 @@ def fem_solve(f: dict, reps: int, results, dia_results) -> dict:
         ops["A0 (cycle)"] = lvl.a  # the cycle's A0 in another format
     cases = path_kernel_cases("FEM", ops, reps, results, dia_results)
     return dict(n=a.nrows, nnz=a.nnz, load_s=load_s, solves=solves,
+                solver=solver,
                 counts=counts, cases=cases,
                 op_complexity=solver.hierarchy.op_complexity(),
                 rows=[m.nrows for m in solver.hierarchy.matrices],
@@ -2941,6 +3048,7 @@ def slice14_phase(jobs, reps: int, results, dia_results, sa_solver,
     check(len(vc_cases) == 2, f"phase 20 (a): K3 on the DIA levels "
           f"{vc_cases} (expected A0 and A1)")
     out["vcycle"] = dict(json=js, solves=res["solves"], counts=counts,
+                         multigrid=mg,
                          cases=vc_cases, stream=n_stream)
 
     # (b) bench_unstructured at side 512 on the worker's checkpoint
@@ -3281,14 +3389,16 @@ def mixed_csr_cases(name, csr, reps, l2, out, ks=(1, 8)):
 
 def mixed_dia_cases(name, dia64, reps, l2, out, ks=(1, 8, 64)):
     """K3 at each mixed pair on one DIA matrix: against its plain version
-    at T's tolerance, two calls bitwise equal, and from k = 8 the band
-    tiles bitwise equal to the first design; device times beside the
+    at T's tolerance, bitwise against its first design and across two
+    calls, and the band tiles bitwise equal to the first design; device
+    times of K3 and its first design (in turns, A B B A) beside the
     (T, T) kernel on the widened diagonals, the library's call on the
-    same CSR (widened values) and the bound with V-sized diagonals."""
+    same CSR (widened values) and the bound with V-sized diagonals;
+    below k = TILED_MIN_K also the band tiles."""
     import torch
 
     from tpu_amg_torch.ops import dia as dia_ops
-    from tpu_amg_torch.utils.timing import median_ms
+    from tpu_amg_torch.utils.timing import alternating_ms, median_ms
 
     n, n_diags = dia64.shape[0], len(dia64.offsets)
     # the CSR of the stored nonzeros: where each entry lies in data
@@ -3317,31 +3427,41 @@ def mixed_dia_cases(name, dia64, reps, l2, out, ks=(1, 8, 64)):
             tiles = dia_ops.launch_band_tiles(mat, x)
             p = dia_ops.plain_dia_spmv(mat, x)
             torch.cuda.synchronize()
-            same = torch.equal(y, again) and (
-                k < dia_ops.TILED_MIN_K or torch.equal(tiles, first))
+            same = (torch.equal(y, again) and torch.equal(y, first)
+                    and torch.equal(tiles, first))
             scale = max(float(p.abs().max()), 1e-300)
             err = float((y - p).abs().max())
             rec = dict(case=name, pair=pair_name(vname, tname), k=k, n=n,
                        err=err, diagonals=n_diags)
-            rec["ms"] = median_ms(lambda: dia_ops.dia_spmv(mat, x), reps,
-                                  graph=True)
+            rec["ms"], rec["first_ms"] = alternating_ms(
+                [lambda: dia_ops.dia_spmv(mat, x),
+                 lambda: dia_ops.launch_first_design(mat, x)], reps)
             rec["plain_ms"] = median_ms(lambda: dia_ops.plain_dia_spmv(mat, x),
                                         reps, graph=True)
             rec["tt_ms"] = median_ms(lambda: dia_ops.dia_spmv(wide, x), reps,
                                      graph=True)
             rec["lib_ms"] = median_ms(lambda: lib @ x, reps, graph=True)
+            if k < dia_ops.TILED_MIN_K:
+                rec["tiled_ms"] = median_ms(
+                    lambda: dia_ops.launch_band_tiles(mat, x), reps,
+                    graph=True)
             rec["bound_ms"] = pair_bound(
                 n_diags * n * mat.data.element_size()
                 + 2 * n * k * x.element_size(), l2)
             check(err / scale <= TOL[tname] and same,
                   f"mixed K3 {name} ({vname}, {tname}) k={k}: n {n}, "
                   f"{n_diags} diagonals, nnz {len(keep)}: max rel err "
-                  f"{err / scale:.3e} (limit {TOL[tname]:.0e}); two calls "
-                  f"bitwise equal, and from k = {dia_ops.TILED_MIN_K} the "
+                  f"{err / scale:.3e} (limit {TOL[tname]:.0e}); bitwise "
+                  f"equal to the first design and to a second call, the "
                   f"band tiles to the first design: {same}; K3 "
-                  f"{rec['ms'] * 1e3:.2f} us ((T, T) {rec['tt_ms'] * 1e3:.2f}"
-                  f", plain {rec['plain_ms'] * 1e3:.2f}, library on the "
-                  f"widened values {rec['lib_ms'] * 1e3:.2f}, bound "
+                  f"{rec['ms'] * 1e3:.2f} us (first design "
+                  f"{rec['first_ms'] * 1e3:.2f}, "
+                  + (f"band tiles {rec['tiled_ms'] * 1e3:.2f}, "
+                     if "tiled_ms" in rec else "")
+                  + f"(T, T) "
+                  f"{rec['tt_ms'] * 1e3:.2f}, plain "
+                  f"{rec['plain_ms'] * 1e3:.2f}, library on the widened "
+                  f"values {rec['lib_ms'] * 1e3:.2f}, bound "
                   f"{rec['bound_ms'] * 1e3:.2f})")
             out.append(rec)
 
@@ -3365,6 +3485,21 @@ def add_counts(total: dict, counts: dict) -> None:
         for pair, n in by_pair.items():
             total.setdefault(kernel, {}).setdefault(pair, 0)
             total[kernel][pair] += n
+
+
+def count_launches(totals: dict) -> dict:
+    """The launches since the last reset by (value, vector) dtype names
+    (:func:`dtype_counts`), added to ``totals``; K3's also by (rows,
+    cols, k, pair), added to ``totals["K3 by shape"]``."""
+    from tpu_amg_torch.ops import dia
+
+    counts = dtype_counts()
+    add_counts(totals, counts)
+    totals.setdefault("K3 by shape", collections.Counter()).update(
+        {(r, c, k, pair_name(str(v)[6:], str(t)[6:])): n
+         for (r, c, k, v, t), n
+         in dia.dia_spmv_launches_by_shape_dtype.items()})
+    return counts
 
 
 def cycle_shares(pc, vdtype, t_cycle_ms) -> str:
@@ -3445,8 +3580,7 @@ def precision_path(label, solver, max_iters, totals) -> dict:
                              first=i == 0)
             iters.append(info.iters)
         torch.cuda.synchronize()
-        counts = dtype_counts()
-        add_counts(totals, counts)
+        counts = count_launches(totals)
         bf16 = sum(n for by_pair in counts.values()
                    for pair, n in by_pair.items() if pair.startswith("bf16"))
         check(mode not in ("bf16_values", "bf16") or bf16 > 0,
@@ -3497,7 +3631,7 @@ def adaptive_precision(solver, small, totals) -> dict:
                      maxiter=500 if mode is None else ADAPTIVE_CAST_MAXITER)
         torch.cuda.synchronize()
         t = time.perf_counter() - t0
-        add_counts(totals, dtype_counts())
+        count_launches(totals)
         true_rel = float(torch.linalg.vector_norm(b - op.mv(x))
                          / torch.linalg.vector_norm(b))
         limit = 500 if base is None else base + 3
@@ -3602,8 +3736,7 @@ def precision_phase(reps, l2, paths) -> dict:
             "bf16_values"]
     line, secs, _ = run_cli("tpu_amg_torch.tools.amg", argv)
     torch.cuda.synchronize()
-    counts = dtype_counts()
-    add_counts(totals, counts)
+    counts = count_launches(totals)
     cg_iters = int(line.split()[0])
     check(cg_iters <= MAX_ITERS_STRUCTURED
           and counts["K3"].get("bf16f64", 0) > 0,
@@ -3618,7 +3751,7 @@ def precision_phase(reps, l2, paths) -> dict:
           "phase 15 launches by (values, vectors) over its paths: "
           + "; ".join(f"{k} " + ", ".join(f"{p} {c}" for p, c in
                                           sorted(v.items()))
-                      for k, v in totals.items())
+                      for k, v in totals.items() if k != "K3 by shape")
           + (f"; never launched: {missing}" if missing else ""))
     say(f"phase 15: {time.perf_counter() - t_phase:.1f} s "
         f"(kernel cases {t_kernels:.1f} s)")
@@ -3670,6 +3803,77 @@ def precision_entries(precision) -> list:
                  tt_ms=k3["tt_ms"], case="structured A0", **common),
         ]
     return entries
+
+
+def row_design_entry(dia_results, precision, paths, floor_ms,
+                     launches) -> dict:
+    """The kernels line's entry of K3's row-chunk design (k < 8): every
+    K3 case below TILED_MIN_K timed in this run in ``shapes``, each with
+    its path's launches at that shape (``paths``: (case names, path,
+    dtype the path runs, launches by (rows, cols, k)); a mixed pair's
+    case carries phase 15's launches at its shape and pair), the
+    row-chunk and first designs' times (in turns), the band tiles', K1 +
+    K2's as CSR (not at the mixed pairs), the plain version's, the
+    library's, the bound, the launch's fixed cost ``floor_ms`` and the
+    share of the bound with and without it; launches x time summed over
+    the shapes for both designs.  ``launches``: the structured path's
+    (the main path's) row-chunk launches; its A0 at float64, k = 1 the
+    headline."""
+    from tpu_amg_torch.ops import dia as dia_ops
+
+    short = {"float64": "f64", "float32": "f32"}
+    rows = []
+    for names, path, dtype, counts in paths:
+        for c in dia_results:
+            if c["case"] in names and c["k"] < dia_ops.TILED_MIN_K:
+                rows.append(dict(
+                    case=c["case"], path=path, pair=short[c["dtype"]],
+                    rows=c["n"], diagonals=c["diagonals"], k=c["k"],
+                    launches=(counts.get((c["n"], c["n"], c["k"]), 0)
+                              if c["dtype"] == dtype else 0),
+                    max_abs_err=c["err"], ms=c["ms"],
+                    first_design_ms=c["first_ms"], band_tiles_ms=c["tiled_ms"],
+                    csr_ms=c["csr_ms"], plain_ms=c["plain_ms"],
+                    library_ms=c["lib_ms"], bound_ms=c["bound_ms"],
+                    design=c["design"]))
+    mixed = precision["totals"].get("K3 by shape", {})
+    for c in precision["dia"]:
+        if c["k"] < dia_ops.TILED_MIN_K:
+            rows.append(dict(
+                case=f"mixed {c['case']}", path="mixed precision",
+                pair=c["pair"], rows=c["n"], diagonals=c["diagonals"],
+                k=c["k"], launches=mixed.get((c["n"], c["n"], c["k"],
+                                              c["pair"]), 0),
+                max_abs_err=c["err"], ms=c["ms"],
+                first_design_ms=c["first_ms"], band_tiles_ms=c["tiled_ms"],
+                csr_ms=None, plain_ms=c["plain_ms"],
+                library_ms=c["lib_ms"], bound_ms=c["bound_ms"]))
+    for r in rows:
+        r.update(floor_ms=floor_ms, share=r["bound_ms"] / r["ms"],
+                 share_with_floor=(r["bound_ms"] + floor_ms) / r["ms"])
+        say(f"K3 below k = {dia_ops.TILED_MIN_K}, {r['path']} {r['case']} "
+            f"{r['pair']} k={r['k']} ({r['rows']} rows, {r['diagonals']} "
+            f"diagonals): row-chunk {r['ms'] * 1e3:.2f} us, first design "
+            f"{r['first_design_ms'] * 1e3:.2f} us, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['share']:.1%}; with the "
+            f"launch's {floor_ms * 1e3:.2f} us {r['share_with_floor']:.1%}), "
+            f"launches {r['launches']}")
+    new = sum(r["launches"] * r["ms"] for r in rows)
+    old = sum(r["launches"] * r["first_design_ms"] for r in rows)
+    say(f"K3 below k = {dia_ops.TILED_MIN_K}: launches x time over those "
+        f"shapes {new:.3f} ms on the row-chunk design, {old:.3f} ms on the "
+        f"first design")
+    head = next(r for r in rows if r["case"] == "A0" and r["pair"] == "f64"
+                and r["k"] == 1)
+    return dict(
+        name="dia_spmv_row", route="cuda", source="tpu_amg_torch/csrc/dia.cu",
+        replaces="tpu_amg/ops/dia_pallas.py:34", launches=launches,
+        max_abs_err=max(r["max_abs_err"] for r in rows if r["pair"] == "f64"),
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by="bytes", library_ms=head["library_ms"],
+        case="structured A0", rows=head["rows"],
+        first_design_ms=head["first_design_ms"], floor_ms=floor_ms,
+        launches_x_ms=new, launches_x_first_design_ms=old, shapes=rows)
 
 
 def drive(args, jobs, jobs_ckpt) -> list:
@@ -3970,6 +4174,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
                       csr_spmv_capped=spmv.csr_spmv_launches,
                       coo_patch=spmv.coo_patch_launches)
     s_k2_by_shape = dict(spmv.coo_patch_launches_by_shape)
+    s_k3_by_shape = dict(dia_ops.dia_spmv_launches_by_shape)
     csr_levels = [lvl.a.mat for lvl in smg.levels
                   if isinstance(lvl.a, SparseOperator)
                   and not isinstance(lvl.a.mat, DIA)]
@@ -4000,6 +4205,10 @@ def drive(args, jobs, jobs_ckpt) -> list:
         dia_kernel_cases(name, mat, ps if lvl == 0 else dia_to_csr(mat),
                          args.reps, dia_results)
     # K3's diagonal sweep at k = 64, float64, 262,144 rows: both designs
+    floor_ms = diasweep.floor_case(args.reps)
+    say(f"K3's row-chunk design: the fixed cost of a launch in a graph (one "
+        f"diagonal, {diasweep.FLOOR_ROWS} rows, float32, k = 1) "
+        f"{floor_ms * 1e3:.2f} us")
     sweep = diasweep.sweep(args.reps)
     say(diasweep.say_sweep(sweep))
     check(all(r["same"] for r in sweep.values()),
@@ -4117,6 +4326,23 @@ def drive(args, jobs, jobs_ckpt) -> list:
     # the rows timed in L2 (bytes that fit in the card's L2, 50 calls
     # back to back) bound by this run's L2 read rate, without a call's
     # fixed cost (phase 11), in place of the HBM data sheet's rate
+    # every path that runs K3 below k = 8, solved again with those
+    # launches on the first design (after every path's counts were read)
+    vc_mg, fem_solver = p20["vcycle"]["multigrid"], p20["fem"]["solver"]
+    first_design_solves([
+        (f"structured path poisson3d({STRUCTURED_SIDE}), float64", s_op, smg,
+         RTOL, 200),
+        (f"adaptive composite aniso2d({ADAPTIVE_N}) random",
+         adaptive["solver"].op, adaptive["solver"].preconditioner,
+         ADAPTIVE_TOL, ADAPTIVE_MAXITER),
+        (f"classical W-cycle poisson2d({CLASSICAL_SIDE})",
+         classical["solver"].op, classical["solver"].preconditioner,
+         CLASSICAL_TOL, 200),
+        ("bench_vcycle poisson3d(64), float32", vc_mg.levels[0].a, vc_mg,
+         RTOL, 200),
+        ("real FEM, float32", fem_solver.op, fem_solver.preconditioner, RTOL,
+         FEM_MAXITER)])
+
     bound_in_l2(results, dia_results, stream_recs, l2)
     # K1's and K2's excess over their bounds on both paths
     say_excess("K1", "k1", "the SA path", k1_by_shape, results, sa_cases)
@@ -4218,6 +4444,20 @@ def drive(args, jobs, jobs_ckpt) -> list:
         *classical_entries(classical),
         *distributed_entries(dist_out, results, dia_results),
         *slice14_entries(p20, results, dia_results),
+        row_design_entry(dia_results, precision, [
+            (("A0", "A1"), "structured", "float64", s_k3_by_shape),
+            (adaptive["dia_cases"], "adaptive", "float64",
+             adaptive["counts"]["K3"]),
+            (("classical A0",), "classical", "float64",
+             classical["by_shape"]["K3"]),
+            ((dist_out["cases"]["K3"][0],), "distributed", "float64",
+             dist_by_shape(dist_out)["K3"]),
+            (p20["vcycle"]["cases"], "bench_vcycle", "float32",
+             p20["vcycle"]["counts"]["K3"]),
+            (p20["fem"]["cases"], "real FEM", "float32",
+             p20["fem"]["counts"]["K3"])], floor_ms,
+            sum(v for key, v in s_k3_by_shape.items()
+                if key[2] < dia_ops.TILED_MIN_K)),
     ]
     return kernels
 
@@ -4281,11 +4521,18 @@ def main() -> int:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(builds) + 1) as pool:
         futures = {label: pool.submit(timed, fn) for label, fn in builds.items()}
+        # ptxas's registers and spills of K3's kernels, beside the builds
+        ptxas = pool.submit(_build.ptxas_report, dia_ops.SOURCE)
         build_s = {label: f.result() for label, f in futures.items()}
+        dia_report = ptxas.result()
     say("build: " + "; ".join(f"{k} {v:.1f} s" for k, v in build_s.items())
         + f"; {time.perf_counter() - t0:.1f} s in all, side by side")
+    check(say_row_registers(dia_report),
+          "ptxas -v (csrc/dia.cu): K3's row-chunk kernel built at the five "
+          "pairs, each k, R and C of its plans (R = 1 or 2 at k = 1; all "
+          "k columns a thread or one at k = 2..7), none spilling")
 
     # the setups of phases 16-18 start now, beside phases 3-15
     with tempfile.TemporaryDirectory() as tmp:

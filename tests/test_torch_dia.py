@@ -10,14 +10,28 @@ interpret mode (``dia_spmv_pallas(..., interpret=True)``).  Tolerances:
 held against the JAX package's ``_pick_format``.  The CUDA cases run
 the kernel itself and skip without a card.
 
-K3's band-tile design (k > 1) is held on the CPU through its plan:
+K3's band-tile design (k >= 8) is held on the CPU through its plan:
 ``dia_plan`` walked in numpy (every output written once, every in-range
 product read inside its band's staged window, the diagonals in offset
 order, the windows inside the budget, the grid two blocks an SM where n
 allows), and the kernel's per-tile sum restated in numpy from that plan
-against the plain version.  On the card the band-tile kernel is held
-against the plain version, bitwise against the first design and
-bitwise across two calls.
+against the plain version.
+
+K3's row-chunk design (k < 8) is held the same way: ``row_plan`` and
+every launch of ``row_plans`` walked in numpy (each row owned by one
+thread, a diagonal's R values one aligned vector load, the chunks in
+offset order), and the kernel's sum restated in numpy from that plan (R
+rows a thread, chunks of U diagonals, every read issued at a clamped
+row and set to NaN where it lies outside the matrix, so that a read
+that is not skipped shows) against the plain version.
+
+On the card the routed designs are held against the plain version,
+bitwise against the first design at every (values, vectors) pair and
+bitwise across two calls; every launch of ``row_plans`` gives the first
+design's bits, on aligned and unaligned data and on an X with NaN and
+Inf where only skipped reads reach it; the wrapper never takes the
+plain version for a CUDA tensor; and a CUDA graph replays the row-chunk
+design on new X with the eager bits.
 
 JAX is imported inside the tests that use it, so that on a machine with
 a card and no JAX the CUDA cases run with
@@ -33,7 +47,7 @@ import torch
 
 from tpu_amg_torch.linop import SparseOperator
 from tpu_amg_torch.ops import dia as dia_ops
-from tpu_amg_torch.ops.spmv import CappedCSR
+from tpu_amg_torch.ops.spmv import PAIRS, CappedCSR
 from tpu_amg_torch.sparse.csr import CSR
 from tpu_amg_torch.sparse.dia import DIA, dia_from_arrays, try_from_csr
 from tpu_amg_torch.utils.problems import (
@@ -504,6 +518,219 @@ def test_tile_sum_matches_plain(name, k, dtype, phase):
     _close(got, ref.numpy(), TOL[dtype])
 
 
+# ---- K3's row-chunk design (k < 8), walked on the CPU
+
+WALK_CASES = ["aniso16", "poisson3d", "galerkin_33", "160 consecutive"]
+
+
+def _walk_dia(name: str, dtype):
+    if name == "160 consecutive":
+        n = 300
+        rng = np.random.default_rng(5)
+        return dia_from_arrays(rng.standard_normal((160, n)),
+                               tuple(range(-80, 80)), (n, n), 160 * n, "cpu",
+                               dtype)
+    csr = {"aniso16": anisotropic16, "poisson3d": lambda: poisson3d(7),
+           "galerkin_33": lambda: _galerkin_level(16)}[name]()
+    return try_from_csr(csr, "cpu", dtype, max_diags=None)
+
+
+def _row_sum(plan, offsets, data: np.ndarray, x: np.ndarray,
+             phase: int = 0) -> np.ndarray:
+    """The row kernel's sum restated in numpy from ``plan``: thread t
+    owns rows [t·R, t·R + R) and all k columns, or (one column a thread)
+    row t / k, column t % k; for each chunk of diagonals every value and
+    every X element is read first, X at a clamped row whose value is NaN
+    where the row lies outside [0, n), then each product is added in
+    offset order where its read was in range.  The data's base lies
+    ``phase`` elements past 16 bytes: a vector load of R values must be
+    aligned to its size."""
+    n, k, r_, c_ = plan.n, plan.k, plan.rows_per_thread, plan.cols
+    itemsize = data.itemsize
+    x = x.reshape(n, k)
+    t = np.arange(plan.blocks * plan.threads, dtype=np.int64)
+    if c_ == k:
+        i0, c0 = t * r_, np.zeros_like(t)
+        live = i0 < n
+    else:
+        i0, c0 = t // k, t % k
+        live = t < n * k
+    i0, c0 = i0[live], c0[live]
+    rows = i0[:, None] + np.arange(r_)           # (threads, R)
+    cols = c0[:, None] + np.arange(c_)           # (threads, C)
+    acc = np.zeros((len(i0), r_, c_), dtype=x.dtype)
+    nd = len(offsets)
+    order, d0 = [], 0
+    for size in dia_ops.row_chunks(nd, plan.chunk):
+        chunk = list(range(d0, d0 + size))
+        d0 += size
+        order += chunk
+        reads = []
+        for d in chunk:  # every load of the chunk first
+            if r_ > 1:
+                assert (((phase + d * n + i0) * itemsize)
+                        % min(16, r_ * itemsize) == 0).all()
+            j = rows + offsets[d]
+            inside = (j >= 0) & (j < n)
+            xs = x[np.clip(j, 0, n - 1)[:, :, None], cols[:, None, :]]
+            xs[~inside] = np.nan
+            reads.append((data[d, rows], xs, inside))
+        for a, xs, inside in reads:  # then the fmas, offset order
+            acc = np.where(inside[..., None], acc + a[..., None] * xs, acc)
+    assert order == list(range(nd))
+    y = np.full((n, k), np.nan, dtype=x.dtype)
+    hits = np.zeros((n, k), dtype=np.int64)
+    rr = np.broadcast_to(rows[:, :, None], acc.shape)
+    cc = np.broadcast_to(cols[:, None, :], acc.shape)
+    np.add.at(hits, (rr, cc), 1)
+    assert (hits == 1).all()  # each output written once
+    y[rr, cc] = acc
+    return y
+
+
+@pytest.mark.parametrize("phase", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("name", WALK_CASES)
+def test_row_sum_matches_plain(name, k, dtype, phase):
+    """Every launch the plan may take (R = 2 or 1 at k = 1, all k columns
+    or one above; 256, 128, 64 threads), aligned data and data one
+    element past 16 bytes."""
+    dia = _walk_dia(name, dtype)
+    n = dia.shape[0]
+    x = _x(n, k, dtype, seed=k)
+    ref = dia_ops.plain_dia_spmv(dia, torch.from_numpy(x)).numpy()
+    plans = dia_ops.row_plans(n, len(dia.offsets), k, phase == 0)
+    assert {(p.rows_per_thread, p.cols) for p in plans} == {
+        (r, c) for r, c in dia_ops.row_shapes(k)
+        if r == 1 or (phase == 0 and n % r == 0)}
+    data = dia.data.numpy()
+    for plan in plans:
+        got = _row_sum(plan, dia.offsets, data, x, phase)
+        assert np.isfinite(got).all()
+        _close(got.reshape(ref.shape), ref, TOL[dtype])
+
+
+# The shapes K3 runs below k = 8 on the port's paths: (rows, diagonals,
+# k, values' dtype, X's dtype) -> (R, columns a thread, threads) of the
+# plan on an H100's 132 SMs
+PATH_SHAPES = {
+    (1_000_000, 7, 1, "float64", "float64"): (1, 1, 256),    # structured A0
+    (1_000_000, 7, 1, "bfloat16", "float32"): (2, 1, 256),   # bf16 values
+    (125_000, 33, 1, "float64", "float64"): (1, 1, 256),     # structured A1
+    (262_144, 9, 1, "float64", "float64"): (1, 1, 256),      # adaptive fine A
+    (262_144, 7, 1, "float32", "float32"): (2, 1, 256),      # bench_vcycle A0
+    (32_768, 33, 1, "float32", "float32"): (1, 1, 64),       # bench_vcycle A1
+    (102_400, 5, 1, "float64", "float64"): (1, 1, 256),      # classical A0
+    (102_400, 5, 5, "float64", "float64"): (1, 1, 256),      # one column
+    (260_100, 21, 1, "float32", "float32"): (2, 1, 256),     # real-FEM A0
+    (520_000, 7, 1, "float64", "float64"): (1, 1, 256),      # the halo block
+}
+
+
+@pytest.mark.parametrize("shape", list(PATH_SHAPES))
+def test_row_plan_on_the_paths(shape):
+    n, nd, k, vname, tname = shape
+    plan = dia_ops.row_plan(n, nd, k, getattr(torch, tname), SMS,
+                            value_dtype=getattr(torch, vname))
+    assert (plan.rows_per_thread, plan.cols, plan.threads) == \
+        PATH_SHAPES[shape]
+    assert plan.blocks >= 2 * SMS
+    assert plan.chunk == dia_ops.row_chunk(plan.cols, plan.rows_per_thread)
+
+
+# (rows, diagonals, k, X's dtype) -> columns a thread: one where an X row
+# passes 32 bytes on a short stencil, else all k, whatever n
+COLUMN_CASES = {
+    (102_400, 5, 5, "float64"): 1,      # classical A0 at k = 5
+    (102_400, 5, 5, "float32"): 5,      # 20-byte rows
+    (102_400, 5, 4, "float64"): 4,      # 32-byte rows
+    (1_000_000, 7, 7, "float64"): 1,    # structured A0: 7 diagonals
+    (262_144, 9, 5, "float64"): 5,      # the fine A: 9 diagonals
+    (125_000, 33, 5, "float64"): 5,     # structured A1
+    (32_768, 33, 5, "float64"): 5,      # bench_vcycle A1: 33 diagonals
+}
+
+
+@pytest.mark.parametrize("shape", list(COLUMN_CASES))
+def test_row_plan_columns(shape):
+    n, nd, k, tname = shape
+    plan = dia_ops.row_plan(n, nd, k, getattr(torch, tname), SMS)
+    assert plan.cols == COLUMN_CASES[shape]
+
+
+@pytest.mark.parametrize("pair", list(PAIRS), ids=list(PAIRS.values()))
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("k", [1, 2, 5, 7])
+@pytest.mark.parametrize("n", [1, 5, 63, 4_096, 16_896, 16_897, 33_792,
+                               135_168, 1_000_000])
+def test_row_plan_grid(n, k, aligned, pair):
+    """Every output covered, (R, C) one of the kernel's instances, R = 2
+    only on aligned data with n even and two values in at most
+    ROW_VALUE_BYTES, the chunk within the load budget, and two blocks an
+    SM where the ladder has a launch that gives them."""
+    vdtype, dtype = pair
+    plan = dia_ops.row_plan(n, 9, k, dtype, SMS, aligned, vdtype)
+    r, c = plan.rows_per_thread, plan.cols
+    assert (r, c) in dia_ops.row_shapes(k)
+    assert plan.threads in dia_ops.ROW_THREADS
+    assert r == 1 or (aligned and n % r == 0)
+    itemsize = torch.empty((), dtype=vdtype).element_size()
+    assert r == 1 or r * itemsize <= dia_ops.ROW_VALUE_BYTES
+    per_block = plan.threads * r * c  # outputs a block
+    assert plan.blocks == -(-n * k // per_block)
+    assert (plan.blocks - 1) * per_block < n * k
+    assert 1 <= plan.chunk <= dia_ops.ROW_MAX_CHUNK
+    assert plan.chunk == 1 or plan.chunk * r * (c + 1) <= dia_ops.ROW_LOADS
+    assert plan.chunk & (plan.chunk - 1) == 0
+    ladder = [p for p in dia_ops.row_plans(n, 9, k, aligned)
+              if (p.rows_per_thread * itemsize <= dia_ops.ROW_VALUE_BYTES
+                  or p.rows_per_thread == 1) and p.cols == c]
+    assert plan == next((p for p in ladder if p.blocks >= 2 * SMS),
+                        ladder[-1])
+    if n * k >= 2 * SMS * 64 * c:  # the smallest block: 64 threads
+        assert plan.blocks >= 2 * SMS
+
+
+def test_row_plan_rejects():
+    f64 = torch.float64
+    with pytest.raises(ValueError, match="up to 160"):
+        dia_ops.row_plan(1000, 161, 1, f64, SMS)
+    for k in (0, 8, 64):
+        with pytest.raises(ValueError, match="1 <= k <= 7"):
+            dia_ops.row_plan(1000, 7, k, f64, SMS)
+    with pytest.raises(ValueError, match="32-bit rows"):
+        dia_ops.row_plan(2**30, 7, 1, f64, SMS)
+    assert dia_ops.row_plan(1000, 160, 7, f64, SMS).n_diags == 160
+
+
+def test_row_chunks():
+    """U by (C, R): a power of two, at most 32 loads a thread in flight
+    and 16 diagonals; the chunks after the full ones halve."""
+    got = {(c, r): dia_ops.row_chunk(c, r) for k in range(1, 8)
+           for r, c in dia_ops.row_shapes(k)}
+    assert got == {(1, 2): 8, (1, 1): 16, (2, 1): 8, (3, 1): 8, (4, 1): 4,
+                   (5, 1): 4, (6, 1): 4, (7, 1): 4}
+    assert dia_ops.TILED_MIN_K == dia_ops.ROW_MAX_K + 1
+    assert dia_ops.row_chunks(9, 16) == (8, 1)
+    assert dia_ops.row_chunks(33, 16) == (16, 16, 1)
+    assert dia_ops.row_chunks(7, 4) == (4, 2, 1)
+    assert dia_ops.row_chunks(21, 8) == (8, 8, 4, 1)
+    for nd in range(0, 161):
+        for u in (1, 2, 4, 8, 16):
+            sizes = dia_ops.row_chunks(nd, u)
+            assert sum(sizes) == nd and all(s <= u for s in sizes)
+            tail = sizes[nd // u:]
+            assert list(tail) == sorted(set(tail), reverse=True)
+
+
+def test_row_struct_carries_the_offsets():
+    offsets = (-513, -512, -511, -1, 0, 1, 511, 512, 513)
+    s = dia_ops._row_struct(offsets)
+    assert s.n_diags == 9 and tuple(s.offsets[:9]) == offsets
+    assert dia_ops._row_struct(offsets) is s  # cached, as the band plan
+
+
 def test_sweep_sets_and_arithmetic():
     """tools.diasweep: its offset sets' bands at k = 64, float64, 262,144
     rows (one band but the adaptive A's 3), the bytes it bounds by and
@@ -570,15 +797,18 @@ def test_kernel_matches_plain_on_card(cuda, name, k, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("view", ["contiguous", "8-byte aligned"])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("pair", list(PAIRS), ids=list(PAIRS.values()))
 @pytest.mark.parametrize("k", CARD_KS)
 @pytest.mark.parametrize("name", CARD_MATRICES)
-def test_kernel_bitwise_first_design_on_card(cuda, name, k, dtype, view):
-    """K3 (the band-tile design at k > 1) gives the first design's bits,
-    and the same bits on a second call; also on an X that starts one
-    element past a 16-byte boundary (a row slice of a flat buffer)."""
+def test_kernel_bitwise_first_design_on_card(cuda, name, k, pair, view):
+    """K3 as routed (the row-chunk design below k = 8, the band tiles
+    from 8 up) gives the first design's bits at each (values, vectors)
+    pair, and the same bits on a second call; so does the design not
+    routed at that k; also on an X that starts one element past a
+    16-byte boundary (a row slice of a flat buffer)."""
+    vdtype, dtype = pair
     csr = _card_csr(name)
-    dia = try_from_csr(csr, cuda, dtype, max_diags=None)
+    dia = try_from_csr(csr, cuda, torch.float64, max_diags=None).astype(vdtype)
     xh = torch.from_numpy(_x(csr.nrows, k, dtype))
     if view == "8-byte aligned":
         flat = torch.zeros(xh.numel() + 1, dtype=dtype, device=cuda)
@@ -591,10 +821,11 @@ def test_kernel_bitwise_first_design_on_card(cuda, name, k, dtype, view):
     again = dia(x)
     first = dia_ops.launch_first_design(dia, x)
     tiles = dia_ops.launch_band_tiles(dia, x)
+    rows = dia_ops.launch_row_design(dia, x) if k <= dia_ops.ROW_MAX_K else y
     ref = dia_ops.plain_dia_spmv(dia, x)
     torch.cuda.synchronize()
     assert torch.equal(y, first) and torch.equal(y, again)
-    assert torch.equal(tiles, first)
+    assert torch.equal(tiles, first) and torch.equal(rows, first)
     assert float((y - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
 
 
@@ -631,3 +862,122 @@ def test_refused_launch_raises(cuda, monkeypatch):
         plan, smem_bytes=1 << 20))
     with pytest.raises(RuntimeError, match="dia_spmv failed"):
         dia(x)
+
+
+# ---- K3's row-chunk design on the card
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({8: torch.int64, 4: torch.int32}[t.element_size()])
+
+
+def _card_dia(name, cuda, vdtype, data_phase):
+    """The card matrix ``name`` with values of ``vdtype``; at
+    ``data_phase`` 1 its diagonals start one element past an aligned
+    address (a view of a flat buffer)."""
+    dia = try_from_csr(_card_csr(name), cuda, torch.float64,
+                       max_diags=None).astype(vdtype)
+    if data_phase:
+        flat = torch.zeros(dia.data.numel() + 1, dtype=vdtype, device=cuda)
+        flat[1:] = dia.data.reshape(-1)
+        dia.data = flat[1:].view(dia.data.shape)
+        assert dia.data.data_ptr() % 16
+    return dia
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data_phase", [0, 1])
+@pytest.mark.parametrize("pair", list(PAIRS), ids=list(PAIRS.values()))
+@pytest.mark.parametrize("k", [1, 2, 5, 7])
+@pytest.mark.parametrize("name", ["poisson1d", "galerkin_33", "aniso"])
+def test_row_plans_bitwise_first_design_on_card(cuda, name, k, pair,
+                                                 data_phase):
+    """Every launch of ``row_plans`` (each R and block) gives the first
+    design's bits; the routed call too, within T's tolerance of the
+    plain version."""
+    vdtype, dtype = pair
+    if data_phase and vdtype == torch.bfloat16:
+        pytest.skip("the kernels take 4-byte aligned diagonals only")
+    dia = _card_dia(name, cuda, vdtype, data_phase)
+    x = torch.from_numpy(_x(dia.shape[0], k, dtype)).to(cuda)
+    first = dia_ops.launch_first_design(dia, x)
+    routed = dia(x)
+    plain = dia_ops.plain_dia_spmv(dia, x)
+    outs = [dia_ops.launch_row_design(dia, x, plan) for plan in
+            dia_ops.row_plans(dia.shape[0], len(dia.offsets), k,
+                              data_phase == 0)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, first) for y in outs + [routed])
+    scale = float(plain.abs().max())
+    assert float((routed - plain).abs().max()) <= TOL[dtype] * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("k", [1, 3, 7])
+def test_row_design_skips_nonfinite_reads_on_card(cuda, k, dtype):
+    """NaN and Inf in X rows that rows near the ends read only out of
+    range (clamped, skipped): the first design's bits, NaN for NaN."""
+    dia = try_from_csr(_card_csr("galerkin_33"), cuda, dtype,
+                       max_diags=None)
+    x = torch.from_numpy(_x(dia.shape[0], k, dtype)).to(cuda)
+    x[0] = float("nan")
+    x[-1] = float("inf")
+    y = dia(x)
+    first = dia_ops.launch_first_design(dia, x)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(first))
+    assert torch.isfinite(y).any() and not torch.isfinite(y).all()
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
+    """Every k from 1 to 64 launches a kernel and counts it; the plain
+    version is never called for a CUDA tensor."""
+    dia = try_from_csr(_card_csr("aniso"), cuda, torch.float64)
+
+    def refuse(*_):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(dia_ops, "plain_dia_spmv", refuse)
+    for k in (1, 2, 7, 8, 64):
+        x = torch.from_numpy(_x(dia.shape[0], k, torch.float64)).to(cuda)
+        before = dia_ops.dia_spmv_launches
+        shape = dia_ops.dia_spmv_launches_by_shape[(*dia.shape, k)]
+        y = dia(x)
+        torch.cuda.synchronize()
+        assert y.is_cuda and dia_ops.dia_spmv_launches == before + 1
+        assert dia_ops.dia_spmv_launches_by_shape[(*dia.shape, k)] == \
+            shape + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5])
+def test_row_design_in_a_graph_on_card(cuda, k):
+    """K3 below k = 8 captured in a CUDA graph and replayed on new X:
+    the offsets ride in the launch, and the replay gives the eager
+    bits."""
+    csr = _card_csr("aniso")
+    dia = try_from_csr(csr, cuda, torch.float64)
+    x = torch.from_numpy(_x(csr.nrows, k, torch.float64)).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dia(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = dia(x)
+    x.copy_(torch.from_numpy(_x(csr.nrows, k, torch.float64, seed=9)))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, dia_ops.launch_first_design(dia, x))
+
+
+def test_row_design_refuses_a_foreign_plan():
+    """launch_row_design takes only a plan of ``row_plans`` for this
+    matrix and X (R > 1 needs its aligned vector loads)."""
+    dia = try_from_csr(poisson3d(4), "cpu")
+    x = torch.ones(64, dtype=torch.float64)
+    other = dia_ops.row_plan(128, 7, 1, torch.float64, 1)
+    with pytest.raises(ValueError, match="no row-chunk plan"):
+        dia_ops.launch_row_design(dia, x, other)

@@ -17,18 +17,37 @@
 // package's order) with one fused multiply-add each.
 //
 // Bound by bytes: per diagonal a value and an x element for 2 flops, no
-// index stream (the 4-byte column index of CSR is what DIA saves).  Two
-// designs, one library:
+// index stream (the 4-byte column index of CSR is what DIA saves).  Three
+// designs, one library; the wrapper (tpu_amg_torch/ops/dia.py) routes by
+// k alone, the row-chunk design below k = 8 and the band tiles from it up:
 //
 // * The first design (`first_kernel`): one thread per (row, column),
-//   walking the diagonals.  The wrapper (tpu_amg_torch/ops/dia.py) routes
-//   k < 8 here: a warp reads consecutive rows of each diagonal, so x's
-//   rows are shared through L1 by the neighbouring offsets.  It is the
-//   tiled design's reference (`dia_spmv_first_*` at any k): both give
-//   the same bits.  At large k each thread re-reads X[i + off_d] for
-//   every diagonal, mostly through L2 (the +-n offsets' rows are read by
-//   blocks on other SMs), and pays an int64 division and a bounds branch
-//   per element.
+//   walking the diagonals, the offsets read from a device table.  No
+//   longer routed: it is the other two designs' reference on the card
+//   (`dia_spmv_first_*` at any k), and all three give the same bits.
+//   Its loop over a runtime count with a bounds branch and the offset's
+//   load in each iteration serialises the loads, one L2 round trip a
+//   diagonal; at k > 1 every value is read k times (once a column); at
+//   large k each thread re-reads X[i + off_d] for every diagonal and
+//   pays an int64 division per element.
+// * The row-chunk design (`row_kernel`), for k <= 7: a thread owns R
+//   consecutive rows (R = 1 or 2 at k = 1) and C of their columns: all k
+//   (acc[R][k] in registers, each value read once), or at k > 1 one
+//   (thread t: row t / k, column t % k), which the host plan takes where
+//   an X row passes 32 bytes on a stencil of at most 8 diagonals, since a
+//   warp's X loads at all k columns stride a whole row.  The offsets ride
+//   in the launch (`RowPlan`, by value), so a CUDA graph captures them
+//   and no thread loads them.  The diagonals go in chunks of U
+//   (`row_chunk`: a power of two, at most 32 loads a thread in flight),
+//   the last ones in chunks of U / 2, ..., 1: all of a chunk's value and
+//   X loads are issued first, X from a clamped row, then its fmas run in
+//   offset order, each taken only where the read was in range (a select:
+//   a skipped X that is Inf or NaN does not reach the sum).  Where R = 2
+//   the host plan has n even and the data 16-byte aligned, so a
+//   diagonal's two values are one vector load.  Row indices are 32-bit;
+//   each diagonal's row pointer is formed once in 64 bits.  The host
+//   plan (ops/dia.py `row_plan`) picks R, C and the block for two blocks
+//   an SM where n allows.
 // * The band-tile design (`tiled_kernel`), for k >= 8: a block owns T
 //   consecutive rows and all k columns.  The host's plan
 //   (ops/dia.py `dia_plan`, passed by value) groups the sorted offsets
@@ -47,7 +66,7 @@
 // Values stream in their stored type V (the data rows) and X and Y are of
 // type T, V no wider than T: (f64, f64), (f32, f32), (f32, f64), (bf16,
 // f32), (bf16, f64).  Each value is widened exactly to T before its fma
-// (widen.cuh), so the sums are T's and both designs still give the same
+// (widen.cuh), so the sums are T's and the three designs give the same
 // bits; a (T, T) instantiation is the kernel as it was before V.  The
 // band tiles stage the X window in T and the data rows in V: 2-byte data
 // rows go in 4-byte copies (cp.async copies 4, 8 or 16 bytes), each row
@@ -68,9 +87,12 @@
 namespace {
 
 constexpr int kThreads = 256;           // the first design's block
-constexpr int kMaxDiags = 160;          // the tiled design's table (ops/dia.py MAX_DIAGS)
+constexpr int kMaxDiags = 160;          // the plans' tables (ops/dia.py MAX_DIAGS)
 constexpr int kMaxRowsPerThread = 4;    // ops/dia.py ROWS_PER_THREAD
 constexpr int kMaxThreads = 256;        // ops/dia.py BLOCK_THREADS
+constexpr int kRowMaxK = 7;             // the row-chunk design's k (ops/dia.py ROW_MAX_K)
+constexpr int kRowLoads = 32;           // its loads in flight a thread, at most (ROW_LOADS)
+constexpr int kRowMaxChunk = 16;        // its diagonals a chunk at most (ROW_MAX_CHUNK)
 
 __device__ __forceinline__ double fma_rn(double a, double b, double c) {
   return __fma_rn(a, b, c);
@@ -110,6 +132,201 @@ int first_design(int64_t n, int n_diags, int k, const void* offsets,
     first_kernel<V, T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         n, n_diags, k, static_cast<const int64_t*>(offsets),
         static_cast<const V*>(data), static_cast<const T*>(x), static_cast<T*>(y));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the row-chunk design
+
+// The host's table (ops/dia.py `_RowStruct`): the offsets in order.
+struct RowPlan {
+  int n_diags;
+  int offsets[kMaxDiags];
+};
+
+// Diagonals a chunk for a thread of R rows and C columns: the largest
+// power of two that keeps at most kRowLoads loads (R values and R·C X
+// elements a diagonal) in flight, 1 to kRowMaxChunk (ops/dia.py
+// `row_chunk`).
+__host__ __device__ constexpr int row_chunk(int c, int r) {
+  int u = 1;
+  while (2 * u <= kRowMaxChunk && 2 * u * r * (c + 1) <= kRowLoads) u *= 2;
+  return u;
+}
+
+// The R values (1 or 2) of one diagonal at R consecutive rows; two from
+// an address aligned to their size, in one vector load.
+template <int R>
+__device__ __forceinline__ void load_run(const double* __restrict__ p, double (&v)[R]) {
+  if constexpr (R == 1) {
+    v[0] = __ldg(p);
+  } else {
+    const double2 w = __ldg(reinterpret_cast<const double2*>(p));
+    v[0] = w.x;
+    v[1] = w.y;
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void load_run(const float* __restrict__ p, float (&v)[R]) {
+  if constexpr (R == 1) {
+    v[0] = __ldg(p);
+  } else {
+    const float2 w = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = w.x;
+    v[1] = w.y;
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void load_run(const __nv_bfloat16* __restrict__ p,
+                                         __nv_bfloat16 (&v)[R]) {
+  if constexpr (R == 1) {
+    v[0] = p[0];
+  } else {
+    const unsigned w = __ldg(reinterpret_cast<const unsigned*>(p));
+    v[0] = __ushort_as_bfloat16(static_cast<unsigned short>(w));
+    v[1] = __ushort_as_bfloat16(static_cast<unsigned short>(w >> 16));
+  }
+}
+
+// Diagonals [d0, d0 + U) of a thread's R rows and C columns from c0:
+// all the chunk's value and X loads first (X from a clamped row), then
+// its U fmas in offset order, each kept only where the read was in
+// range.  Straight-line code, so that no branch splits the loads.
+template <typename V, typename T, int K, int R, int C, int U>
+__device__ __forceinline__ void row_chunk_sum(const RowPlan& p, int d0, int n, int i0,
+                                              int c0, const V* __restrict__ data,
+                                              const T* __restrict__ x,
+                                              T (&acc)[R][C]) {
+  V a[U][R];
+  T xs[U][R][C];
+  bool in[U][R];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int d = d0 + u;
+    const int off = p.offsets[d];
+    load_run<R>(data + static_cast<int64_t>(d) * n + i0, a[u]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int j = i0 + r + off;
+      in[u][r] = j >= 0 && j < n;
+      const T* xr = x + static_cast<int64_t>(min(max(j, 0), n - 1)) * K + c0;
+#pragma unroll
+      for (int c = 0; c < C; ++c) xs[u][r][c] = xr[c];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const T w = widen<T>(a[u][r]);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const T s = fma_rn(w, xs[u][r][c], acc[r][c]);
+        acc[r][c] = in[u][r] ? s : acc[r][c];
+      }
+    }
+  }
+}
+
+// The diagonals left after the full chunks, fewer than 2·U: a chunk of U
+// where they reach U, then of U / 2, ..., 1 (ops/dia.py `row_chunks`).
+template <typename V, typename T, int K, int R, int C, int U>
+__device__ __forceinline__ void row_tail_sum(const RowPlan& p, int d0, int n, int i0,
+                                             int c0, const V* __restrict__ data,
+                                             const T* __restrict__ x,
+                                             T (&acc)[R][C]) {
+  if (p.n_diags - d0 >= U) {
+    row_chunk_sum<V, T, K, R, C, U>(p, d0, n, i0, c0, data, x, acc);
+    d0 += U;
+  }
+  if constexpr (U > 1) {
+    row_tail_sum<V, T, K, R, C, U / 2>(p, d0, n, i0, c0, data, x, acc);
+  }
+}
+
+// A thread owns R rows and C of their K columns: at C = K thread t owns
+// rows [t·R, t·R + R) and every column; at C = 1 (R = 1) it owns row
+// t / K, column t % K, the K threads of a row reading its values at one
+// address and its X rows' K columns side by side.
+template <typename V, typename T, int K, int R, int C>
+__global__ void __launch_bounds__(kMaxThreads)
+row_kernel(const __grid_constant__ RowPlan p, int n, const V* __restrict__ data,
+           const T* __restrict__ x, T* __restrict__ y) {
+  static_assert(C == K || (C == 1 && R == 1), "a thread owns 1 or K columns");
+  constexpr int U = row_chunk(C, R);
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  int i0, c0;
+  if constexpr (C == K) {
+    i0 = static_cast<int>(t) * R;
+    c0 = 0;
+    if (i0 >= n) return;  // n is a multiple of R where R > 1
+  } else {
+    if (t >= static_cast<unsigned>(n) * K) return;  // n·K < 2^31 (the plan)
+    i0 = static_cast<int>(t / K);
+    c0 = static_cast<int>(t - static_cast<unsigned>(i0) * K);
+  }
+  T acc[R][C];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[r][c] = T(0);
+  }
+  int d0 = 0;
+  for (; d0 + U <= p.n_diags; d0 += U) {
+    row_chunk_sum<V, T, K, R, C, U>(p, d0, n, i0, c0, data, x, acc);
+  }
+  if constexpr (U > 1) {
+    row_tail_sum<V, T, K, R, C, U / 2>(p, d0, n, i0, c0, data, x, acc);
+  }
+  T* yr = y + static_cast<int64_t>(i0) * K + c0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) yr[r * K + c] = acc[r][c];
+  }
+}
+
+// Launch row_kernel<V, T, k, r, c>; false where (k, r, c) has no
+// instance: r = 1 and c = k or 1 for k in 1..kRowMaxK, and r = 2 at k =
+// 1 (ops/dia.py `row_shapes`).
+template <typename V, typename T, int K = 1>
+bool row_launch(int k, int r, int c, int n, int threads, int blocks, const RowPlan& p,
+                const V* data, const T* x, T* y, cudaStream_t s) {
+  if (k != K) {
+    if constexpr (K < kRowMaxK) {
+      return row_launch<V, T, K + 1>(k, r, c, n, threads, blocks, p, data, x, y, s);
+    } else {
+      return false;
+    }
+  }
+  if (r == 1 && c == K) {
+    row_kernel<V, T, K, 1, K><<<blocks, threads, 0, s>>>(p, n, data, x, y);
+  } else if constexpr (K == 1) {
+    if (r != 2 || c != 1) return false;
+    row_kernel<V, T, 1, 2, 1><<<blocks, threads, 0, s>>>(p, n, data, x, y);
+  } else {
+    if (r != 1 || c != 1) return false;
+    row_kernel<V, T, K, 1, 1><<<blocks, threads, 0, s>>>(p, n, data, x, y);
+  }
+  return true;
+}
+
+constexpr bool row_instance(int k, int r, int c) {
+  return k >= 1 && k <= kRowMaxK &&
+         ((r == 1 && (c == k || c == 1)) || (k == 1 && r == 2 && c == 1));
+}
+
+template <typename V, typename T>
+int row_design(int n, int k, int r, int c, int threads, int blocks, const void* plan,
+               const void* data, const void* x, void* y, void* stream) {
+  if (n > 0) {
+    if (!row_launch<V, T>(k, r, c, n, threads, blocks, *static_cast<const RowPlan*>(plan),
+                          static_cast<const V*>(data), static_cast<const T*>(x),
+                          static_cast<T*>(y), static_cast<cudaStream_t>(stream))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -412,6 +629,14 @@ int dia_max_diags() { return kMaxDiags; }
 int dia_max_rows_per_thread() { return kMaxRowsPerThread; }
 int dia_max_threads() { return kMaxThreads; }
 
+// The row-chunk design's layout and instances: sizeof(RowPlan), and the
+// diagonals a chunk of row_kernel<., ., k, r, c> (0 where it has no
+// instance).
+int dia_row_plan_bytes() { return static_cast<int>(sizeof(RowPlan)); }
+int dia_row_chunk(int k, int r, int c) {
+  return row_instance(k, r, c) ? row_chunk(c, r) : 0;
+}
+
 // Let the tiled kernels take as much dynamic shared memory as a block of
 // the current device may (above 48 KB a kernel must opt in); once.
 int dia_allow_smem() {
@@ -434,6 +659,13 @@ int dia_allow_smem() {
                               const void* data, const void* x, void* y,        \
                               void* stream) {                                  \
     return first_design<V, T>(n, n_diags, k, offsets, data, x, y, stream);    \
+  }                                                                            \
+  int dia_spmv_row_##SUFFIX(int n, int k, int rows_per_thread, int cols,     \
+                            int threads, int blocks, const void* plan,        \
+                            const void* data, const void* x, void* y,         \
+                            void* stream) {                                    \
+    return row_design<V, T>(n, k, rows_per_thread, cols, threads, blocks, plan, \
+                            data, x, y, stream);                               \
   }                                                                            \
   int dia_spmv_tiled_##SUFFIX(int n, int k, int vector, int threads, int blocks, \
                               int smem_bytes, const void* plan, const void* data, \

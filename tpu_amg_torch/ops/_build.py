@@ -65,3 +65,45 @@ def build_cuda_library(name: str, source: Path, defines=()) -> Path:
     ]
     return build_library(name, source, cmd,
                          headers=sorted(source.parent.glob("*.cuh")))
+
+
+def ptxas_report(source: Path, defines=()) -> dict:
+    """Each kernel's registers, stack frame and spills as ptxas reports
+    them (``-Xptxas -v``) for ``source`` compiled as
+    :func:`build_cuda_library` compiles it, into a cubin that is thrown
+    away: {mangled name: dict(registers, stack, spill_stores,
+    spill_loads)}.  A failed compile raises."""
+    import re
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v",
+               *(f"-D{d}" for d in defines), str(source), "-o",
+               str(Path(tmp) / "out.cubin")]
+        result = subprocess.run(cmd, capture_output=True, text=True)
+    if result.returncode != 0:
+        raise RuntimeError(f"ptxas report of {source.name} failed:\n"
+                           f"{' '.join(cmd)}\n{result.stderr}")
+    out, entry, props = {}, None, None
+    for line in (result.stdout + result.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            out.setdefault(entry, {})
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props is not None:
+            out.setdefault(props, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry]["registers"] = int(m.group(1))
+    return out

@@ -7,11 +7,13 @@ vector per diagonal drops the column-index stream entirely:
     y = Σ_d  data_d ⊙ shift(x, offset_d)
 
 The apply is K3 (:mod:`tpu_amg_torch.ops.dia`), a hand-written CUDA
-kernel; its plain PyTorch version runs on the CPU.  Below k = 8 K3
-reads ``offsets_dev``; from k = 8 up its band plan
-(``ops.dia.dia_plan``, a pure function of the offsets and shapes)
-passes to the kernel by value, so the matrix carries nothing else to
-the device and a CUDA graph captured with it holds no stale table.
+kernel; its plain PyTorch version runs on the CPU.  Both routed designs
+take the offsets by value in the launch (below k = 8 the row-chunk
+design's table, from k = 8 up the band plan ``ops.dia.dia_plan``, a
+pure function of the offsets and shapes), so the matrix carries
+nothing else to the device and a CUDA graph captured with it holds no
+stale table; only the first design, K3's reference on the card, reads
+``offsets_dev``.
 Port of
 ``tpu_amg/sparse/dia.py``; :func:`try_from_csr` returns None when the
 matrix is not square or has too many distinct diagonals.
@@ -37,7 +39,7 @@ class DIA:
     ``data[d, i] = A[i, i + offsets[d]]`` (0 where out of range or not
     stored), shape (n_diags, n).  ``offsets`` is kept twice: as a
     strictly increasing Python tuple and as an int64 tensor on the data's
-    device, which the kernel's first design reads."""
+    device, which the kernel's first design (the reference) reads."""
 
     data: torch.Tensor
     offsets: Tuple[int, ...]

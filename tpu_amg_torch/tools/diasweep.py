@@ -1,24 +1,29 @@
-"""K3's two designs side by side on the card, and its diagonal sweep.
+"""K3's three designs side by side on the card, and its diagonal sweep.
 
 1. The adaptive path's fine A, ``anisotropic_diffusion_2d(512,
    epsilon=1e-3, theta=pi/6, coefficient="random")`` (262,144 rows, 9
    diagonals in 3 bands), at k = 1, 63 and 64 in float64 and float32:
-   K3 as the wrapper routes it (the first design at k = 1, the band-tile
-   design from k = 8 up), each design also uncounted, K1 + K2 on the
-   same matrix as a capped CSR and the library's SpMV / SpMM (a torch
-   sparse CSR tensor ``@ X``), beside the bound (each input read once, each output written once, over the HBM
-   data sheet's 3,350 GB/s).  K3 must give the first design's bits.
+   K3 as the wrapper routes it (the row-chunk design at k = 1, the
+   band-tile design from k = 8 up), each design also uncounted, K1 + K2
+   on the same matrix as a capped CSR and the library's SpMV / SpMM (a
+   torch sparse CSR tensor ``@ X``), beside the bound (each input read
+   once, each output written once, over the HBM data sheet's 3,350
+   GB/s).  K3 must give the first design's bits.
 2. The diagonal sweep at k = 64, float64, n = 262,144, on random data:
    offsets {0}, {-1, 0, 1}, the 9-point set of (1) and 9 consecutive
    offsets -4..4, both designs.  Per design it prints the time each
    added diagonal costs, (time - time at {0}) / (diagonals - 1), beside
    the 0.63 us that a diagonal's 2.1 MB of data adds at the data sheet's
    rate: a design that re-reads X for every diagonal pays far more.
-3. Both designs at k = 2 to 64 on the structured
+3. The designs at k = 2 to 64 on the structured
    path's level-0 and level-1 operators (``poisson3d(100)``'s 7
    diagonals, 1,000,000 rows; the Galerkin level's 33, 125,000 rows) and
-   the fine A of (1), float64 and float32: where the wrapper's
-   ``TILED_MIN_K`` switches from the first design to the band tiles.
+   the fine A of (1), float64 and float32: the first design, the band
+   tiles and, up to k = 7, the row-chunk design, taken in turns
+   (``alternating_ms``): where the wrapper's ``TILED_MIN_K`` switches
+   from the row-chunk design to the band tiles; then the fixed cost of
+   a launch in a graph, the row-chunk design on one diagonal of 4,096
+   rows, float32, k = 1 (``floor_case``).
 
 Times are of the device: CUDA events around the replay of a CUDA graph
 of ``--reps`` calls, the median of 5 replays.  It needs a CUDA device
@@ -37,11 +42,12 @@ import numpy as np
 import torch
 
 from tpu_amg_torch.ops import dia as dia_ops
-from tpu_amg_torch.utils.timing import hbm_bound_ms, median_ms
+from tpu_amg_torch.utils.timing import alternating_ms, hbm_bound_ms, median_ms
 
 FINE_N = 512  # aniso2d(512): 262,144 rows
 SWEEP_K = 64
 K_SWEEP = (2, 3, 4, 5, 6, 7, 8, 12, 16, 24, 32, 48, 63, 64)
+FLOOR_ROWS = 4096  # the fixed cost's case: one diagonal of 4,096 rows
 SWEEP_SETS = {
     "{0}": (0,),
     "{-1, 0, 1}": (-1, 0, 1),
@@ -120,6 +126,11 @@ def say_sweep(recs: dict, n: int = FINE_N ** 2) -> str:
     return "\n".join(lines)
 
 
+def routed(k: int) -> str:
+    """The design the wrapper runs at k."""
+    return "band tiles" if k >= dia_ops.TILED_MIN_K else "row-chunk design"
+
+
 def fine_cases(reps: int, ks=(1, 63, 64)) -> list:
     """Part 1: the designs, K1 + K2 and the library on the fine A."""
     from tpu_amg_torch.ops import spmv
@@ -146,19 +157,18 @@ def fine_cases(reps: int, ks=(1, 63, 64)) -> list:
             tiles = dia_ops.launch_band_tiles(mat, x)
             p = dia_ops.plain_dia_spmv(mat, x)
             torch.cuda.synchronize()
+            ms, first_ms, tiled_ms = alternating_ms(
+                [lambda: dia_ops.dia_spmv(mat, x),
+                 lambda: dia_ops.launch_first_design(mat, x),
+                 lambda: dia_ops.launch_band_tiles(mat, x)], reps)
             rec = dict(
                 dtype=str(dtype).replace("torch.", ""), k=k, n=n,
                 diagonals=len(mat.offsets),
                 bands=len(dia_ops.plan_for(mat, x).bands),
+                design=routed(k),
                 same=torch.equal(y, first) and torch.equal(tiles, first),
                 rel_err=float((y - p).abs().max() / p.abs().max()),
-                ms=median_ms(lambda: dia_ops.dia_spmv(mat, x), reps,
-                             graph=True),
-                tiled_ms=median_ms(lambda: dia_ops.launch_band_tiles(mat, x),
-                                   reps, graph=True),
-                first_ms=median_ms(
-                    lambda: dia_ops.launch_first_design(mat, x), reps,
-                    graph=True),
+                ms=ms, tiled_ms=tiled_ms, first_ms=first_ms,
                 csr_ms=median_ms(lambda: spmv.spmv(capped, x), reps,
                                  graph=True),
                 lib_ms=median_ms(lambda: lib @ x, reps, graph=True),
@@ -169,8 +179,8 @@ def fine_cases(reps: int, ks=(1, 63, 64)) -> list:
 
 
 def k_sweep(reps: int, ks=K_SWEEP) -> list:
-    """Part 3: both designs at every k on the structured levels 0 and 1
-    and the fine A, float64 and float32."""
+    """Part 3: the designs at every k on the structured levels 0 and 1
+    and the fine A, float64 and float32, taken in turns."""
     from tpu_amg_torch.sparse.dia import try_from_csr
     from tpu_amg_torch.structured import build_structured_multigrid
     from tpu_amg_torch.utils.problems import (anisotropic_diffusion_2d,
@@ -189,33 +199,50 @@ def k_sweep(reps: int, ks=K_SWEEP) -> list:
         for dtype in (torch.float64, torch.float32):
             mat = mat64 if dtype == torch.float64 else mat64.astype(dtype)
             for k in ks:
-                g = torch.Generator(device="cuda").manual_seed(k)
-                x = torch.randn((mat.shape[0], k), generator=g, device="cuda",
-                                dtype=dtype)
-                same = torch.equal(dia_ops.launch_band_tiles(mat, x),
-                                   dia_ops.launch_first_design(mat, x))
+                x = _randn(mat.shape[0], k, dtype, seed=k)
+                fns = [lambda: dia_ops.launch_first_design(mat, x),
+                       lambda: dia_ops.launch_band_tiles(mat, x)]
+                if k <= dia_ops.ROW_MAX_K:
+                    fns.append(lambda: dia_ops.launch_row_design(mat, x))
+                outs = [fn() for fn in fns]
+                same = all(torch.equal(y, outs[0]) for y in outs[1:])
                 plan = dia_ops.plan_for(mat, x)
+                times = alternating_ms(fns, reps)
                 recs.append(dict(
                     case=name, dtype=str(dtype).replace("torch.", ""), k=k,
                     tile=plan.tile, bands=len(plan.bands), same=same,
-                    first_ms=median_ms(
-                        lambda: dia_ops.launch_first_design(mat, x), reps,
-                        graph=True),
-                    tiled_ms=median_ms(
-                        lambda: dia_ops.launch_band_tiles(mat, x), reps,
-                        graph=True)))
+                    first_ms=times[0], tiled_ms=times[1],
+                    row_ms=times[2] if len(times) > 2 else None))
     return recs
 
 
+def _randn(n: int, k: int, dtype, seed: int) -> torch.Tensor:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((n,) if k == 1 else (n, k), generator=g,
+                       device="cuda", dtype=dtype)
+
+
+def floor_case(reps: int) -> float:
+    """The row-chunk design's fixed cost of a launch in a graph, in ms:
+    one diagonal (offset 0) of ``FLOOR_ROWS`` rows, float32, k = 1."""
+    mat = random_dia((0,), FLOOR_ROWS, torch.float32, seed=0)
+    x = _randn(FLOOR_ROWS, 1, torch.float32, seed=0)
+    return median_ms(lambda: dia_ops.launch_row_design(mat, x), reps,
+                     graph=True)
+
+
 def say_k_sweep(recs: list) -> str:
-    lines = [f"K3's designs by k (the wrapper: band tiles from k = "
-             f"{dia_ops.TILED_MIN_K}):"]
+    lines = [f"K3's designs by k (the wrapper: the row-chunk design below "
+             f"k = {dia_ops.TILED_MIN_K}, band tiles from it up):"]
     for r in recs:
+        row = ("" if r["row_ms"] is None else
+               f", row-chunk {r['row_ms'] * 1e3:.2f} us (band tiles / "
+               f"row-chunk {r['tiled_ms'] / r['row_ms']:.2f}x)")
         lines.append(
             f"  {r['case']} {r['dtype']} k={r['k']}: first design "
             f"{r['first_ms'] * 1e3:.2f} us, band tiles (T={r['tile']}, "
             f"{r['bands']} bands) {r['tiled_ms'] * 1e3:.2f} us "
-            f"({r['tiled_ms'] / r['first_ms']:.2f}x); bitwise equal "
+            f"({r['tiled_ms'] / r['first_ms']:.2f}x){row}; bitwise equal "
             f"{r['same']}")
     return "\n".join(lines)
 
@@ -223,7 +250,8 @@ def say_k_sweep(recs: list) -> str:
 def say_fine(r: dict) -> str:
     return (f"K3 fine A {r['dtype']} k={r['k']} (n {r['n']}, "
             f"{r['diagonals']} diagonals, {r['bands']} bands): K3 "
-            f"{r['ms'] * 1e3:.2f} us (band tiles {r['tiled_ms'] * 1e3:.2f}, "
+            f"({r['design']}) {r['ms'] * 1e3:.2f} us (band tiles "
+            f"{r['tiled_ms'] * 1e3:.2f}, "
             f"first design {r['first_ms'] * 1e3:.2f}); K1+K2 as CSR "
             f"{r['csr_ms'] * 1e3:.2f} us; library CSR @ X "
             f"{r['lib_ms'] * 1e3:.2f} us; bound {r['bound_ms'] * 1e3:.2f} "
@@ -248,6 +276,9 @@ def main(argv=None) -> int:
     recs = k_sweep(args.reps)
     print(say_k_sweep(recs), flush=True)
     ok &= all(r["same"] for r in recs)
+    print(f"K3's row-chunk design, fixed cost of a launch in a graph (one "
+          f"diagonal, {FLOOR_ROWS} rows, float32, k = 1): "
+          f"{floor_case(args.reps) * 1e3:.2f} us", flush=True)
     return 0 if ok else 1
 
 

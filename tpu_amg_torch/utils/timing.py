@@ -33,6 +33,38 @@ def l2_bound_ms(nbytes: int, gbps: float) -> float:
     return nbytes / gbps / 1e6
 
 
+def _prepared(fn, reps: int, graph: bool):
+    """``fn`` warmed up off the capture stream, and a function that runs
+    it ``reps`` times: the replay of a CUDA graph of those calls
+    (``graph``) or the calls enqueued from Python."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up, off the capture stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    if not graph:
+        def run_once():
+            for _ in range(reps):
+                fn()
+        return run_once
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    return g.replay
+
+
+def _reading_ms(run_once, reps: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run_once()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def median_ms(fn, reps: int, runs: int = 5, graph: bool = False) -> float:
     """Milliseconds per call of ``fn`` on the current CUDA device: CUDA
     events around ``reps`` calls, divided by ``reps``; the median of
@@ -43,32 +75,24 @@ def median_ms(fn, reps: int, runs: int = 5, graph: bool = False) -> float:
     the host's rate, which is what an eager caller pays.  With
     ``graph=True`` the ``reps`` calls are captured once into a CUDA graph
     and the replays are timed: the device's own time, without the host."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up, off the capture stream
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(reps):
-                fn()
-        run_once = g.replay
-    else:
-        def run_once():
-            for _ in range(reps):
-                fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run_once()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return float(np.median(times))
+    run_once = _prepared(fn, reps, graph)
+    return float(np.median([_reading_ms(run_once, reps)
+                            for _ in range(runs)]))
+
+
+def alternating_ms(fns, reps: int, runs: int = 5) -> list:
+    """Device milliseconds per call of each of ``fns``, as
+    :func:`median_ms` over a CUDA graph gives them and at its cost (one
+    capture and ``runs`` replays a function), the replays taken in
+    turns, A B .. B A B .. : a drift of the card's clock during the run
+    weighs on every function alike."""
+    graphs = [_prepared(fn, reps, graph=True) for fn in fns]
+    readings = [[] for _ in fns]
+    for run in range(runs):
+        order = range(len(fns)) if run % 2 == 0 else range(len(fns))[::-1]
+        for i in order:
+            readings[i].append(_reading_ms(graphs[i], reps))
+    return [float(np.median(r)) for r in readings]
 
 
 def call_ms(fn, device: torch.device, reps: int) -> float:
