@@ -265,7 +265,24 @@ Phases, one printed line per result; any failed check exits non-zero:
      modularity not falling from the first to the last, the JAX
      example's JSON keys; (f) tools.amg
      --viz-out on aniso2d(64): one level entry a level but the coarsest,
-     each node_to_agg of its level's length.
+     each node_to_agg of its level's length;
+  21. the ELL and BSR containers (sparse/ell.py, sparse/bsr.py), which
+     apply through K1 + K2 on a capped CSR of their stored entries:
+     phase 4's SA solver and phase 16's elasticity solver rebuilt with A
+     and every sparse level of the cycle over containers (the JAX
+     package's rules: a BSR for a square level of block size > 1, else
+     an ELL), before phase 19; (a) K1 + K2 on the SA A0 and R0 ELLs and
+     the elasticity A0 (bs 3) and A1 (bs 6) BSRs at k = 1 and 8, float64
+     and float32, against the plain versions as phase 3 holds them,
+     whether each capped CSR is the CSR's own, the tail's rows beside
+     the CSR's, and the CSR operator's time on the same matrix; (b) each
+     path's PCG of A x = A x_true over containers, eager and compiled,
+     against the CSR-backed solve (the same iterations, x within 1e-12;
+     bitwise printed), the counts set to 0 just before and read just
+     after (every K1 and K2 launch on a container); (c) in phase 19's
+     NCCL group of one rank, the SA solve over ELLs sharded (HaloELL at
+     every sparse level) against phase 19's HaloCSR solve, and shard_ell
+     of the ELL A0 applied bitwise as the ELL.
 The setups of phases 16-18 (the float64 elasticity one, the three
 float32-bootstrap ones and the classical one, first) run in two worker
 processes started after phase 2, beside phases 3-15: host setup is
@@ -2484,19 +2501,23 @@ DIST_TIMEOUT = 600  # seconds the launched ranks of phase 19 may take
 DIST_MAXITER = 200
 
 
-def shard_record(op, pc, group) -> dict:
+def shard_record(op, pc, group, keep_x: bool = False) -> dict:
     """One path's eager PCG of A x = A x_true (seeded x_true) to RTOL,
     sharded over ``group`` against the unsharded solve on this rank
     (``parallel.dist.solve_sharded``, each solve run once untimed, then
     timed; the launches read just before and just after the timed
     sharded solve): a collective over the group; the record, with the
     launches by (rows, cols, k) and the fine level's stored entries of
-    every rank, on every rank."""
+    every rank, on every rank (with ``keep_x``, the sharded solve's x
+    too, under "x": no JSON then)."""
     import torch
     import torch.distributed as dist
 
     from tpu_amg_torch.parallel.dist import solve_sharded
-    from tpu_amg_torch.parallel.halo import HaloCSR, HaloDIA, exchange_bytes
+    from tpu_amg_torch.parallel.halo import (HaloCSR, HaloDIA, HaloELL,
+                                             exchange_bytes)
+
+    halo_forms = (HaloCSR, HaloDIA, HaloELL)
 
     x_true = np.random.default_rng(100).standard_normal(op.shape[0])
     b = op.mv(torch.from_numpy(x_true).cuda())
@@ -2506,7 +2527,7 @@ def shard_record(op, pc, group) -> dict:
     halo = getattr(fine, "halo", None)
     # this rank's stored entries: a halo form's local matrix, or the
     # all-gather form's row block
-    local = (fine.local if isinstance(fine, (HaloCSR, HaloDIA))
+    local = (fine.local if isinstance(fine, halo_forms)
              else getattr(getattr(fine, "inner", None), "local", None))
     mine = dict(launches=run.launches, nnz=getattr(local, "nnz", None))
     every = [None] * group.size
@@ -2516,6 +2537,7 @@ def shard_record(op, pc, group) -> dict:
         for k, by_shape in rank["launches"].items():
             launches[k].update(by_shape)
     return {
+        **({"x": run.x} if keep_x else {}),
         "ranks": group.size, "backend": group.backend,
         "fine": type(fine).__name__, "fine_halo": halo,
         "levels": run.forms,
@@ -2523,7 +2545,7 @@ def shard_record(op, pc, group) -> dict:
                         for lv in getattr(run.pc, "levels", ())],
         "fine_nnz_per_shard": [r["nnz"] for r in every],
         "bytes_per_spmv": (exchange_bytes(halo, group, 1, b.dtype)
-                           if isinstance(fine, (HaloCSR, HaloDIA)) else None),
+                           if isinstance(fine, halo_forms) else None),
         "iters": run.info.iters, "iters_one_rank": run.info_one.iters,
         "converged": bool(run.info.converged), "x_rel_err": run.rel_err,
         "bitwise": bool(run.bitwise),
@@ -2603,10 +2625,12 @@ def check_shard_record(label: str, rec: dict, limit: float,
 
 
 def distributed_phase(solver, s_op, smg, side: int, reps: int, results,
-                      dia_results) -> dict:
+                      dia_results, sa_containers) -> dict:
     """Phase 19, its parts one after another so that no timed solve
     shares the card: (a) the SA and structured paths sharded over NCCL
-    at world size 1 in this process; (b) both on DIST_RANKS gloo ranks
+    at world size 1 in this process, and in that group phase 21 (c), the
+    SA path over ELLs (``sa_containers``, :func:`sharded_containers`);
+    (b) both on DIST_RANKS gloo ranks
     sharing the card (:func:`dist_rank_main`); (c)
     ``tools.dryrun_multichip`` on DIST_RANKS gloo ranks and, beside
     them, at world size 1 (NCCL) here.  Then K1 + K2 and K3 on rank 0's
@@ -2634,9 +2658,11 @@ def distributed_phase(solver, s_op, smg, side: int, reps: int, results,
         for label, op, pc, kernels in (
                 ("SA", solver.op, solver.preconditioner, ("K1",)),
                 ("structured", s_op, smg, ("K3",))):
-            rec = shard_record(op, pc, group)
+            rec = shard_record(op, pc, group, keep_x=True)
             check_shard_record(label, rec, DIST_RTOL_NCCL, kernels)
             out[f"nccl {label}"] = rec
+        out["nccl SA over ELLs"] = sharded_containers(
+            group, sa_containers, out["nccl SA"])
     finally:
         multihost.shutdown()
     # (b) DIST_RANKS gloo ranks on the card, alone on it
@@ -4314,9 +4340,13 @@ def drive(args, jobs, jobs_ckpt) -> list:
     # ---- 13, the CLI runs of the setup workers
     cli_worker_phase(jobs, cli_totals)
 
+    # ---- 21, its operators: phases 4's and 16's paths over containers
+    trees = container_trees(solver, elasticity["solver"])
+
     # ---- 19. distribution: NCCL at world size 1, gloo ranks on the card
+    # (and phase 21 (c) in its NCCL group)
     dist_out = distributed_phase(solver, s_op, smg, args.side, args.reps,
-                                 results, dia_results)
+                                 results, dia_results, trees["SA"])
 
     # ---- 20. the rest of M21: the V-cycle benches, the real-FEM solve,
     # the breakdown, the aggregation tool and --viz-out
@@ -4342,6 +4372,16 @@ def drive(args, jobs, jobs_ckpt) -> list:
          RTOL, 200),
         ("real FEM, float32", fem_solver.op, fem_solver.preconditioner, RTOL,
          FEM_MAXITER)])
+
+    # ---- 21. the ELL and BSR containers: (a) K1 + K2 on them, (b) the
+    # SA and elasticity solves over them ((c) ran in phase 19)
+    t0 = time.perf_counter()
+    container_kernel_cases(trees, args.reps, results)
+    c_solves = container_solves(trees)
+    c_seconds = (time.perf_counter() - t0 + dist_out["nccl SA over ELLs"]
+                 ["seconds"] + sum(t["seconds"] for t in trees.values()))
+    say(f"phase 21: {c_seconds:.1f} s (its operators' build, (a), (b) and "
+        f"(c) in phase 19)")
 
     bound_in_l2(results, dia_results, stream_recs, l2)
     # K1's and K2's excess over their bounds on both paths
@@ -4444,6 +4484,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
         *classical_entries(classical),
         *distributed_entries(dist_out, results, dia_results),
         *slice14_entries(p20, results, dia_results),
+        *container_entries(c_solves, dist_out["nccl SA over ELLs"], results),
         row_design_entry(dia_results, precision, [
             (("A0", "A1"), "structured", "float64", s_k3_by_shape),
             (adaptive["dia_cases"], "adaptive", "float64",
@@ -4460,6 +4501,292 @@ def drive(args, jobs, jobs_ckpt) -> list:
                 if key[2] < dia_ops.TILED_MIN_K)),
     ]
     return kernels
+
+
+# ---- phase 21: the ELL and BSR containers
+
+# (b)'s and (c)'s container solves against the CSR-backed ones: x within
+# this relative difference (bitwise where the containers' capped CSRs are
+# the CSRs' own, as from_csr builds them)
+CONTAINER_RTOL = 1e-12
+KS_CONTAINER = (1, 8)  # (a)'s columns
+
+
+def container_tree(op, memo: dict, formats: dict):
+    """``op`` with every SparseOperator over a CappedCSR rebuilt over a
+    container from that CSR's own entries, on its device in its dtype:
+    a BSR where the operator is square with a block size above 1, else
+    an ELL (the JAX package's ``_pick_format`` rules 4 and 5, which pick
+    them on any device but a TPU); DIA, dense and other operators kept,
+    an operator reached twice (a level's A in its smoother) rebuilt once
+    (``memo``, by id).  ``formats`` gets (rows, cols) -> "ELL" or "BSR"
+    for every container built."""
+    from tpu_amg_torch.linop import SparseOperator
+    from tpu_amg_torch.ops.spmv import CappedCSR
+    from tpu_amg_torch.sparse import BSR, ELL
+
+    if op is None or isinstance(op, (bool, int, float, str)):
+        return op
+    key = id(op)
+    if key in memo:
+        return memo[key]
+    if isinstance(op, SparseOperator) and isinstance(op.mat, CappedCSR):
+        block = op.shape[0] == op.shape[1] and op.block_size > 1
+
+        def rebuild(mat):
+            if not isinstance(mat, CappedCSR):
+                return mat
+            csr = mat.to_csr().with_block_size(op.block_size)
+            formats[tuple(mat.shape)] = "BSR" if block else "ELL"
+            if block:
+                return BSR.from_csr(csr, mat.device, dtype=mat.dtype)
+            return ELL.from_csr(csr, mat.device, mat.dtype)
+
+        out = dataclasses.replace(op, mat=rebuild(op.mat),
+                                  mat_t=rebuild(op.mat_t))
+    elif dataclasses.is_dataclass(op) and not isinstance(op, type):
+        changes = {}
+        for f in dataclasses.fields(op):
+            v = getattr(op, f.name)
+            nv = container_tree(v, memo, formats)
+            if nv is not v:
+                changes[f.name] = nv
+        out = dataclasses.replace(op, **changes) if changes else op
+    elif isinstance(op, (tuple, list)):
+        items = [container_tree(v, memo, formats) for v in op]
+        out = (type(op)(items)
+               if any(a is not b for a, b in zip(items, op)) else op)
+    else:
+        out = op
+    memo[key] = out
+    return out
+
+
+def container_trees(sa_solver, e_solver) -> dict:
+    """Phase 21's operators, built once before phase 19: phase 4's SA
+    solver and phase 16's elasticity solver with A and every sparse
+    level of the cycle over containers (:func:`container_tree`): the
+    square levels of a block size above 1 as BSRs (the elasticity A0 and
+    A1, blocks 3 and 6; the SA A1, block 2), the rest as ELLs."""
+    import torch
+
+    from tpu_amg_torch.solver import AMGSolver
+
+    trees = {}
+    for label, solver in (("SA", sa_solver), ("elasticity", e_solver)):
+        t0 = time.perf_counter()
+        memo, formats = {}, {}
+        op = container_tree(solver.op, memo, formats)
+        pc = container_tree(solver.preconditioner, memo, formats)
+        torch.cuda.synchronize()
+        trees[label] = dict(
+            csr=solver, op=op, pc=pc, seconds=time.perf_counter() - t0,
+            solver=AMGSolver(solver.matrix, pc, hierarchy=solver.hierarchy,
+                             config=solver.config, op=op),
+            formats=formats)
+        say(f"phase 21: the {label} path over containers built in "
+            f"{trees[label]['seconds']:.1f} s: A {type(op.mat).__name__} "
+            f"(k {op.mat.k}, {op.mat.nnz} entries); by (rows, cols): "
+            + ", ".join(f"{s} {f}" for s, f in
+                        sorted(trees[label]["formats"].items())))
+    return trees
+
+
+def same_capped(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("indptr", "indices", "data", "tail_cols",
+                         "tail_vals"))
+
+
+def container_kernel_cases(trees, reps, results) -> dict:
+    """Phase 21 (a): K1 + K2 on the SA path's A0 and R0 as ELLs and the
+    elasticity path's A0 (bs 3) and A1 (bs 6) as BSRs, k = 1 and 8,
+    float64 and float32 (the container cast by its ``astype``), against
+    the plain versions (:func:`kernel_cases`: 1e-12 / 1e-5 relative, two
+    K2 calls bitwise equal, CUDA events over a graph of 50 calls, median
+    of 5, bound and cuSPARSE beside); then the CSR operator's time on the
+    same matrix at each (dtype, k): phases 3b and 16's rows where they
+    ran it, else timed here."""
+    import torch
+
+    from tpu_amg_torch.ops import spmv
+
+    sa, el = trees["SA"], trees["elasticity"]
+    sa_h, el_h = sa["csr"].hierarchy, el["csr"].hierarchy
+    mats = {  # name -> (container, host CSR, the CSR's case name)
+        "ELL SA A0": (sa["op"].mat, sa_h.matrices[0], "A0"),
+        "ELL SA R0": (sa["pc"].levels[0].r.mat, sa_h.restrictions[0], "R0"),
+        "BSR elasticity A0": (el["op"].mat, el_h.matrices[0],
+                              "elasticity A0"),
+        "BSR elasticity A1": (el["pc"].levels[1].a.mat, el_h.matrices[1],
+                              "elasticity A1"),
+    }
+    t0 = time.perf_counter()
+    dtypes = (torch.float64, torch.float32)
+    out = {}
+    for name, (mat, csr, csr_case) in mats.items():
+        check(type(mat).__name__ == name.split()[0]
+              and tuple(mat.shape) == csr.shape,
+              f"phase 21 (a) {name}: a {type(mat).__name__} "
+              f"{tuple(mat.shape)}, k {getattr(mat, 'k', None)}, block size "
+              f"{getattr(mat, 'block_size', None)}")
+        kernel_cases(name, {dt: mat.astype(dt).capped for dt in dtypes},
+                     reps, results, KS_CONTAINER)
+        own = spmv.CappedCSR.from_csr(csr, "cuda", torch.float64)
+        say(f"phase 21 (a) {name}: its capped CSR is the CSR's own "
+            f"(entries, order, tail): {same_capped(mat.capped, own)}; tail "
+            f"{tail_shape(mat.capped)} against the CSR's {tail_shape(own)}")
+        for dt in dtypes:
+            dname = str(dt).replace("torch.", "")
+            missing = [k for k in KS_CONTAINER
+                       if not any(c["case"] == csr_case and c["k"] == k
+                                  and c["dtype"] == dname for c in results)]
+            if missing:
+                kernel_cases(csr_case, {dt: own if dt == torch.float64 else
+                                        spmv.CappedCSR.from_csr(csr, "cuda",
+                                                                dt)},
+                             reps, results, missing)
+        out[name] = csr_case
+    for name, csr_case in out.items():
+        for c in results:
+            if c["case"] != name:
+                continue
+            ref = next(r for r in results if r["case"] == csr_case
+                       and r["k"] == c["k"] and r["dtype"] == c["dtype"])
+            c["csr_k1_ms"], c["csr_k2_ms"] = ref["k1_ms"], ref["k2_ms"]
+            say(f"phase 21 (a) {name} {c['dtype']} k={c['k']}: K1 "
+                f"{c['k1_ms'] * 1e3:.2f} us against the CSR operator's "
+                f"{ref['k1_ms'] * 1e3:.2f} (bound {c['k1_bound_ms'] * 1e3:.2f},"
+                f" cuSPARSE {c['k1_lib_ms'] * 1e3:.2f}); K2 "
+                f"{c['k2_ms'] * 1e3:.2f} us against the CSR's "
+                f"{ref['k2_ms'] * 1e3:.2f}")
+    say(f"phase 21 (a): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def container_solves(trees) -> dict:
+    """Phase 21 (b): each path's PCG of A x = A x_true (seeded) to RTOL,
+    eager and compiled (a CUDA graph an iteration), over its containers
+    and over its CSRs: the same iterations, x within CONTAINER_RTOL
+    (bitwise printed), each pair eager = compiled bitwise; the counts set
+    to 0 just before the container solves and read just after: every
+    K1 and K2 launch there is a container's."""
+    import torch
+
+    from tpu_amg_torch.ops import spmv
+
+    out = {}
+    for label, limit in (("SA", MAX_ITERS), ("elasticity",
+                                             MAX_ITERS_ELASTICITY)):
+        tree = trees[label]
+        t0 = time.perf_counter()
+        csr_solver, c_solver = tree["csr"], tree["solver"]
+        n = csr_solver.matrix.nrows
+        x_true = torch.from_numpy(
+            np.random.default_rng(100).standard_normal(n)).cuda()
+        b = spmv.plain_spmv(csr_solver.op.mat, x_true)
+        ref = eager_and_compiled(csr_solver, b, "cg", RTOL, 300)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = eager_and_compiled(c_solver, b, "cg", RTOL, 300)
+        torch.cuda.synchronize()
+        counts = shape_counts()
+        say_shape_counts(f"phase 21 (b) {label} over containers", counts)
+        check_same_solve(f"phase 21 (b) {label} over containers", got,
+                         first=True)
+        for (x, info, _), (xr, ir, _), how in zip(got, ref,
+                                                  ("eager", "compiled")):
+            rel = float((x - xr).abs().max() / xr.abs().max())
+            check(info.converged and info.iters == ir.iters <= limit
+                  and rel <= CONTAINER_RTOL,
+                  f"phase 21 (b) {label} PCG {how}: over containers "
+                  f"{info.iters} iterations, over CSRs {ir.iters} (limit "
+                  f"{limit}); x rel diff {rel:.3e} (limit "
+                  f"{CONTAINER_RTOL:.0e}), bitwise {torch.equal(x, xr)}")
+        formats = tree["formats"]
+        launched = {kernel: collections.Counter() for kernel in ("K1", "K2")}
+        for kernel in launched:
+            for (rows, cols, k), v in counts[kernel].items():
+                launched[kernel][formats.get((rows, cols), "other")] += v
+        check(launched["K1"]["other"] == launched["K2"]["other"] == 0
+              and sum(launched["K1"].values()) > 0,
+              f"phase 21 (b) {label}: every K1 and K2 launch of the "
+              f"container solves on a container: K1 {dict(launched['K1'])}, "
+              f"K2 {dict(launched['K2'])}")
+        out[label] = dict(counts=counts, launched=launched,
+                          iters=got[1][1].iters, seconds=time.perf_counter()
+                          - t0)
+        say(f"phase 21 (b) {label}: {out[label]['seconds']:.1f} s")
+    return out
+
+
+def sharded_containers(group, tree, csr_rec) -> dict:
+    """Phase 21 (c), inside phase 19 (a)'s NCCL group of one rank: the SA
+    solve over its containers sharded (``HaloELL`` at every sparse
+    level), against phase 19's ``HaloCSR`` record: the same iterations,
+    x within CONTAINER_RTOL; and ``shard_ell``'s all-gather form of the
+    ELL A0 applied bitwise as the ELL itself."""
+    import torch
+
+    from tpu_amg_torch.parallel.dist import set_group, shard_ell
+
+    t0 = time.perf_counter()
+    rec = shard_record(tree["op"], tree["pc"], group, keep_x=True)
+    check_shard_record("SA over ELLs", rec, DIST_RTOL_NCCL, ("K1",))
+    rel = float((rec["x"] - csr_rec["x"]).abs().max()
+                / csr_rec["x"].abs().max())
+    check(rec["fine"] == "HaloELL" and rec["iters"] == csr_rec["iters"]
+          and rel <= CONTAINER_RTOL,
+          f"phase 21 (c) the SA solve sharded over ELLs: fine "
+          f"{rec['fine']}, levels {rec['levels']}; {rec['iters']} iterations"
+          f" against the HaloCSR solve's {csr_rec['iters']}, x rel diff "
+          f"{rel:.3e} (limit {CONTAINER_RTOL:.0e}), bitwise "
+          f"{torch.equal(rec['x'], csr_rec['x'])}")
+    ell = tree["op"].mat
+    x = torch.from_numpy(
+        np.random.default_rng(5).standard_normal(ell.ncols)).cuda()
+    with set_group(group):
+        y = shard_ell(ell, group, "cuda").mv(x)
+    same = torch.equal(y, ell.mv(x))
+    check(same, f"phase 21 (c) shard_ell of the ELL A0 {ell.shape} at "
+                f"{group.size} rank: applied bitwise as the ELL: {same}")
+    rec["seconds"] = time.perf_counter() - t0
+    say(f"phase 21 (c): {rec['seconds']:.1f} s")
+    return rec
+
+
+def container_entries(solves, sharded, results) -> list:
+    """The kernels line's entries of phase 21: K1 and K2 on the ELL and
+    the BSR containers (float64, k = 1), each beside the CSR operator's
+    time on the same matrix; launches: (b)'s container solves at the
+    container's shapes (and (c)'s sharded SA solve's, apart)."""
+    out = []
+    for fmt, kernel, key, case, replaces in (
+            ("ELL", "K1", "k1", "ELL SA A0", "tpu_amg/ops/well_pallas.py:77"),
+            ("ELL", "K2", "k2", "ELL SA R0", "tpu_amg/ops/well_pallas.py:457"),
+            ("BSR", "K1", "k1", "BSR elasticity A0",
+             "tpu_amg/ops/well_pallas.py:77"),
+            ("BSR", "K2", "k2", "BSR elasticity A1",
+             "tpu_amg/ops/well_pallas.py:457")):
+        c = next(r for r in results if r["case"] == case
+                 and r["dtype"] == "float64" and r["k"] == 1)
+        mine = [r for r in results if r["case"].startswith(fmt + " ")
+                and r["dtype"] == "float64"]
+        name = ("csr_spmv_capped" if kernel == "K1" else "coo_patch")
+        out.append(dict(
+            name=f"{name}_{fmt.lower()}", route="cuda",
+            source="tpu_amg_torch/csrc/spmv.cu", replaces=replaces,
+            launches=sum(s["launched"][kernel][fmt] for s in solves.values()),
+            max_abs_err=max(r[f"err{key[1]}"] for r in mine),
+            ms=c[f"{key}_ms"], plain_ms=c[f"{key}_plain_ms"],
+            bound_ms=c[f"{key}_bound_ms"], bound_by="bytes",
+            library_ms=c[f"{key}_lib_ms"], case=case, rows=c["shape"][0],
+            csr_ms=c[f"csr_{key}_ms"], container=fmt,
+            launches_sharded=(sharded["launches"][kernel] if fmt == "ELL"
+                              else None)))
+    return out
 
 
 def main() -> int:

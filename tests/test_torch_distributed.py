@@ -25,18 +25,21 @@ from tpu_amg.hierarchy import HierarchyConfig as JaxHierarchyConfig
 from tpu_amg.hierarchy import create_weights as jax_create_weights
 from tpu_amg.interpolation import AggregationConfig as JaxAggregationConfig
 from tpu_amg.interpolation import InterpolationConfig as JaxInterpolationConfig
+from tpu_amg.linop import DiagonalOperator as JaxDiagonalOperator
 from tpu_amg.linop import SparseOperator as JaxSparseOperator
 from tpu_amg.parallel import HaloDIA as JaxHaloDIA
 from tpu_amg.parallel import HaloELL, halo_spmv
 from tpu_amg.parallel import make_solver_mesh as jax_mesh
 from tpu_amg.parallel import pad_ell_identity
 from tpu_amg.parallel import shard_multigrid as jax_shard_multigrid
+from tpu_amg.parallel import shard_ell as jax_shard_ell
 from tpu_amg.parallel import shard_operator as jax_shard_operator
 from tpu_amg.parallel.dist import shard_vector as jax_shard_vector
 from tpu_amg.partition import PartitionerConfig as JaxPartitionerConfig
 from tpu_amg.preconditioners.multigrid_builder import (
     MultigridConfig as JaxMultigridConfig,
 )
+from tpu_amg.preconditioners.smoothers import l1_inverse_diag as jax_l1
 from tpu_amg.solvers import cg as jax_cg
 from tpu_amg.sparse import CSR as JaxCSR
 from tpu_amg.sparse import ELL
@@ -44,14 +47,19 @@ from tpu_amg.sparse.dia import DIA as JaxDIA
 from tpu_amg.utils import checkpoint as jax_checkpoint
 from tpu_amg.utils.problems import poisson1d, poisson2d, poisson3d
 from tpu_amg.utils.problems import unstructured_poisson_2d
-from tests.torch_dist_worker import HALO_CASES, PCG_RTOL, REPLICATE_BELOW
+from tests.torch_dist_worker import (ELL_SYSTEM, ELL_WIDTHS, HALO_CASES,
+                                     PCG_RTOL, REPLICATE_BELOW)
 from tpu_amg_torch.ops import native
-from tpu_amg_torch.parallel.dist import pad_csr_identity, set_group
+from tpu_amg_torch.parallel.dist import (pad_csr_identity, set_group,
+                                         shard_ell)
+from tpu_amg_torch.parallel.dist import pad_ell_identity as port_pad_ell
 from tpu_amg_torch.parallel.halo import HaloCSR
+from tpu_amg_torch.parallel.halo import HaloELL as PortHaloELL
 from tpu_amg_torch.parallel.multihost import launch
 from tpu_amg_torch.shard_utils import SolverGroup
 from tpu_amg_torch.solvers.graph import GraphStep
 from tpu_amg_torch.sparse.csr import CSR
+from tpu_amg_torch.sparse.ell import ELL as PortELL
 
 WIDTHS = (2, 4)  # the JAX side's meshes
 LAUNCH_TIMEOUT = 240  # seconds the world of ranks may take
@@ -76,7 +84,7 @@ def _inputs():
     rng = np.random.default_rng(0)
     mats = {"poisson2d": poisson2d(16), "unstructured2d":
             unstructured_poisson_2d(32), "transfer": _transfer(),
-            "poisson3d_dia": poisson3d(8)}
+            "poisson3d_dia": poisson3d(8), ELL_SYSTEM: poisson2d(15)}
     arrays = {}
     for name, m in mats.items():
         for f in ("data", "indices", "indptr"):
@@ -115,6 +123,25 @@ def _jax_multigrid():
     return a, h, mg, reference_lambda_starts(cfgs["chebyshev"], h)
 
 
+def _jax_ell_system(a, mesh, w) -> dict:
+    """The padded ELL system's PCG on the JAX side: ``shard_operator``
+    (its ``HaloELL``) and ``shard_ell`` (the row-sharded gather)."""
+    ell = pad_ell_identity(ELL.from_csr(a), w)
+    m = JaxDiagonalOperator(diag=jax_l1(ell))
+    b = jax_shard_vector(jnp.ones(ell.nrows), mesh)
+    out = {}
+    for form, op in (
+            ("halo", jax_shard_operator(JaxSparseOperator(ell=ell), mesh)),
+            ("gather", JaxSparseOperator(ell=jax_shard_ell(ell, mesh)))):
+        x, info = jax.jit(lambda a_, b_, m_: jax_cg(a_, b_, m_,
+                                                    rtol=PCG_RTOL))(op, b, m)
+        out[f"ell_{form}_x_{w}"] = np.asarray(x)
+        out[f"ell_{form}_iters_{w}"] = int(info.iters)
+        if form == "halo":
+            out[f"ell_halo_fine_{w}"] = type(op.ell).__name__
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(inputs, the JAX side's outputs, the port's outputs by world)."""
@@ -142,6 +169,8 @@ def runs(tmp_path_factory):
                     ref[f"y_{name}_{w}"] = np.asarray(halo_spmv(
                         hop, jax_shard_vector(jnp.asarray(
                             arrays[f"x_{name}"]), mesh)))
+                if w in ELL_WIDTHS:
+                    ref.update(_jax_ell_system(mats[ELL_SYSTEM], mesh, w))
                 sop = jax_shard_operator(
                     JaxSparseOperator.from_csr(a, prefer_dia=False), mesh)
                 mg_sh = jax_shard_multigrid(mg, mesh,
@@ -172,6 +201,34 @@ def test_halo_spmv_matches_jax(runs, name, w):
     assert _rel(got, ref[f"y_{name}_{w}"]) <= 1e-12
     if name != "poisson3d_dia":
         assert port[f"halo_{name}_{w}"] > 0
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+@pytest.mark.parametrize("name", [c for c in HALO_CASES
+                                  if c != "poisson3d_dia"])
+def test_halo_ell_spmv_matches_jax(runs, name, w):
+    """Each CSR case as a ``HaloELL``: the JAX package's ``HaloELL``
+    apply to 1e-12, with a halo."""
+    _, _, ref, port = runs
+    assert _rel(port[f"y_ell_{name}_{w}"], ref[f"y_{name}_{w}"]) <= 1e-12
+    assert port[f"halo_ell_{name}_{w}"] == port[f"halo_{name}_{w}"] > 0
+
+
+@pytest.mark.parametrize("form", ["halo", "gather"])
+@pytest.mark.parametrize("w", ELL_WIDTHS)
+def test_sharded_ell_pcg_matches_jax(runs, w, form):
+    """poisson2d(15) as an ELL padded by ``pad_ell_identity`` to a
+    multiple of w, PCG with the l1 diagonal over w gloo ranks through
+    ``HaloELL`` and through ``shard_ell``: the JAX package's iterations,
+    its x to 1e-10."""
+    _, _, ref, port = runs
+    assert int(port[f"ell_rows_{w}"]) == -(-225 // w) * w
+    if form == "halo":
+        assert str(port[f"ell_halo_fine_{w}"]) == "HaloELL" == \
+            ref[f"ell_halo_fine_{w}"]
+        assert int(port[f"ell_halo_{w}"]) > 0
+    assert int(port[f"ell_{form}_iters_{w}"]) == ref[f"ell_{form}_iters_{w}"]
+    assert _rel(port[f"ell_{form}_x_{w}"], ref[f"ell_{form}_x_{w}"]) <= 1e-10
 
 
 @pytest.mark.parametrize("name", HALO_CASES)
@@ -233,6 +290,40 @@ def test_pad_csr_identity_is_pad_ell_identity():
     assert got.nnz == ref.nnz
 
 
+def test_pad_ell_identity_matches_jax():
+    a = poisson1d(12)  # 11 dofs -> 16
+    ref = pad_ell_identity(ELL.from_csr(a), 8)
+    got = port_pad_ell(PortELL.from_csr(CSR(
+        data=np.asarray(a.data), indices=np.asarray(a.indices),
+        indptr=np.asarray(a.indptr), shape=a.shape), "cpu"), 8)
+    assert (got.shape, got.nnz, got.block_size, got.k) == (
+        ref.shape, ref.nnz, ref.block_size, ref.k)
+    np.testing.assert_array_equal(got.data.numpy(), np.asarray(ref.data))
+    np.testing.assert_array_equal(got.cols.numpy(), np.asarray(ref.cols))
+    x = np.random.default_rng(5).standard_normal(16)
+    np.testing.assert_allclose(got.mv(torch.from_numpy(x)).numpy(),
+                               np.asarray(ref.mv(jnp.asarray(x))),
+                               rtol=0, atol=1e-12)
+    assert port_pad_ell(got, 8) is got
+
+
+def test_shard_ell_refuses_what_jax_refuses():
+    """Not an ELL: TypeError; rows the group does not divide: ValueError
+    (pad first), in both packages."""
+    a = poisson1d(12)
+    port = CSR(data=np.asarray(a.data), indices=np.asarray(a.indices),
+               indptr=np.asarray(a.indptr), shape=a.shape)
+    group = SolverGroup(None, 8, 0, "gloo")
+    with pytest.raises(ValueError):
+        jax_shard_ell(ELL.from_csr(a), jax_mesh(8))
+    with pytest.raises(ValueError, match="pad_ell_identity"):
+        shard_ell(PortELL.from_csr(port, "cpu"), group, "cpu")
+    with pytest.raises(TypeError):
+        jax_shard_ell(JaxDIA.from_csr(a), jax_mesh(8))
+    with pytest.raises(TypeError):
+        shard_ell(port, group, "cpu")
+
+
 def test_band_violation_raises():
     """A row spanning every column breaks the band, in both packages."""
     n = 64
@@ -244,8 +335,11 @@ def test_band_violation_raises():
     port = CSR(data=np.asarray(a.data), indices=np.asarray(a.indices),
                indptr=np.asarray(a.indptr), shape=a.shape)
     for index in (0, 7):  # no collective: the check is on the host
+        group = SolverGroup(None, 8, index, "gloo")
         with pytest.raises(ValueError):
-            HaloCSR.from_csr(port, SolverGroup(None, 8, index, "gloo"), "cpu")
+            HaloCSR.from_csr(port, group, "cpu")
+        with pytest.raises(ValueError):
+            PortHaloELL.from_ell(PortELL.from_csr(port, "cpu"), group)
 
 
 def test_no_cuda_graph_of_a_sharded_step():

@@ -79,6 +79,11 @@ SLICE_14 = ["tpu_amg_torch.utils.viz", "tpu_amg_torch.tools.aggregation",
             "tpu_amg_torch.tools.bench_vcycle",
             "tpu_amg_torch.tools.bench_unstructured"]
 
+# the rest of the sparse package and its distributed names: the ELL and
+# BSR containers (through K1 + K2)
+SLICE_17 = ["tpu_amg_torch.sparse.ell", "tpu_amg_torch.sparse.bsr",
+            "tpu_amg_torch.sparse.ops"]
+
 
 def test_port_imports_no_jax():
     out = subprocess.run(
@@ -97,6 +102,19 @@ def test_port_imports_no_jax():
     assert set(SLICE_12) <= set(out[2:])
     assert set(SLICE_13) <= set(out[2:])
     assert set(SLICE_14) <= set(out[2:])
+    assert set(SLICE_17) <= set(out[2:])
+
+
+@pytest.mark.parametrize("package", ["sparse", "parallel"])
+def test_public_names_hold_the_jax_packages(package):
+    """``tpu_amg_torch.sparse.__all__`` and ``.parallel.__all__`` hold
+    every name the JAX package exports there."""
+    import importlib
+
+    jax_names = importlib.import_module(f"tpu_amg.{package}").__all__
+    port = importlib.import_module(f"tpu_amg_torch.{package}")
+    assert set(jax_names) <= set(port.__all__)
+    assert all(hasattr(port, name) for name in port.__all__)
 
 
 def test_importing_builds_nothing():

@@ -652,3 +652,42 @@ def test_k2_launcher_refuses_cpu_tensors():
     with pytest.raises(RuntimeError, match="no kernel"):
         spmv.launch_coo_patch(mat, x, torch.zeros(sp.shape[0],
                                                   dtype=torch.float64), 1, 32)
+
+
+def _block_matrix(n_brows=300, bs=6, seed=11):
+    """A square block-sparse CSR of full bs x bs blocks, about 14 blocks a
+    block row: its scalar rows (~84 entries) pass the cap of 64."""
+    rng = np.random.default_rng(seed)
+    br = np.repeat(np.arange(n_brows), 14)
+    bc = np.clip(br + rng.integers(-20, 21, br.size), 0, n_brows - 1)
+    r = (br[:, None, None] * bs + np.arange(bs)[None, :, None]).repeat(bs, 2)
+    c = (bc[:, None, None] * bs + np.arange(bs)[None, None, :]).repeat(bs, 1)
+    n = n_brows * bs
+    return CSR.from_coo(r.ravel(), c.ravel(), rng.standard_normal(r.size),
+                        (n, n), block_size=bs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("fmt", ["ELL", "BSR"])
+def test_containers_apply_through_k1_k2_on_card(cuda, fmt, k, dtype, tol):
+    # an ELL or a BSR applies through its capped CSR: K1, K2 on the tail,
+    # the plain version's result, the CSR operator's bits
+    from tpu_amg_torch.linop import SparseOperator
+    from tpu_amg_torch.sparse import BSR, ELL
+
+    csr = _block_matrix()
+    mat = (ELL if fmt == "ELL" else BSR).from_csr(csr, cuda, dtype=dtype)
+    assert mat.capped.n_tail > 0
+    x = torch.from_numpy(_x(csr.ncols, k, np.float64)).to(cuda, dtype)
+    launches = (spmv.csr_spmv_launches, spmv.coo_patch_launches)
+    y = mat(x)
+    torch.cuda.synchronize()
+    assert (spmv.csr_spmv_launches, spmv.coo_patch_launches) == (
+        launches[0] + 1, launches[1] + 1)
+    ref = spmv.plain_spmv(mat.capped, x)
+    assert float((y - ref).abs().max()) <= tol * float(ref.abs().max())
+    op = SparseOperator.from_csr(csr, cuda, dtype, prefer_dia=False)
+    assert torch.equal(y, op.mv(x) if k == 1 else op.mm(x))

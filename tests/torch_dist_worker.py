@@ -9,9 +9,11 @@ environment, gloo, the CPU); imports the port alone, never jax:
 hierarchy archive, with its Chebyshev start vectors in ``<dir>/lam.npz``)
 come from the test.  For each width w of the world (its first 1, 2, 4
 and 8 ranks), every check runs, and rank 0 writes ``<dir>/port.npz``:
-each halo case's y, the sharded PCG's x and iteration count, the scaling
-sweep's record and, for the solver group of one rank, whether the
-sharded solve equals the unsharded one bit for bit.
+each halo case's y (as a ``HaloCSR`` and as a ``HaloELL``), the sharded
+PCG's x and iteration count, the padded ELL system's PCG through
+``HaloELL`` and through ``shard_ell`` (w = 2 and 4), the scaling sweep's
+record and, for the solver group of one rank, whether the sharded solve
+equals the unsharded one bit for bit.
 """
 
 import dataclasses
@@ -23,17 +25,21 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpu_amg_torch.linop import SparseOperator
+from tpu_amg_torch.linop import DiagonalOperator, SparseOperator
 from tpu_amg_torch.ops.spmv import CappedCSR
 from tpu_amg_torch.parallel import multihost
-from tpu_amg_torch.parallel.dist import (make_solver_mesh, replicate,
+from tpu_amg_torch.parallel.dist import (make_solver_mesh, pad_ell_identity,
+                                         replicate, set_group, shard_ell,
                                          shard_vector, solve_sharded)
-from tpu_amg_torch.parallel.halo import HaloCSR, HaloDIA
+from tpu_amg_torch.parallel.halo import HaloCSR, HaloDIA, HaloELL
 from tpu_amg_torch.partition import PartitionerConfig
 from tpu_amg_torch.preconditioners.multigrid_builder import MultigridConfig
+from tpu_amg_torch.preconditioners.smoothers import l1_inverse_diag
 from tpu_amg_torch.shard_utils import all_gather_rows
+from tpu_amg_torch.solvers import cg
 from tpu_amg_torch.sparse.csr import CSR
 from tpu_amg_torch.sparse.dia import DIA
+from tpu_amg_torch.sparse.ell import ELL
 from tpu_amg_torch.tools import bench_scaling
 from tpu_amg_torch.utils import checkpoint
 
@@ -42,6 +48,10 @@ from tpu_amg_torch.utils import checkpoint
 HALO_CASES = ("poisson2d", "unstructured2d", "poisson2d_mm", "transfer",
               "poisson3d_dia")
 REPLICATE_BELOW = 200
+# the ELL system (poisson2d(15), 225 rows): padded to a multiple of w by
+# pad_ell_identity, solved sharded over the first w ranks
+ELL_SYSTEM = "ellsys"
+ELL_WIDTHS = (2, 4)
 PCG_RTOL = 1e-10
 SWEEP = dict(rows_per_rank=512, strip=32, reps=1, pcg_iters=2)
 
@@ -55,6 +65,28 @@ def halo_form(name, csr, group):
     if name == "poisson3d_dia":
         return HaloDIA.from_dia(DIA.from_csr(csr, "cpu"), group)
     return HaloCSR.from_csr(csr, group, "cpu")
+
+
+def ell_system_solves(csr: CSR, group) -> dict:
+    """PCG of the padded ELL system (``b`` ones, the l1 smoother's
+    diagonal as M) sharded over ``group``: through ``HaloELL``
+    (``solve_sharded``) and through ``shard_ell``'s all-gather form."""
+    w = group.size
+    ell = pad_ell_identity(ELL.from_csr(csr, "cpu"), w)
+    d = l1_inverse_diag(ell)
+    b = torch.ones(ell.nrows, dtype=torch.float64)
+    run = solve_sharded(SparseOperator(mat=ell), DiagonalOperator(d), b,
+                        group, rtol=PCG_RTOL)
+    with set_group(group):
+        x, info = cg(shard_ell(ell, group, "cpu"), shard_vector(b, group),
+                     DiagonalOperator(shard_vector(d, group)), rtol=PCG_RTOL)
+        x = all_gather_rows(x, group)
+    return {f"ell_halo_x_{w}": run.x.numpy(),
+            f"ell_halo_iters_{w}": run.info.iters,
+            f"ell_halo_fine_{w}": type(run.fine).__name__,
+            f"ell_halo_{w}": run.fine.halo,
+            f"ell_gather_x_{w}": x.numpy(), f"ell_gather_iters_{w}": info.iters,
+            f"ell_rows_{w}": ell.nrows}
 
 
 def multigrid(directory: Path):
@@ -99,6 +131,14 @@ def main(directory: str) -> None:
                                 else hop.mm(shard_vector(x, group)), group)
             out[f"y_{name}_{w}"] = y.numpy()
             out[f"halo_{name}_{w}"] = hop.halo
+            if name != "poisson3d_dia":  # the same block as a HaloELL
+                hop = HaloELL.from_ell(ELL.from_csr(csr, "cpu"), group)
+                xs = shard_vector(x, group)
+                out[f"y_ell_{name}_{w}"] = all_gather_rows(
+                    hop.mv(xs) if x.dim() == 1 else hop.mm(xs), group).numpy()
+                out[f"halo_ell_{name}_{w}"] = hop.halo
+        if w in ELL_WIDTHS:
+            out.update(ell_system_solves(load_csr(z, ELL_SYSTEM), group))
         if w < 8:  # the JAX side holds 2 and 4; 1 is held bitwise
             run = solve_sharded(SparseOperator.from_csr(a0, "cpu"), mg, b,
                                 group, rtol=PCG_RTOL,

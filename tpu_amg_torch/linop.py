@@ -12,8 +12,11 @@ routes, picked when it is built (:meth:`SparseOperator.from_csr`, the
 JAX package's ``_pick_format`` rule 1): a DIA matrix through K3
 (:mod:`tpu_amg_torch.ops.dia`) when the matrix is square, has few
 distinct diagonals and fills them densely enough; otherwise a capped CSR
-through K1 + K2 (:mod:`tpu_amg_torch.ops.spmv`).  Small levels are dense
-and apply with ``torch.matmul``.
+through K1 + K2 (:mod:`tpu_amg_torch.ops.spmv`).  An operator built
+over an :class:`~tpu_amg_torch.sparse.ell.ELL` or a
+:class:`~tpu_amg_torch.sparse.bsr.BSR` applies through K1 + K2 too, on
+the capped CSR that the container carries.  Small levels are dense and
+apply with ``torch.matmul``.
 
 An operator's arrays may be narrower than the vectors it is applied to
 (a cycle cast by :mod:`tpu_amg_torch.precision`).  Every apply then
@@ -33,8 +36,10 @@ import torch
 
 from tpu_amg_torch.device import to_device
 from tpu_amg_torch.ops.spmv import CappedCSR, spmv
+from tpu_amg_torch.sparse.bsr import BSR
 from tpu_amg_torch.sparse.csr import CSR
 from tpu_amg_torch.sparse.dia import DIA, try_from_csr
+from tpu_amg_torch.sparse.ell import ELL
 
 
 class LinearOperator:
@@ -69,16 +74,18 @@ class LinearOperator:
 
 
 def _apply(mat, x: torch.Tensor) -> torch.Tensor:
-    """y = mat x through K3 (DIA) or K1 + K2 (capped CSR), in the
-    promotion of the values' and x's dtypes: x is widened where the
-    values are wider.  Where both are bf16 the apply is the f32 island
-    (:mod:`tpu_amg_torch.precision`): x widened to f32, the (bf16, f32)
-    kernels, y rounded to bf16 once."""
+    """y = mat x through K3 (DIA) or K1 + K2 (capped CSR, or the capped
+    CSR of an ELL or a BSR), in the promotion of the values' and x's
+    dtypes: x is widened where the values are wider.  Where both are
+    bf16 the apply is the f32 island (:mod:`tpu_amg_torch.precision`): x
+    widened to f32, the (bf16, f32) kernels, y rounded to bf16 once."""
     out = torch.promote_types(mat.dtype, x.dtype)
     if out == torch.bfloat16:
         return _apply(mat, x.to(torch.float32)).to(out)
     x = x.to(out).contiguous()
-    return mat.mm(x) if isinstance(mat, DIA) else spmv(mat, x)
+    if isinstance(mat, DIA):
+        return mat.mm(x)
+    return spmv(mat.capped if isinstance(mat, (ELL, BSR)) else mat, x)
 
 
 def matmul(mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -101,15 +108,15 @@ def scale(s, x: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class SparseOperator(LinearOperator):
     """Square or rectangular sparse operator: y = A x through K3 (DIA)
-    or K1 + K2 (capped CSR).
+    or K1 + K2 (capped CSR, ELL or BSR).
 
     For operators used in both directions ``mat_t`` holds the
     materialized transpose, mirroring the reference, which materializes
     R = Pᵀ (interpolation/mod.rs:824-827).  Without it a square operator
     applies its transpose as itself (rmv = mv)."""
 
-    mat: Union[CappedCSR, DIA]
-    mat_t: Optional[Union[CappedCSR, DIA]] = None
+    mat: Union[CappedCSR, DIA, ELL, BSR]
+    mat_t: Optional[Union[CappedCSR, DIA, ELL, BSR]] = None
     block_size: int = 1
 
     @property
@@ -138,17 +145,17 @@ class SparseOperator(LinearOperator):
 
     @staticmethod
     def from_csr(csr: CSR, device, dtype=torch.float64,
-                 with_transpose: bool = False,
+                 with_transpose: bool = False, prefer_dia: bool = True,
                  dia_max_diags: int = 32, dia_max_density: float = 3.0):
-        """DIA when the matrix is square with at most ``dia_max_diags``
-        distinct diagonals, and n_diags · n ≤ ``dia_max_density`` · nnz
-        (the JAX package's ``_pick_format`` rule 1,
-        tpu_amg/linop.py:180-187); else a capped CSR.  The multigrid
-        builders widen the envelope to 160 / 8.0 for Galerkin coarse
-        operators."""
+        """DIA when ``prefer_dia``, the matrix is square with at most
+        ``dia_max_diags`` distinct diagonals, and n_diags · n ≤
+        ``dia_max_density`` · nnz (the JAX package's ``_pick_format``
+        rule 1, tpu_amg/linop.py:180-187); else a capped CSR.  The
+        multigrid builders widen the envelope to 160 / 8.0 for Galerkin
+        coarse operators."""
 
         def pick(m: CSR):
-            if m.is_square:
+            if prefer_dia and m.is_square:
                 dia = try_from_csr(m, device, dtype, max_diags=dia_max_diags)
                 if (dia is not None and len(dia.offsets) * m.nrows
                         <= dia_max_density * max(m.nnz, 1)):
@@ -219,6 +226,34 @@ class ScaledIdentity(LinearOperator):
         return scale(self.scale, xs)
 
 
+@dataclasses.dataclass
+class TransposeOperator(LinearOperator):
+    """Aᵀ as a view of an operator: mv is the base's rmv, rmv its mv
+    (the JAX package's ``TransposeOperator``, tpu_amg/linop.py:395-422)."""
+
+    base: LinearOperator
+
+    @property
+    def shape(self):
+        return (self.base.shape[1], self.base.shape[0])
+
+    @property
+    def block_size(self) -> int:
+        return getattr(self.base, "block_size", 1)
+
+    def mv(self, x):
+        return self.base.rmv(x)
+
+    def mm(self, xs):
+        return self.base.rmm(xs)
+
+    def rmv(self, x):
+        return self.base.mv(x)
+
+    def rmm(self, xs):
+        return self.base.mm(xs)
+
+
 @dataclasses.dataclass(frozen=True)
 class ComposedOperator(LinearOperator):
     """B ∘ A: y = B(A(x)). rmv = Aᵀ Bᵀ."""
@@ -245,9 +280,12 @@ class ComposedOperator(LinearOperator):
 
 def aslinearoperator(x, device, dtype=torch.float64) -> LinearOperator:
     """A host CSR becomes a :class:`SparseOperator`, a dense array a
-    :class:`DenseOperator`; operators pass through."""
+    :class:`DenseOperator`; an ELL or a BSR is wrapped as it is;
+    operators pass through."""
     if isinstance(x, LinearOperator):
         return x
+    if isinstance(x, (ELL, BSR)):
+        return SparseOperator(mat=x, block_size=x.block_size)
     if isinstance(x, CSR):
         return SparseOperator.from_csr(x, device, dtype)
     if isinstance(x, (np.ndarray, torch.Tensor)):

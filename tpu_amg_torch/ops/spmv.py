@@ -323,6 +323,12 @@ class CappedCSR:
     def dtype(self) -> torch.dtype:
         return self.data.dtype
 
+    def astype(self, dtype) -> "CappedCSR":
+        """The values (capped part and tail) in ``dtype``; the tables
+        shared."""
+        return dataclasses.replace(self, data=self.data.to(dtype),
+                                   tail_vals=self.tail_vals.to(dtype))
+
     @property
     def nnz(self) -> int:
         return self.data.numel() + self.tail_vals.numel()

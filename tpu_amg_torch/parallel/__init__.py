@@ -15,20 +15,24 @@ from tpu_amg_torch.parallel.dist import (
     ShardedSolve,
     make_solver_mesh,
     pad_csr_identity,
+    pad_ell_identity,
     replicate,
     set_group,
     shard_csr,
+    shard_ell,
     shard_multigrid,
     shard_operator,
     solve_sharded,
     try_shard_halo,
 )
-from tpu_amg_torch.parallel.halo import HaloCSR, HaloDIA, halo_spmv
+from tpu_amg_torch.parallel.halo import HaloCSR, HaloDIA, HaloELL, halo_spmv
 
 __all__ = [
     "make_solver_mesh",
     "pad_csr_identity",
+    "pad_ell_identity",
     "shard_csr",
+    "shard_ell",
     "shard_operator",
     "shard_multigrid",
     "replicate",
@@ -38,5 +42,6 @@ __all__ = [
     "ShardedSolve",
     "HaloCSR",
     "HaloDIA",
+    "HaloELL",
     "halo_spmv",
 ]

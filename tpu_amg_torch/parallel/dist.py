@@ -8,7 +8,9 @@ collective is written where it happens:
 - a sharded level's operator is a halo form
   (:mod:`tpu_amg_torch.parallel.halo`: two point-to-point slabs an
   apply) or, where the band does not hold, the all-gather form
-  (:func:`shard_csr`: the vector all-gathered, this rank's rows applied);
+  (:func:`shard_csr`, :func:`shard_ell`: the vector all-gathered, this
+  rank's rows applied); a level over a ``BSR`` is replicated, as the
+  JAX package replicates it;
 - the dot products all-reduce over the active group
   (:func:`set_group`, the counterpart of ``jax.set_mesh``;
   :mod:`tpu_amg_torch.shard_utils`);
@@ -35,7 +37,7 @@ import collections
 import contextlib
 import dataclasses
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -46,7 +48,7 @@ from tpu_amg_torch.linop import (DiagonalOperator, LinearOperator,
                                  SparseOperator, _apply)
 from tpu_amg_torch.ops import dia, spmv
 from tpu_amg_torch.ops.spmv import CappedCSR
-from tpu_amg_torch.parallel.halo import HaloCSR, HaloDIA
+from tpu_amg_torch.parallel.halo import HaloCSR, HaloDIA, HaloELL
 from tpu_amg_torch.parallel.multihost import global_put
 from tpu_amg_torch.preconditioners.block_smoother import (BlockBucket,
                                                           BlockSmoother)
@@ -54,8 +56,10 @@ from tpu_amg_torch.preconditioners.chebyshev import ChebyshevSmoother
 from tpu_amg_torch.preconditioners.multigrid import Level, Multigrid
 from tpu_amg_torch.shard_utils import SolverGroup, all_gather_rows, all_reduce_sum
 from tpu_amg_torch.solvers import cg
+from tpu_amg_torch.sparse.bsr import BSR
 from tpu_amg_torch.sparse.csr import CSR
 from tpu_amg_torch.sparse.dia import DIA
+from tpu_amg_torch.sparse.ell import ELL
 
 
 def make_solver_mesh(n_ranks: Optional[int] = None) -> SolverGroup:
@@ -102,6 +106,26 @@ def pad_csr_identity(csr: CSR, multiple: int) -> CSR:
     )
 
 
+def pad_ell_identity(ell: ELL, multiple: int) -> ELL:
+    """Extend a square ELL with identity rows (value 1 in slot 0, column
+    n + i) so that nrows % multiple == 0, on the ELL's device; its
+    capped CSR gains the same rows (:func:`pad_csr_identity`)."""
+    n = ell.nrows
+    n_pad = -(-n // multiple) * multiple
+    if n_pad == n:
+        return ell
+    data = ell.data.new_zeros((n_pad, ell.k))
+    data[:n] = ell.data
+    data[n:, 0] = 1.0
+    cols = ell.cols.new_zeros((n_pad, ell.k))
+    cols[:n] = ell.cols
+    cols[n:, 0] = torch.arange(n, n_pad, dtype=cols.dtype, device=cols.device)
+    csr = pad_csr_identity(ell.capped.to_csr(), multiple)
+    return ELL(data=data, cols=cols, shape=(n_pad, n_pad),
+               nnz=ell.nnz + n_pad - n, block_size=1,
+               capped=CappedCSR.from_csr(csr, ell.device, ell.dtype))
+
+
 def row_block(csr: CSR, group: SolverGroup) -> CSR:
     """This rank's rows of ``csr`` (global columns)."""
     rows = group.rows(csr.nrows)
@@ -111,12 +135,24 @@ def row_block(csr: CSR, group: SolverGroup) -> CSR:
                shape=(rows.stop - rows.start, csr.ncols))
 
 
+def ell_row_block(ell: ELL, group: SolverGroup, device) -> ELL:
+    """This rank's rows of ``ell`` (global columns) on ``device``."""
+    rows = group.rows(ell.nrows)
+    capped = CappedCSR.from_csr(row_block(ell.capped.to_csr(), group),
+                                device, ell.dtype)
+    return ELL(data=ell.data[rows].to(device).contiguous(),
+               cols=ell.cols[rows].to(device).contiguous(),
+               shape=(rows.stop - rows.start, ell.ncols), nnz=capped.nnz,
+               block_size=ell.block_size, capped=capped)
+
+
 @dataclasses.dataclass
 class RowBlockCSR(LinearOperator):
-    """This rank's rows of a CSR applied, with K1 + K2, to the whole
-    (replicated) input vector: returns this rank's rows of y."""
+    """This rank's rows of a CSR (a ``CappedCSR``, or an ``ELL``)
+    applied, with K1 + K2, to the whole (replicated) input vector:
+    returns this rank's rows of y."""
 
-    local: CappedCSR
+    local: Union[CappedCSR, ELL]
     shape: tuple
 
     def mv(self, x):
@@ -172,6 +208,22 @@ def shard_csr(csr: CSR, group: SolverGroup, device,
                     gather_in=True)
 
 
+def shard_ell(ell: ELL, group: SolverGroup, device) -> Boundary:
+    """The all-gather form of a row-sharded ELL (the port of
+    ``shard_ell``): the input all-gathered, this rank's rows (an ELL on
+    ``device``) applied.  Raises ``TypeError`` for anything but an ELL
+    and ``ValueError`` where the group does not divide the rows (use
+    :func:`pad_ell_identity` first)."""
+    if not isinstance(ell, ELL):
+        raise TypeError(f"shard_ell requires an ELL, got {type(ell).__name__}"
+                        " (build it with ELL.from_csr)")
+    if ell.nrows % group.size or ell.ncols % group.size:
+        raise ValueError(f"shape {ell.shape} not divisible by {group.size} "
+                         "ranks; use pad_ell_identity first")
+    return Boundary(RowBlockCSR(ell_row_block(ell, group, device),
+                                tuple(ell.shape)), group, gather_in=True)
+
+
 def replicate(obj, group: SolverGroup, src: int = 0):
     """Row block ``src``'s ``obj`` on every rank of ``group`` (a broadcast
     of the pickled object; tensors travel through the host).  Every rank
@@ -186,11 +238,14 @@ def replicate(obj, group: SolverGroup, src: int = 0):
 
 def try_shard_halo(mat, group: SolverGroup):
     """The halo form of a device matrix (``DIA`` → :class:`HaloDIA`,
-    ``CappedCSR`` → :class:`HaloCSR`), or None when the band (or
-    divisibility) fails: callers fall back to the all-gather path."""
+    ``ELL`` → :class:`HaloELL`, ``CappedCSR`` → :class:`HaloCSR`), or
+    None when the band (or divisibility) fails, or for a ``BSR``:
+    callers fall back to the all-gather path or replicate."""
     try:
         if isinstance(mat, DIA):
             return HaloDIA.from_dia(mat, group)
+        if isinstance(mat, ELL):
+            return HaloELL.from_ell(mat, group)
         if isinstance(mat, CappedCSR):
             return HaloCSR.from_csr(mat.to_csr(), group, mat.device,
                                     mat.dtype)
@@ -227,14 +282,17 @@ class _WithTranspose(LinearOperator):
 
 
 def _shard_mat(mat, group: SolverGroup):
-    """The halo form of a device matrix, else the all-gather form (CSR);
-    a DIA matrix outside the band raises ``ValueError``."""
+    """The halo form of a device matrix, else the all-gather form (CSR,
+    ELL); a BSR, or a DIA matrix outside the band, raises
+    ``ValueError``."""
     h = try_shard_halo(mat, group)
     if h is not None:
         return h
-    if isinstance(mat, DIA):
-        raise ValueError("a DIA matrix outside the halo band has no sharded "
-                         "form")
+    if isinstance(mat, (DIA, BSR)):
+        raise ValueError(f"a {type(mat).__name__} matrix has no sharded "
+                         "form here (a DIA one outside the halo band)")
+    if isinstance(mat, ELL):
+        return shard_ell(mat, group, mat.device)
     return shard_csr(mat.to_csr(), group, mat.device, mat.dtype)
 
 
@@ -322,9 +380,11 @@ def _shard_smoother(smoother, a_sharded, group: SolverGroup):
 
 def _as_ell_operator(op):
     """The operator itself.  The JAX package re-derives ELL here from its
-    single-chip fast formats (``BandedDense``, ``TransposeOperator``);
-    the port has neither: its sparse operators are already CSR or DIA,
-    which :func:`shard_csr_rect` shards as they are."""
+    single-chip fast formats (``BandedDense``, and a
+    ``TransposeOperator`` over one); the port has no ``BandedDense``,
+    its sparse operators are CSR, DIA, ELL or BSR, which
+    :func:`shard_csr_rect` shards as they are (a ``TransposeOperator``
+    runs replicated)."""
     return op
 
 
@@ -336,17 +396,19 @@ def shard_csr_rect(op: LinearOperator, group: SolverGroup, in_sharded: bool,
     a replicated output is all-gathered from the sharded rows where the
     rows divide; a replicated input is applied by this rank's rows
     (:class:`RowBlockCSR`, no communication).  Operators that are not
-    CSR run replicated behind a :class:`Boundary`."""
+    CSR or ELL run replicated behind a :class:`Boundary`."""
     op = _as_ell_operator(op)
     if not in_sharded and not out_sharded:
         return op
     mat = getattr(op, "mat", None)
-    if not isinstance(mat, CappedCSR):
+    if not isinstance(mat, (CappedCSR, ELL)):
         return Boundary(op, group, gather_in=in_sharded,
                         slice_out=out_sharded)
     if not in_sharded:
-        local = CappedCSR.from_csr(row_block(mat.to_csr(), group),
-                                   mat.device, mat.dtype)
+        local = (ell_row_block(mat, group, mat.device)
+                 if isinstance(mat, ELL) else
+                 CappedCSR.from_csr(row_block(mat.to_csr(), group),
+                                    mat.device, mat.dtype))
         return RowBlockCSR(local, tuple(mat.shape))
     if mat.shape[0] % group.size:
         return Boundary(op, group, gather_in=True)
@@ -356,16 +418,19 @@ def shard_csr_rect(op: LinearOperator, group: SolverGroup, in_sharded: bool,
 
 
 def level_forms(mg) -> list:
-    """Each level's operator form: ``HaloCSR``, ``HaloDIA``,
-    ``shard_csr`` or ``replicated``."""
+    """Each level's operator form: ``HaloCSR``, ``HaloELL``,
+    ``HaloDIA``, ``shard_csr``, ``shard_ell`` or ``replicated``."""
     if isinstance(mg, Boundary):  # a preconditioner replicated whole
         return ["replicated"] * len(getattr(mg.inner, "levels", (None,)))
     forms = []
     for level in mg.levels:
         a = level.a
-        forms.append(type(a).__name__ if isinstance(a, (HaloCSR, HaloDIA))
-                     else "shard_csr" if isinstance(a, Boundary)
-                     else "replicated")
+        forms.append(
+            type(a).__name__ if isinstance(a, (HaloCSR, HaloELL, HaloDIA))
+            else ("shard_ell" if isinstance(
+                getattr(a.inner, "local", None), ELL) else "shard_csr")
+            if isinstance(a, Boundary)
+            else "replicated")
     return forms
 
 

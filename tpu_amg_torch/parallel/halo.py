@@ -7,18 +7,23 @@ a local operator to the [left halo | own rows | right halo] buffer: two
 point-to-point transfers an apply in place of an all-gather of the
 vector.
 
-Two operator forms, each a :class:`~tpu_amg_torch.linop.LinearOperator`
+Three operator forms, each a :class:`~tpu_amg_torch.linop.LinearOperator`
 taking and returning this rank's rows:
 
-- :class:`HaloCSR`, the port's one counterpart of ``HaloELL``,
-  ``HaloWELL`` and ``HaloHybrid`` (ELL, WELL and the hybrid split are
-  not device formats of the port): a local ``CappedCSR`` of (n_loc_rows
-  × (n_loc_cols + 2·halo)) applied with K1 + K2, as ``_well_shard``
-  runs K1's TPU original per shard (``halo.py:619-630``).  It covers
-  rectangular transfers: rank d owns rows [d·n_loc_rows, (d+1)·n_loc_rows)
-  and the aligned column window [d·n_loc_cols, (d+1)·n_loc_cols); every
-  column must fall within ``halo`` of that window (aggregates are
-  numbered by first fine node, so coarse orderings inherit the band).
+- :class:`HaloCSR`, the port's counterpart of ``HaloWELL`` and
+  ``HaloHybrid`` (WELL and the hybrid split are TPU layouts of K1's
+  contract, not device formats of the port): a local ``CappedCSR`` of
+  (n_loc_rows × (n_loc_cols + 2·halo)) applied with K1 + K2, as
+  ``_well_shard`` runs K1's TPU original per shard
+  (``halo.py:619-630``).  It covers rectangular transfers: rank d owns
+  rows [d·n_loc_rows, (d+1)·n_loc_rows) and the aligned column window
+  [d·n_loc_cols, (d+1)·n_loc_cols); every column must fall within
+  ``halo`` of that window (aggregates are numbered by first fine node,
+  so coarse orderings inherit the band).
+- :class:`HaloELL`, the port of ``HaloELL``: the same rows, window and
+  halo for an :class:`~tpu_amg_torch.sparse.ell.ELL`, whose local ELL
+  keeps the JAX package's ``cols_local`` and applies through its capped
+  CSR with K1 + K2, as a ``HaloCSR`` does.
 - :class:`HaloDIA`, a square matrix stored by diagonals, applied with
   K3.  The port's ``DIA`` is square, so the local form is a square DIA
   of n_loc + 2·halo rows whose halo rows are zero, applied to the
@@ -45,6 +50,7 @@ from tpu_amg_torch.ops.spmv import CappedCSR
 from tpu_amg_torch.shard_utils import SolverGroup, host_staged, unstage
 from tpu_amg_torch.sparse.csr import CSR
 from tpu_amg_torch.sparse.dia import DIA, dia_from_arrays
+from tpu_amg_torch.sparse.ell import ELL, to_host
 
 
 def ring_exchange(x: torch.Tensor, halo: int,
@@ -167,6 +173,88 @@ class HaloCSR(LinearOperator):
 
 
 @dataclasses.dataclass
+class HaloELL(LinearOperator):
+    """Row-sharded (possibly rectangular) ELL: ``local`` holds this
+    rank's rows with ``cols_local = cols − window start + halo`` (padded
+    slots at the window's first column), the JAX package's layout, and
+    its capped CSR the same rows' stored entries in buffer columns."""
+
+    local: ELL
+    shape: Tuple[int, int]
+    nnz: int
+    halo: int
+    group: SolverGroup
+    block_size: int = 1
+
+    @property
+    def n_loc_rows(self) -> int:
+        return self.shape[0] // self.group.size
+
+    @property
+    def n_loc_cols(self) -> int:
+        return self.shape[1] // self.group.size
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.local.dtype
+
+    @property
+    def k(self) -> int:
+        return self.local.k
+
+    @staticmethod
+    def from_ell(ell: ELL, group: SolverGroup,
+                 halo: int = None) -> "HaloELL":
+        """This rank's block of ``ell`` (every rank holds the whole
+        matrix), on its device; raises ``ValueError`` when a non-zero
+        slot falls outside the halo band (the JAX package's check)."""
+        n = group.size
+        nrows, ncols = ell.shape
+        _check_divisible(nrows, ncols, n)
+        n_loc_rows, n_loc_cols = nrows // n, ncols // n
+        data, cols = to_host(ell.data), to_host(ell.cols).astype(np.int64)
+        rows = np.arange(nrows, dtype=np.int64)[:, None]
+        offset = cols - (rows // n_loc_rows) * n_loc_cols
+        valid = data != 0
+        lo = offset[valid].min(initial=0)
+        hi = offset[valid].max(initial=0) - (n_loc_cols - 1)
+        needed = int(max(-lo, hi, 0))
+        halo = needed if halo is None else halo
+        if needed > halo or halo > n_loc_cols:
+            raise ValueError(f"band assumption violated: needs halo {needed},"
+                             f" local column window {n_loc_cols}")
+        mine = group.rows(nrows)
+        cols_local = (np.where(valid, offset, 0)[mine] + halo).astype(np.int32)
+        # the capped CSR's rows: its stored zeros outside the band (which
+        # no product needs) are dropped, the rest shifted to the buffer
+        csr = ell.capped.to_csr()
+        lo_e, hi_e = csr.indptr[mine.start], csr.indptr[mine.stop]
+        r = np.repeat(np.arange(n_loc_rows), np.diff(
+            csr.indptr[mine.start:mine.stop + 1]))
+        c = csr.indices[lo_e:hi_e].astype(np.int64) \
+            - group.index * n_loc_cols + halo
+        v = csr.data[lo_e:hi_e]
+        width = n_loc_cols + 2 * halo
+        keep = (c >= 0) & (c < width)
+        local_csr = CSR.from_coo(r[keep], c[keep], v[keep],
+                                 (n_loc_rows, width))
+        local = ELL(data=ell.data[mine].contiguous(),
+                    cols=torch.from_numpy(cols_local).to(ell.device),
+                    shape=(n_loc_rows, width), nnz=local_csr.nnz,
+                    block_size=ell.block_size,
+                    capped=CappedCSR.from_csr(local_csr, ell.device,
+                                              ell.dtype))
+        return HaloELL(local=local, shape=tuple(ell.shape), nnz=ell.nnz,
+                       halo=halo, group=group, block_size=ell.block_size)
+
+    def mv(self, x):
+        return halo_spmv(self, x)
+
+    def mm(self, xs):
+        return halo_spmv(self, xs)
+
+
+@dataclasses.dataclass
 class HaloDIA(LinearOperator):
     """Row-sharded square DIA: a local square DIA of n_loc + 2·halo rows
     (this rank's rows of every diagonal at rows [halo, halo + n_loc),
@@ -222,8 +310,9 @@ class HaloDIA(LinearOperator):
 
 def halo_spmv(h, x: torch.Tensor) -> torch.Tensor:
     """y = A x for this rank's rows ``x`` (n_loc_cols, or (n_loc_cols,
-    k)): the ring exchange, then K1 + K2 (:class:`HaloCSR`) or K3
-    (:class:`HaloDIA`) on the buffer; returns this rank's rows of y."""
+    k)): the ring exchange, then K1 + K2 (:class:`HaloCSR`,
+    :class:`HaloELL`) or K3 (:class:`HaloDIA`) on the buffer; returns
+    this rank's rows of y."""
     xbuf = ring_exchange(x, h.halo, h.group)
     y = _apply(h.local, xbuf)
     if isinstance(h, HaloDIA) and h.halo:

@@ -49,7 +49,9 @@ floats where the JAX package keeps arrays (``ChebyshevSmoother.lam_max``
 and ``lam_min``, ``ScaledIdentity.scale``), which become 0-d tensors of
 the mode's dtype on the host (so a CUDA graph captures them as the
 launch arguments they are).  Integer and bool tensors (indices, row
-tables) and static fields are kept.  An operator reached twice (a
+tables) and static fields are kept.  An ``ELL`` or a ``BSR`` is cast
+by its ``astype``: its padded values and the capped CSR that applies
+them together, so the two cannot drift apart.  An operator reached twice (a
 level's A is also its smoother's and its smoothed transfer's) is cast
 once and stays shared.
 """
@@ -62,6 +64,8 @@ from typing import Any, Optional
 import torch
 
 from tpu_amg_torch.linop import LinearOperator
+from tpu_amg_torch.sparse.bsr import BSR
+from tpu_amg_torch.sparse.ell import ELL
 
 MODES = (None, "none", "f64", "f32", "bf16_values", "bf16")
 
@@ -76,6 +80,8 @@ def _cast(op: Any, dtype: torch.dtype, memo: dict) -> Any:
         return memo[key]
     if isinstance(op, torch.Tensor):
         out = op.to(dtype) if op.is_floating_point() else op
+    elif isinstance(op, (ELL, BSR)):
+        out = op.astype(dtype)
     elif dataclasses.is_dataclass(op) and not isinstance(op, type):
         changes = {}
         for f in dataclasses.fields(op):

@@ -22,8 +22,10 @@ import torch
 
 from tpu_amg_torch.device import to_device
 from tpu_amg_torch.errors import MultigridBuildError
-from tpu_amg_torch.linop import LinearOperator, matmul
+from tpu_amg_torch.linop import LinearOperator, SparseOperator, matmul
+from tpu_amg_torch.sparse.bsr import BSR
 from tpu_amg_torch.sparse.csr import CSR
+from tpu_amg_torch.sparse.ell import ELL
 
 logger = logging.getLogger(__name__)
 
@@ -31,8 +33,25 @@ DENSE_COARSE_CAP = 20_000
 
 
 def _densify(a) -> np.ndarray:
+    """A CSR, an ELL or a BSR (or a ``SparseOperator`` over one of
+    those), or a dense array, as a dense float64 array on the host."""
+    if isinstance(a, SparseOperator) and isinstance(a.mat, (ELL, BSR)):
+        a = a.mat
     if isinstance(a, CSR):
         return a.to_dense()
+    if isinstance(a, (ELL, BSR)):
+        dense = np.zeros(a.shape)
+        data = a.data.detach().cpu().to(torch.float64).numpy()
+        cols = a.cols.cpu().numpy().astype(np.int64)
+        if isinstance(a, ELL):  # padded slots add 0 at column 0
+            rows = np.arange(a.nrows)[:, None]
+        else:  # padded blocks add 0 at block column 0
+            bs = a.block_size
+            rows = (np.arange(a.nrows // bs)[:, None, None, None] * bs
+                    + np.arange(bs)[None, None, :, None])
+            cols = cols[:, :, None, None] * bs + np.arange(bs)
+        np.add.at(dense, (rows, cols), data)
+        return dense
     return np.asarray(a, dtype=np.float64)
 
 

@@ -1,4 +1,5 @@
-"""Host-side sparse algebra: SpGEMM, Galerkin RAP, add.
+"""Host-side sparse algebra: SpGEMM, Galerkin RAP, add, transpose,
+identity and diagonal matrices.
 
 The reference gets SpGEMM (``A * P``), transpose and sparse addition
 from faer (reference interpolation/mod.rs:720, 824-828, 945).  These are
@@ -21,6 +22,17 @@ def from_coo(rows, cols, vals, shape: Tuple[int, int], block_size: int = 1) -> C
     return CSR.from_coo(rows, cols, vals, shape, block_size)
 
 
+def eye_csr(n: int, value: float = 1.0) -> CSR:
+    idx = np.arange(n)
+    return CSR.from_coo(idx, idx, np.full(n, value), (n, n))
+
+
+def diags_csr(diag) -> CSR:
+    diag = np.asarray(diag, dtype=np.float64)
+    idx = np.arange(len(diag))
+    return CSR.from_coo(idx, idx, diag, (len(diag),) * 2)
+
+
 def spgemm(a: CSR, b: CSR) -> CSR:
     """C = A @ B (sparse-sparse). Equivalent of faer ``operator*``."""
     if a.ncols != b.nrows:
@@ -41,6 +53,10 @@ def sp_add(a: CSR, b: CSR, alpha: float = 1.0, beta: float = 1.0) -> CSR:
         a.shape,
         a.block_size,
     )
+
+
+def sp_transpose(a: CSR) -> CSR:
+    return a.transpose()
 
 
 def rap(a: CSR, p: CSR, r: CSR = None) -> CSR:
