@@ -282,7 +282,22 @@ Phases, one printed line per result; any failed check exits non-zero:
      after (every K1 and K2 launch on a container); (c) in phase 19's
      NCCL group of one rank, the SA solve over ELLs sharded (HaloELL at
      every sparse level) against phase 19's HaloCSR solve, and shard_ell
-     of the ELL A0 applied bitwise as the ELL.
+     of the ELL A0 applied bitwise as the ELL;
+  22. the SpMV throughput benchmark (tools.bench, the port of bench.py),
+     run right after phase 15: (a) its entry point in-process at --grid
+     24 --side 128, whose last line must hold bench.py's eight keys,
+     every number finite and > 0, with K1 and K3 launched and K2 not;
+     (b) the counts set to 0 again just before and read just after
+     bench.measure on phase 7's poisson3d(100) and phase 10's FEM 1M
+     (the matrices already built), its record printed on a line of its
+     own: K3 ("dia", and the DIA with bf16 values) and K1 ("csr", "ell",
+     the FEM 1M at (f32, f32) and (bf16, f32)) launched, K2 not (no row
+     passes K1's cap); (c) every timed apply against its plain version on
+     ones and on a seeded x, timed beside the library's SpMV and their
+     bound, "csr" and "ell" within 5% of each other, and K3's (bf16,
+     f32) apply on the structured A0 and K1's on the FEM 1M each timed
+     in turns with the call that phase 15 or 10 timed on the same
+     matrix, within 10% of it.
 The setups of phases 16-18 (the float64 elasticity one, the three
 float32-bootstrap ones and the classical one, first) run in two worker
 processes started after phase 2, beside phases 3-15: host setup is
@@ -915,7 +930,9 @@ def ablation_phase(sa_mats, reps):
     1M matrix in float32, then on the SA path's matrices ``sa_mats``
     (label -> float64 CappedCSR); every mode against its plain version,
     both timed; ``full`` bitwise against K1, and timed beside K1 and the
-    library's SpMV.  Returns the kernels-line entry."""
+    library's SpMV.  Returns the kernels-line entry and {"mat": the FEM
+    1M's float32 CappedCSR, "x": the x it was timed on, "k1_ms": K1's time
+    on it}."""
     import torch
 
     from tpu_amg_torch.ops import spmv, spmv_stages
@@ -987,6 +1004,7 @@ def ablation_phase(sa_mats, reps):
         f"{r['matrix']} {r['mode']} {r['ms'] * 1e3:.2f} "
         f"({r['bytes'] / 1e6:.1f})" for r in recs))
     rec = full["fem1024"]
+    fem_k1 = dict(mat=fem, x=x32, k1_ms=rec["k1_ms"])
     return dict(name="csr_spmv_stages", route="cuda",
                 source="tpu_amg_torch/csrc/spmv_stages.cu",
                 replaces="tools/well2proto.py:258, tools/well2proto.py:324, "
@@ -994,7 +1012,7 @@ def ablation_phase(sa_mats, reps):
                          "tools/wellablate2.py:34",
                 launches=launches, max_abs_err=max(errs), ms=rec["ms"],
                 plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-                bound_by="bytes", library_ms=rec["lib_ms"])
+                bound_by="bytes", library_ms=rec["lib_ms"]), fem_k1
 
 
 def dma_phase(reps):
@@ -3903,7 +3921,7 @@ def row_design_entry(dia_results, precision, paths, floor_ms,
 
 
 def drive(args, jobs, jobs_ckpt) -> list:
-    """Phases 3-20 (the setups of phases 16-18 and 20 running in
+    """Phases 3-22 (the setups of phases 16-18 and 20 running in
     ``jobs``, the checkpoints they write in ``jobs_ckpt``, their
     directory ``jobs_ckpt["dir"]``); returns the kernels line's
     entries."""
@@ -4281,7 +4299,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
     )
 
     # ---- 10-12. the stage ablation, the copy probes, the primitives
-    stages_entry = ablation_phase(
+    stages_entry, fem_k1 = ablation_phase(
         {"SA A0": a_mat, "SA R0": sa_mat("R", 0, h.restrictions[0]),
          "SA A1": sa_mat("A", 1, h.matrices[1])},
         args.reps)
@@ -4300,11 +4318,20 @@ def drive(args, jobs, jobs_ckpt) -> list:
         structured=s_solver, adaptive=adaptive["solver"],
         adaptive_small=adaptive["small"]))
 
+    # ---- 22. the SpMV throughput benchmark on phase 7's and 10's 1M
+    # matrices, its K3 and K1 applies timed in turns with the calls that
+    # phases 15 and 10 timed on the same matrices
+    k3_bf16 = next(c for c in precision["dia"] if c["case"] == "S A0"
+                   and c["pair"] == "bf16f32" and c["k"] == 1)
+    p22 = bench_phase(ps, fem_k1, s_solver.preconditioner.levels[0].a.mat,
+                      k3_bf16["ms"], args.reps, l2)
+    bench_launches = p22["launches"]
+
     # ---- 16. block-3 elasticity, from the float64 setup of a worker
     t0 = time.perf_counter()
     e_setup = jobs["elasticity f64"].get(timeout=JOB_WAIT)
     say(f"phase 16: the elasticity setup's worker done "
-        f"{time.perf_counter() - t0:.1f} s after phase 15")
+        f"{time.perf_counter() - t0:.1f} s after phase 22")
     elasticity = elasticity_phase(e_setup, e_setup["ckpt"], args.reps,
                                   results)
 
@@ -4413,6 +4440,10 @@ def drive(args, jobs, jobs_ckpt) -> list:
              source="tpu_amg_torch/csrc/spmv.cu",
              replaces="tpu_amg/ops/well_pallas.py:77",
              launches=launches[0],
+             # phase 22's (tools.bench: "csr", "ell" and the FEM 1M)
+             launches_bench=bench_launches["K1"],
+             bench={n: p22["applies"][n]
+                    for n in ("csr", "ell", "fem", "fem_bf16v")},
              max_abs_err=max(c["err1"] for c in main_cases),
              ms=a0["k1_ms"], plain_ms=a0["k1_plain_ms"],
              bound_ms=a0["k1_bound_ms"], bound_by="bytes",
@@ -4431,6 +4462,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
              source="tpu_amg_torch/csrc/spmv.cu",
              replaces="tpu_amg/ops/well_pallas.py:457",
              launches=launches[1],
+             launches_bench=bench_launches["K2"],
              max_abs_err=max(c["err2"] for c in main_cases),
              ms=r0["k2_ms"], plain_ms=r0["k2_plain_ms"],
              bound_ms=r0["k2_bound_ms"], bound_by="bytes",
@@ -4449,6 +4481,9 @@ def drive(args, jobs, jobs_ckpt) -> list:
              source="tpu_amg_torch/csrc/dia.cu",
              replaces="tpu_amg/ops/dia_pallas.py:34",
              launches=s_launches["dia_spmv"],
+             # phase 22's ("dia" and the bf16-value DIA)
+             launches_bench=bench_launches["K3"],
+             bench={n: p22["applies"][n] for n in ("dia", "dia_bf16v")},
              max_abs_err=max(c["err"] for c in dia_results
                              if c["dtype"] == "float64"),
              ms=d0["ms"], plain_ms=d0["plain_ms"],
@@ -4787,6 +4822,166 @@ def container_entries(solves, sharded, results) -> list:
             launches_sharded=(sharded["launches"][kernel] if fmt == "ELL"
                               else None)))
     return out
+
+
+# ---- phase 22: the SpMV throughput benchmark (tools.bench)
+
+# (a) the entry point in-process at a small size
+BENCH_SMALL_ARGV = ["--grid", "24", "--side", "128", "--reps", "10"]
+# (c) the bf16-value applies against their plain versions: each value
+# widens exactly to f32 and the sums run in f32, as the f32 applies'
+BENCH_BF16_VALUES_TOL = TOL["float32"]
+BENCH_CSR_ELL = 0.05  # "csr" against "ell": one capped CSR, K1 on both
+# K3 (bf16, f32) on the structured A0 and K1 (f32, f32) on the FEM 1M as
+# tools.bench applies them against the calls phases 15 and 10 timed on the
+# same matrices, the two timed in turns (alternating_ms)
+BENCH_READING = 0.10
+
+
+def bench_library(mats: dict) -> dict:
+    """The library's SpMV (a torch sparse CSR tensor ``@ x``) beside each
+    timed apply of tools.bench: the same matrix as CSR, its values (bf16
+    ones widened) in f32."""
+    import torch
+
+    out = {}
+    for name in mats:
+        base = mats["fem" if name.startswith("fem") else "csr"]
+        vals = (base.data.to(torch.bfloat16) if name.endswith("bf16v")
+                else base.data)
+        out[name] = torch_csr(base.indptr, base.indices,
+                              vals.to(torch.float32), base.shape)
+    return out
+
+
+def bench_phase(ps, fem_k1: dict, s_a0, k3_bf16_ms: float, reps: int, l2
+                ) -> dict:
+    """Phase 22: tools.bench, (a) its entry point at a small size, its
+    counts read on their own; (b)
+    :func:`tpu_amg_torch.tools.bench.measure` on phase 7's poisson3d(100)
+    ``ps`` and phase 10's FEM 1M (``fem_k1``: its f32 CappedCSR, x and
+    K1's time), the counts set to 0 just before (b) and read just after;
+    (c) every timed apply against its plain version on ones and on a
+    seeded x, timed beside it, the library's SpMV and its bound (over
+    phase 11's L2 read rate ``l2`` where its bytes fit in L2), "csr"
+    against "ell", and K3's (bf16, f32) and K1's FEM applies in turns with
+    the calls that phase 15 (on the structured A0 ``s_a0`` in bf16,
+    ``k3_bf16_ms``) and phase 10 timed on the same matrices.  Returns
+    {"launches": (b)'s by kernel, "applies": (b)'s records by name}."""
+    import contextlib
+    import io
+
+    import torch
+
+    from tpu_amg_torch.ops import dia as dia_ops
+    from tpu_amg_torch.ops import spmv
+    from tpu_amg_torch.tools import bench
+    from tpu_amg_torch.utils.timing import alternating_ms, median_ms
+
+    def counts():
+        torch.cuda.synchronize()
+        return (dict(K1=spmv.csr_spmv_launches, K2=spmv.coo_patch_launches,
+                     K3=dia_ops.dia_spmv_launches),
+                dict(K1=dict(spmv.csr_spmv_launches_by_dtype),
+                     K3=dict(dia_ops.dia_spmv_launches_by_dtype)))
+
+    t_phase = time.perf_counter()
+    fem_csr = fem_k1["mat"].to_csr()
+    torch.cuda.synchronize()
+    reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench.run(BENCH_SMALL_ARGV)
+    small, _ = counts()
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    nums = [line[k] for k in bench.KEYS if k not in ("metric", "unit")]
+    check(list(line) == list(bench.KEYS)
+          and all(np.isfinite(v) and v > 0 for v in nums)
+          and small["K1"] > 0 and small["K3"] > 0 and small["K2"] == 0,
+          f"phase 22 (a) python -m tpu_amg_torch.tools.bench "
+          f"{' '.join(BENCH_SMALL_ARGV)}: its last line has bench.py's eight "
+          f"keys, every number finite and > 0: {json.dumps(line)}; "
+          f"launches K1 {small['K1']}, K2 {small['K2']}, K3 {small['K3']}")
+    reset_counts()
+    res = bench.measure(ps, fem_csr, "cuda", reps)
+    launches, by_dtype = counts()
+    rec = res["record"]
+    say("phase 22 (b) tools.bench.measure on poisson3d("
+        f"{STRUCTURED_SIDE}) and unstructured_fem_system({FEM_SIDE}), "
+        f"--reps {reps}: its record on the next line")
+    say(json.dumps(rec))
+    nums = [res["json"][k] for k in bench.KEYS if k not in ("metric", "unit")]
+    pair = (torch.bfloat16, torch.float32)
+    check(all(np.isfinite(v) and v > 0 for v in nums)
+          and launches["K1"] > 0 and launches["K3"] > 0
+          and launches["K2"] == 0 and by_dtype["K1"].get(pair, 0) > 0
+          and by_dtype["K3"].get(pair, 0) > 0
+          and rec["poisson"]["tail_rows"] == rec["fem"]["tail_rows"] == 0,
+          f"phase 22 (b): {json.dumps(res['json'])}; launches over (b): K1 "
+          f"{launches['K1']}, K2 {launches['K2']} (no tail rows: poisson "
+          f"{rec['poisson']['tail_rows']}, fem {rec['fem']['tail_rows']}), "
+          f"K3 {launches['K3']}; at (bf16, f32) K1 "
+          f"{by_dtype['K1'].get(pair, 0)}, K3 {by_dtype['K3'].get(pair, 0)}")
+
+    # (c) each timed apply against its plain version, and timed beside it
+    libs = bench_library(res["matrices"])
+    for name, mat in res["matrices"].items():
+        g = torch.Generator(device="cuda").manual_seed(22)
+        tol = (BENCH_BF16_VALUES_TOL if name.endswith("bf16v")
+               else TOL["float32"])
+        errs = []
+        ones = torch.ones(mat.shape[1], device="cuda")
+        for x in (ones,
+                  torch.randn(mat.shape[1], generator=g, device="cuda")):
+            y, p = bench.apply(mat, x), bench.plain_apply(mat, x)
+            torch.cuda.synchronize()
+            errs.append(float((y - p).abs().max())
+                        / max(float(p.abs().max()), 1e-30))
+        a = rec["applies"][name]
+        a["max_rel_err"] = max(errs)
+        a["plain_ms"] = median_ms(lambda: bench.plain_apply(mat, ones), reps,
+                                  graph=True)
+        a["library_ms"] = median_ms(lambda: libs[name] @ ones, reps,
+                                    graph=True)
+        a["bound_ms"] = pair_bound(a["bytes"], l2)
+        check(max(errs) <= tol,
+              f"phase 22 (c) {name} ({a['kernel']}, {type(mat).__name__} "
+              f"{str(mat.dtype).replace('torch.', '')} values, f32 x): max "
+              f"rel err on ones {errs[0]:.2e}, on a seeded x {errs[1]:.2e} "
+              f"(limit {tol:.0e}); {a['ms'] * 1e3:.2f} us (plain "
+              f"{a['plain_ms'] * 1e3:.2f}, library CSR @ x "
+              f"{a['library_ms'] * 1e3:.2f}, bound "
+              f"{a['bound_ms'] * 1e3:.2f}), {a['bytes']} B a call, "
+              f"{a['gnnzs']:.1f} Gnnz/s")
+    ms = {k: v["ms"] for k, v in rec["applies"].items()}
+    check(abs(ms["ell"] / ms["csr"] - 1) <= BENCH_CSR_ELL,
+          f"phase 22 (c): \"ell\" {ms['ell'] * 1e3:.2f} us against \"csr\" "
+          f"{ms['csr'] * 1e3:.2f} us (limit {BENCH_CSR_ELL:.0%} apart: one "
+          f"capped CSR)")
+    # the earlier phases' calls on their own inputs (phase 15: the A0 in
+    # bf16 and x from seed 1; phase 10: its x), in turns with tools.bench's
+    a0_bf16 = s_a0.astype(torch.bfloat16)
+    x15 = torch.randn(a0_bf16.shape[1], device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+    for label, name, earlier, where, call in (
+            ("K3 (bf16, f32) on the structured A0", "dia_bf16v", k3_bf16_ms,
+             "phase 15", lambda: dia_ops.dia_spmv(a0_bf16, x15)),
+            ("K1 (f32, f32) on the FEM 1M", "fem", fem_k1["k1_ms"],
+             "phase 10", lambda: spmv.csr_spmv_capped(fem_k1["mat"],
+                                                      fem_k1["x"]))):
+        mat = res["matrices"][name]
+        ones = torch.ones(mat.shape[1], device="cuda")
+        a = rec["applies"][name]
+        a["earlier_turns_ms"], a["turns_ms"] = alternating_ms(
+            [call, lambda: bench.apply(mat, ones)], reps)
+        check(abs(a["turns_ms"] / a["earlier_turns_ms"] - 1) <= BENCH_READING,
+              f"phase 22 (c): {label}, tools.bench's apply "
+              f"{a['turns_ms'] * 1e3:.2f} us in turns with {where}'s call "
+              f"{a['earlier_turns_ms'] * 1e3:.2f} us (limit "
+              f"{BENCH_READING:.0%} apart); (b) read {ms[name] * 1e3:.2f} "
+              f"us, {where} {earlier * 1e3:.2f} us")
+    say(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, applies=rec["applies"])
 
 
 def main() -> int:

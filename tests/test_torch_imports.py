@@ -18,7 +18,7 @@ names = [m.name for m in
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "tpu_amg"))
+             if m.split(".")[0] in ("jax", "jaxlib", "tpu_amg", "bench"))
 print(len(names), bad, " ".join(names))
 """
 
@@ -84,6 +84,9 @@ SLICE_14 = ["tpu_amg_torch.utils.viz", "tpu_amg_torch.tools.aggregation",
 SLICE_17 = ["tpu_amg_torch.sparse.ell", "tpu_amg_torch.sparse.bsr",
             "tpu_amg_torch.sparse.ops"]
 
+# the SpMV throughput benchmark, the port of the root bench.py
+SLICE_18 = ["tpu_amg_torch.tools.bench"]
+
 
 def test_port_imports_no_jax():
     out = subprocess.run(
@@ -103,6 +106,7 @@ def test_port_imports_no_jax():
     assert set(SLICE_13) <= set(out[2:])
     assert set(SLICE_14) <= set(out[2:])
     assert set(SLICE_17) <= set(out[2:])
+    assert set(SLICE_18) <= set(out[2:])
 
 
 @pytest.mark.parametrize("package", ["sparse", "parallel"])
