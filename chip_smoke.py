@@ -297,7 +297,28 @@ Phases, one printed line per result; any failed check exits non-zero:
      bound, "csr" and "ell" within 5% of each other, and K3's (bf16,
      f32) apply on the structured A0 and K1's on the FEM 1M each timed
      in turns with the call that phase 15 or 10 timed on the same
-     matrix, within 10% of it.
+     matrix, within 10% of it; the many-column designs' tables of its
+     two 1M-row CSR matrices, their host build seconds and device bytes.
+  23. the design sweep: K1's staged SpMM and its first SpMM design,
+     K2's pieces and its rows design, in turns, at every k of
+     tools.spmmsweep.K_SWEEP (2-64, those the paths launch among them)
+     on the paths' own matrices (the SA A0, R0, A1; the adaptive c1 P0,
+     R0, A1, R2; the elasticity A0; the classical A1), float64 and
+     float32, each held as phase 3 holds them, beside K1's routed design
+     (spmv.k1_design); by dtype the sums of each design's and the routed
+     times, and the cases where the router's pick was more than 3%
+     slower than the other design.
+At k > 1 every K1 + K2 case of phases 3, 14-18 (and phase 15's mixed
+pairs) also times K1's two designs (the staged SpMM, csrc/csr_spmm.cuh,
+and the first) and K2's two (the pieces and the rows design) in turns:
+the staged SpMM must give the first design's bits and the routed
+call's, the pieces agree with K2's rows design and the plain version to
+the dtype's tolerance, two calls of each bitwise equal; there the plain
+versions are timed over graphs of PLAIN_REPS calls.  Every path's K1
+launches by design must be the router's on its own matrices (those
+timed; spmv.k1_design by the bytes of an X row and the mean capped row
+length); launches x time at k > 1 is printed by path for the routed
+design, the first and the staged SpMM, and for K2's pieces and rows.
 The setups of phases 16-18 (the float64 elasticity one, the three
 float32-bootstrap ones and the classical one, first) run in two worker
 processes started after phase 2, beside phases 3-15: host setup is
@@ -314,7 +335,11 @@ twice, with K3 as routed and with those launches on the first design:
 the same iterations, histories and, bitwise, x.  Then every row timed
 with its bytes in the L2 cache is bound by the L2 read rate of phase 11,
 and K1's and K2's launches x (time - bound) are printed for the SA and
-structured paths; every K3 case below k = 8 is printed with its path's
+structured paths, and at k > 1 for both designs of each on the SA,
+adaptive, elasticity, classical and float32-bootstrap paths, with
+launches x time; the gather figure of each k > 1 case (nnz x k x
+itemsize, an X row an entry) is printed over the L2 read rate; every
+K3 case below k = 8 is printed with its path's
 launches, the row-chunk and first designs' times, the bound and the
 launch's fixed cost, and launches x time summed for both designs.
 Every count is set to 0 just before each path (4, 6, 7, 10, 11, 12, each CLI run, the adaptive
@@ -395,14 +420,26 @@ JAX_ITERS = {"SA": 23, "elasticity": 33}  # the JAX package's PCG counts
 # Elasticity is held to twice the JAX package's count, printed beside
 BOOTSTRAP_EXTRA = {"SA": 2, "elasticity": None}
 ADAPTIVE_F32_RATIO = 1.1  # the adaptive composite: at most 1.1 x
-SETUP_WORKERS = 2  # processes running phases 16-18's setups
+# processes running phases 16-18's setups: with 2, and phase 14's setup
+# in the main process, the script ran ~1,165 s of its 1,200 s limit on
+# the H100 machine's 8-core host (PERF.md); phase 14's runs in a process
+# of its own beside them
+SETUP_WORKERS = 3
 # the workers' BLAS, OpenMP and torch thread pools, set at their spawn:
 # with 8 threads each beside the main process's own host setups (phases
-# 4, 13, 14, the critical path) the script ran 1,157 s on the H100
+# 4 and 13, the critical path) the script ran 1,157 s on the H100
 # machine's 8-core host, 935 s with 2 (PERF.md)
 WORKER_THREADS = 2
 THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
-JOB_WAIT = 900  # seconds phase 16 or 17 waits for a setup, at most
+JOB_WAIT = 900  # seconds a phase waits for a worker's setup, at most
+CHECKPOINT_PROBE_SEED = 7  # the vector a checkpoint's apply is held on
+# calls in a CUDA graph of each design, timed in turns (the median of 5
+# replays): at k > 1 in every K1 + K2 case, and in phase 23's sweep
+DESIGN_REPS = 20
+SWEEP_REPS = 10
+# calls in a CUDA graph when a plain version is timed at k > 1: it is a
+# reference, no yardstick of speed, and takes 0.5-6 ms a call at k = 64
+PLAIN_REPS = 10
 CLI_ELASTICITY_N = 20  # the CLI's elasticity3d run: 24,000 dofs
 PROFILE_SIDE = 128  # tools.profile_setup's run: 16,384 dofs
 # phase 18: classical AMG on poisson2d(320), 102,400 dofs, with the CLI's
@@ -430,8 +467,16 @@ CLI_WORKER_CASES = (
 )
 
 
+T_START = time.perf_counter()
+
+
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def mark(phase: str) -> None:
+    """The script's clock at the start of a phase, on a line of its own."""
+    say(f"# t={time.perf_counter() - T_START:.1f} s: phase {phase}")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -565,6 +610,73 @@ def k2_lanes_sweep(mat, x, k, reps) -> dict:
         reps, graph=True) for lanes in (8, 16, 32) if lanes >= first}
 
 
+def design_case(mat, x, routed, reps, tol) -> tuple:
+    """At k > 1, K1's and K2's two designs on one matrix: the staged SpMM
+    (in the mode the bytes of an X row give) and the first design
+    (``launch_first_spmm``) timed in turns, bitwise equal to each other,
+    to the routed call ``routed`` and across two calls, beside the
+    router's pick (``spmv.k1_design``); K2's pieces and the rows design
+    (a team of lanes a row) in turns on a random Y, the pieces within
+    ``tol`` of it and of the plain version, two calls bitwise.  Returns
+    (ok, text, fields)."""
+    import torch
+
+    from tpu_amg_torch.ops import spmv
+    from tpu_amg_torch.utils.timing import alternating_ms
+
+    k = x.shape[1]
+    first = spmv.launch_first_spmm(mat, x)
+    staged = spmv.launch_staged_spmm(mat, x)
+    again = spmv.launch_staged_spmm(mat, x)
+    torch.cuda.synchronize()
+    same1 = (torch.equal(first, staged) and torch.equal(staged, again)
+             and torch.equal(routed, staged))
+    isz = x.element_size()
+    out = dict(k1_gather_bytes=mat.data.numel() * k * isz,
+               k1_design=spmv.k1_design(k, isz, mat.row_mean),
+               k2_gather_bytes=None, k2_rows_ms=None, k2_pieces_ms=None)
+    out["k1_first_ms"], out["k1_staged_ms"] = alternating_ms(
+        [lambda: spmv.launch_first_spmm(mat, x),
+         lambda: spmv.launch_staged_spmm(mat, x)], reps)
+    out["k1_routed_ms"] = out["k1_first_ms" if out["k1_design"] == "first"
+                              else "k1_staged_ms"]
+    text = (f"; K1 staged {out['k1_staged_ms'] * 1e3:.2f} us ("
+            + ("X staged" if k * isz <= spmv.SPMM_STAGE_ROW
+               else "gather mode")
+            + f"), first {out['k1_first_ms'] * 1e3:.2f} us (in turns; "
+            f"bitwise equal, and to the routed call: {same1}); routed "
+            f"{out['k1_design']} (rows {mat.row_mean:.1f} entries on "
+            f"average)")
+    ok = same1
+    if mat.n_tail:
+        g = torch.Generator(device="cuda").manual_seed(k + 1)
+        y0 = torch.randn((mat.shape[0], k), generator=g, device="cuda",
+                         dtype=x.dtype)
+        rows, pieces, twice, ref = (y0.clone() for _ in range(4))
+        lanes = spmv.k2_lanes(mat.n_tail_rows, k,
+                              spmv.sm_count(x.device.index))
+        spmv.launch_coo_patch(mat, x, rows, k, lanes)
+        spmv.launch_coo_pieces(mat, x, pieces, k)
+        spmv.launch_coo_pieces(mat, x, twice, k)
+        spmv.plain_coo_patch(mat, x, ref)
+        torch.cuda.synchronize()
+        scale = max(float(ref.abs().max()), 1e-300)
+        err_rows = float((pieces - rows).abs().max()) / scale
+        err_plain = float((pieces - ref).abs().max()) / scale
+        same2 = torch.equal(pieces, twice)
+        yz = torch.zeros_like(y0)
+        out["k2_rows_ms"], out["k2_pieces_ms"] = alternating_ms(
+            [lambda: spmv.launch_coo_patch(mat, x, yz, k, lanes),
+             lambda: spmv.launch_coo_pieces(mat, x, yz, k)], reps)
+        out["k2_gather_bytes"] = mat.n_tail * k * x.element_size()
+        ok = ok and same2 and max(err_rows, err_plain) <= tol
+        text += (f"; K2 pieces {out['k2_pieces_ms'] * 1e3:.2f} us, rows "
+                 f"{out['k2_rows_ms'] * 1e3:.2f} us (in turns; rel err "
+                 f"against rows {err_rows:.2e}, plain {err_plain:.2e}, "
+                 f"limit {tol:.0e}; two calls bitwise equal: {same2})")
+    return ok, text, out
+
+
 def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
     """Compare K1, K2 and K1+K2 with the plain versions on one matrix;
     time each on the device (CUDA graph replays) beside the library's
@@ -601,15 +713,16 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
             err2 = float((y2 - p2).abs().max())
             t1 = median_ms(lambda: spmv.csr_spmv_capped(mat, x), reps,
                            graph=True)
-            t1p = median_ms(lambda: spmv.plain_csr_spmv_capped(mat, x), reps,
-                            graph=True)
+            plain_reps = reps if k == 1 else min(reps, PLAIN_REPS)
+            t1p = median_ms(lambda: spmv.plain_csr_spmv_capped(mat, x),
+                            plain_reps, graph=True)
             t2 = t2p = float("nan")  # K2 launches only for a tail
             if mat.n_tail:
                 yz = torch.zeros_like(y1)
                 t2 = median_ms(lambda: spmv.coo_patch(mat, x, yz), reps,
                                graph=True)
                 t2p = median_ms(lambda: spmv.plain_coo_patch(mat, x, yz),
-                                reps, graph=True)
+                                plain_reps, graph=True)
             lib = dict(k1_lib_ms=median_ms(lambda: lib1 @ x, reps, graph=True),
                        k1_bound_ms=hbm_bound_ms(spmv.k1_bytes(mat, k)),
                        k1_bytes=spmv.k1_bytes(mat, k), k2_bytes=None,
@@ -620,6 +733,11 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
                 lib["rowgroup_ms"] = median_ms(
                     lambda: spmv_stages.csr_spmv_stages(mat, x, "rowgroup"),
                     reps, graph=True)
+                designs_ok, designs_text = True, ""
+            else:
+                designs_ok, designs_text, more = design_case(
+                    mat, x, y1, min(reps, DESIGN_REPS), TOL[dname])
+                lib.update(more)
             if lib2 is not None:
                 lib["k2_lib_ms"] = median_ms(lambda: lib2 @ x, reps,
                                              graph=True)
@@ -632,7 +750,7 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
                     lib["k2_lanes"] = spmv.k2_lanes(
                         mat.n_tail_rows, k, spmv.sm_count(x.device.index))
             check(
-                rel <= TOL[dname] and same,
+                rel <= TOL[dname] and same and designs_ok,
                 f"kernels {name} {dname} k={k}: shape {mat.shape} "
                 f"nnz {mat.nnz} tail {mat.n_tail} row blocks "
                 f"{mat.n_blocks}: max rel err {rel:.3e} (limit "
@@ -651,7 +769,8 @@ def kernel_cases(name, mat_by_dtype, reps, results, ks=(1, 8)):
                       + ", ".join(
                           f"{n} {t * 1e3:.2f} us"
                           for n, t in lib["k2_by_lanes"].items()))
-                   + f"); two K2 calls bitwise equal: {same}"),
+                   + f"); two K2 calls bitwise equal: {same}")
+                + designs_text,
             )
             results.append(dict(case=name, dtype=dname, k=k,
                                 shape=tuple(mat.shape), err1=err1,
@@ -680,6 +799,104 @@ def say_excess(kernel, key, path, by_shape, results, cases):
         f"{total:.3f} ms in all; " + "; ".join(excess))
 
 
+def say_design_excess(path, k1_by_shape, k2_by_shape, results,
+                      dtype="float64", cases=None, k1_designs=None) -> dict:
+    """At k > 1 on a path: launches x (time - bound) and launches x time
+    of K1's routed design, its first design and its staged SpMM, and of
+    K2's pieces (routed at every k > 1) and rows design, from the
+    ``dtype`` cases timed in this run (of ``cases`` where given) at each
+    (rows, cols, k) the path launched; the sums, by kernel.  With
+    ``k1_designs`` (the path's K1 launches counted by design), checks
+    them against the router's pick on each timed case (the launches of
+    untimed shapes may go to any design)."""
+    out = {}
+    want, untimed = collections.Counter(), 0
+    for kernel, by_shape, designs in (
+            ("K1", k1_by_shape, ("k1_routed_ms", "k1_first_ms",
+                                 "k1_staged_ms")),
+            ("K2", k2_by_shape, ("k2_pieces_ms", "k2_rows_ms"))):
+        bound = f"{kernel.lower()}_bound_ms"
+        tot = dict(launches=0, ms={d: 0.0 for d in designs},
+                   excess_ms={d: 0.0 for d in designs})
+        parts = []
+        for shape, n in sorted(by_shape.items()):
+            if shape[2] == 1:
+                want["spmv"] += n if kernel == "K1" else 0
+                continue
+            c = next((c for c in results if c["dtype"] == dtype
+                      and (*c["shape"], c["k"]) == tuple(shape)
+                      and c.get(designs[0]) is not None
+                      and (cases is None or c["case"] in cases)), None)
+            if c is None:
+                parts.append(f"{shape}: {n} launches, not timed")
+                untimed += n if kernel == "K1" else 0
+                continue
+            tot["launches"] += n
+            for d in designs:
+                tot["ms"][d] += n * c[d]
+                tot["excess_ms"][d] += n * (c[d] - c[bound])
+            if kernel == "K1":
+                want[c["k1_design"]] += n
+            parts.append(f"{c['case']} k={shape[2]} {shape}: {n} x ("
+                         + " / ".join(f"{c[d] * 1e3:.2f}" for d in designs)
+                         + f" - {c[bound] * 1e3:.2f} us)"
+                         + (f" routed {c['k1_design']}" if kernel == "K1"
+                            else ""))
+        out[kernel] = tot
+        names = " / ".join(d.split("_")[1] for d in designs)
+        if tot["launches"] or parts:
+            say(f"{kernel} at k > 1 on {path}, {dtype}, {names}: launches x "
+                f"(time - bound) " + " / ".join(
+                    f"{tot['excess_ms'][d]:.3f}" for d in designs)
+                + " ms, launches x time " + " / ".join(
+                    f"{tot['ms'][d]:.3f}" for d in designs)
+                + f" ms over {tot['launches']} launches; " + "; ".join(parts))
+    if k1_designs is not None:
+        got = +collections.Counter(k1_designs)
+        ok = (got["spmv"] == want["spmv"]
+              and sum(got.values()) == sum(want.values()) + untimed
+              and all(want[d] <= got[d] <= want[d] + untimed
+                      for d in ("first", "staged", "gather")))
+        check(ok, f"{path}: K1 launches by design {dict(sorted(got.items()))}"
+                  f", the router's on the timed matrices "
+                  f"{dict(sorted((+want).items()))} ({untimed} launches of "
+                  f"untimed shapes)")
+    return out
+
+
+def spmm_sweep_phase(mats: dict, reps: int) -> dict:
+    """The design sweep: K1's staged and first designs and K2's pieces
+    and rows designs, in turns, at every k of tools.spmmsweep.K_SWEEP on
+    the paths' own matrices (``mats``: name -> float64 CappedCSR), in
+    float64 and float32 (the values cast, the tables shared), each
+    checked as tools.spmmsweep checks it, beside K1's routed design; by
+    dtype the sums of each design's and the routed times."""
+    import torch
+
+    from tpu_amg_torch.tools import spmmsweep
+
+    t0 = time.perf_counter()
+    records = []
+    for dtype in (torch.float64, torch.float32):
+        records += spmmsweep.sweep(
+            {name: m if dtype == torch.float64 else m.astype(dtype)
+             for name, m in mats.items()}, reps=reps, say=say)
+    bad = [f"{r['matrix']} {r['dtype']} k={r['k']}" for r in records
+           if not r["ok"]]
+    sums = {dname: spmmsweep.summary([r for r in records
+                                      if r["dtype"] == dname])
+            for dname in ("float64", "float32")}
+    check(not bad,
+          f"design sweep over {len(mats)} matrices x "
+          f"{len(spmmsweep.K_SWEEP)} k x 2 dtypes: the staged SpMM bitwise "
+          f"the first design's, the pieces within tolerance of the rows "
+          f"design's and of plain, two calls bitwise, in every case "
+          f"({len(bad)} not: {bad}); "
+          + "; ".join(spmmsweep.say_summary(d, v) for d, v in sums.items())
+          + f"; {time.perf_counter() - t0:.1f} s")
+    return dict(records=records, sums=sums)
+
+
 def bound_in_l2(results, dia_results, stream_recs, l2) -> None:
     """Re-bound every timed row whose bytes fit in the card's L2 by the
     L2 read rate ``l2`` (measured by the copy probes in this run, without
@@ -701,10 +918,18 @@ def bound_in_l2(results, dia_results, stream_recs, l2) -> None:
                      f"{b['hbm_bound_ms'] * 1e3:.2f})")
         rec[bound_key] = b["bound_ms"]
 
+    gathers = []
     for c in results:
         tag = f"{c['case']} {c['dtype']} k={c['k']}"
         rebound(c, "k1_bytes", "k1_bound_ms", f"K1 {tag}")
         rebound(c, "k2_bytes", "k2_bound_ms", f"K2 {tag}")
+        # the X rows the first designs gather, an entry each, at L2's rate
+        for key in ("k1", "k2"):
+            if c.get(f"{key}_gather_bytes"):
+                c[f"{key}_gather_ms"] = (c[f"{key}_gather_bytes"]
+                                         / l2["gbps"] / 1e6)
+                gathers.append(f"{key.upper()} {tag} "
+                               f"{c[f'{key}_gather_ms'] * 1e3:.2f} us")
     for c in dia_results:
         rebound(c, "bytes", "bound_ms",
                 f"K3 {c['case']} {c['dtype']} k={c['k']}")
@@ -712,6 +937,8 @@ def bound_in_l2(results, dia_results, stream_recs, l2) -> None:
         rebound(r, "bytes", "bound_ms", f"stream_sum {r['name']}")
     say(f"bounds in L2, over {l2['gbps']:.1f} GB/s ({l2['origin']}): "
         + "; ".join(lines))
+    say(f"at k > 1, the gather figure (nnz x k x itemsize: an X row an "
+        f"entry) over {l2['gbps']:.1f} GB/s: " + "; ".join(gathers))
 
 
 def constant_mode_factor(op, pc) -> float:
@@ -1491,11 +1718,16 @@ def shape_counts() -> dict:
 
     return {"K1": collections.Counter(spmv.csr_spmv_launches_by_shape),
             "K2": collections.Counter(spmv.coo_patch_launches_by_shape),
-            "K3": collections.Counter(dia.dia_spmv_launches_by_shape)}
+            "K3": collections.Counter(dia.dia_spmv_launches_by_shape),
+            "K1 designs": collections.Counter(
+                spmv.csr_spmv_launches_by_design)}
 
 
 def say_shape_counts(label: str, counts: dict) -> None:
     for kernel, by_shape in counts.items():
+        if kernel == "K1 designs":
+            say(f"{label}: K1 launches by design {dict(sorted(by_shape.items()))}")
+            continue
         say(f"{label}: {kernel} {sum(by_shape.values())} launches; by "
             f"(rows, cols, k): " + ", ".join(
                 f"{key} {v}" for key, v in sorted(by_shape.items())))
@@ -1526,7 +1758,7 @@ def adaptive_kernel_cases(matrices, counts, reps, results, dia_results):
     """K1 + K2 and K3 against their plain versions at every (matrix, k)
     the adaptive path launched them on, float64 and float32, timed as
     phase 3 and phase 8 time them; returns the names of the CSR cases
-    and of the DIA ones."""
+    and of the DIA ones, and the CSR cases' float64 matrices by name."""
     import torch
 
     from tpu_amg_torch.ops import spmv
@@ -1546,10 +1778,12 @@ def adaptive_kernel_cases(matrices, counts, reps, results, dia_results):
             mat = try_from_csr(csr, "cuda", torch.float64, max_diags=None)
         dia_kernel_cases(f"adaptive {name}", mat, csr, reps, dia_results,
                          sorted(ks))
+    csr_mats = {}
     for name, ks in sorted(ks_csr.items()):
         csr, mat = matrices[name]
         if not isinstance(mat, spmv.CappedCSR):
             mat = spmv.CappedCSR.from_csr(csr, "cuda", torch.float64)
+        csr_mats[f"adaptive {name}"] = mat
         kernel_cases(
             f"adaptive {name}",
             {torch.float64: mat,
@@ -1557,19 +1791,30 @@ def adaptive_kernel_cases(matrices, counts, reps, results, dia_results):
                                                     torch.float32)},
             reps, results, sorted(ks))
     return ({f"adaptive {n}" for n in ks_csr},
-            {f"adaptive {n}" for n in ks_dia})
+            {f"adaptive {n}" for n in ks_dia}, csr_mats)
 
 
-def adaptive_phase(reps, results, dia_results) -> dict:
+def launch_counters(tables: dict) -> dict:
+    """A worker's launch tables (``bootstrap_study.launch_tables``) as
+    :func:`shape_counts` gives them."""
+    return {"K1": collections.Counter(tables["K1"]["by_shape"]),
+            "K2": collections.Counter(tables["K2"]["by_shape"]),
+            "K3": collections.Counter(tables["K3"]["by_shape"]),
+            "K1 designs": collections.Counter(tables["K1"]["by_design"])}
+
+
+def adaptive_phase(setup, reps, results, dia_results) -> dict:
     """Phase 14: the adaptive composite at 262,144 dofs (aniso2d(512),
     random coefficients, 2 components, the CLI's defaults) through
-    AMGSolver.setup(method="adaptive"): the setup's phases, each
-    component's levels, the kernels' launches by shape, peak memory; the
-    peel study (2 -> 1 components, PCG and stationary to 1e-12); 3 PCG
-    solves and a stationary one, eager and compiled, bitwise equal; the
-    composite V-cycle's times; the composite checkpoint; K1, K2 and K3
-    against their plain versions at every (matrix, k) the path launched;
-    a small composite on the card against the CPU; rand-SVD."""
+    AMGSolver.setup(method="adaptive") in a worker process (``setup``:
+    its phases, launches by shape, peak memory, checkpoint and apply on
+    a seeded vector); the composite checkpoint loaded here, its apply
+    bitwise the worker's; each component's levels; the peel study (2 ->
+    1 components, PCG and stationary to 1e-12); 3 PCG solves and a
+    stationary one, eager and compiled, bitwise equal; the composite
+    V-cycle's times; K1, K2 and K3 against their plain versions at every
+    (matrix, k) the path launched; a small composite on the card against
+    the CPU; rand-SVD."""
     import torch
 
     from tpu_amg_torch.linop import SparseOperator
@@ -1589,22 +1834,31 @@ def adaptive_phase(reps, results, dia_results) -> dict:
     say(f"problem: anisotropic_diffusion_2d({ADAPTIVE_N}, epsilon=1e-3, "
         f"theta=pi/6, coefficient=random): n={a.nrows} nnz={a.nnz} built "
         f"in {time.perf_counter() - t0:.1f} s")
+    say(setup_line("adaptive", setup))
     cfg = adaptive_config("cuda")
     dev = torch.device("cuda")
     torch.cuda.synchronize()
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    solver = AMGSolver.setup(a, cfg)
+    solver = AMGSolver.load(setup["ckpt"], a, cfg)
     torch.cuda.synchronize()
-    t_setup = time.perf_counter() - t0
-    setup_counts = shape_counts()
-    peak_setup = torch.cuda.max_memory_allocated()
+    t_load = time.perf_counter() - t0
+    setup_counts = launch_counters(setup["counts"])
     pc = solver.preconditioner
     hs = solver.component_hierarchies
-    say(f"adaptive setup: {t_setup:.1f} s ("
-        + ", ".join(f"{k} {v:.1f} s" for k, v in solver.setup_seconds.items())
-        + f"); peak device memory {peak_setup / 1e9:.2f} GB")
+    # the composite checkpoint: the loaded apply against the worker's
+    # original on the same seeded vector
+    r = torch.from_numpy(np.random.default_rng(
+        CHECKPOINT_PROBE_SEED).standard_normal(a.nrows)).to(dev)
+    same = bool(np.array_equal(
+        solver.apply_preconditioner(r).cpu().numpy(), setup["probe"]))
+    check(same and isinstance(pc, Composite),
+          f"composite checkpoint: saved by the worker in "
+          f"{setup['save_s']:.1f} s ({Path(setup['ckpt']).stat().st_size / 1e6:.1f}"
+          f" MB), load + {ADAPTIVE_COMPONENTS} multigrid builds here "
+          f"{t_load:.1f} s; the loaded composite's apply is bitwise equal "
+          f"to the original's (the worker's) on a seeded vector: {same}")
     for c, h in enumerate(hs):
         say(f"  component {c + 1}: {h.num_levels} levels, op complexity "
             f"{h.op_complexity():.3f}, grid complexity "
@@ -1677,8 +1931,6 @@ def adaptive_phase(reps, results, dia_results) -> dict:
           f"memory with the graphs' pools {peak / 1e9:.2f} GB")
 
     # the composite V-cycle: enqueued from Python, and the device alone
-    r = torch.from_numpy(
-        np.random.default_rng(7).standard_normal(a.nrows)).to(dev)
     t_vc = median_ms(lambda: pc.mv(r), 20)
     t_vc_dev = median_ms(lambda: pc.mv(r), 20, graph=True)
     say(f"adaptive composite V-cycle ({2 * ADAPTIVE_COMPONENTS - 1} "
@@ -1709,31 +1961,11 @@ def adaptive_phase(reps, results, dia_results) -> dict:
         f"before and after, each a smoother and an A apply): "
         + "; ".join(parts))
 
-    # the composite checkpoint
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "composite.npz"
-        t0 = time.perf_counter()
-        solver.save(path)
-        t_save = time.perf_counter() - t0
-        size = path.stat().st_size
-        t0 = time.perf_counter()
-        loaded = AMGSolver.load(path, a, cfg)
-        torch.cuda.synchronize()
-        t_load = time.perf_counter() - t0
-    same = torch.equal(loaded.apply_preconditioner(r),
-                       solver.apply_preconditioner(r))
-    check(same and isinstance(loaded.preconditioner, Composite),
-          f"composite checkpoint: save {t_save:.1f} s ({size / 1e6:.1f} MB), "
-          f"load + {ADAPTIVE_COMPONENTS} multigrid builds {t_load:.1f} s; "
-          f"the loaded composite's apply is bitwise equal to the "
-          f"original's on a seeded vector: {same}")
-    del loaded
-
     # the kernels at every (matrix, k) the path launched
     counts = {k: setup_counts[k] + solve_counts[k] for k in setup_counts}
     matrices = composite_matrices(hs, pc)
-    csr_cases, dia_cases = adaptive_kernel_cases(matrices, counts, reps,
-                                                 results, dia_results)
+    csr_cases, dia_cases, csr_mats = adaptive_kernel_cases(
+        matrices, counts, reps, results, dia_results)
     k64 = max((c for c in results if c["case"] in csr_cases
                and c["dtype"] == "float64" and c["k"] == 64),
               key=lambda c: c["k1_bytes"])
@@ -1782,6 +2014,7 @@ def adaptive_phase(reps, results, dia_results) -> dict:
           f"{svd['sigma_ratio']:.6f}, combined score {svd['score']:.6f} "
           f"(limit 0.99)")
     return dict(counts=counts, k64=k64, d64=d64, csr_cases=csr_cases,
+                csr_mats=csr_mats, near_null_s=setup["seconds"]["near_null"],
                 dia_cases=dia_cases, solver=solver, small=(s_gpu, twin),
                 peel_iters=two[1])
 
@@ -1865,21 +2098,31 @@ def classical_setup(side: int, ckpt: str) -> dict:
 def start_setup_jobs(elasticity_side: int, sa_side: int, ckpt: str,
                      classical_ckpt: str, workdir: str,
                      adaptive_side: int = ADAPTIVE_N):
-    """The five setups phases 16-18 read, on two worker processes beside
-    the main one (host setup is single-threaded; the card is shared):
-    phase 18's classical setup first (:func:`classical_setup`), then, as
-    tools.bootstrap_study runs them, the float64 elasticity setup (its
+    """The setups phases 14 and 16-18 read, in processes beside the main
+    one (host setup is single-threaded; the card is shared).  Phase 14's
+    float64 adaptive composite, as tools.bootstrap_study runs it (its
+    checkpoint under ``workdir`` and its apply on the
+    CHECKPOINT_PROBE_SEED vector), in a process of its own with the main
+    process's thread pools: the block smoother's host factorizations
+    round by the number of BLAS threads, and phase 14 holds the
+    checkpoint it loads bitwise to that apply.  The rest on SETUP_WORKERS
+    workers of WORKER_THREADS threads: first phase 18's classical setup
+    (:func:`classical_setup`); then the float64 elasticity setup (its
     checkpoint for phase 16) and the float32-bootstrap setups of the SA,
     elasticity and adaptive problems, each with its solves; then phase
     13's CLI_WORKER_CASES (:func:`cli_job`); then phase 20's two setups
     (:func:`slice14_setup`: the unstructured bench's and the real FEM's,
     the fixture written and the checkpoints saved under ``workdir``).
-    Returns (pool, {name: AsyncResult})."""
+    Returns ([pools], {name: AsyncResult})."""
     import multiprocessing
 
     from tpu_amg_torch.tools import bootstrap_study
 
     jobs = {
+        "adaptive f64": dict(kind="adaptive", side=adaptive_side,
+                             bootstrap="float64",
+                             ckpt=str(Path(workdir) / "composite.npz"),
+                             probe_seed=CHECKPOINT_PROBE_SEED),
         "elasticity f64": dict(kind="elasticity", side=elasticity_side,
                                bootstrap="float64", ckpt=ckpt),
         "SA f32": dict(kind="sa", side=sa_side, bootstrap="float32",
@@ -1889,18 +2132,22 @@ def start_setup_jobs(elasticity_side: int, sa_side: int, ckpt: str,
         "adaptive f32": dict(kind="adaptive", side=adaptive_side,
                              bootstrap="float32"),
     }
+    context = multiprocessing.get_context("spawn")
+    own = context.Pool(1)
+    results = {"adaptive f64": own.apply_async(
+        bootstrap_study.setup_job, (jobs.pop("adaptive f64"),))}
     saved = {var: os.environ.get(var) for var in THREAD_VARS}
     os.environ.update({var: str(WORKER_THREADS) for var in THREAD_VARS})
     try:  # the workers start here, reading these variables
-        pool = multiprocessing.get_context("spawn").Pool(SETUP_WORKERS)
+        pool = context.Pool(SETUP_WORKERS)
     finally:
         for var, value in saved.items():
             if value is None:
                 os.environ.pop(var)
             else:
                 os.environ[var] = value
-    results = {"classical": pool.apply_async(
-        classical_setup, (CLASSICAL_SIDE, classical_ckpt))}
+    results["classical"] = pool.apply_async(
+        classical_setup, (CLASSICAL_SIDE, classical_ckpt))
     results.update({name: pool.apply_async(bootstrap_study.setup_job, (job,))
                     for name, job in jobs.items()})
     results.update({f"cli {label}": pool.apply_async(cli_job, (argv,))
@@ -1910,7 +2157,7 @@ def start_setup_jobs(elasticity_side: int, sa_side: int, ckpt: str,
         results[f"phase 20 {kind}"] = pool.apply_async(
             slice14_setup,
             (kind, side, str(Path(workdir) / f"{kind}.npz"), workdir))
-    return pool, results
+    return [own, pool], results
 
 
 def setup_line(label: str, res: dict) -> str:
@@ -1926,6 +2173,8 @@ def say_launch_tables(label: str, tables: dict) -> None:
         say(f"{label}: {kernel} {sum(t['by_shape'].values())} launches; by "
             f"(values, vectors) {t['by_dtype']}; by (rows, cols, k): "
             + ", ".join(f"{key} {v}" for key, v in sorted(t["by_shape"].items())))
+    say(f"{label}: K1 launches by design "
+        f"{dict(sorted(tables['K1']['by_design'].items()))}")
 
 
 def elasticity_phase(setup: dict, ckpt: str, reps: int, results) -> dict:
@@ -2030,13 +2279,14 @@ def elasticity_phase(setup: dict, ckpt: str, reps: int, results) -> dict:
     for kernel in ("K1", "K2"):
         for rows, cols, k in by_shape[kernel]:
             ks.setdefault((rows, cols), set()).add(k)
-    cases = set()
+    cases, mats = set(), {}
     for shape, kset in sorted(ks.items()):
         name, host = names[shape]
         cases.add(f"elasticity {name}")
+        mats[f"elasticity {name}"] = spmv.CappedCSR.from_csr(
+            host, "cuda", torch.float64)
         kernel_cases(f"elasticity {name}",
-                     {torch.float64: spmv.CappedCSR.from_csr(
-                         host, "cuda", torch.float64)},
+                     {torch.float64: mats[f"elasticity {name}"]},
                      reps, results, sorted(kset))
     kernel_cases("elasticity A0",
                  {torch.float32: spmv.CappedCSR.from_csr(
@@ -2046,7 +2296,10 @@ def elasticity_phase(setup: dict, ckpt: str, reps: int, results) -> dict:
            "elasticity A1"} <= cases,
           "sparse matrices of the elasticity path timed: "
           + ", ".join(sorted(cases)))
-    return dict(solver=solver, iters=iters[0], cases=cases,
+    k1_designs = (collections.Counter(setup["counts"]["K1"]["by_design"])
+                  + solve_counts["K1 designs"])
+    return dict(solver=solver, iters=iters[0], cases=cases, mats=mats,
+                by_shape=by_shape, k1_designs=k1_designs,
                 launches={k: sum(v.values()) for k, v in by_shape.items()},
                 results=[c for c in results if c["case"] in cases])
 
@@ -2429,13 +2682,15 @@ def classical_phase(setup: dict, ckpt: str, reps: int, results,
         for rows, cols, k in by_shape[kernel]:
             ks.setdefault((rows, cols), set()).add(k)
     names = {csr.shape: (n, csr, m) for n, (csr, m) in mats.items()}
-    cases = set()
+    cases, timed = set(), {}
     for shape, kset in sorted(ks.items()):
         name, csr, mat = names[shape]
         cases.add(f"classical {name}")
+        timed[f"classical {name}"] = (
+            mat if mat is not None
+            else spmv.CappedCSR.from_csr(csr, "cuda", torch.float64))
         kernel_cases(f"classical {name}",
-                     {torch.float64: mat if mat is not None else
-                      spmv.CappedCSR.from_csr(csr, "cuda", torch.float64)},
+                     {torch.float64: timed[f"classical {name}"]},
                      reps, results, sorted(kset))
     check({"classical A1", "classical P0", "classical R0"} <= cases,
           "sparse matrices of the classical path timed: "
@@ -2447,7 +2702,10 @@ def classical_phase(setup: dict, ckpt: str, reps: int, results,
           f"{sorted(by_shape['K3'])}")
     dia_kernel_cases("classical A0", solver.op.mat, a, reps, dia_results,
                      sorted(dia_ks))
-    return dict(solver=solver, cases=cases, by_shape=by_shape,
+    k1_designs = (collections.Counter(setup["counts"]["K1"]["by_design"])
+                  + counts["K1 designs"] + counts2["K1 designs"])
+    return dict(solver=solver, cases=cases, by_shape=by_shape, mats=timed,
+                k1_designs=k1_designs,
                 iters=w_iters, two_level_iters=info2.iters, e_norm=e_norm,
                 results=[c for c in results if c["case"] in cases],
                 dia_results=[c for c in dia_results
@@ -3389,8 +3647,10 @@ def mixed_csr_cases(name, csr, reps, l2, out, ks=(1, 8)):
                        err2=float((y2 - p2).abs().max()), n_tail=mat.n_tail)
             rec["k1_ms"] = median_ms(lambda: spmv.csr_spmv_capped(mat, x),
                                      reps, graph=True)
+            plain_reps = reps if k == 1 else min(reps, PLAIN_REPS)
             rec["k1_plain_ms"] = median_ms(
-                lambda: spmv.plain_csr_spmv_capped(mat, x), reps, graph=True)
+                lambda: spmv.plain_csr_spmv_capped(mat, x), plain_reps,
+                graph=True)
             rec["k1_tt_ms"] = median_ms(lambda: spmv.csr_spmv_capped(wide, x),
                                         reps, graph=True)
             rec["k1_lib_ms"] = median_ms(lambda: lib1 @ x, reps, graph=True)
@@ -3408,7 +3668,8 @@ def mixed_csr_cases(name, csr, reps, l2, out, ks=(1, 8)):
                 rec["k2_ms"] = median_ms(lambda: spmv.coo_patch(mat, x, yz),
                                          reps, graph=True)
                 rec["k2_plain_ms"] = median_ms(
-                    lambda: spmv.plain_coo_patch(mat, x, yz), reps, graph=True)
+                    lambda: spmv.plain_coo_patch(mat, x, yz), plain_reps,
+                    graph=True)
                 rec["k2_tt_ms"] = median_ms(
                     lambda: spmv.coo_patch(wide, x, yz), reps, graph=True)
                 rec["k2_lib_ms"] = median_ms(lambda: lib2 @ x, reps,
@@ -3423,7 +3684,13 @@ def mixed_csr_cases(name, csr, reps, l2, out, ks=(1, 8)):
                          f"{rec['k2_plain_ms'] * 1e3:.2f}, library "
                          f"{rec['k2_lib_ms'] * 1e3:.2f}, bound "
                          f"{rec['k2_bound_ms'] * 1e3:.2f})")
-            check(rel <= TOL[tname] and same,
+            designs_ok = True
+            if k > 1:
+                designs_ok, more, fields = design_case(
+                    mat, x, y1, min(reps, DESIGN_REPS), TOL[tname])
+                text += more
+                rec.update(fields)
+            check(rel <= TOL[tname] and same and designs_ok,
                   f"mixed K1+K2 {name} ({vname}, {tname}) k={k}: shape "
                   f"{mat.shape} nnz {mat.nnz} tail {mat.n_tail}: max rel err "
                   f"{rel:.3e} (limit {TOL[tname]:.0e}), two calls bitwise "
@@ -3941,6 +4208,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
     from tpu_amg_torch.utils.testing import approx_convergence_factor
     from tpu_amg_torch.utils.timing import HBM_DATASHEET_GBPS, median_ms
 
+    mark("3a")
     # ---- 3a. kernels vs plain on a heavy-row matrix with a small cap
     results = []
     heavy = heavy_row_matrix()
@@ -3951,6 +4219,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
         args.reps, results,
     )
 
+    mark("3c")
     # ---- 3c. K1's kernels-line reading on the 262,144-row A0, read from
     # HBM (the matrix the SA path's A0 is at side 64), apart from --side
     t0 = time.perf_counter()
@@ -3965,6 +4234,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
         args.reps, results, ks=(1,),
     )
 
+    mark("4")
     # ---- 4. main path
     t0 = time.perf_counter()
     a = unstructured_poisson_3d(args.side)
@@ -4032,6 +4302,9 @@ def drive(args, jobs, jobs_ckpt) -> list:
     launches = (spmv.csr_spmv_launches, spmv.coo_patch_launches)
     k1_by_shape = dict(spmv.csr_spmv_launches_by_shape)
     k2_by_shape = dict(spmv.coo_patch_launches_by_shape)
+    sa_designs = dict(spmv.csr_spmv_launches_by_design)
+    say(f"the SA path (setup, solves, ||E||_A): K1 launches by design "
+        f"{dict(sorted(sa_designs.items()))}")
     solve_counts = (launches[0] - setup_counts[0],
                     launches[1] - setup_counts[1])
     check(
@@ -4069,6 +4342,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
           f"bitwise equal to the original on a seeded vector: {same}")
     del loaded
 
+    mark("3b")
     # ---- 3b. kernels vs plain at every sparse matrix of the main path
     k_boot = cfg.coarsening_near_null_dim - 1  # the bootstrap's block width
     levels = solver.preconditioner.levels
@@ -4107,6 +4381,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
               f"{k} {v}" for k, v in sa_cases.items()))
     # K1's and K2's excess over their bounds on the SA path
 
+    mark("5")
     # ---- 5. small input: card vs the plain versions on the CPU
     small = unstructured_poisson_3d(16)
     scfg = scalar_3d_config("cuda", coarsest_dim=100, dense_threshold=200)
@@ -4146,6 +4421,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
         f"{constant_mode_factor(s_gpu.op, s_gpu.preconditioner):.12f}, CPU "
         f"{constant_mode_factor(op_cpu, mg_cpu):.12f}")
 
+    mark("6")
     # ---- 6. stream probe: its entry point, then each case vs plain
     reset_counts()
     bench_recs = streambench.run(["--total-mib", str(STREAM_MIB), "--reps",
@@ -4166,6 +4442,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
         f"({big['plain_ms'] * 1e3:.1f} us); copy probe "
         f"({COPY_BEST}, best engine) {big['copy_gbps']:.1f} GB/s")
 
+    mark("7")
     # ---- 7. structured path: DIA levels through K3
     side = STRUCTURED_SIDE
     t0 = time.perf_counter()
@@ -4241,6 +4518,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
         + ", ".join(f"{s:.4f}" for s in s_solve) + " s, compiled "
         + ", ".join(f"{s:.4f}" for s in s_graph) + " s")
 
+    mark("8")
     # ---- 8. K3 vs plain at the structured path's level-0 and level-1 shapes
     dia_results = []
     for lvl, name in ((0, "A0"), (1, "A1")):
@@ -4274,6 +4552,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
                 args.reps, results, sorted({1, 8} | ran),
             )
 
+    mark("9")
     # ---- 9. small structured input: card vs the plain versions on the CPU
     n24 = 24
     small_s = poisson3d(n24)
@@ -4298,6 +4577,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
         f"(limit 1e-6)",
     )
 
+    mark("10-12")
     # ---- 10-12. the stage ablation, the copy probes, the primitives
     stages_entry, fem_k1 = ablation_phase(
         {"SA A0": a_mat, "SA R0": sa_mat("R", 0, h.restrictions[0]),
@@ -4306,18 +4586,27 @@ def drive(args, jobs, jobs_ckpt) -> list:
     l2, dma_entry = dma_phase(args.reps)
     primitives_entry = primitives_phase(args.reps)
 
+    mark("13")
     # ---- 13. the CLI on the card (its longest runs in the setup workers)
     cli_totals = cli_phase()
 
-    # ---- 14. the adaptive composite at 262,144 dofs
-    adaptive = adaptive_phase(args.reps, results, dia_results)
+    # ---- 14. the adaptive composite at 262,144 dofs, from the float64
+    # setup of a worker
+    mark("14")
+    t0 = time.perf_counter()
+    a_setup = jobs["adaptive f64"].get(timeout=JOB_WAIT)
+    say(f"phase 14: the adaptive setup's worker done "
+        f"{time.perf_counter() - t0:.1f} s after phase 13")
+    adaptive = adaptive_phase(a_setup, args.reps, results, dia_results)
 
+    mark("15")
     # ---- 15. mixed-precision cycles on the hierarchies of 4, 5, 7, 14
     precision = precision_phase(args.reps, l2, dict(
         head=head, sa=solver, small=(s_gpu, mg_cpu, op_cpu),
         structured=s_solver, adaptive=adaptive["solver"],
         adaptive_small=adaptive["small"]))
 
+    mark("22")
     # ---- 22. the SpMV throughput benchmark on phase 7's and 10's 1M
     # matrices, its K3 and K1 applies timed in turns with the calls that
     # phases 15 and 10 timed on the same matrices
@@ -4327,6 +4616,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
                       k3_bf16["ms"], args.reps, l2)
     bench_launches = p22["launches"]
 
+    mark("16")
     # ---- 16. block-3 elasticity, from the float64 setup of a worker
     t0 = time.perf_counter()
     e_setup = jobs["elasticity f64"].get(timeout=JOB_WAIT)
@@ -4335,6 +4625,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
     elasticity = elasticity_phase(e_setup, e_setup["ckpt"], args.reps,
                                   results)
 
+    mark("17")
     # ---- 17. the float32 bootstrap against phases 4, 16 and 14
     t0 = time.perf_counter()
     f32 = {name.split()[0]: jobs[name].get(timeout=JOB_WAIT)
@@ -4349,13 +4640,14 @@ def drive(args, jobs, jobs_ckpt) -> list:
         "elasticity": dict(near_null=e_setup["seconds"]["near_null"],
                            rows=e_setup["rows"], iters=elasticity["iters"],
                            jax=JAX_ITERS["elasticity"], kernel="K1"),
-        "adaptive": dict(near_null=a_solver.setup_seconds["near_null"],
+        "adaptive": dict(near_null=adaptive["near_null_s"],
                          rows=[[m.nrows for m in hh.matrices]
                                for hh in a_solver.component_hierarchies],
                          iters=adaptive["peel_iters"], kernel="K3"),
     }
     boot = bootstrap_phase(f32, refs, results, dia_results)
 
+    mark("18")
     # ---- 18. classical AMG, from the setup of a worker
     t0 = time.perf_counter()
     c_setup = jobs["classical"].get(timeout=JOB_WAIT)
@@ -4364,17 +4656,21 @@ def drive(args, jobs, jobs_ckpt) -> list:
     classical = classical_phase(c_setup, jobs_ckpt["classical"], args.reps,
                                 results, dia_results)
 
+    mark("13 (the setup workers' CLI runs)")
     # ---- 13, the CLI runs of the setup workers
     cli_worker_phase(jobs, cli_totals)
 
+    mark("21 (its operators)")
     # ---- 21, its operators: phases 4's and 16's paths over containers
     trees = container_trees(solver, elasticity["solver"])
 
+    mark("19")
     # ---- 19. distribution: NCCL at world size 1, gloo ranks on the card
     # (and phase 21 (c) in its NCCL group)
     dist_out = distributed_phase(solver, s_op, smg, args.side, args.reps,
                                  results, dia_results, trees["SA"])
 
+    mark("20")
     # ---- 20. the rest of M21: the V-cycle benches, the real-FEM solve,
     # the breakdown, the aggregation tool and --viz-out
     p20 = slice14_phase(jobs, args.reps, results, dia_results, solver,
@@ -4400,6 +4696,7 @@ def drive(args, jobs, jobs_ckpt) -> list:
         ("real FEM, float32", fem_solver.op, fem_solver.preconditioner, RTOL,
          FEM_MAXITER)])
 
+    mark("21")
     # ---- 21. the ELL and BSR containers: (a) K1 + K2 on them, (b) the
     # SA and elasticity solves over them ((c) ran in phase 19)
     t0 = time.perf_counter()
@@ -4417,7 +4714,48 @@ def drive(args, jobs, jobs_ckpt) -> list:
     say_excess("K2", "k2", "the structured path", s_k2_by_shape, results,
                s_cases)
     say_adaptive_excess(adaptive, results, dia_results)
+    # K1's and K2's two designs at k > 1 on every path that launches them,
+    # and K1's launches by design against the router's picks
+    design_excess = {
+        "SA": say_design_excess("the SA path", k1_by_shape, k2_by_shape,
+                                results, cases=sa_cases,
+                                k1_designs=sa_designs),
+        "adaptive": say_design_excess(
+            "the adaptive path", adaptive["counts"]["K1"],
+            adaptive["counts"]["K2"], results, cases=adaptive["csr_cases"],
+            k1_designs=adaptive["counts"]["K1 designs"]),
+        "elasticity": say_design_excess(
+            "the elasticity path", elasticity["by_shape"]["K1"],
+            elasticity["by_shape"]["K2"], results,
+            cases=elasticity["cases"], k1_designs=elasticity["k1_designs"]),
+        "classical": say_design_excess(
+            "the classical path", classical["by_shape"]["K1"],
+            classical["by_shape"]["K2"], results, cases=classical["cases"],
+            k1_designs=classical["k1_designs"]),
+    }
+    for name, run in boot["runs"].items():
+        design_excess[f"f32 bootstrap {name}"] = say_design_excess(
+            f"the float32 bootstrap's {name} setup",
+            run["counts"]["K1"]["by_shape"], run["counts"]["K2"]["by_shape"],
+            results, dtype="float32",
+            k1_designs=run["counts"]["K1"]["by_design"])
 
+    mark("23")
+    # ---- 23. the design sweep on the paths' own matrices
+    sweep_mats = {"SA A0": sa_mat("A", 0, h.matrices[0]),
+                  "SA R0": sa_mat("R", 0, h.restrictions[0]),
+                  "SA A1": sa_mat("A", 1, h.matrices[1])}
+    for name in ("adaptive c1 P0", "adaptive c1 R0", "adaptive c1 A1",
+                 "adaptive c1 R2"):
+        if name in adaptive["csr_mats"]:
+            sweep_mats[name] = adaptive["csr_mats"][name]
+    for name in ("elasticity A0", "classical A1"):
+        path = elasticity if name.startswith("elasticity") else classical
+        if name in path["mats"]:
+            sweep_mats[name] = path["mats"][name]
+    spmm_sweep = spmm_sweep_phase(sweep_mats, SWEEP_REPS)
+
+    mark("results")
     # ---- results
     # both paths run float64: their errors go in the record, the SA
     # path's level-0 times beside them
@@ -4435,6 +4773,9 @@ def drive(args, jobs, jobs_ckpt) -> list:
     adaptive_cases = [c for c in results if c["case"] in adaptive["csr_cases"]
                       and c["dtype"] == "float64"]
     k64, d64 = adaptive["k64"], adaptive["d64"]
+    t64 = max((c for c in adaptive_cases if c["k"] == 64
+               and c.get("k2_pieces_ms") is not None),
+              key=lambda c: c["n_tail"])
     kernels = [
         dict(name="csr_spmv_capped", route="cuda",
              source="tpu_amg_torch/csrc/spmv.cu",
@@ -4457,7 +4798,30 @@ def drive(args, jobs, jobs_ckpt) -> list:
              k64_case=k64["case"], k64_ms=k64["k1_ms"],
              k64_plain_ms=k64["k1_plain_ms"],
              k64_bound_ms=k64["k1_bound_ms"],
-             k64_library_ms=k64["k1_lib_ms"]),
+             k64_library_ms=k64["k1_lib_ms"],
+             # the two SpMM designs at k = 64 (in turns), the X rows the
+             # first one gathers over the L2 rate, the router's rule (X
+             # row bytes staged, mean capped row length, X row bytes
+             # gathered), the sweep's sums of the first, staged and routed
+             # times by dtype, launches by design on the SA and adaptive
+             # paths, and launches x time at k > 1 by path (routed, first,
+             # staged)
+             k64_staged_ms=k64["k1_staged_ms"],
+             k64_first_ms=k64["k1_first_ms"],
+             k64_gather_ms=k64.get("k1_gather_ms"),
+             router=dict(stage_row=spmv.SPMM_STAGE_ROW,
+                         short_rows=spmv.SPMM_SHORT_ROWS,
+                         gather_row=spmv.SPMM_GATHER_ROW),
+             sweep_ms={d: [round(v[key], 6) for key in (
+                 "k1_first_ms", "k1_staged_ms", "k1_routed_ms")]
+                 for d, v in spmm_sweep["sums"].items()},
+             launches_by_design=sa_designs,
+             launches_by_design_adaptive=dict(
+                 adaptive["counts"]["K1 designs"]),
+             launches_x_ms_k_gt_1={
+                 path: [round(v, 6) for v in e["K1"]["ms"].values()]
+                 for path, e in design_excess.items()
+                 if e["K1"]["launches"]}),
         dict(name="coo_patch", route="cuda",
              source="tpu_amg_torch/csrc/spmv.cu",
              replaces="tpu_amg/ops/well_pallas.py:457",
@@ -4475,7 +4839,32 @@ def drive(args, jobs, jobs_ckpt) -> list:
              level2_bound_ms=s2["k2_bound_ms"],
              level2_library_ms=s2["k2_lib_ms"],
              launches_adaptive=sum(adaptive["counts"]["K2"].values()),
-             max_abs_err_adaptive=max(c["err2"] for c in adaptive_cases)),
+             max_abs_err_adaptive=max(c["err2"] for c in adaptive_cases),
+             # the adaptive path's longest tail at k = 64: the pieces
+             # beside the rows design (in turns), as for K1
+             k64_case=t64["case"], k64_ms=t64["k2_ms"],
+             k64_pieces_ms=t64["k2_pieces_ms"],
+             k64_rows_ms=t64["k2_rows_ms"],
+             k64_plain_ms=t64["k2_plain_ms"],
+             k64_bound_ms=t64["k2_bound_ms"],
+             k64_library_ms=t64["k2_lib_ms"],
+             k64_gather_ms=t64.get("k2_gather_ms"),
+             # the pieces at every k > 1 (the rows design at k = 1), the
+             # sweep's sums of the rows and pieces times by dtype, and
+             # launches x time at k > 1 by path (pieces, rows)
+             pieces_from_k=2,
+             sweep_ms={d: [round(v[key], 6) for key in (
+                 "k2_rows_ms", "k2_pieces_ms")]
+                 for d, v in spmm_sweep["sums"].items()},
+             launches_by_design={
+                 "rows": sum(n for s_, n in k2_by_shape.items()
+                             if s_[2] == 1),
+                 "pieces": sum(n for s_, n in k2_by_shape.items()
+                               if s_[2] > 1)},
+             launches_x_ms_k_gt_1={
+                 path: [round(v, 6) for v in e["K2"]["ms"].values()]
+                 for path, e in design_excess.items()
+                 if e["K2"]["launches"]}),
         # the structured path runs float64 at A0 and A1
         dict(name="dia_spmv", route="cuda",
              source="tpu_amg_torch/csrc/dia.cu",
@@ -4923,6 +5312,27 @@ def bench_phase(ps, fem_k1: dict, s_a0, k3_bf16_ms: float, reps: int, l2
           f"K3 {launches['K3']}; at (bf16, f32) K1 "
           f"{by_dtype['K1'].get(pair, 0)}, K3 {by_dtype['K3'].get(pair, 0)}")
 
+    # the many-column designs' tables on the 1M-row CSR matrices: their
+    # host build (a part of from_csr's) and their device bytes
+    for name in ("csr", "fem"):
+        mat = res["matrices"][name]
+        ip, ix = mat.indptr.cpu().numpy(), mat.indices.cpu().numpy()
+        t0 = time.perf_counter()
+        spmv.spmm_blocks(ip, ix)
+        spmv.k2_pieces(mat.tail_ptr.cpu().numpy(),
+                       mat.tail_row_ids.cpu().numpy())
+        t_tables = time.perf_counter() - t0
+        own = sum(t.numel() * t.element_size() for t in (
+            mat.indptr, mat.indices, mat.data, mat.block_rows, mat.block_ptr))
+        say(f"phase 22: {name} ({mat.shape[0]} rows, {mat.nnz} entries): "
+            f"the many-column tables build in {t_tables:.2f} s on the host, "
+            f"{mat.table_bytes() / 1e6:.1f} MB on the device beside the "
+            f"capped CSR's {own / 1e6:.1f} MB ({mat.data.dtype} values; "
+            f"{mat.n_spmm_blocks} staged-SpMM blocks, "
+            f"{mat.spmm_cols.numel()} staged rows, "
+            f"{mat.data.numel() / max(mat.spmm_cols.numel(), 1):.2f} "
+            f"entries a staged row)")
+
     # (c) each timed apply against its plain version, and timed beside it
     libs = bench_library(res["matrices"])
     for name, mat in res["matrices"].items():
@@ -5056,18 +5466,19 @@ def main() -> int:
           "pairs, each k, R and C of its plans (R = 1 or 2 at k = 1; all "
           "k columns a thread or one at k = 2..7), none spilling")
 
-    # the setups of phases 16-18 start now, beside phases 3-15
+    # the setups of phases 14 and 16-18 start now, beside phases 3-13
     with tempfile.TemporaryDirectory() as tmp:
         ckpts = {"classical": str(Path(tmp) / "classical.npz")}
         ckpts["dir"] = tmp
-        pool, jobs = start_setup_jobs(args.elasticity_side, args.side,
-                                      str(Path(tmp) / "elasticity.npz"),
-                                      ckpts["classical"], tmp)
+        pools, jobs = start_setup_jobs(args.elasticity_side, args.side,
+                                       str(Path(tmp) / "elasticity.npz"),
+                                       ckpts["classical"], tmp)
         try:
             kernels = drive(args, jobs, ckpts)
         finally:
-            pool.terminate()
-            pool.join()
+            for pool in pools:
+                pool.terminate()
+                pool.join()
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -428,6 +428,23 @@ def test_bootstrap_study_cpu(capsys):
         assert r["rows"] == [[375]] and "near_null" in r["seconds"]
 
 
+def test_setup_job_checkpoint_probe(tmp_path):
+    """A job with a checkpoint and a probe seed (``chip_smoke.py``'s phase
+    14): the checkpoint it saved, loaded here, applies bitwise as the
+    setup's own composite did to the seed's vector."""
+    from tpu_amg_torch.tools import bootstrap_study
+
+    job = dict(kind="adaptive", side=32, bootstrap="float64", device="cpu",
+               ckpt=str(tmp_path / "composite.npz"), probe_seed=7)
+    out = bootstrap_study.setup_job(job)
+    a, cfg = bootstrap_study.problem(job)
+    loaded = AMGSolver.load(job["ckpt"], a, cfg)
+    r = torch.from_numpy(np.random.default_rng(7).standard_normal(a.nrows))
+    assert out["probe"].shape == (a.nrows,) and "iters" not in out
+    np.testing.assert_array_equal(
+        loaded.apply_preconditioner(r).numpy(), out["probe"])
+
+
 @pytest.mark.parametrize("cli", ["setup3d", "solve3d", "bench_elasticity",
                                  "profile_setup", "bootstrap_study"])
 def test_tools_default_to_the_card(cli):

@@ -396,29 +396,43 @@ def test_kernels_match_plain_on_card(cuda, name, k, dtype, tol):
     assert float((y - ref).abs().max()) <= tol * scale
 
 
+# (values, vectors, tolerance): the five pairs of spmv.PAIRS
+PAIR_TOLS = [(torch.float64, torch.float64, 1e-12),
+             (torch.float32, torch.float32, 1e-5),
+             (torch.float32, torch.float64, 1e-12),
+             (torch.bfloat16, torch.float32, 1e-5),
+             (torch.bfloat16, torch.float64, 1e-12)]
+# k = 1 and the k > 1 that the setup paths launch, with neighbours
+CARD_KS = [1, 2, 3, 5, 7, 8, 11, 16, 17, 32, 33, 63, 64]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
-                                       (torch.float32, 1e-5)])
-@pytest.mark.parametrize("k", [1, 3, 7, 33])
+@pytest.mark.parametrize("vdtype,dtype,tol", PAIR_TOLS)
+@pytest.mark.parametrize("k", CARD_KS)
 @pytest.mark.parametrize("n,longest", [(1, 64), (255, 64), (257, 64),
                                        (1000, 64), (4099, 64), (3, 64),
                                        (1001, 2), (4097, 2), (2000, 1)])
-def test_kernel_on_ragged_blocks_on_card(cuda, n, longest, k, dtype, tol):
+def test_kernel_on_ragged_blocks_on_card(cuda, n, longest, k, vdtype, dtype,
+                                         tol):
     # row counts that are no multiple of a block, empty rows, rows of up
-    # to the cap, and rows so short that blocks end at S / 2 rows
+    # to the cap, and rows so short that blocks end at S / 2 rows; at
+    # k > 1 the routed design bitwise the first SpMM design, two calls bitwise
     rng = np.random.default_rng(n)
     deg = np.where(rng.random(n) < 0.2, 0, rng.integers(1, longest + 1, n))
     m = 3 * n + 5
     a = sps.csr_matrix((rng.standard_normal(deg.sum()),
                         rng.integers(0, m, deg.sum()),
                         np.r_[0, np.cumsum(deg)]), shape=(n, m))
-    mat = spmv.CappedCSR.from_csr(CSR.from_scipy(a), cuda, dtype)
+    mat = spmv.CappedCSR.from_csr(CSR.from_scipy(a), cuda, vdtype)
     x = torch.from_numpy(_x(m, k, np.float64)).to(cuda, dtype)
     before = spmv.csr_spmv_launches_by_shape[(n, m, k)]
     y = spmv.csr_spmv_capped(mat, x)
+    again = spmv.csr_spmv_capped(mat, x)
+    first = spmv.launch_first_spmm(mat, x)
     ref = spmv.plain_csr_spmv_capped(mat, x)
     torch.cuda.synchronize()
-    assert spmv.csr_spmv_launches_by_shape[(n, m, k)] == before + 1
+    assert spmv.csr_spmv_launches_by_shape[(n, m, k)] == before + 2
+    assert torch.equal(y, again) and torch.equal(y, first)
     scale = max(float(ref.abs().max()), 1.0)
     assert float((y - ref).abs().max()) <= tol * scale
 
@@ -588,18 +602,19 @@ def test_plain_k2_from_table_matches_scipy(name, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
-                                       (torch.float32, 1e-5)])
-@pytest.mark.parametrize("k", [1, 7, 8])
+@pytest.mark.parametrize("vdtype,dtype,tol", PAIR_TOLS)
+@pytest.mark.parametrize("k", CARD_KS)
 @pytest.mark.parametrize("name", ["hub_row", "all_spill", "level2",
                                   "rectangular", "empty_rows"])
-def test_k2_matches_plain_on_card(cuda, name, k, dtype, tol):
+def test_k2_matches_plain_on_card(cuda, name, k, vdtype, dtype, tol):
+    # the routed design against the plain version and K2's rows design (a warp a
+    # row), two calls bitwise equal
     if name == "level2":
         sp, cap = _level2_like(), 64
     else:
         make, cap = TAIL_CASES[name]
         sp = make()
-    mat = spmv.CappedCSR.from_csr(CSR.from_scipy(sp), cuda, dtype, cap=cap)
+    mat = spmv.CappedCSR.from_csr(CSR.from_scipy(sp), cuda, vdtype, cap=cap)
     x = torch.from_numpy(_x(sp.shape[1], k, np.float64)).to(cuda, dtype)
     y0 = torch.from_numpy(_x(sp.shape[0], k, np.float64, seed=5)).to(cuda,
                                                                       dtype)
@@ -610,11 +625,15 @@ def test_k2_matches_plain_on_card(cuda, name, k, dtype, tol):
     spmv.coo_patch(mat, x, again)
     ref = y0.clone()
     spmv.plain_coo_patch(mat, x, ref)
+    rows = y0.clone()
+    if mat.n_tail:
+        spmv.launch_coo_patch(mat, x, rows, k, 32)
     torch.cuda.synchronize()
     assert spmv.coo_patch_launches_by_shape[(*sp.shape, k)] == before + 2
     assert torch.equal(y, again)  # one writer a row: the same bits
     scale = max(float(ref.abs().max()), 1.0)
     assert float((y - ref).abs().max()) <= tol * scale
+    assert float((y - rows).abs().max()) <= tol * scale
 
 
 @pytest.mark.cuda

@@ -1,6 +1,17 @@
 // Row-block streaming CSR SpMV / SpMM for Hopper (sm_90a): the body of K1
 // `csr_spmv_capped` (csrc/spmv.cu) and of its stage ablation
-// `csr_spmv_stages` (csrc/spmv_stages.cu), which instantiate it.
+// `csr_spmv_stages` (csrc/spmv_stages.cu), which instantiate it.  At k = 1
+// it is K1.  At k > 1 it is K1's first SpMM design, the reference on the
+// card (`launch_first_spmm`): the wrapper (ops/spmv.py `k1_design`)
+// routes it where an X row is more than 64 and fewer than 256 bytes, and
+// where it is shorter on a matrix whose capped rows average more than
+// SPMM_SHORT_ROWS entries;
+// elsewhere the staged SpMM of csr_spmm.cuh runs, which gives its bits.
+// What bounds it at k > 1: each entry gathers its whole X row,
+// nnz·k·itemsize bytes from L1/L2, one 8-byte column a lane, 64 threads
+// a block, 4 entries' loads in flight, after the block's copies are all
+// in; the staged design reads 16 bytes a lane in one pass, each X row
+// once a block where it stages them.
 //
 // The design is the CSR-Stream kernel of CSR-Adaptive (Greathouse & Daga,
 // SC'14) on K1's capped CSR.  The host (tpu_amg_torch/ops/spmv.py
@@ -29,7 +40,8 @@
 //      shuffle tree;
 //      k > 1: a team of lanes per row, one lane per column of X, so the
 //      X[c, 0..k-1] reads of a team are contiguous; each lane sums its
-//      row's entries in order (several rows share a warp when k <= 16);
+//      row's entries in order, one fma each (several rows share a warp
+//      when k <= 16);
 //   4. writes y, consecutive rows by consecutive teams.
 // Values stream in their stored type V and are widened exactly to T, the
 // type of X and Y, before the product (widen.cuh): (V, T) is (f64, f64),
@@ -299,7 +311,7 @@ __device__ __forceinline__ void spmm_block(const Bounds& b,
       T acc = T(0);
 #pragma unroll 4
       for (int j = start; j < end; ++j) {
-        acc += widen<T>(s.sv[j]) * __ldg(x + s.sc[j] * k + col);
+        acc = fma(widen<T>(s.sv[j]), __ldg(x + s.sc[j] * k + col), acc);
       }
       yr[col] = acc;
     }

@@ -58,6 +58,24 @@
 // plain load-add-store.  One writer a row: no atomics, and the same Y on
 // every call.
 //
+// At k > 1 each kernel has a second design.  K2 runs its piece design
+// (`pieces` below) at every k > 1: it cuts the tail rows into pieces of
+// up to 64 entries, a warp each, 16-byte column vectors and the next
+// step's loads issued beside this step's, so that long rows are spread
+// over a block's warps and short ones take one dependent load less a
+// step; the first K2 design (a warp a tail row, 4 entries' loads in
+// flight, two scalar columns a lane) stays the reference.  K1 is routed
+// by the bytes of an X row and the matrix's mean capped row length
+// (ops/spmv.py `k1_design`, from both designs timed on the paths' own
+// matrices, PERF.md): the staged SpMM (csr_spmm.cuh) copies each row
+// block's distinct X rows into shared memory where X rows are at most
+// 64 bytes and the matrix's rows short, or reads X rows through L1 from
+// 256-byte rows, 16 bytes a lane in one pass; else the first design
+// (csr_rowblock.cuh), which gathers a whole X row an entry, 8 bytes a
+// lane and a pass a 32 columns.  Both are bound by the bytes each once
+// (the values and indices, X and Y) and, past that, by the X rows
+// gathered.  At k = 1 both kernels are as they were.
+//
 // Both stream their values in the stored type V and multiply and sum in
 // T, the type of X and Y, V widened exactly first (widen.cuh): entry
 // points `{kernel}_f64` and `_f32` for V = T, `_f32f64`, `_bf16f32` and
@@ -74,6 +92,7 @@
 // stream, and checks the returned cudaGetLastError().
 
 #include "csr_rowblock.cuh"
+#include "csr_spmm.cuh"
 
 namespace {
 
@@ -194,6 +213,188 @@ void launch_patch(unsigned blocks, cudaStream_t stream, int n_rows,
       static_cast<const T*>(x), static_cast<T*>(y));
 }
 
+// K2 at k > 1, the piece design.  The host (ops/spmv.py `k2_pieces`)
+// cuts every tail row into pieces of up to kPiece entries (a row past
+// kBucket pieces into kBucket longer ones) and the rows into blocks: the
+// rows whose first piece falls in one bucket of kBucket pieces, so a
+// block holds fewer than kSlots pieces and every piece of its rows.
+// Warp w of a block owns pieces w, w + 8, ...; its lanes form groups of
+// `team` lanes (16 bytes of adjacent columns a lane, as K1's staged
+// design), group q summing entries q, q + groups, ... of the piece in
+// turn, kUnroll entries a step: a step's X loads are issued together
+// with the next step's value and column loads, so 2 kUnroll entries'
+// loads are in flight a group.  The groups meet by a shuffle tree (o =
+// 16, 8, ..., team).  A row of one piece is added into Y by its warp
+// (piece_row holds its row); the pieces of a longer row go to shared
+// memory, and after the block's barrier each (row, column) sums them in
+// piece order and adds that into Y.  Each Y element has one writer and a
+// plain load-add-store: no atomics, the same bits on every call.  The
+// order differs from the rows design's (a team of lanes a row), so the
+// two agree to rounding, not bitwise.
+namespace pieces {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPiece = 64;   // tail entries a piece
+constexpr int kBucket = 8;   // pieces a bucket of the block cut
+constexpr int kSlots = 2 * kBucket;
+constexpr int kUnroll = 4;
+
+template <typename V, typename T>
+__global__ void __launch_bounds__(kThreads, 4)
+pieces_kernel(int k, int team, int aligned, const int32_t* __restrict__ blk,
+              const int32_t* __restrict__ row_piece,
+              const int32_t* __restrict__ piece_ptr,
+              const int32_t* __restrict__ piece_row,
+              const int32_t* __restrict__ row_ids,
+              const int32_t* __restrict__ cols, const V* __restrict__ vals,
+              const T* __restrict__ x, T* __restrict__ y) {
+  constexpr int VEC = spmm::Vec<T>::n;
+  using VT = typename spmm::Vec<T>::type;
+  __shared__ __align__(16) T part[kSlots][kMaxColumns];
+  const int tid = threadIdx.x;
+  // blk: [first tail row, first piece] a block, and one more pair
+  const int r0 = __ldg(blk + 2 * blockIdx.x);
+  const int p0 = __ldg(blk + 2 * blockIdx.x + 1);
+  const int r1 = __ldg(blk + 2 * blockIdx.x + 2);
+  const int p1 = __ldg(blk + 2 * blockIdx.x + 3);
+  const int lane = tid % 32;
+  const int groups = 32 / team;
+  const int g = lane / team;
+  const int col0 = (lane % team) * VEC;
+  for (int p = p0 + tid / 32; p < p1; p += kWarps) {  // warp-uniform
+    const int e1 = __ldg(piece_ptr + p + 1);
+    const int row = __ldg(piece_row + p);  // -1: a row of several pieces
+    T acc[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] = T(0);
+    T v[kUnroll];
+    int c[kUnroll];
+    int j = __ldg(piece_ptr + p) + g;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int ju = j + u * groups;
+      v[u] = ju < e1 ? widen<T>(__ldg(vals + ju)) : T(0);
+      c[u] = ju < e1 ? __ldg(cols + ju) : 0;
+    }
+    for (; j < e1; j += kUnroll * groups) {
+      T xv[kUnroll][VEC];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const T* xr = x + c[u] * k + col0;
+        if (aligned && col0 < k) {
+          spmm::Vec<T>::split(__ldg(reinterpret_cast<const VT*>(xr)), xv[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            xv[u][i] = col0 + i < k ? __ldg(xr + i) : T(0);
+          }
+        }
+      }
+      T vn[kUnroll];
+      int cn[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {  // the next step's entries
+        const int ju = j + (kUnroll + u) * groups;
+        vn[u] = ju < e1 ? widen<T>(__ldg(vals + ju)) : T(0);
+        cn[u] = ju < e1 ? __ldg(cols + ju) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (j + u * groups < e1) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[i] = fma(v[u], xv[u][i], acc[i]);
+        }
+        v[u] = vn[u];
+        c[u] = cn[u];
+      }
+    }
+    for (int o = 16; o >= team; o >>= 1) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        acc[i] += __shfl_down_sync(0xffffffffu, acc[i], o);
+      }
+    }
+    if (g == 0) {
+      T* out = row >= 0 ? y + row * k : part[p - p0];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        if (col0 + i < k) {
+          if (row >= 0) {
+            out[col0 + i] += acc[i];
+          } else {
+            out[col0 + i] = acc[i];
+          }
+        }
+      }
+    }
+  }
+  if (p1 - p0 == r1 - r0) return;  // every row one piece: no barrier
+  __syncthreads();
+  for (int idx = tid; idx < (r1 - r0) * k; idx += kThreads) {
+    const int i = idx / k;
+    const int c = idx - i * k;
+    const int q0 = __ldg(row_piece + r0 + i) - p0;
+    const int q1 = __ldg(row_piece + r0 + i + 1) - p0;
+    if (q1 - q0 < 2) continue;  // added by its warp
+    T s = part[q0][c];
+    for (int q = q0 + 1; q < q1; ++q) s += part[q][c];
+    y[__ldg(row_ids + r0 + i) * k + c] += s;
+  }
+}
+
+}  // namespace pieces
+
+// 16-byte vectors of X (and Y) at k columns of T.
+template <typename T>
+bool vector_aligned(int k, const void* x, const void* y) {
+  return (k * sizeof(T)) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(y) % 16 == 0;
+}
+
+template <typename V, typename T>
+int csr_spmm_staged(int n_blocks, int k, int width, int stage,
+                    const void* blk_rows, const void* blk_cols,
+                    const void* cols, const void* slots, const void* indices,
+                    const void* indptr, const void* vals, const void* x,
+                    void* y, void* stream) {
+  const int code = spmm::launch_staged<V, T>(
+      n_blocks, k, width, stage, vector_aligned<T>(k, x, y) ? 1 : 0,
+      static_cast<const int*>(blk_rows), static_cast<const int*>(blk_cols),
+      static_cast<const int*>(cols), static_cast<const int16_t*>(slots),
+      static_cast<const int32_t*>(indices),
+      static_cast<const int64_t*>(indptr), static_cast<const V*>(vals),
+      static_cast<const T*>(x), static_cast<T*>(y),
+      static_cast<cudaStream_t>(stream));
+  if (code != 0) return code;
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename V, typename T>
+int coo_patch_pieces(int n_blocks, int k, const void* blk,
+                     const void* row_piece, const void* piece_ptr,
+                     const void* piece_row, const void* row_ids,
+                     const void* cols, const void* vals, const void* x,
+                     void* y, void* stream) {
+  if (k < 1 || k > kMaxColumns) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_blocks > 0) {
+    pieces::pieces_kernel<V, T><<<n_blocks, pieces::kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        k, spmm::team_lanes<T>(k), vector_aligned<T>(k, x, y) ? 1 : 0,
+        static_cast<const int32_t*>(blk),
+        static_cast<const int32_t*>(row_piece),
+        static_cast<const int32_t*>(piece_ptr),
+        static_cast<const int32_t*>(piece_row),
+        static_cast<const int32_t*>(row_ids),
+        static_cast<const int32_t*>(cols), static_cast<const V*>(vals),
+        static_cast<const T*>(x), static_cast<T*>(y));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename V, typename T>
 int csr_spmv_capped(int n_blocks, int k, const void* block_rows,
                     const void* block_ptr, const void* indptr,
@@ -251,6 +452,20 @@ int row_block_entries() { return rowblock::kEntries; }
 // K2's long-row length: the host lists the rows past it (tail_long).
 int long_tail_row() { return kLongTailRow; }
 
+// The many-column designs' table constants, by index: K1's staged row
+// block (entries, rows, distinct columns), K2's piece and bucket.  The
+// host cuts its tables to them and refuses a library that differs.
+int spmm_design(int what) {
+  switch (what) {
+    case 0: return spmm::kEntries;
+    case 1: return spmm::kRows;
+    case 2: return spmm::kColumns;
+    case 3: return pieces::kPiece;
+    case 4: return pieces::kBucket;
+    default: return -1;
+  }
+}
+
 // Entry points: `_f64`, `_f32` (V = T) and `_{V}{T}` for a narrower V.
 #define SPMV_ENTRIES(SUFFIX, V, T)                                          \
   int csr_spmv_capped_##SUFFIX(int n_blocks, int k, const void* block_rows, \
@@ -267,6 +482,26 @@ int long_tail_row() { return kLongTailRow; }
                          void* stream) {                                    \
     return coo_patch<V, T>(n_rows, n_long, k, lanes, row_ids, ptr,          \
                            long_rows, cols, vals, x, y, stream);            \
+  }                                                                         \
+  int csr_spmm_staged_##SUFFIX(int n_blocks, int k, int width, int stage,   \
+                               const void* blk_rows, const void* blk_cols,  \
+                               const void* cols, const void* slots,         \
+                               const void* indices, const void* indptr,     \
+                               const void* vals, const void* x, void* y,    \
+                               void* stream) {                              \
+    return csr_spmm_staged<V, T>(n_blocks, k, width, stage,                 \
+                                 blk_rows, blk_cols, cols, slots, indices,  \
+                                 indptr, vals, x, y, stream);               \
+  }                                                                         \
+  int coo_patch_pieces_##SUFFIX(int n_blocks, int k, const void* blk,       \
+                                const void* row_piece,                      \
+                                const void* piece_ptr,                      \
+                                const void* piece_row, const void* row_ids, \
+                                const void* cols, const void* vals,         \
+                                const void* x, void* y, void* stream) {     \
+    return coo_patch_pieces<V, T>(n_blocks, k, blk, row_piece, piece_ptr,   \
+                                  piece_row, row_ids, cols, vals, x, y,     \
+                                  stream);                                  \
   }
 
 SPMV_ENTRIES(f64, double, double)

@@ -33,12 +33,13 @@ from tpu_amg_torch import shard_utils
 from tpu_amg_torch.ops import dia, spmv
 
 WARMUP_STEPS = 1
-# the solve path's launch counts: (module, name) of each total and of
-# each Counter by (rows, cols, k)
+# the solve path's launch counts: (module, name) of each total, of
+# each Counter by (rows, cols, k) and of K1's by design
 COUNTS = ((spmv, "csr_spmv_launches"), (spmv, "coo_patch_launches"),
           (dia, "dia_spmv_launches"), (spmv, "csr_spmv_launches_by_shape"),
           (spmv, "coo_patch_launches_by_shape"),
-          (dia, "dia_spmv_launches_by_shape"))
+          (dia, "dia_spmv_launches_by_shape"),
+          (spmv, "csr_spmv_launches_by_design"))
 
 
 def launch_counts() -> dict:

@@ -20,7 +20,7 @@ and the ‖E‖_A estimate (100 power steps on 5 vectors).  It prints the
 setup's phases, each level's rows, the iterations and ‖E‖_A by seed
 and dtype, and the launches by (values, vectors) pair, then one JSON
 line.  ``chip_smoke.py`` runs the same jobs (:func:`setup_job`) for its
-phases 16 and 17.
+phases 14, 16 and 17.
 
 Usage: python -m tpu_amg_torch.tools.bootstrap_study [--problems elasticity] [--side 40] [--seeds 0 1 2] [--workers 6] [--device cuda]
 """
@@ -96,8 +96,9 @@ def reset_launch_counts() -> None:
 
 def launch_tables() -> dict:
     """K1's, K2's and K3's launches since the last reset, by (rows, cols,
-    k) and by (values, vectors) pair name ("f32f32", ...), as plain
-    dicts (they cross a process boundary)."""
+    k), by (values, vectors) pair name ("f32f32", ...) and, for K1, by
+    design (``spmv.k1_design``), as plain dicts (they cross a process
+    boundary)."""
     from tpu_amg_torch.ops import dia, spmv
 
     short = {"torch.float64": "f64", "torch.float32": "f32",
@@ -109,7 +110,8 @@ def launch_tables() -> dict:
 
     return {
         "K1": dict(by_shape=dict(spmv.csr_spmv_launches_by_shape),
-                   by_dtype=by_dtype(spmv.csr_spmv_launches_by_dtype)),
+                   by_dtype=by_dtype(spmv.csr_spmv_launches_by_dtype),
+                   by_design=dict(spmv.csr_spmv_launches_by_design)),
         "K2": dict(by_shape=dict(spmv.coo_patch_launches_by_shape),
                    by_dtype=by_dtype(spmv.coo_patch_launches_by_dtype)),
         "K3": dict(by_shape=dict(dia.dia_spmv_launches_by_shape),
@@ -120,9 +122,11 @@ def launch_tables() -> dict:
 def setup_job(job: dict) -> dict:
     """One setup and its solves (run in a worker process): the launch
     counts set to 0 just before the setup and read just after it; the
-    checkpoint saved when ``job["ckpt"]`` names one (and then no solve);
-    else the solves and ‖E‖_A of the module docstring.  Returns the job
-    with what it measured."""
+    checkpoint saved when ``job["ckpt"]`` names one (and then no solve),
+    with the preconditioner's apply on the standard normal vector of
+    ``job["probe_seed"]`` where one is given (a loaded checkpoint is
+    held to it); else the solves and ‖E‖_A of the module docstring.
+    Returns the job with what it measured."""
     import torch
 
     from tpu_amg_torch.solver import AMGSolver, setup_draws
@@ -158,6 +162,11 @@ def setup_job(job: dict) -> dict:
         t0 = time.perf_counter()
         solver.save(job["ckpt"])
         out["save_s"] = time.perf_counter() - t0
+        if job.get("probe_seed") is not None:
+            r = np.random.default_rng(job["probe_seed"]).standard_normal(
+                a.nrows)
+            out["probe"] = solver.apply_preconditioner(
+                torch.from_numpy(r).to(dev)).cpu().numpy()
         return out
     iters, rel_res, converged = [], [], True
     if job["kind"] == "adaptive":
